@@ -1,0 +1,2 @@
+from chronoedit_tpu_torch.configs.presets import (  # noqa: F401
+    chronoedit_14b, chronoedit_14b_distilled, chronoedit_tiny)

@@ -1,0 +1,56 @@
+// Helpers shared by the kernels in this directory.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace ce {
+
+// Sum of one float per thread over the whole block; every thread gets the
+// result. Safe to call several times in a row (it synchronises first).
+template <int kThreads>
+__device__ __forceinline__ float block_sum(float v) {
+  static_assert(kThreads % 32 == 0 && kThreads <= 1024, "block size");
+  __shared__ float partial[kThreads / 32];
+  __shared__ float total;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  __syncthreads();
+  if (lane == 0) partial[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    float w = lane < kThreads / 32 ? partial[lane] : 0.f;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) w += __shfl_xor_sync(0xffffffffu, w, o);
+    if (lane == 0) total = w;
+  }
+  __syncthreads();
+  return total;
+}
+
+// 8 bf16 values <-> one 16-byte vector.
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&f)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&u);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) f[j] = __bfloat162float(e[j]);
+}
+
+__device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&f)[8]) {
+  uint4 u;
+  __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&u);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16(f[j]);
+  *reinterpret_cast<uint4*>(p) = u;
+}
+
+__device__ __forceinline__ void load8f(const float* p, float (&f)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+}
+
+}  // namespace ce

@@ -1,0 +1,118 @@
+"""Builds the CUDA kernels in ``csrc/`` and loads them with ctypes.
+
+All ``csrc/*.cu`` files compile with one ``nvcc`` call for ``sm_90a`` into
+one shared library with a plain C interface (no PyTorch headers, so the
+build takes seconds). The library lands in ``build/kernels/`` at the
+repository root, named by a hash of the sources and the flags, so an edited
+source rebuilds and an unchanged one loads the library already there.
+
+Every C entry point returns ``cudaGetLastError()`` after its launch; the
+wrappers call :func:`check` on it. A missing ``nvcc`` or a failed build
+raises. Nothing here runs at import time.
+
+``LAUNCHES`` counts kernel launches by kernel name. Each wrapper adds one
+right after a launch that returned success, and nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+
+LAUNCHES: dict[str, int] = {
+    "flash_fwd": 0, "ln_modulate": 0, "gated_residual": 0, "rms_norm": 0}
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C signatures: pointers and the stream as void*, sizes as int
+_SIGNATURES = {
+    # q, k, v, o, lse, B, Sq, Skv, H, D, scale, stream
+    "flash_fwd_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # x, scale, shift, out, rows, T, hw, D, eps, stream
+    "ln_modulate_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # x, delta, gate, out, rows, T, hw, D, stream
+    "gated_residual_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, weight, out, rows, D, eps, stream
+    "rms_norm_bf16": [_P, _P, _P, _I, _I, _F, _P],
+}
+
+_LIB: ctypes.CDLL | None = None
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libchronoedit_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile ``csrc/*.cu`` unless the library for these sources exists.
+    Returns its path; raises with nvcc's output on failure."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cus = [str(s) for s in _sources() if s.suffix == ".cu"]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cus]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _LIB
+    if _LIB is None:
+        so = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(so, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        so.kernel_error_string.argtypes = [ctypes.c_int]
+        so.kernel_error_string.restype = ctypes.c_char_p
+        _LIB = so
+    return _LIB
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a C entry point reported a CUDA error; count the launch."""
+    if err != 0:
+        msg = lib().kernel_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err}: {msg}")
+    LAUNCHES[name] += 1

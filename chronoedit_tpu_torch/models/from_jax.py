@@ -1,0 +1,98 @@
+"""Weight bridge: JAX parameter trees (as nested dicts of numpy arrays) into
+the port's modules.
+
+The caller converts the JAX pytree to numpy first
+(``jax.tree.map(np.asarray, params)``), so this module never imports jax.
+The module attribute names follow the JAX tree's keys, so the walk is
+structural:
+
+- a linear ``kernel`` (in, out) becomes ``weight`` (out, in);
+- a VAE conv ``kernel`` (kt, kh, kw, cin, cout) becomes ``weight``
+  (cout, cin, kt, kh, kw);
+- the DiT's stacked ``blocks`` (leading layer axis) unstack into the
+  ``nn.ModuleList``;
+- lists (the VAE stages and res blocks) map index by index;
+- every other leaf is copied by name.
+
+Every parameter of the module must be written exactly once, else it raises.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+from torch import nn
+
+from chronoedit_tpu_torch.models.dit import DiT
+from chronoedit_tpu_torch.models.vae import VAE
+
+
+def _assign(param: torch.Tensor, value: np.ndarray, path: str, seen: set) -> None:
+    value = np.asarray(value)
+    if tuple(value.shape) != tuple(param.shape):
+        raise ValueError(f"{path}: shape {value.shape} != {tuple(param.shape)}")
+    with torch.no_grad():
+        param.copy_(torch.from_numpy(np.ascontiguousarray(value)).to(param.dtype))
+    seen.add(id(param))
+
+
+def _kernel_to_weight(kernel: np.ndarray) -> np.ndarray:
+    kernel = np.asarray(kernel)
+    if kernel.ndim == 2:  # (in, out) -> (out, in)
+        return kernel.T
+    if kernel.ndim == 5:  # (kt, kh, kw, cin, cout) -> (cout, cin, kt, kh, kw)
+        return kernel.transpose(4, 3, 0, 1, 2)
+    raise ValueError(f"unexpected kernel rank {kernel.ndim}")
+
+
+def _load(module: nn.Module, tree: Any, path: str, seen: set) -> None:
+    if isinstance(tree, (list, tuple)):
+        if len(tree) != len(module):
+            raise ValueError(f"{path}: {len(tree)} entries != {len(module)}")
+        for i, sub in enumerate(tree):
+            _load(module[i], sub, f"{path}[{i}]", seen)
+        return
+    for key, val in tree.items():
+        sub_path = f"{path}.{key}" if path else key
+        if key == "kernel":
+            _assign(module.weight, _kernel_to_weight(val), sub_path, seen)
+        elif isinstance(val, (dict, list, tuple)):
+            _load(getattr(module, key), val, sub_path, seen)
+        else:
+            _assign(getattr(module, key), val, sub_path, seen)
+
+
+def _check_complete(module: nn.Module, seen: set) -> None:
+    missing = [n for n, p in module.named_parameters() if id(p) not in seen]
+    if missing:
+        raise ValueError(f"parameters not set from the JAX tree: {missing[:8]}")
+
+
+def load_dit(model: DiT, params: dict) -> DiT:
+    """Copy a numpy-converted JAX DiT tree into ``model``; returns it."""
+    seen: set = set()
+    blocks = params["blocks"]
+    for i, blk in enumerate(model.blocks):
+        layer = _map_tree(lambda a, i=i: np.asarray(a)[i], blocks)
+        _load(blk, layer, f"blocks[{i}]", seen)
+    _load(model, {k: v for k, v in params.items() if k != "blocks"}, "", seen)
+    _check_complete(model, seen)
+    return model
+
+
+def load_vae(vae: VAE, params: dict) -> VAE:
+    """Copy a numpy-converted JAX VAE tree into ``vae``; returns it."""
+    seen: set = set()
+    _load(vae, params, "", seen)
+    _check_complete(vae, seen)
+    return vae
+
+
+def _map_tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map_tree(fn, v) for v in tree]
+    return fn(tree)

@@ -1,0 +1,149 @@
+"""ChronoEdit edit pipeline: image + prompt embeddings -> edited frame / clip.
+
+The edit path of ``chronoedit_tpu/pipeline/edit_pipeline.py``:
+
+1. ``prepare_condition``: VAE-encode [image, zeros x (T-1)] and prepend the
+   4-channel first-frame mask;
+2. UniPC flow-match denoise (a Python loop), with classifier-free guidance
+   batched into one forward when guidance > 1;
+3. VAE decode.
+
+Prompt and CLIP image embeddings are passed in precomputed. Not here yet:
+guardrails, skip-layer guidance over two forwards, the block cache,
+temporal reasoning and multi-device meshes.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from chronoedit_tpu_torch.core.schedule import make_flow_schedule
+from chronoedit_tpu_torch.core.unipc import UniPCState, make_unipc_coeffs, run_unipc
+from chronoedit_tpu_torch.models import dit as dit_lib
+from chronoedit_tpu_torch.models import vae as vae_lib
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineConfig:
+    dit: dit_lib.DiTConfig = dit_lib.DiTConfig()
+    vae: vae_lib.VAEConfig = vae_lib.VAEConfig()
+    num_steps: int = 50
+    guidance_scale: float = 5.0
+    flow_shift: float = 5.0
+    num_frames: int = 5  # pixel frames in edit mode
+
+    @property
+    def latent_channels(self) -> int:
+        return self.vae.z_dim
+
+    def resolve_num_frames(self, num_frames: int | None = None) -> int:
+        """The pixel frame count a run uses, rounded down to a VAE-compatible
+        ``temporal_factor*k + 1``."""
+        num_frames = num_frames or self.num_frames
+        tfac = self.vae.temporal_factor
+        if num_frames % tfac != 1:
+            num_frames = max(num_frames // tfac * tfac + 1, 1)
+        return num_frames
+
+
+def prepare_condition(vae: vae_lib.VAE, cfg: PipelineConfig, image: torch.Tensor,
+                      num_frames: int) -> torch.Tensor:
+    """(B, 3, H, W) image in [-1, 1] -> (B, tfac + z_dim, Tl, H/8, W/8): the
+    first-frame mask channels, then the VAE latents of [image, zeros]."""
+    b, c, h, w = image.shape
+    tfac = cfg.vae.temporal_factor
+    tl = cfg.vae.latent_frames(num_frames)
+    video = torch.cat(
+        [image[:, :, None],
+         torch.zeros((b, c, num_frames - 1, h, w), dtype=image.dtype,
+                     device=image.device)], dim=2)
+    cond_latents = vae_lib.vae_encode(vae, video)
+
+    hl, wl = h // cfg.vae.spatial_factor, w // cfg.vae.spatial_factor
+    # mask over pixel frames (frame 0 -> 1), the first frame repeated tfac
+    # times, folded to (tfac, Tl)
+    mask = np.zeros((tfac + num_frames - 1,), np.float32)
+    mask[:tfac] = 1.0
+    mask = mask.reshape(tl, tfac).T
+    mask = torch.as_tensor(mask, device=image.device).to(cond_latents.dtype)
+    mask = mask[None, :, :, None, None].expand(b, tfac, tl, hl, wl)
+    return torch.cat([mask, cond_latents], dim=1)
+
+
+class ChronoEditPipeline:
+    """Holds the DiT and VAE modules and exposes the edit API."""
+
+    def __init__(self, config: PipelineConfig, dit: dit_lib.DiT, vae: vae_lib.VAE):
+        self.config = config
+        self.dit = dit
+        self.vae = vae
+
+    def _model_fn(self, condition, text_emb, neg_text_emb, image_emb, guidance):
+        """Velocity closure ``fn(x, t)`` for the solver; with guidance > 1,
+        classifier-free guidance runs cond and uncond batched in one
+        forward (the only CFG form ported)."""
+        cfg = self.config
+        dtype = cfg.dit.dtype
+        condition = condition.to(dtype)
+        if not (guidance > 1.0 and neg_text_emb is not None):
+            def fn(x, t):
+                xin = torch.cat([x.to(dtype), condition], dim=1)
+                ts = torch.full((x.shape[0],), t, dtype=torch.float32, device=x.device)
+                return dit_lib.dit_forward(self.dit, xin, ts, text_emb, image_emb)
+            return fn
+
+        text2 = torch.cat([text_emb, neg_text_emb], dim=0)
+        img2 = None if image_emb is None else torch.cat([image_emb] * 2, dim=0)
+        cond2 = torch.cat([condition] * 2, dim=0)
+
+        def fn(x, t):
+            x2 = torch.cat([x, x], dim=0).to(dtype)
+            xin = torch.cat([x2, cond2], dim=1)
+            ts = torch.full((x2.shape[0],), t, dtype=torch.float32, device=x.device)
+            v = dit_lib.dit_forward(self.dit, xin, ts, text2, img2)
+            v_cond, v_uncond = v.chunk(2, dim=0)
+            return v_uncond + guidance * (v_cond - v_uncond)
+        return fn
+
+    @torch.inference_mode()
+    def __call__(self, image: torch.Tensor, prompt_emb: torch.Tensor,
+                 neg_prompt_emb: torch.Tensor | None = None,
+                 image_emb: torch.Tensor | None = None,
+                 num_frames: int | None = None, num_steps: int | None = None,
+                 guidance_scale: float | None = None, flow_shift: float | None = None,
+                 generator: torch.Generator | None = None,
+                 latents: torch.Tensor | None = None,
+                 output_type: str = "video") -> torch.Tensor:
+        """Run the edit. Returns pixels (B, 3, T, H, W) in [-1, 1] (the last
+        frame is the edit), or the fp32 latents with ``output_type="latent"``.
+        Initial noise is ``latents`` if given, else drawn from ``generator``."""
+        cfg = self.config
+        num_frames = cfg.resolve_num_frames(num_frames)
+        num_steps = num_steps or cfg.num_steps
+        guidance = cfg.guidance_scale if guidance_scale is None else guidance_scale
+        shift = flow_shift or cfg.flow_shift
+
+        b, _, h, w = image.shape
+        tl = cfg.vae.latent_frames(num_frames)
+        hl, wl = h // cfg.vae.spatial_factor, w // cfg.vae.spatial_factor
+        if latents is None:
+            latents = torch.randn((b, cfg.latent_channels, tl, hl, wl),
+                                  generator=generator, dtype=torch.float32,
+                                  device=image.device)
+
+        coeffs = make_unipc_coeffs(make_flow_schedule(num_steps, shift=shift))
+        condition = prepare_condition(self.vae, cfg, image, num_frames)
+        model_fn = self._model_fn(condition, prompt_emb, neg_prompt_emb,
+                                  image_emb, guidance)
+        state = run_unipc(model_fn, coeffs, UniPCState.init(latents))
+        if output_type == "latent":
+            return state.x
+        return vae_lib.vae_decode(self.vae, state.x)
+
+    def edit_image(self, image: torch.Tensor, prompt_emb: torch.Tensor,
+                   **kw) -> torch.Tensor:
+        """Just the edited frame (B, 3, H, W): the clip's last frame."""
+        return self(image, prompt_emb, **kw)[:, :, -1]
