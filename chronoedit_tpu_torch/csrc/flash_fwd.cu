@@ -1,7 +1,13 @@
-// K1: non-causal flash-attention forward, bf16 in, bf16 out + fp32 LSE.
+// K1 and K5: non-causal flash-attention forward, bf16 in, bf16 out + fp32 LSE.
 //
-// Replaces the Pallas kernel chronoedit_tpu/ops/flash_attention.py
-// `_fwd_kernel_resident` (launched by `_forward`, entry `flash_attention`).
+// Replaces the Pallas kernels chronoedit_tpu/ops/flash_attention.py
+// `_fwd_kernel_resident` (K1: KV resident in VMEM, the edit's 7,200 tokens
+// and the cross-attention) and `_fwd_kernel_streamed` (K5: KV streamed
+// through the grid, reasoning self-attention at 28,800 tokens), both
+// launched by `_forward`. The TPU split follows VMEM's size; this kernel
+// streams KV tiles through shared memory at every length, so one kernel
+// covers both. At 28,800 tokens the grid is (225, B*H) and every offset is
+// computed in size_t.
 //
 //   O[b, s, h, :] = softmax(scale * q k^T) v,  LSE[b, h, s] = logsumexp(scale * q k^T)
 //   q (B, Sq, H, 128), k/v (B, Skv, H, 128), all contiguous BSHD.

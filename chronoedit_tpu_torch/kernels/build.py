@@ -10,8 +10,10 @@ Every C entry point returns ``cudaGetLastError()`` after its launch; the
 wrappers call :func:`check` on it. A missing ``nvcc`` or a failed build
 raises. Nothing here runs at import time.
 
-``LAUNCHES`` counts kernel launches by kernel name. Each wrapper adds one
-right after a launch that returned success, and nowhere else.
+``LAUNCHES`` counts kernel launches by kernel name, and
+``FLASH_KV_LAUNCHES`` the flash-attention launches by KV length. Each
+wrapper adds one right after a launch that returned success, and nowhere
+else.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 LAUNCHES: dict[str, int] = {
     "flash_fwd": 0, "ln_modulate": 0, "gated_residual": 0, "rms_norm": 0}
+FLASH_KV_LAUNCHES: dict[int, int] = {}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures: pointers and the stream as void*, sizes as int
@@ -51,6 +54,7 @@ _LIB: ctypes.CDLL | None = None
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    FLASH_KV_LAUNCHES.clear()
 
 
 def _sources() -> list[Path]:
@@ -110,9 +114,12 @@ def lib() -> ctypes.CDLL:
     return _LIB
 
 
-def check(err: int, name: str) -> None:
-    """Raise if a C entry point reported a CUDA error; count the launch."""
+def check(err: int, name: str, kv_len: int | None = None) -> None:
+    """Raise if a C entry point reported a CUDA error; count the launch
+    (a flash launch also under its ``kv_len``)."""
     if err != 0:
         msg = lib().kernel_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err}: {msg}")
     LAUNCHES[name] += 1
+    if kv_len is not None:
+        FLASH_KV_LAUNCHES[kv_len] = FLASH_KV_LAUNCHES.get(kv_len, 0) + 1

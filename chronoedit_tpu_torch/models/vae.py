@@ -1,19 +1,28 @@
 """Wan 2.1 causal-3D-conv video VAE (16-channel latents), PyTorch.
 
-The full-sequence encode/decode of ``chronoedit_tpu/models/vae.py`` for the
-5-frame edit clip: every temporal op is causal, so one pass over the whole
-clip with left zero padding equals the reference's chunked streaming. The
-two stride tricks of the streaming path are kept exactly:
+The encode/decode of ``chronoedit_tpu/models/vae.py``. Every temporal op is
+causal and written once, over a chunk of frames with an explicit cache of
+the last input frames of each conv (plain dicts, a Python loop over
+chunks). The first chunk has no cache: the causal zero pad. So the whole
+clip as one chunk is the full-sequence pass (the 5-frame edit clip), and
+long clips (the 29-frame reasoning volume) stream 1+tfac pixel frames (or
+one latent frame) at a time with peak memory of one chunk's features,
+computing the same sums. The two stride tricks of the reference are kept
+exactly:
 
 - temporal downsample: the first frame bypasses the stride-2 kernel-3 conv;
 - temporal upsample: frame 0 bypasses the doubling and is zero-masked out
   of later windows; the conv's 2C channels split into 2 frames, channel
   index = k*C + c for output frame 2*t + k.
 
+W-tiling runs the purely
+convolutional part (pre-mid encoder, post-mid decoder) on overlapping
+W-slices whose halo covers its receptive field, and keeps the interiors;
+the mid blocks' global attention runs untiled at the bottleneck scale.
+
 Layout: (B, C, T, H, W) at the public functions, as in JAX, and inside too
-(NCDHW, torch's Conv3d layout); the JAX code is channels-last inside.
-Convolutions are ``F.conv3d``. The streaming and W-tiled paths of the JAX
-module (reasoning mode) are not ported yet.
+(NCDHW, torch's Conv3d layout), so every cache slice is on dim 2; the JAX
+code is channels-last inside. Convolutions are ``F.conv3d``.
 """
 
 from __future__ import annotations
@@ -203,13 +212,6 @@ def _rms(p: RMS, x: torch.Tensor) -> torch.Tensor:
     return (y * p.gamma.float()[:, None, None, None]).to(x.dtype)
 
 
-def _res_block(p: ResBlock, x: torch.Tensor) -> torch.Tensor:
-    h = causal_conv3d(p.conv1, F.silu(_rms(p.norm1, x)))
-    h = causal_conv3d(p.conv2, F.silu(_rms(p.norm2, h)))
-    s = causal_conv3d(p.shortcut, x) if hasattr(p, "shortcut") else x
-    return h + s
-
-
 def _attn_block(p: AttnBlock, x: torch.Tensor) -> torch.Tensor:
     """Single-head per-frame spatial self-attention, fp32 logits and softmax."""
     b, c, t, h, w = x.shape
@@ -228,60 +230,10 @@ def _spatial_down(p: Conv, x: torch.Tensor) -> torch.Tensor:
     return F.conv3d(x, p.weight.to(x.dtype), p.bias.to(x.dtype), stride=(1, 2, 2))
 
 
-def _temporal_down(p: Conv, x: torch.Tensor) -> torch.Tensor:
-    """First frame identity; the rest through the stride-2 no-pad conv."""
-    rest = causal_conv3d(p, x, stride=(2, 1, 1), time_pad=0)
-    return torch.cat([x[:, :, :1], rest], dim=2)
-
-
 def _spatial_up(p: Conv, x: torch.Tensor) -> torch.Tensor:
     """Nearest 2x upsample, then a 3x3 conv halving the channels."""
     x = F.interpolate(x, scale_factor=(1, 2, 2), mode="nearest")
     return F.conv3d(x, p.weight.to(x.dtype), p.bias.to(x.dtype), padding=(0, 1, 1))
-
-
-def _temporal_up(p: Conv, x: torch.Tensor) -> torch.Tensor:
-    """Frame 0 identity; frames 1.. doubled by the 2C-channel causal conv
-    with frame 0 zero-masked out of its windows."""
-    b, c, t, h, w = x.shape
-    masked = torch.cat([torch.zeros_like(x[:, :, :1]), x[:, :, 1:]], dim=2)
-    y = causal_conv3d(p, masked)[:, :, 1:]  # (B, 2C, T-1, H, W)
-    # channel k*C + c of input frame i -> channel c of output frame 2i + k
-    y = y.reshape(b, 2, c, t - 1, h, w).permute(0, 2, 3, 1, 4, 5)
-    y = y.reshape(b, c, 2 * (t - 1), h, w)
-    return torch.cat([x[:, :, :1], y], dim=2)
-
-
-def _encoder(p, x: torch.Tensor) -> torch.Tensor:
-    h = causal_conv3d(p.conv_in, x)
-    for stage in p.stages:
-        for blk in stage.blocks:
-            h = _res_block(blk, h)
-        if hasattr(stage, "down"):
-            h = _spatial_down(stage.down, h)
-            if hasattr(stage, "time_down"):
-                h = _temporal_down(stage.time_down, h)
-    h = _res_block(p.mid.res1, h)
-    h = _attn_block(p.mid.attn, h)
-    h = _res_block(p.mid.res2, h)
-    h = F.silu(_rms(p.head_norm, h))
-    return causal_conv3d(p.head_conv, h)
-
-
-def _decoder(p, z: torch.Tensor) -> torch.Tensor:
-    h = causal_conv3d(p.conv_in, z)
-    h = _res_block(p.mid.res1, h)
-    h = _attn_block(p.mid.attn, h)
-    h = _res_block(p.mid.res2, h)
-    for stage in p.stages:
-        for blk in stage.blocks:
-            h = _res_block(blk, h)
-        if hasattr(stage, "up"):
-            if hasattr(stage, "time_up"):
-                h = _temporal_up(stage.time_up, h)
-            h = _spatial_up(stage.up, h)
-    h = F.silu(_rms(p.head_norm, h))
-    return causal_conv3d(p.head_conv, h)
 
 
 def _latent_stats(cfg: VAEConfig, like: torch.Tensor):
@@ -291,14 +243,262 @@ def _latent_stats(cfg: VAEConfig, like: torch.Tensor):
     return mean.reshape(shape), std.reshape(shape)
 
 
+# ------------------------------------------------------------- chunked ops
+#
+# Each ``*_stream`` function takes one chunk of frames and the cache its
+# previous call returned (None on the first chunk: the causal zero pad) and
+# returns (out, new cache). The whole clip as one chunk with no cache is the
+# full-sequence pass. With ``keep`` the cached frames are copied out of the
+# chunk's tensors, so that a chunk's features are freed once the next chunk
+# starts; without it (the last chunk) no cache is made.
+
+def _tail(x: torch.Tensor, start: int, keep: bool):
+    return x[:, :, start:].clone() if keep else None
+
+
+def _conv_stream(p: Conv, x: torch.Tensor, cache, keep: bool):
+    """Chunked causal conv; the cache holds the last kt-1 input frames.
+    kt == 1 convs are frame-local and carry none."""
+    kt = p.weight.shape[2]
+    if kt == 1:
+        return causal_conv3d(p, x), None
+    if cache is None:
+        xin = F.pad(x, (0, 0, 0, 0, kt - 1, 0))
+    else:
+        xin = torch.cat([cache.to(x.dtype), x], dim=2)
+    out = causal_conv3d(p, xin, time_pad=0)
+    return out, _tail(xin, x.shape[2], keep)
+
+
+def _res_block_stream(p: ResBlock, x: torch.Tensor, c, keep: bool):
+    c = c or {}
+    h, c1 = _conv_stream(p.conv1, F.silu(_rms(p.norm1, x)), c.get("conv1"), keep)
+    h, c2 = _conv_stream(p.conv2, F.silu(_rms(p.norm2, h)), c.get("conv2"), keep)
+    s = causal_conv3d(p.shortcut, x) if hasattr(p, "shortcut") else x  # kt=1
+    return h + s, {"conv1": c1, "conv2": c2}
+
+
+def _temporal_up_stream(p: Conv, x: torch.Tensor, cache, keep: bool):
+    """Temporal 2x upsample: frame 0 passes through unchanged; frames 1..
+    are doubled by the 2C-channel causal conv, channel k*C + c of input
+    frame i becoming channel c of output frame 2i + k. On the first chunk
+    frame 0 is zero-masked out of the conv's input and the window at global
+    position 0 is dropped; later chunks are plain cached windows."""
+    b, c, t, h, w = x.shape
+    first = cache is None
+    if first:
+        masked = torch.cat([torch.zeros_like(x[:, :, :1]), x[:, :, 1:]], dim=2)
+        xin = F.pad(masked, (0, 0, 0, 0, 2, 0))
+    else:
+        xin = torch.cat([cache.to(x.dtype), x], dim=2)
+    y = causal_conv3d(p, xin, time_pad=0)  # (B, 2C, t, H, W)
+    if first:
+        y = y[:, :, 1:]
+    m = y.shape[2]
+    y = y.reshape(b, 2, c, m, h, w).permute(0, 2, 3, 1, 4, 5).reshape(b, c, 2 * m, h, w)
+    if first:
+        y = torch.cat([x[:, :, :1], y], dim=2)
+    return y, _tail(xin, t, keep)
+
+
+def _temporal_down_stream(p: Conv, x: torch.Tensor, cache, keep: bool):
+    """Temporal 2x downsample by the stride-2 no-pad conv. On the first
+    chunk frame 0 passes through unchanged and the conv runs over the
+    chunk (a chunk shorter than the kernel, a streamed frame 0, gives frame
+    0 alone). The windows start at even global indices; the cache keeps
+    the input from the next window's start on (one frame under the
+    1+tfac*k pixel chunking)."""
+    if cache is None:
+        xin, out = x, x[:, :, :1]
+        if x.shape[2] >= p.weight.shape[2]:
+            rest = causal_conv3d(p, x, stride=(2, 1, 1), time_pad=0)
+            out = torch.cat([out, rest], dim=2)
+    else:
+        xin = torch.cat([cache.to(x.dtype), x], dim=2)
+        out = causal_conv3d(p, xin, stride=(2, 1, 1), time_pad=0)
+    return out, _tail(xin, 2 * ((xin.shape[2] - 1) // 2), keep)
+
+
+def _encoder_stages_stream(p, x: torch.Tensor, cache, keep: bool):
+    """conv_in and the down stages on one pixel chunk. Purely convolutional,
+    so it can run on W-tiles (:func:`_encoder_halo`)."""
+    c = {} if cache is None else dict(cache)
+    h, c["conv_in"] = _conv_stream(p.conv_in, x, c.get("conv_in"), keep)
+    for i, stage in enumerate(p.stages):
+        for j, blk in enumerate(stage.blocks):
+            h, c[f"s{i}b{j}"] = _res_block_stream(blk, h, c.get(f"s{i}b{j}"), keep)
+        if hasattr(stage, "down"):
+            h = _spatial_down(stage.down, h)  # frame-local
+            if hasattr(stage, "time_down"):
+                h, c[f"s{i}td"] = _temporal_down_stream(stage.time_down, h,
+                                                        c.get(f"s{i}td"), keep)
+    return h, c
+
+
+def _encoder_mid_stream(p, h: torch.Tensor, cache, keep: bool):
+    """Mid block (res, global spatial attention, res) and the moment head
+    at the bottleneck scale; the attention sees the whole grid, so this
+    part runs untiled."""
+    c = {} if cache is None else dict(cache)
+    h, c["mid_res1"] = _res_block_stream(p.mid.res1, h, c.get("mid_res1"), keep)
+    h = _attn_block(p.mid.attn, h)  # frame-local
+    h, c["mid_res2"] = _res_block_stream(p.mid.res2, h, c.get("mid_res2"), keep)
+    h = F.silu(_rms(p.head_norm, h))
+    h, c["head"] = _conv_stream(p.head_conv, h, c.get("head"), keep)
+    return h, c
+
+
+def _encoder_stream(p, x: torch.Tensor, cache, keep: bool):
+    """One pixel chunk through the whole encoder; the first chunk must
+    hold global frame 0."""
+    cs, cm = (None, None) if cache is None else (cache["stages"], cache["mid"])
+    h, cs = _encoder_stages_stream(p, x, cs, keep)
+    h, cm = _encoder_mid_stream(p, h, cm, keep)
+    return h, {"stages": cs, "mid": cm}
+
+
+def _decoder_mid_stream(p, z: torch.Tensor, cache, keep: bool):
+    """conv_in and the mid block on one latent chunk (untiled: global
+    attention, at the cheap latent scale)."""
+    c = {} if cache is None else dict(cache)
+    h, c["conv_in"] = _conv_stream(p.conv_in, z, c.get("conv_in"), keep)
+    h, c["mid_res1"] = _res_block_stream(p.mid.res1, h, c.get("mid_res1"), keep)
+    h = _attn_block(p.mid.attn, h)  # frame-local
+    h, c["mid_res2"] = _res_block_stream(p.mid.res2, h, c.get("mid_res2"), keep)
+    return h, c
+
+
+def _decoder_stages_stream(p, h: torch.Tensor, cache, keep: bool):
+    """The up stages and the pixel head on one chunk. Purely
+    convolutional, so it can run on W-tiles (:func:`_decoder_halo`)."""
+    c = {} if cache is None else dict(cache)
+    for i, stage in enumerate(p.stages):
+        for j, blk in enumerate(stage.blocks):
+            h, c[f"s{i}b{j}"] = _res_block_stream(blk, h, c.get(f"s{i}b{j}"), keep)
+        if hasattr(stage, "up"):
+            if hasattr(stage, "time_up"):
+                h, c[f"s{i}tu"] = _temporal_up_stream(stage.time_up, h,
+                                                      c.get(f"s{i}tu"), keep)
+            h = _spatial_up(stage.up, h)
+    h = F.silu(_rms(p.head_norm, h))
+    h, c["head"] = _conv_stream(p.head_conv, h, c.get("head"), keep)
+    return h, c
+
+
+def _decoder_stream(p, z: torch.Tensor, cache, keep: bool):
+    """One latent chunk through the whole decoder; the first chunk must
+    hold global frame 0."""
+    cm, cs = (None, None) if cache is None else (cache["mid"], cache["stages"])
+    h, cm = _decoder_mid_stream(p, z, cm, keep)
+    h, cs = _decoder_stages_stream(p, h, cs, keep)
+    return h, {"mid": cm, "stages": cs}
+
+
+def _stream(step, p, chunks) -> torch.Tensor:
+    """``step(p, chunk, cache, keep) -> (out, cache)`` over the chunks in
+    order, starting from no cache and keeping none after the last; the
+    outputs joined along time."""
+    outs, cache = [], None
+    for i, chunk in enumerate(chunks):
+        out, cache = step(p, chunk, cache, i < len(chunks) - 1)
+        outs.append(out)
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
+
+
+def _chunks(x: torch.Tensor, streaming: bool, size: int = 1) -> list[torch.Tensor]:
+    """The whole clip as one chunk; streaming, frame 0 and then chunks of
+    ``size`` frames (one latent frame each)."""
+    if not streaming or x.shape[2] == 1:
+        return [x]
+    return [x[:, :, :1], *x[:, :, 1:].split(size, dim=2)]
+
+
+# ------------------------------------------------------------- W-tiling
+
+def _tile_plan(w: int, tiles: int, halo: int) -> tuple[int, int, list[int]]:
+    """(tile, padded tile width, start offsets clamped into [0, w - wt]):
+    every tile has the same width."""
+    tile = w // tiles
+    wt = min(tile + 2 * halo, w)
+    starts = [min(max(k * tile - halo, 0), w - wt) for k in range(tiles)]
+    return tile, wt, starts
+
+
+def _over_w_tiles(fn, x: torch.Tensor, tiles: int, halo: int,
+                  up: int = 1, down: int = 1) -> torch.Tensor:
+    """``fn`` on ``tiles`` overlapping W-slices of ``x`` (``halo`` columns
+    either side), keeping each tile's interior; ``fn`` scales W by up/down."""
+    tile, wt, starts = _tile_plan(x.shape[-1], tiles, halo)
+    parts = []
+    for k, s in enumerate(starts):
+        out = fn(x[..., s:s + wt])
+        v0 = (k * tile - s) * up // down
+        parts.append(out[..., v0:v0 + tile * up // down])
+    return torch.cat(parts, dim=-1)
+
+
+def _encoder_halo(cfg: VAEConfig) -> int:
+    """Receptive-field halo (input px) of the pre-mid encoder, rounded up
+    to the spatial factor: each 3x3 conv at scale s adds +-s px, each
+    stride-2 down conv +-2s. 14B geometry: 75 -> 80."""
+    rf, scale = 1, 1  # conv_in
+    for i in range(len(cfg.dim_mult)):
+        rf += 2 * cfg.num_res_blocks * scale
+        if i < len(cfg.dim_mult) - 1:
+            rf += 2 * scale
+            scale *= 2
+    sf = cfg.spatial_factor
+    return -(-rf // sf) * sf
+
+
+def _decoder_halo(cfg: VAEConfig) -> int:
+    """Receptive-field halo (latent px) of the post-mid decoder: a 3x3 conv
+    at up-scale s adds +-1/s latent px, stages carry num_res_blocks+1
+    blocks. 14B geometry: 12.25 -> 14 (one px spare)."""
+    rf, scale = 0.0, 1.0
+    n = len(cfg.dim_mult)
+    for i in range(n):
+        rf += 2 * (cfg.num_res_blocks + 1) / scale
+        if i < n - 1:
+            scale *= 2
+            rf += 1.0 / scale  # the conv after the upsample
+    rf += 1.0 / scale  # head conv
+    return math.ceil(rf) + 1
+
+
 # ------------------------------------------------------------- public API
 
-def vae_encode(vae: VAE, video: torch.Tensor, normalize: bool = True) -> torch.Tensor:
+def vae_encode(vae: VAE, video: torch.Tensor, normalize: bool = True,
+               streaming: bool | None = None,
+               spatial_tiles: int | None = None) -> torch.Tensor:
     """Pixels in [-1, 1] (B, 3, T, H, W), T = 4k+1 -> latents
     (B, z_dim, 1+(T-1)//4, H/8, W/8), normalised when z_dim is 16.
-    Only the mean of the moments is kept."""
+    Only the mean of the moments is kept.
+
+    ``streaming=None`` streams when T > 5 (the reasoning volume; the 5-frame
+    edit clip runs full-sequence). ``spatial_tiles=None`` tiles the pre-mid
+    encoder 4 ways when streaming at W >= 1024, else not at all."""
     cfg = vae.cfg
-    moments = causal_conv3d(vae.quant_conv, _encoder(vae.encoder, video.to(cfg.dtype)))
+    enc = vae.encoder
+    x = video.to(cfg.dtype)
+    t, w = x.shape[2], x.shape[-1]
+    sf, tfac = cfg.spatial_factor, cfg.temporal_factor
+    if streaming is None:
+        streaming = t > 5
+    if spatial_tiles is None:
+        spatial_tiles = 4 if streaming and w >= 1024 and w % (4 * sf) == 0 else 1
+    if spatial_tiles > 1 and w % (spatial_tiles * sf):
+        raise ValueError(f"W={w} not divisible by spatial_tiles*{sf}")
+    if streaming and (t - 1) % tfac:
+        raise ValueError(f"streamed encode needs T = 1 + {tfac}k, got {t}")
+    if spatial_tiles > 1:
+        hmid = _over_w_tiles(
+            lambda xt: _stream(_encoder_stages_stream, enc, _chunks(xt, streaming, tfac)),
+            x, spatial_tiles, _encoder_halo(cfg), down=sf)
+        moments = _stream(_encoder_mid_stream, enc, _chunks(hmid, streaming))
+    else:
+        moments = _stream(_encoder_stream, enc, _chunks(x, streaming, tfac))
+    moments = causal_conv3d(vae.quant_conv, moments)
     mu = moments[:, : cfg.z_dim]
     if normalize and cfg.z_dim == WAN_LATENT_MEAN.size:
         mean, std = _latent_stats(cfg, mu)
@@ -306,12 +506,34 @@ def vae_encode(vae: VAE, video: torch.Tensor, normalize: bool = True) -> torch.T
     return mu
 
 
-def vae_decode(vae: VAE, latents: torch.Tensor, normalize: bool = True) -> torch.Tensor:
-    """Latents -> pixels (B, 3, (Tl-1)*4+1, H*8, W*8)."""
+def vae_decode(vae: VAE, latents: torch.Tensor, normalize: bool = True,
+               streaming: bool | None = None,
+               spatial_tiles: int | None = None) -> torch.Tensor:
+    """Latents -> pixels (B, 3, (Tl-1)*4+1, H*8, W*8).
+
+    ``streaming=None`` streams one latent frame at a time when Tl > 2 (the
+    reasoning trajectory; the 2-frame edit decode runs full-sequence).
+    ``spatial_tiles=None`` tiles the post-mid decoder 4 ways when streaming
+    at latent W >= 128, else not at all."""
     cfg = vae.cfg
+    dec = vae.decoder
     z = latents.to(cfg.dtype)
     if normalize and cfg.z_dim == WAN_LATENT_MEAN.size:
         mean, std = _latent_stats(cfg, z)
         z = z * std + mean
-    z = causal_conv3d(vae.post_quant_conv, z)
-    return _decoder(vae.decoder, z)
+    z = causal_conv3d(vae.post_quant_conv, z)  # kt=1, frame-local
+    tl, wl = z.shape[2], z.shape[-1]
+    sf = cfg.spatial_factor
+    if streaming is None:
+        streaming = tl > 2
+    if spatial_tiles is None:
+        spatial_tiles = 4 if streaming and wl >= 128 and wl % 4 == 0 else 1
+    if spatial_tiles > 1 and wl % spatial_tiles:
+        raise ValueError(f"latent W={wl} not divisible by spatial_tiles")
+    frames = _chunks(z, streaming)
+    if spatial_tiles > 1:
+        hmid = _stream(_decoder_mid_stream, dec, frames)
+        return _over_w_tiles(
+            lambda ht: _stream(_decoder_stages_stream, dec, _chunks(ht, streaming)),
+            hmid, spatial_tiles, _decoder_halo(cfg), up=sf)
+    return _stream(_decoder_stream, dec, frames)

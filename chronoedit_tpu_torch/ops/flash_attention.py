@@ -1,11 +1,15 @@
-"""Flash-attention forward (K1): a hand-written Hopper kernel and its twin.
+"""Flash-attention forward (K1 and K5): a hand-written Hopper kernel and its twin.
 
 The CUDA kernel (``csrc/flash_fwd.cu``) takes (B, S, H, 128) bf16 q/k/v in
 place — no transpose to a (B*H, S, D) layout and no padding: it masks the
 ragged q and KV tails itself — and returns O in bf16 and the per-row
 log-sum-exp in fp32. The TPU kernel's VMEM planning (resident vs streamed
 KV, block planners, k-major and grouped variants) has no counterpart: the
-CUDA kernel always streams KV tiles through shared memory.
+CUDA kernel always streams KV tiles through shared memory, so the one
+kernel serves both TPU kernels, the resident K1 (the edit's 7,200 tokens
+and the cross-attention) and the streamed K5 (reasoning self-attention at
+28,800 tokens). Launches are counted by name and by KV length
+(``kernels/build.py``), which tells the two roles apart.
 """
 
 from __future__ import annotations
@@ -16,8 +20,15 @@ HEAD_DIM = 128  # the only head dim K1 is built for
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          scale: float) -> tuple[torch.Tensor, torch.Tensor]:
-    """fp32 softmax attention; returns (out in q's dtype, lse (B, S, H) fp32)."""
+                          scale: float, q_chunk: int | None = None
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """fp32 softmax attention; returns (out in q's dtype, lse (B, S, H) fp32).
+    ``q_chunk`` rows of q at a time bound the (B, H, rows, Skv) fp32 score
+    matrix (rows are independent: the same math)."""
+    if q_chunk is not None and q_chunk < q.shape[1]:
+        outs, lses = zip(*(flash_attention_plain(qc, k, v, scale)
+                           for qc in q.split(q_chunk, dim=1)))
+        return torch.cat(outs, dim=1), torch.cat(lses, dim=1)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     lse = torch.logsumexp(s, dim=-1)
     p = torch.exp(s - lse[..., None])
@@ -58,7 +69,7 @@ def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     build.check(build.lib().flash_fwd_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
         b, sq, k.shape[1], h, d, scale, torch.cuda.current_stream().cuda_stream),
-        "flash_fwd")
+        "flash_fwd", kv_len=k.shape[1])
     return out, lse.transpose(1, 2)
 
 

@@ -8,9 +8,16 @@ The edit path of ``chronoedit_tpu/pipeline/edit_pipeline.py``:
    batched into one forward when guidance > 1;
 3. VAE decode.
 
+Temporal-reasoning mode (``enable_temporal_reasoning``) starts from a
+29-frame volume (8 latent frames, streamed through the VAE). With
+0 < k < num_steps reasoning steps it runs steps [0, k) on all latent frames,
+then keeps [first, last] of the solver state and the condition and runs
+the rest on those two; with k >= num_steps the whole trajectory survives.
+Either way it decodes twice: the reasoning video and the 2-frame edit.
+
 Prompt and CLIP image embeddings are passed in precomputed. Not here yet:
-guardrails, skip-layer guidance over two forwards, the block cache,
-temporal reasoning and multi-device meshes.
+guardrails, skip-layer guidance over two forwards, the block cache and
+multi-device meshes.
 """
 
 from __future__ import annotations
@@ -33,16 +40,20 @@ class PipelineConfig:
     num_steps: int = 50
     guidance_scale: float = 5.0
     flow_shift: float = 5.0
-    num_frames: int = 5  # pixel frames in edit mode
+    num_frames: int = 5  # pixel frames in edit mode (29 in reasoning mode)
+    # VAE W-tiles; None is the VAE's own rule (tile only streaming paths)
+    vae_spatial_tiles: int | None = None
 
     @property
     def latent_channels(self) -> int:
         return self.vae.z_dim
 
-    def resolve_num_frames(self, num_frames: int | None = None) -> int:
-        """The pixel frame count a run uses, rounded down to a VAE-compatible
+    def resolve_num_frames(self, num_frames: int | None = None,
+                           enable_temporal_reasoning: bool = False) -> int:
+        """The pixel frame count a run uses: the 29-frame reasoning default
+        or the edit default, rounded down to a VAE-compatible
         ``temporal_factor*k + 1``."""
-        num_frames = num_frames or self.num_frames
+        num_frames = num_frames or (29 if enable_temporal_reasoning else self.num_frames)
         tfac = self.vae.temporal_factor
         if num_frames % tfac != 1:
             num_frames = max(num_frames // tfac * tfac + 1, 1)
@@ -50,7 +61,7 @@ class PipelineConfig:
 
 
 def prepare_condition(vae: vae_lib.VAE, cfg: PipelineConfig, image: torch.Tensor,
-                      num_frames: int) -> torch.Tensor:
+                      num_frames: int, spatial_tiles: int | None = None) -> torch.Tensor:
     """(B, 3, H, W) image in [-1, 1] -> (B, tfac + z_dim, Tl, H/8, W/8): the
     first-frame mask channels, then the VAE latents of [image, zeros]."""
     b, c, h, w = image.shape
@@ -60,7 +71,7 @@ def prepare_condition(vae: vae_lib.VAE, cfg: PipelineConfig, image: torch.Tensor
         [image[:, :, None],
          torch.zeros((b, c, num_frames - 1, h, w), dtype=image.dtype,
                      device=image.device)], dim=2)
-    cond_latents = vae_lib.vae_encode(vae, video)
+    cond_latents = vae_lib.vae_encode(vae, video, spatial_tiles=spatial_tiles)
 
     hl, wl = h // cfg.vae.spatial_factor, w // cfg.vae.spatial_factor
     # mask over pixel frames (frame 0 -> 1), the first frame repeated tfac
@@ -114,14 +125,21 @@ class ChronoEditPipeline:
                  image_emb: torch.Tensor | None = None,
                  num_frames: int | None = None, num_steps: int | None = None,
                  guidance_scale: float | None = None, flow_shift: float | None = None,
+                 enable_temporal_reasoning: bool = False,
+                 num_temporal_reasoning_steps: int = 0,
                  generator: torch.Generator | None = None,
                  latents: torch.Tensor | None = None,
                  output_type: str = "video") -> torch.Tensor:
         """Run the edit. Returns pixels (B, 3, T, H, W) in [-1, 1] (the last
         frame is the edit), or the fp32 latents with ``output_type="latent"``.
-        Initial noise is ``latents`` if given, else drawn from ``generator``."""
+        Initial noise is ``latents`` if given, else drawn from ``generator``.
+        In reasoning mode with k > 0 reasoning steps the clip is the
+        reasoning video, then the edit clip after its first frame; at the
+        29-frame default that is 29 frames for k >= num_steps, 5 after the
+        drop."""
         cfg = self.config
-        num_frames = cfg.resolve_num_frames(num_frames)
+        reasoning, k = enable_temporal_reasoning, num_temporal_reasoning_steps
+        num_frames = cfg.resolve_num_frames(num_frames, reasoning)
         num_steps = num_steps or cfg.num_steps
         guidance = cfg.guidance_scale if guidance_scale is None else guidance_scale
         shift = flow_shift or cfg.flow_shift
@@ -135,13 +153,43 @@ class ChronoEditPipeline:
                                   device=image.device)
 
         coeffs = make_unipc_coeffs(make_flow_schedule(num_steps, shift=shift))
-        condition = prepare_condition(self.vae, cfg, image, num_frames)
-        model_fn = self._model_fn(condition, prompt_emb, neg_prompt_emb,
-                                  image_emb, guidance)
-        state = run_unipc(model_fn, coeffs, UniPCState.init(latents))
+        condition = prepare_condition(self.vae, cfg, image, num_frames,
+                                      cfg.vae_spatial_tiles)
+
+        def phase(state, cond, start, end):
+            fn = self._model_fn(cond, prompt_emb, neg_prompt_emb, image_emb, guidance)
+            return run_unipc(fn, coeffs, state, start, end)
+
+        state = UniPCState.init(latents)
+        if reasoning and 0 < k < num_steps:
+            # the mid-loop drop: latents, solver history and condition keep
+            # [first, last] after k steps
+            state = phase(state, condition, 0, k)
+            keep = [0, tl - 1]
+            state = state.truncate(lambda t: t[:, :, keep])
+            state = phase(state, condition[:, :, keep], k, num_steps)
+        else:
+            state = phase(state, condition, 0, num_steps)
         if output_type == "latent":
             return state.x
-        return vae_lib.vae_decode(self.vae, state.x)
+        return self.decode(state.x, dual=reasoning and k > 0)
+
+    @torch.inference_mode()
+    def decode(self, latents: torch.Tensor, dual: bool = False) -> torch.Tensor:
+        """Final latents -> pixels. ``dual`` (reasoning mode with k > 0
+        reasoning steps) decodes the reasoning video from all but the last
+        latent frame, then the [first, last] edit clip, and appends the
+        edit clip without its first frame."""
+        cfg = self.config
+
+        def decode(z):
+            return vae_lib.vae_decode(self.vae, z, spatial_tiles=cfg.vae_spatial_tiles)
+
+        if not dual:
+            return decode(latents)
+        video_reason = decode(latents[:, :, :-1])
+        video_edit = decode(latents[:, :, [0, latents.shape[2] - 1]])
+        return torch.cat([video_reason, video_edit[:, :, 1:]], dim=2)
 
     def edit_image(self, image: torch.Tensor, prompt_emb: torch.Tensor,
                    **kw) -> torch.Tensor:

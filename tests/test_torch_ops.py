@@ -1,4 +1,4 @@
-"""The kernel wrappers' plain twins (K1-K4) against the JAX package, on CPU.
+"""The kernel wrappers' plain twins (K1-K5) against the JAX package, on CPU.
 
 On CPU the JAX fused norms run their jnp formulation (the Pallas path is
 gated to TPU) and JAX flash attention runs the Pallas kernel itself in
@@ -17,6 +17,7 @@ from chronoedit_tpu_torch.ops import flash_attention as fa_t
 from chronoedit_tpu_torch.ops import fused_norms as fn_t
 from chronoedit_tpu_torch.ops import layers as L
 from chronoedit_tpu_torch.ops.attention import dot_product_attention
+from test_torch_dit import warm_cpu_math
 
 torch.set_num_threads(2)
 # fp32 comparisons: TF32 off in matmuls and cuDNN convolutions
@@ -24,6 +25,11 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 B, T, HW, D = 2, 2, 12, 256
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _warm():
+    warm_cpu_math()
 
 
 def _rng(seed):
@@ -101,6 +107,42 @@ def test_flash_attention_matches_pallas_interpret(skv):
         np.asarray(want), atol=2e-5)
 
 
+def test_streamed_flash_matches_pallas_streamed_kernel(monkeypatch):
+    """K5: the twin against the JAX streamed Pallas kernel in interpret
+    mode. JAX streams KV only past 6 MiB of K and V (2*Skv*D*itemsize), so
+    fp32 KV of 6,500 rows with 1 head does; 130 q rows leave a ragged q
+    tail, and 6,500 a ragged KV tail in JAX's 1,536-row KV groups. A spy
+    shows that the streamed kernel, not the resident one, ran. Output and
+    LSE within 2e-5, as for K1; the q-chunked twin (ragged last chunk)
+    equals the unchunked one within 1e-6 (GEMMs of another height may
+    block their sums differently)."""
+    ran = []
+    streamed = fa_j._fwd_kernel_streamed
+
+    def spy(*args, **kw):
+        ran.append(kw["group"])
+        return streamed(*args, **kw)
+
+    monkeypatch.setattr(fa_j, "_fwd_kernel_streamed", spy)
+    rng = _rng(5)
+    q = rng.standard_normal((1, 130, 1, 128)).astype(np.float32)
+    k = rng.standard_normal((1, 6500, 1, 128)).astype(np.float32)
+    v = rng.standard_normal((1, 6500, 1, 128)).astype(np.float32)
+    scale = 128 ** -0.5
+    out_j, lse_j = fa_j.flash_attention_with_lse(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale)
+    assert ran, "JAX did not take the streamed kernel"
+    qt, kt, vt = (torch.from_numpy(a) for a in (q, k, v))
+    out_t, lse_t = fa_t.flash_attention_with_lse(qt, kt, vt, scale)
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), atol=2e-5)
+    np.testing.assert_allclose(lse_t.numpy(), np.asarray(lse_j), atol=2e-5)
+
+    out_c, lse_c = fa_t.flash_attention_plain(qt, kt, vt, scale, q_chunk=48)
+    assert out_c.shape == out_t.shape and lse_c.shape == lse_t.shape == (1, 130, 1)
+    torch.testing.assert_close(out_c, out_t, atol=1e-6, rtol=0)
+    torch.testing.assert_close(lse_c, lse_t, atol=1e-6, rtol=0)
+
+
 def test_cpu_tensors_never_touch_the_kernel_loader(monkeypatch):
     """A wrapper given CPU tensors runs its plain twin: the library is
     neither built nor loaded, and no launch is counted."""
@@ -109,7 +151,7 @@ def test_cpu_tensors_never_touch_the_kernel_loader(monkeypatch):
 
     monkeypatch.setattr(build, "build", refuse)
     monkeypatch.setattr(build, "lib", refuse)
-    before = dict(build.LAUNCHES)
+    before = dict(build.LAUNCHES), dict(build.FLASH_KV_LAUNCHES)
     x = torch.randn(1, 8, 128)
     mod = torch.randn(1, 2, 128)
     fn_t.layer_norm_modulate(x, mod, mod, 4)
@@ -118,7 +160,21 @@ def test_cpu_tensors_never_touch_the_kernel_loader(monkeypatch):
     q = torch.randn(1, 8, 2, 128)
     fa_t.flash_attention_with_lse(q, q, q, 0.1)
     dot_product_attention(q, q, q)
-    assert build.LAUNCHES == before
+    assert (build.LAUNCHES, build.FLASH_KV_LAUNCHES) == before
+
+
+def test_launch_counts_by_name_and_kv_length(monkeypatch):
+    """``check`` counts a successful launch under its name and, for flash
+    attention, under its KV length; ``reset_launches`` zeroes both."""
+    monkeypatch.setattr(build, "LAUNCHES", dict.fromkeys(build.LAUNCHES, 0))
+    monkeypatch.setattr(build, "FLASH_KV_LAUNCHES", {})
+    for kv in (28800, 28800, 512):
+        build.check(0, "flash_fwd", kv_len=kv)
+    build.check(0, "rms_norm")
+    assert build.LAUNCHES["flash_fwd"] == 3 and build.LAUNCHES["rms_norm"] == 1
+    assert build.FLASH_KV_LAUNCHES == {28800: 2, 512: 1}
+    build.reset_launches()
+    assert not any(build.LAUNCHES.values()) and build.FLASH_KV_LAUNCHES == {}
 
 
 @pytest.mark.parametrize("case", ["fp32", "head_dim", "kv_mismatch", "strided"])
