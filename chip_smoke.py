@@ -1,5 +1,6 @@
-"""Drive the PyTorch port's 720p edit paths once on one NVIDIA GPU: the
-8-step edit and the 29-frame temporal-reasoning edit.
+"""Drive the PyTorch port's paths once on one NVIDIA GPU: the 8-step 720p
+edit, the 29-frame temporal-reasoning edit, and LoRA fine-tuning of the
+full-width DiT at the edit's geometry.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card, ``nvcc`` (sm_90a) and no network; it imports
@@ -8,31 +9,46 @@ non-zero and no result line is printed:
 
 1. require CUDA; print torch/CUDA versions and the card's name and power
    limit (``nvidia-smi``);
-2. build the kernels from ``chronoedit_tpu_torch/csrc`` (``kernels/build.py``);
+2. build the kernels from ``chronoedit_tpu_torch/csrc`` (``kernels/build.py``,
+   one ``nvcc`` per source in parallel) and print each kernel's registers
+   and spills;
 3. hold each kernel against its plain PyTorch twin on the card at the main
-   paths' shapes in bf16, with CUDA-event times for both: K1-K4 at the
-   edit's 7,200 tokens, and the flash kernel at the reasoning
-   self-attention's 28,800 tokens as K5 (against the q-chunked twin). This
-   runs before the model exists: the plain attention needs ~35 GB;
-4. small references: the whole slice at 2 blocks x 2 heads of 128 on the
+   paths' shapes in bf16, with CUDA-event times for both, for PyTorch's own
+   call where one computes the same function (``library_ms``: SDPA, and
+   its backward asked for each backward kernel's own gradients, timed as
+   yardsticks, never called by the port) and each
+   kernel's bound (the larger of FLOPs over 989 TFLOP/s and bytes over
+   3.35 TB/s): K1 and K6/K7 (against the q-chunked backward twin) at the
+   edit's 7,200 tokens against KV 7,200, 512 and 257, K2-K4 at the edit's
+   stream, and the flash kernel at the reasoning self-attention's 28,800
+   tokens as K5 (against the q-chunked twin). This runs before the model
+   exists: the plain attention needs ~35 GB;
+4. small references: the serving slice at 2 blocks x 2 heads of 128 on the
    card (bf16, kernels) against the same weights on the CPU (fp32, plain
    twins), as PSNR over the [-1, 1] pixel range: the edit, and reasoning
-   mode with the frame drop and without it, W-tiled streaming VAE;
+   mode with the frame drop and without it, W-tiled streaming VAE; then two
+   LoRA steps and two full-parameter steps of that DiT (loss, gradient
+   cosine, grad_norm, then Adam's first moment and the update, against the
+   CPU);
 5. the main paths: ``chronoedit_14b_distilled`` at full width and depth
-   (40 blocks x 5120, bf16, random weights from a seeded generator) and the
-   full-width VAE serve two 720p edits, then two 29-frame reasoning edits
-   (the whole trajectory, k = 8; the drop, k = 2) through ``__call__``.
-   The launch counters are zeroed just before each edit and must then show
-   exactly the launches the path implies, by kernel and by attention KV
-   length; stage times, peak memory and a tiled-against-untiled streaming
-   decode of an 8-frame latent trajectory (fp32) follow;
+   (40 blocks x 5120, bf16, random weights from a seeded generator, built
+   outside ``inference_mode`` so that it can train) and the full-width VAE
+   serve two 720p edits, then two 29-frame reasoning edits (the whole
+   trajectory, k = 8; the drop, k = 2) through ``__call__``, then take three
+   rank-32 LoRA steps (``make_lora_train_step``, remat "full") on 720p mock
+   edit pairs. The launch counters are zeroed just before each edit and
+   each step and must then show exactly the launches the path implies, by
+   kernel and by attention KV length; stage and step times, peak memory, a
+   tiled-against-untiled streaming decode of an 8-frame latent trajectory
+   (fp32) and an unchanged-base checksum follow;
 6. print the kernel table as one JSON line, the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds one warm ``torch.profiler`` pass over each stage (DiT
-forward, VAE encode, VAE decode) of both paths at their shapes, printing
-each one's device idle share and writing its per-kernel table to
-``chiprun_out/profile_<stage>.txt`` under the repository root.
+forward, VAE encode, VAE decode) of both serving paths at their shapes and
+over one LoRA train step, printing each one's device idle share and
+writing its per-kernel table to ``chiprun_out/profile_<stage>.txt`` under
+the repository root.
 """
 
 from __future__ import annotations
@@ -62,6 +78,46 @@ ULP_BF16 = 2.0 ** -7
 K1_OUT_STEPS = 2.0
 K1_OUT_MAX_TOL = 1e-2
 K1_LSE_TOL = 1e-3
+# K6/K7 against their twin (both from the same bf16 inputs, lse and dsum):
+# the kernels round P and dS to bf16 before the products that use them, as
+# JAX does, and both round the outputs to bf16. A CPU emulation of exactly
+# those roundings at 3,600 x {3,600, 512, 257} put the largest error at
+# 0.98 bf16 steps of max|ref| and the normwise relative error at 2.6e-3.
+# Bounds: 3 steps of max|ref|, and 1e-2 normwise (a lost or doubled tile
+# errs by the output's own size in that norm).
+K67_MAX_STEPS = 3.0
+K67_NORM_REL = 1e-2
+# Training references: the 2-block DiT in bf16 on the card against fp32 on
+# the CPU (same weights, batch and draws). The same comparison with the
+# bf16 side also on the CPU (the twins in bf16) gave a loss within 9.3e-5
+# relative, a gradient cosine of 0.99997 and a grad_norm within 6.6e-4; the
+# card adds the kernels' bf16 P and dS (2.6e-3 normwise per attention
+# gradient, see K67_*). Bounds: the loss within 5e-3 relative, grad_norm
+# within 2e-2, the cosine of the whole gradient at least 0.999 (a relative
+# error of 4.5 %); a missing block or a wrong gradient misses all three by
+# orders of magnitude.
+TRAIN_LOSS_REL = 5e-3
+TRAIN_NORM_REL = 2e-2
+TRAIN_GRAD_COS = 0.999
+# The update, after two steps on the same batch and draws (the first at the
+# warm-up's learning rate 0, which must leave every weight's bits as they
+# were; the clip set to act at half the reference's gradient norm): Adam's
+# first moment is 0.19 x the clipped gradient, so it may differ as the
+# gradient does (cosine 0.999: 4.5 % normwise); the update is close to
+# lr x sign(g), which flips where |g| is within the bf16 error, and bf16
+# weights round it. The same comparison with the bf16 side on the CPU gave
+# the moment within 7.8e-3 and the update within 8.9e-2 (LoRA) and 9.7e-2
+# (full) normwise. The update's error grows as the square root of the
+# gradient's (the share of flipped signs grows with it), so its bound of
+# 0.25 allows 8x that gradient error. A doubled learning rate, a missing
+# clip or a skipped warm-up errs by 100 % in one of these norms.
+TRAIN_LR = 1e-2
+TRAIN_MOMENT_REL = 5e-2
+TRAIN_UPDATE_REL = 0.25
+# The card's published peaks (H100 SXM, dense bf16 tensor cores; HBM3), for
+# each kernel's bound: the larger of FLOPs / peak and bytes / bandwidth
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES_PER_S = 3.35e12
 # bf16 on the card against fp32 on the CPU; the repo's fidelity bar
 MIN_PSNR_DB = 35.0
 # The W-tiled streaming decode against the untiled one, both fp32 on the
@@ -75,6 +131,8 @@ EDIT_H, EDIT_W = 720, 1280
 TEXT_TOKENS = 512
 IMAGE_TOKENS = 257
 REASONING_FRAMES = 29
+# the edit's self-attention: 2 latent frames x 45 x 80 patches
+EDIT_TOKENS = 2 * (EDIT_H // 16) * (EDIT_W // 16)
 # reasoning self-attention: 8 latent frames x 45 x 80 patches
 REASONING_TOKENS = 8 * (EDIT_H // 16) * (EDIT_W // 16)
 # q rows per chunk of the plain twin at 28,800 tokens: ~8 GB of fp32 scores
@@ -111,6 +169,23 @@ def host_s(fn):
     return out, time.perf_counter() - t0
 
 
+def bound(flops: float, nbytes: float) -> dict:
+    """The least time the card could take: {bound_ms, bound_by}."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def add_rows(a: dict, b: dict) -> dict:
+    """Two calls of one kernel as one row: times and bounds add, errors max."""
+    out = dict(b)
+    for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+        out[key] = a[key] + b[key]
+    out["max_abs_err"] = max(a["max_abs_err"], b["max_abs_err"])
+    out["bound_by"] = a["bound_by"] if a["bound_ms"] >= b["bound_ms"] else b["bound_by"]
+    return out
+
+
 def max_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got.float() - want.float()).abs().max())
 
@@ -124,7 +199,7 @@ def psnr(got: torch.Tensor, want: torch.Tensor) -> float:
 
 def compare_kernels(dev: torch.device) -> dict[str, dict]:
     """Each kernel against its plain twin at main-path shapes; returns
-    {name: {max_abs_err, ms, plain_ms}}."""
+    {name: {max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms}}."""
     from chronoedit_tpu_torch.ops import fused_norms as fn
     from chronoedit_tpu_torch.ops import layers as L
 
@@ -135,16 +210,14 @@ def compare_kernels(dev: torch.device) -> dict[str, dict]:
         return torch.randn(shape, generator=g, device=dev, dtype=dtype)
 
     results = {}
-    s, h, d = (EDIT_H // 16) * (EDIT_W // 16) * 2, 40, 128  # 7,200 tokens
+    s, h, d = EDIT_TOKENS, 40, 128
     q = randn(1, s, h, d)
-    k1 = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
     for skv, what in ((s, "self"), (TEXT_TOKENS, "text"), (IMAGE_TOKENS, "image")):
         k, v = randn(1, skv, h, d), randn(1, skv, h, d)
-        row = compare_flash("K1", what, q, k, v)
-        for key in ("ms", "plain_ms"):
-            k1[key] += row[key]
-        k1["max_abs_err"] = max(k1["max_abs_err"], row["max_abs_err"])
-    results["flash_fwd"] = k1
+        rows = {"flash_fwd": compare_flash("K1", what, q, k, v),
+                **compare_flash_bwd(what, q, k, v)}
+        for name, row in rows.items():
+            results[name] = add_rows(results[name], row) if name in results else row
     del q, k, v
     torch.cuda.empty_cache()
 
@@ -156,23 +229,32 @@ def compare_kernels(dev: torch.device) -> dict[str, dict]:
     norm = L.RMSNorm(dim, device=dev, dtype=bf16)
     with torch.no_grad():
         norm.scale.copy_(1.0 + 0.1 * randn(dim))
-    cases = {
+    row_bytes = x.numel() * 2
+    cases = {  # kernel, twin, bytes moved (inputs read once, output written once)
         "ln_modulate": (lambda: fn.layer_norm_modulate(x, mod_scale, mod_shift, hw),
-                        lambda: fn.ln_modulate_plain(x, mod_scale, mod_shift, hw)),
+                        lambda: fn.ln_modulate_plain(x, mod_scale, mod_shift, hw),
+                        2 * row_bytes + 2 * mod_scale.numel() * 4),
         "gated_residual": (lambda: fn.gated_residual(x, delta, gate, hw),
-                           lambda: fn.gated_residual_plain(x, delta, gate, hw)),
+                           lambda: fn.gated_residual_plain(x, delta, gate, hw),
+                           3 * row_bytes + gate.numel() * 4),
         "rms_norm": (lambda: fn.rms_norm_fused(norm, x),
-                     lambda: fn.rms_norm_plain(norm.scale, x)),
+                     lambda: fn.rms_norm_plain(norm.scale, x),
+                     2 * row_bytes + dim * 2),
     }
-    for name, (kernel, plain) in cases.items():
-        got, ref = kernel(), plain()
-        err, tol = max_err(got, ref), ULP_BF16 * float(ref.float().abs().max())
-        ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
+    for name, (kernel, plain, nbytes) in cases.items():
+        with torch.no_grad():
+            got, ref = kernel(), plain()
+            err, tol = max_err(got, ref), ULP_BF16 * float(ref.float().abs().max())
+            ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
+        # about 10 operations an element: far under the bytes
+        row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               **bound(10 * x.numel(), nbytes), "library_ms": None}
         print(f"{name} x {tuple(x.shape)}: max|out-ref| {err:.3e} (tol {tol:.3e}); "
-              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {row['bound_ms']:.3f} "
+              f"ms ({row['bound_by']}); no single PyTorch call computes it")
         if not err <= tol:
             raise AssertionError(f"{name} disagrees with its twin")
-        results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        results[name] = row
 
     # K5: the same kernel over the reasoning self-attention's 28,800 tokens
     q, k, v = (randn(1, REASONING_TOKENS, h, d) for _ in range(3))
@@ -182,10 +264,24 @@ def compare_kernels(dev: torch.device) -> dict[str, dict]:
     return results
 
 
+def sdpa(q, k, v, scale):
+    """PyTorch's own attention on BSHD tensors (transposed views, no copy):
+    the yardstick ``library_ms``, never called by the port."""
+    return torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), scale=scale)
+
+
+def attention_bytes(q, k, n_q_like: int, n_kv_like: int, n_row_f32: int) -> int:
+    """Bytes of n_q_like (B, Sq, H, D) and n_kv_like (B, Skv, H, D) bf16
+    tensors plus n_row_f32 (B, H, Sq) fp32 rows."""
+    b, sq, h, d = q.shape
+    return 2 * d * b * h * (n_q_like * sq + n_kv_like * k.shape[1]) + 4 * n_row_f32 * b * h * sq
+
+
 def compare_flash(kid: str, what: str, q, k, v, q_chunk: int | None = None) -> dict:
     """The flash kernel against its plain twin on (q, k, v): output within
     two bf16 steps of max|ref| (at most 1e-2), LSE within 1e-3; CUDA-event
-    times of both. Returns {max_abs_err, ms, plain_ms}."""
+    times of both and of SDPA. Returns a kernel row."""
     from chronoedit_tpu_torch.ops import flash_attention as fa
 
     scale = q.shape[-1] ** -0.5
@@ -205,10 +301,74 @@ def compare_flash(kid: str, what: str, q, k, v, q_chunk: int | None = None) -> d
     ms = cuda_ms(lambda: fa.flash_attention_with_lse(q, k, v, scale))
     plain = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, scale, q_chunk=q_chunk),
                     reps=3, warmup=1)
-    tflops = 4 * q.shape[0] * q.shape[2] * q.shape[1] * skv * q.shape[3] / ms / 1e9
-    print(f"   kernel {ms:.3f} ms ({tflops:.1f} TFLOP/s), plain {plain:.3f} ms")
+    library = cuda_ms(lambda: sdpa(q, k, v, scale))
+    flops = 4 * q.shape[0] * q.shape[2] * q.shape[1] * skv * q.shape[3]
+    row = {"max_abs_err": e_out, "ms": ms, "plain_ms": plain, "library_ms": library,
+           **bound(flops, attention_bytes(q, k, 2, 2, 1))}
+    print(f"   kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain:.3f} ms, "
+          f"SDPA {library:.3f} ms, bound {row['bound_ms']:.3f} ms ({row['bound_by']})")
     torch.cuda.empty_cache()
-    return {"max_abs_err": e_out, "ms": ms, "plain_ms": plain}
+    return row
+
+
+def compare_flash_bwd(what: str, q, k, v) -> dict[str, dict]:
+    """K6 (dQ) and K7 (dK, dV) against the q-chunked fp32 twin on the same
+    bf16 q, k, v, the forward kernel's O and LSE and a random dO: each
+    gradient within K67_MAX_STEPS bf16 steps of its max|ref| and within
+    K67_NORM_REL normwise. CUDA-event times of each kernel (its wrapper,
+    which adds the dsum reduction) and, for each kernel's own outputs
+    alone (dQ for K6; dK and dV for K7), of the twin and of SDPA's backward
+    asked for just those gradients. Returns {flash_bwd_dq, flash_bwd_dkv}
+    rows."""
+    from chronoedit_tpu_torch.ops import flash_attention as fa
+
+    scale = q.shape[-1] ** -0.5
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    out, lse = fa.flash_attention_with_lse(q, k, v, scale)
+    dout = torch.randn(out.shape, device=q.device, dtype=q.dtype,
+                       generator=torch.Generator(device=q.device).manual_seed(skv))
+    got = fa.flash_attention_bwd(q, k, v, out, dout, lse, scale)
+    ref = fa.flash_attention_bwd_plain(q, k, v, out, dout, lse, scale, q_chunk=Q_CHUNK)
+    errs = {}
+    for name, g_, r_ in zip(("dq", "dk", "dv"), got, ref):
+        ref_max = float(r_.float().abs().max())
+        err = max_err(g_, r_)
+        rel = float((g_.float() - r_.float()).norm() / r_.float().norm())
+        tol = K67_MAX_STEPS * ULP_BF16 * ref_max
+        print(f"K6/K7 flash_bwd {what:5s} kv {skv}: {name} max err {err:.3e} (tol {tol:.3e}, "
+              f"max|ref| {ref_max:.4f}), normwise {rel:.3e} (tol {K67_NORM_REL})")
+        if not (err <= tol and rel <= K67_NORM_REL and bool(torch.isfinite(g_).all())):
+            raise AssertionError(f"K6/K7 {name} disagrees with its twin at kv={skv}")
+        errs[name] = err
+    del got, ref
+    torch.cuda.empty_cache()
+
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    with torch.enable_grad():
+        lib_out = sdpa(qg, kg, vg, scale)
+    unit = 2 * b * h * sq * skv * d  # FLOPs of one (Sq x Skv x D) product
+    rows = {}
+    # K6: S, dP, dS k; reads q, k, v, dO, lse, dsum, writes dQ.
+    # K7: S^T, dP^T, P^T dO, dS^T q; reads q, k, v, dO, lse, dsum, writes dK, dV
+    for name, need_dq, wrt, flops, nbytes, err in (
+            ("flash_bwd_dq", True, (qg,), 3 * unit, attention_bytes(q, k, 3, 2, 2), errs["dq"]),
+            ("flash_bwd_dkv", False, (kg, vg), 4 * unit, attention_bytes(q, k, 2, 4, 2),
+             max(errs["dk"], errs["dv"]))):
+        flags = {"need_dq": need_dq, "need_dkv": not need_dq}
+        ms = cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, out, dout, lse, scale, **flags))
+        plain = cuda_ms(lambda: fa.flash_attention_bwd_plain(
+            q, k, v, out, dout, lse, scale, q_chunk=Q_CHUNK, **flags), reps=3, warmup=1)
+        library = cuda_ms(lambda: torch.autograd.grad(lib_out, wrt, dout.transpose(1, 2),
+                                                      retain_graph=True))
+        rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain, "library_ms": library,
+                      **bound(flops, nbytes)}
+        print(f"   {name}: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), twin {plain:.3f} "
+              f"ms, SDPA backward for {'dQ' if need_dq else 'dK, dV'} {library:.3f} ms, bound "
+              f"{rows[name]['bound_ms']:.3f} ms ({rows[name]['bound_by']})")
+    del lib_out
+    torch.cuda.empty_cache()
+    return rows
 
 
 # ----------------------------------------------------------- phases 4, 5
@@ -294,14 +454,129 @@ def small_references(dev: torch.device) -> dict[str, float]:
     return results
 
 
+def small_training_config(dtype, remat: str):
+    """The small references' DiT (2 blocks x 2 heads of 128) for training."""
+    from chronoedit_tpu_torch.configs import chronoedit_14b
+
+    d = chronoedit_14b(dtype=dtype, param_dtype=dtype).dit
+    return dataclasses.replace(d, num_heads=2, ffn_dim=512, num_layers=2, text_dim=64,
+                               image_dim=32, image_tokens=9, remat=remat)
+
+
+def training_references(dev: torch.device) -> dict[str, float]:
+    """Two LoRA steps and two full-parameter steps of the 2-block DiT at the
+    64x64 edit's geometry: on ``dev`` in bf16 with the kernels (K6/K7 in
+    the backward) and remat "full", against the same weights, batch and
+    draws in fp32 on the CPU with the twins. Compares the loss (relative),
+    the cosine of the whole gradient vector, the first step's loss and
+    grad_norm (relative), and after the second step Adam's first moment
+    and the update of every trained weight (normwise). Returns the
+    readings."""
+    from chronoedit_tpu_torch.core.rectified_flow import RectifiedFlowConfig
+    from chronoedit_tpu_torch.models import dit as dit_lib
+    from chronoedit_tpu_torch.models import lora as lora_lib
+    from chronoedit_tpu_torch.train import lora_train, train_step
+
+    cpu = torch.device("cpu")
+    ref_cfg = small_training_config(torch.float32, "none")
+    dev_cfg = small_training_config(torch.bfloat16, "full")
+    g = torch.Generator().manual_seed(3)
+    ref_dit = dit_lib.init_dit_params(ref_cfg, g)
+    with torch.no_grad():  # a zero head would stop every gradient
+        w = ref_dit.head.proj.weight
+        w.uniform_(-w.shape[1] ** -0.5, w.shape[1] ** -0.5, generator=g)
+    ref_lora = lora_lib.init_lora_params(g, ref_dit, lora_lib.LoRAConfig())
+    with torch.no_grad():  # b = 0 would give a zero gradient to every a
+        for blk in ref_lora.blocks:
+            for _, ad in lora_lib.iter_adapters(blk):
+                ad.b.normal_(0.0, 0.02, generator=g)
+    batch = {"latents": torch.randn((1, 16, 2, 8, 8), generator=g),
+             "condition": torch.randn((1, 20, 2, 8, 8), generator=g),
+             "text_emb": torch.randn((1, 16, 64), generator=g),
+             "image_emb": torch.randn((1, 9, 32), generator=g)}
+    u, noise = torch.tensor([0.6]), torch.randn((1, 16, 2, 8, 8), generator=g)
+    rf = RectifiedFlowConfig()
+
+    def on(device, cfg):
+        dit = dit_lib.DiT(cfg, device=device)
+        dit.load_state_dict(ref_dit.state_dict())
+        lora = lora_lib.LoRA(dit, lora_lib.LoRAConfig(), device=device)
+        lora.load_state_dict(ref_lora.state_dict())
+        return dit, lora, {k: v.to(device) for k, v in batch.items()}, u.to(device), noise.to(device)
+
+    def flat(tensors):
+        return torch.cat([x.detach().double().flatten().cpu() for x in tensors])
+
+    def rel(got, want):
+        return float((got - want).norm() / want.norm())
+
+    readings = {}
+    for mode in ("lora", "full"):
+        sides, tcfg = {}, None
+        for name, device, cfg in (("ref", cpu, ref_cfg), ("dev", dev, dev_cfg)):
+            dit, lora, b, u_, noise_ = on(device, cfg)
+            params = list(lora.parameters()) if mode == "lora" else list(dit.parameters())
+            for p in params:
+                p.requires_grad_(True)
+            loss = train_step.velocity_loss(dit, cfg, rf, b["latents"], b["condition"],
+                                            b["text_emb"], b["image_emb"], u_, noise_,
+                                            lora=lora if mode == "lora" else None)
+            grad = flat(torch.autograd.grad(loss, params))
+            if tcfg is None:  # the clip acts on both sides
+                tcfg = train_step.TrainConfig(lr=TRAIN_LR, warmup_steps=1,
+                                              grad_clip=0.5 * float(grad.norm()))
+            if mode == "lora":
+                state = lora_train.make_lora_train_state(lora, tcfg)
+                step = functools.partial(lora_train.make_lora_train_step(cfg, tcfg), state, dit)
+            else:
+                state = train_step.make_train_state(dit, tcfg)
+                step = functools.partial(train_step.make_train_step(cfg, tcfg), state)
+            before = [p.detach().clone() for p in params]
+            metrics = step(b, u=u_, noise=noise_)
+            if not all(torch.equal(p, q) for p, q in zip(params, before)):
+                raise AssertionError(f"training reference {mode}: the warm-up step moved a weight")
+            step(b, u=u_, noise=noise_)
+            update = flat([p.detach().float() - q.float() for p, q in zip(params, before)])
+            moment = flat([state.optimizer.adamw.state[p]["exp_avg"] for p in params])
+            sides[name] = (float(loss.detach()), grad, float(metrics["loss"]),
+                           float(metrics["grad_norm"]), update, moment)
+            del dit, lora, state, step, params, before
+        (l_ref, g_ref, sl_ref, gn_ref, up_ref, m_ref) = sides["ref"]
+        (l_dev, g_dev, sl_dev, gn_dev, up_dev, m_dev) = sides["dev"]
+        loss_rel = abs(l_dev - l_ref) / abs(l_ref)
+        cos = float(g_ref @ g_dev / (g_ref.norm() * g_dev.norm()))
+        step_rel = abs(sl_dev - sl_ref) / abs(sl_ref)
+        norm_rel = abs(gn_dev - gn_ref) / gn_ref
+        moment_rel, update_rel = rel(m_dev, m_ref), rel(up_dev, up_ref)
+        print(f"training reference ({mode}, 2 blocks x 2 heads, 64x64 edit geometry): "
+              f"loss card bf16 {l_dev:.6f} vs CPU fp32 {l_ref:.6f}, relative {loss_rel:.2e} "
+              f"(bound {TRAIN_LOSS_REL}); gradient cosine over {g_ref.numel()} entries "
+              f"{cos:.6f} (bound {TRAIN_GRAD_COS}); the step's loss relative {step_rel:.2e} "
+              f"(bound {TRAIN_LOSS_REL}), grad_norm {gn_dev:.4e} vs {gn_ref:.4e}, relative "
+              f"{norm_rel:.2e} (bound {TRAIN_NORM_REL}); after the second step (lr {TRAIN_LR}, "
+              f"clip {tcfg.grad_clip:.4e}) Adam's first moment {moment_rel:.3e} (bound "
+              f"{TRAIN_MOMENT_REL}), the update {update_rel:.3e} (bound "
+              f"{TRAIN_UPDATE_REL}) normwise, |update| {float(up_ref.norm()):.4e}")
+        if not (loss_rel <= TRAIN_LOSS_REL and cos >= TRAIN_GRAD_COS
+                and step_rel <= TRAIN_LOSS_REL and norm_rel <= TRAIN_NORM_REL and gn_dev > 0
+                and moment_rel <= TRAIN_MOMENT_REL and update_rel <= TRAIN_UPDATE_REL
+                and float(up_ref.norm()) > 0):
+            raise AssertionError(f"training reference {mode}: the card disagrees with the CPU")
+        readings[mode] = {"loss_rel": loss_rel, "grad_cos": cos, "norm_rel": norm_rel,
+                          "moment_rel": moment_rel, "update_rel": update_rel}
+    return readings
+
+
 def expected_launches(cfg, tokens: list[int]) -> tuple[dict[str, int], dict[int, int]]:
     """Kernel launches of one edit whose step i self-attends over tokens[i]:
     per block and step 3 attentions (self, text, image), 2 LN-modulates, 2
     gated residuals and 5 RMSNorms (self q, k; cross q; text k; image k),
-    plus the head's LN-modulate; and the attentions by KV length."""
+    plus the head's LN-modulate, and no backward; and the attentions by KV
+    length."""
     n, steps = cfg.dit.num_layers, len(tokens)
     by_name = {"flash_fwd": 3 * n * steps, "ln_modulate": (2 * n + 1) * steps,
-               "gated_residual": 2 * n * steps, "rms_norm": 5 * n * steps}
+               "gated_residual": 2 * n * steps, "rms_norm": 5 * n * steps,
+               "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
     by_kv = {TEXT_TOKENS: n * steps, IMAGE_TOKENS: n * steps}
     for s in tokens:
         by_kv[s] = by_kv.get(s, 0) + n
@@ -436,6 +711,108 @@ def reasoning_path(pipe, dev, launches: tuple[Counter, Counter],
         profile_stages(fns, profile_dir)
 
 
+def expected_train_launches(cfg) -> tuple[dict[str, int], dict[str, dict[int, int]]]:
+    """Kernel launches of one LoRA step with remat "full": the forward and
+    the backward's recompute each run every block's 3 attentions, 2
+    LN-modulates, 2 gated residuals and 5 RMSNorms (the head's LN-modulate
+    runs once, outside the blocks); the backward runs K6 for all 3
+    attentions (q always needs a gradient) and K7 for self and text only
+    (k_img/v_img are not LoRA targets and the image context is frozen).
+    Returns ({name: count}, {name: {KV length: count}})."""
+    n = cfg.dit.num_layers
+    by_name = {"flash_fwd": 2 * 3 * n, "ln_modulate": 2 * 2 * n + 1,
+               "gated_residual": 2 * 2 * n, "rms_norm": 2 * 5 * n,
+               "flash_bwd_dq": 3 * n, "flash_bwd_dkv": 2 * n}
+    by_kv = {"flash_fwd": {EDIT_TOKENS: 2 * n, TEXT_TOKENS: 2 * n, IMAGE_TOKENS: 2 * n},
+             "flash_bwd_dq": {EDIT_TOKENS: n, TEXT_TOKENS: n, IMAGE_TOKENS: n},
+             "flash_bwd_dkv": {EDIT_TOKENS: n, TEXT_TOKENS: n}}
+    return by_name, by_kv
+
+
+def base_checksum(model) -> int:
+    """An exact integer checksum of every parameter's bits."""
+    return sum(int(p.detach().view(torch.int16).sum(dtype=torch.int64))
+               for p in model.parameters())
+
+
+def training_path(pipe, dev, launches: tuple[Counter, Counter],
+                  profile_dir: Path | None) -> dict:
+    """The slice at full width: rank-32 LoRA on the default targets over the
+    frozen bf16 DiT (remat "full"), three ``make_lora_train_step`` calls on
+    720p mock edit pairs through ``mock_batch_iterator``. The counters are
+    zeroed before each step and must show the launches the path implies;
+    every loss and grad_norm is finite (grad_norm > 0), every adapter's b
+    has moved after the second step (the warm-up gives the first update
+    learning rate 0) and the base's bits are unchanged. Adds the steps'
+    launches to ``launches``; returns the step readings."""
+    from chronoedit_tpu_torch.data.mock import MockEditDataset, mock_batch_iterator
+    from chronoedit_tpu_torch.kernels import build
+    from chronoedit_tpu_torch.models import lora as lora_lib
+    from chronoedit_tpu_torch.train import lora_train, train_step
+
+    cfg = pipe.config
+    d = cfg.dit
+    dataset = MockEditDataset(height=EDIT_H, width=EDIT_W, text_tokens=TEXT_TOKENS,
+                              text_dim=d.text_dim, image_tokens=d.image_tokens,
+                              image_dim=d.image_dim, seed=30)
+    batches_it = mock_batch_iterator(pipe.vae, cfg, dataset)
+    (batches, secs) = host_s(lambda: [next(batches_it) for _ in range(3)])
+    b0 = batches[0]
+    print(f"training batches: 3 mock 720p edit pairs through edit_training_batch in "
+          f"{secs:.2f} s: latents {tuple(b0['latents'].shape)}, condition "
+          f"{tuple(b0['condition'].shape)}, text {tuple(b0['text_emb'].shape)}, image "
+          f"{tuple(b0['image_emb'].shape)}")
+    if (tuple(b0["latents"].shape) != (1, 16, 2, EDIT_H // 8, EDIT_W // 8)
+            or tuple(b0["condition"].shape) != (1, 20, 2, EDIT_H // 8, EDIT_W // 8)):
+        raise AssertionError("edit_training_batch gave the wrong shapes")
+
+    g = torch.Generator(device=dev).manual_seed(31)
+    lcfg = lora_lib.LoRAConfig()
+    lora = lora_lib.init_lora_params(g, pipe.dit, lcfg)
+    tcfg = train_step.TrainConfig(lr=1e-4, warmup_steps=1)
+    state = lora_train.make_lora_train_state(lora, tcfg)
+    step = lora_train.make_lora_train_step(pipe.dit.cfg, tcfg)
+    n_lora = sum(p.numel() for p in lora.parameters())
+    print(f"LoRA rank {lcfg.rank} on {len(lcfg.targets)} targets x {len(lora.blocks)} blocks: "
+          f"{n_lora / 1e6:.2f} M fp32 parameters; remat {pipe.dit.cfg.remat!r}; "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated before the first step")
+    checksum = base_checksum(pipe.dit)
+    want = expected_train_launches(cfg)
+    times, peaks = [], []
+    for i, batch in enumerate(batches):
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        metrics, secs = host_s(lambda: step(state, pipe.dit, batch, g))
+        got = (dict(build.LAUNCHES), {"flash_fwd": dict(build.FLASH_KV_LAUNCHES),
+                                      **{k: dict(v) for k, v in build.BWD_KV_LAUNCHES.items()}})
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        times.append(secs)
+        peaks.append(peak)
+        print(f"LoRA train step {i} ({'cold' if i == 0 else 'warm'}): {secs:.3f} s, peak memory "
+              f"{peak:.2f} GiB, loss {loss:.5f}, grad_norm {gnorm:.4e}; launches {got[0]}; "
+              f"by KV length {got[1]}")
+        if got != want:
+            raise AssertionError(f"train step {i}: launches {got}, the path implies {want}")
+        if not (math.isfinite(loss) and math.isfinite(gnorm) and gnorm > 0):
+            raise AssertionError(f"train step {i}: loss {loss}, grad_norm {gnorm}")
+        for total, counts in zip(launches, (got[0], got[1]["flash_fwd"])):
+            total.update(counts)
+    moved = [bool(ad.b.detach().any()) for blk in lora.blocks
+             for _, ad in lora_lib.iter_adapters(blk)]
+    if not all(moved):
+        raise AssertionError(f"{moved.count(False)} adapters' b did not move in 3 steps")
+    if base_checksum(pipe.dit) != checksum:
+        raise AssertionError("the frozen base's weights changed")
+    warm = statistics.median(times[1:])
+    print(f"LoRA training at 720p: first step {times[0]:.3f} s, median of the rest {warm:.3f} s, "
+          f"peak {max(peaks):.2f} GiB; every b moved, base bits unchanged")
+    if profile_dir is not None:
+        profile_stages({"lora_train_step": lambda: step(state, pipe.dit, batches[0], g)},
+                       profile_dir)
+    return {"first_s": times[0], "warm_s": warm, "peak_gib": max(peaks)}
+
+
 def tiled_decode_check(vae, x: torch.Tensor) -> None:
     """The card's W-tiled streaming decode of the latent trajectory ``x``
     against its untiled streaming decode, fp32 weights and TF32 off."""
@@ -506,13 +883,34 @@ SOURCES = {
                  "chronoedit_tpu/ops/fused_norms.py:251"),
     "flash_fwd_streamed": ("chronoedit_tpu_torch/csrc/flash_fwd.cu",
                            "chronoedit_tpu/ops/flash_attention.py:227"),
+    "flash_bwd_dq": ("chronoedit_tpu_torch/csrc/flash_bwd.cu",
+                     "chronoedit_tpu/ops/flash_attention.py:588"),
+    "flash_bwd_dkv": ("chronoedit_tpu_torch/csrc/flash_bwd.cu",
+                      "chronoedit_tpu/ops/flash_attention.py:618"),
 }
+
+
+def print_ptxas(log: Path) -> None:
+    """Each kernel's registers, spills and shared memory from nvcc's
+    ``-Xptxas=-v`` output (kept beside the library when it was built)."""
+    if not log.exists():
+        print("ptxas: no build log (the library was built before)")
+        return
+    name = None
+    for line in log.read_text().splitlines():
+        if "Compiling entry function" in line:
+            name = next((k for k in ("flash_bwd_dq", "flash_bwd_dkv", "flash_fwd",
+                                     "ln_modulate", "gated_residual", "rms_norm")
+                         if k + "_kernel" in line), line)
+        elif name and ("registers" in line or "spill" in line):
+            print(f"ptxas {name}: {line.split(':', 1)[-1].strip()}")
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
-                        help="profile one DiT forward and the VAE of each path after its edits")
+                        help="profile one DiT forward and the VAE of each serving path, "
+                             "and one LoRA train step")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -533,16 +931,25 @@ def main() -> int:
 
     _, secs = host_s(build.lib)
     print(f"kernels built and loaded in {secs:.1f} s: {build.library_path().name}")
+    print_ptxas(build.build_log_path())
 
     profile_dir = Path(__file__).resolve().parent / "chiprun_out" if args.profile else None
     by_name, by_kv = Counter(), Counter()
-    with torch.inference_mode():
+    with torch.no_grad():
         results = compare_kernels(dev)
-        torch.cuda.empty_cache()
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
         small_references(dev)
-        pipe = build_model(dev, chronoedit_14b_distilled())
+    training_references(dev)
+    # built outside inference_mode: training saves these weights for backward
+    cfg = chronoedit_14b_distilled()
+    pipe = build_model(dev, dataclasses.replace(
+        cfg, dit=dataclasses.replace(cfg.dit, remat="full")))
+    with torch.inference_mode():
         edit_path(pipe, dev, (by_name, by_kv), profile_dir)
         reasoning_path(pipe, dev, (by_name, by_kv), profile_dir)
+    torch.cuda.empty_cache()
+    training_path(pipe, dev, (by_name, by_kv), profile_dir)
 
     # K5 is the flash kernel's launches over the 28,800-token reasoning
     # self-attention; K1 the rest of them

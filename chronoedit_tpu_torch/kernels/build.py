@@ -1,19 +1,22 @@
 """Builds the CUDA kernels in ``csrc/`` and loads them with ctypes.
 
-All ``csrc/*.cu`` files compile with one ``nvcc`` call for ``sm_90a`` into
-one shared library with a plain C interface (no PyTorch headers, so the
+Each ``csrc/*.cu`` file compiles with its own ``nvcc`` call for ``sm_90a``,
+all in parallel, and the objects link into one shared library with a plain
+C interface (no PyTorch headers, so the
 build takes seconds). The library lands in ``build/kernels/`` at the
 repository root, named by a hash of the sources and the flags, so an edited
 source rebuilds and an unchanged one loads the library already there.
+nvcc's output (``-Xptxas=-v``: each kernel's registers, shared memory and
+spills) is kept beside it, in :func:`build_log_path`.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch; the
 wrappers call :func:`check` on it. A missing ``nvcc`` or a failed build
 raises. Nothing here runs at import time.
 
-``LAUNCHES`` counts kernel launches by kernel name, and
-``FLASH_KV_LAUNCHES`` the flash-attention launches by KV length. Each
-wrapper adds one right after a launch that returned success, and nowhere
-else.
+``LAUNCHES`` counts kernel launches by kernel name;
+``FLASH_KV_LAUNCHES`` counts the flash-attention forward's launches by KV
+length, and ``BWD_KV_LAUNCHES`` those of each backward kernel. Each wrapper
+adds one right after a launch that returned success, and nowhere else.
 """
 
 from __future__ import annotations
@@ -29,17 +32,23 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+              "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas=-v")
 
 LAUNCHES: dict[str, int] = {
-    "flash_fwd": 0, "ln_modulate": 0, "gated_residual": 0, "rms_norm": 0}
+    "flash_fwd": 0, "ln_modulate": 0, "gated_residual": 0, "rms_norm": 0,
+    "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 FLASH_KV_LAUNCHES: dict[int, int] = {}
+BWD_KV_LAUNCHES: dict[str, dict[int, int]] = {"flash_bwd_dq": {}, "flash_bwd_dkv": {}}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures: pointers and the stream as void*, sizes as int
 _SIGNATURES = {
     # q, k, v, o, lse, B, Sq, Skv, H, D, scale, stream
     "flash_fwd_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # q, k, v, dout, lse, dsum, dq, B, Sq, Skv, H, D, scale, stream
+    "flash_bwd_dq_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # q, k, v, dout, lse, dsum, dk, dv, B, Sq, Skv, H, D, scale, stream
+    "flash_bwd_dkv_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     # x, scale, shift, out, rows, T, hw, D, eps, stream
     "ln_modulate_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     # x, delta, gate, out, rows, T, hw, D, stream
@@ -55,6 +64,8 @@ def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
     FLASH_KV_LAUNCHES.clear()
+    for counts in BWD_KV_LAUNCHES.values():
+        counts.clear()
 
 
 def _sources() -> list[Path]:
@@ -78,24 +89,42 @@ def library_path() -> Path:
     return BUILD_DIR / f"libchronoedit_kernels_{h.hexdigest()[:16]}.so"
 
 
+def build_log_path() -> Path:
+    return library_path().with_suffix(".log")
+
+
 def build() -> Path:
-    """Compile ``csrc/*.cu`` unless the library for these sources exists.
+    """Compile ``csrc/*.cu`` unless the library for these sources exists:
+    one ``nvcc -c`` per source, all started together, then one link.
     Returns its path; raises with nvcc's output on failure."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cus = [str(s) for s in _sources() if s.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cus]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for src in (s for s in _sources() if s.suffix == ".cu"):
+            obj = os.path.join(tmp, src.stem + ".o")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-c", "-I", str(CSRC), "-o", obj, str(src)]
+            procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+            objs.append(obj)
+        so = os.path.join(tmp, out.name)
+        link = [_nvcc(), "-shared", "-o", so, *objs]
+        log = []
+        for cmd, proc in procs + [(link, None)]:
+            if proc is None:  # every compile has finished: link
+                proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True)
+            text = proc.communicate()[0]
+            log.append(text)
+            if proc.returncode != 0:
+                for _, other in procs:
+                    other.kill()
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{text}")
+        build_log_path().write_text("".join(log))
+        os.replace(so, out)
     return out
 
 
@@ -122,4 +151,5 @@ def check(err: int, name: str, kv_len: int | None = None) -> None:
         raise RuntimeError(f"{name}: CUDA error {err}: {msg}")
     LAUNCHES[name] += 1
     if kv_len is not None:
-        FLASH_KV_LAUNCHES[kv_len] = FLASH_KV_LAUNCHES.get(kv_len, 0) + 1
+        counts = FLASH_KV_LAUNCHES if name == "flash_fwd" else BWD_KV_LAUNCHES[name]
+        counts[kv_len] = counts.get(kv_len, 0) + 1

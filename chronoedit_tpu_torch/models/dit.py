@@ -14,7 +14,16 @@ The blocks are an ``nn.ModuleList`` walked by a Python loop. Timesteps are
 per latent frame, (B, T). The main path's kernels: K2 (LayerNorm +
 modulate), K3 (gated residual), K4 (RMSNorm, on every q and k including
 the text and image keys) and K1 (attention), through the wrappers in
-``ops/``.
+``ops/``; in training, K6/K7 (attention's backward) through the same
+wrappers' autograd Functions.
+
+Training: gradients flow to every parameter that requires one (full
+fine-tuning) and to LoRA adapters when ``dit_forward`` is given them (their
+block's targets are merged inside the block, see ``models/lora.py``).
+``DiTConfig.remat = "full"`` recomputes blocks in the backward, as JAX's
+``jax.checkpoint`` does: only each block's inputs stay alive between the
+forward and the backward. (JAX's ``"matmul_only"`` policy is not ported: no
+path of the port sets it.)
 """
 
 from __future__ import annotations
@@ -25,9 +34,11 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from chronoedit_tpu_torch.core.rope import (
     Rope3DSpec, apply_rope, rope_3d_tables, temporal_skip_rope_tables)
+from chronoedit_tpu_torch.models import lora as lora_lib
 from chronoedit_tpu_torch.ops import layers as L
 from chronoedit_tpu_torch.ops.attention import dot_product_attention
 from chronoedit_tpu_torch.ops.fused_norms import (
@@ -57,6 +68,7 @@ class DiTConfig:
     rope: Rope3DSpec = Rope3DSpec()
     dtype: torch.dtype = torch.bfloat16  # compute / stream dtype
     param_dtype: torch.dtype = torch.float32
+    remat: str = "none"  # "none" | "full", as the JAX DiT
 
     @property
     def dim(self) -> int:
@@ -164,53 +176,76 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(b, s, h * d)
 
 
-def _self_attention(p: SelfAttention, x, rope_cos, rope_sin, cfg: DiTConfig):
-    q = rms_norm_fused(p.q_norm, L.linear(p.q, x), cfg.eps)
-    k = rms_norm_fused(p.k_norm, L.linear(p.k, x), cfg.eps)
-    v = L.linear(p.v, x)
+def _lin(p: L.Linear, x, weights: dict | None):
+    return L.linear(p, x, None if weights is None else weights.get(p))
+
+
+def _self_attention(p: SelfAttention, x, rope_cos, rope_sin, cfg: DiTConfig, weights):
+    q = rms_norm_fused(p.q_norm, _lin(p.q, x, weights), cfg.eps)
+    k = rms_norm_fused(p.k_norm, _lin(p.k, x, weights), cfg.eps)
+    v = _lin(p.v, x, weights)
     q, k, v = (_split_heads(t, cfg.num_heads) for t in (q, k, v))
     cos, sin = rope_cos[:, None, :], rope_sin[:, None, :]
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     out = dot_product_attention(q, k, v)
-    return L.linear(p.o, _merge_heads(out))
+    return _lin(p.o, _merge_heads(out), weights)
 
 
-def _cross_attention(p: CrossAttention, x, text_ctx, img_ctx, cfg: DiTConfig):
+def _cross_attention(p: CrossAttention, x, text_ctx, img_ctx, cfg: DiTConfig, weights):
     """Text branch + image branch, summed."""
     h = cfg.num_heads
-    q = _split_heads(rms_norm_fused(p.q_norm, L.linear(p.q, x), cfg.eps), h)
-    k = rms_norm_fused(p.k_norm, L.linear(p.k, text_ctx), cfg.eps)
-    v = L.linear(p.v, text_ctx)
+    q = _split_heads(rms_norm_fused(p.q_norm, _lin(p.q, x, weights), cfg.eps), h)
+    k = rms_norm_fused(p.k_norm, _lin(p.k, text_ctx, weights), cfg.eps)
+    v = _lin(p.v, text_ctx, weights)
     out = dot_product_attention(q, _split_heads(k, h), _split_heads(v, h))
     if img_ctx is not None:
-        k_img = rms_norm_fused(p.k_img_norm, L.linear(p.k_img, img_ctx), cfg.eps)
-        v_img = L.linear(p.v_img, img_ctx)
+        k_img = rms_norm_fused(p.k_img_norm, _lin(p.k_img, img_ctx, weights), cfg.eps)
+        v_img = _lin(p.v_img, img_ctx, weights)
         out = out + dot_product_attention(q, _split_heads(k_img, h),
                                           _split_heads(v_img, h))
-    return L.linear(p.o, _merge_heads(out))
+    return _lin(p.o, _merge_heads(out), weights)
 
 
 def dit_block(p: DiTBlock, x, text_ctx, img_ctx, e, rope_cos, rope_sin, hw: int,
-              cfg: DiTConfig) -> torch.Tensor:
+              cfg: DiTConfig, weights: dict | None = None) -> torch.Tensor:
     """One transformer block. x (B, S, dim) stream; e (B, T, 6, dim) fp32
-    time projection; hw tokens per latent frame."""
+    time projection; hw tokens per latent frame; ``weights`` maps a linear
+    layer to the weight that stands in for its own (LoRA-merged)."""
     mods = e + p.scale_shift_table.float()[None, None]
     shift_msa, scale_msa, gate_msa, c_shift, c_scale, c_gate = (
         mods[:, :, i].contiguous() for i in range(6))
 
     norm_x = layer_norm_modulate(x, scale_msa, shift_msa, hw, cfg.eps)
-    attn = _self_attention(p.self_attn, norm_x, rope_cos, rope_sin, cfg)
+    attn = _self_attention(p.self_attn, norm_x, rope_cos, rope_sin, cfg, weights)
     x = gated_residual(x, attn, gate_msa, hw)
 
     # cross-attention: affine fp32 LayerNorm, plain residual add
     norm2 = getattr(p, "norm2", None)
     norm_x = L.layer_norm(norm2, x, cfg.eps, out_dtype=x.dtype)
-    x = x + _cross_attention(p.cross_attn, norm_x, text_ctx, img_ctx, cfg)
+    x = x + _cross_attention(p.cross_attn, norm_x, text_ctx, img_ctx, cfg, weights)
 
     norm_x = layer_norm_modulate(x, c_scale, c_shift, hw, cfg.eps)
-    ff = L.linear(p.ffn.fc2, L.gelu_tanh(L.linear(p.ffn.fc1, norm_x)))
+    ff = _lin(p.ffn.fc2, L.gelu_tanh(_lin(p.ffn.fc1, norm_x, weights)), weights)
     return gated_residual(x, ff, c_gate, hw)
+
+
+def _lora_block(p: DiTBlock, adapters, scaling: float, x, text_ctx, img_ctx, e,
+                rope_cos, rope_sin, hw: int, cfg: DiTConfig) -> torch.Tensor:
+    """A block with its LoRA targets merged first (inside whatever
+    checkpoint wraps it, so merged weights live one block at a time)."""
+    weights = None if adapters is None else lora_lib.merged_weights(p, adapters, scaling)
+    return dit_block(p, x, text_ctx, img_ctx, e, rope_cos, rope_sin, hw, cfg, weights)
+
+
+def _run_block(cfg: DiTConfig, *args) -> torch.Tensor:
+    """``_lora_block(*args)`` under ``cfg.remat`` when autograd records."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return _lora_block(*args)
+    if cfg.remat == "full":
+        return ckpt.checkpoint(_lora_block, *args, use_reentrant=False,
+                               preserve_rng_state=False)
+    raise ValueError(f"unknown remat mode {cfg.remat!r}")
 
 
 # ================================================================= forward
@@ -260,7 +295,7 @@ def _condition_embeddings(m: DiT, cfg: DiTConfig, timesteps, text_emb, image_emb
 
 def dit_forward(model: DiT, x: torch.Tensor, timesteps: torch.Tensor,
                 text_emb: torch.Tensor, image_emb: torch.Tensor | None = None,
-                layer_mask=None) -> torch.Tensor:
+                layer_mask=None, lora: lora_lib.LoRA | None = None) -> torch.Tensor:
     """Velocity prediction.
 
     Args:
@@ -268,6 +303,8 @@ def dit_forward(model: DiT, x: torch.Tensor, timesteps: torch.Tensor,
       timesteps: (B,) shared or (B, T) per latent frame, in [0, 1000).
       text_emb: (B, L, text_dim); image_emb: (B, 257, image_dim) or None.
       layer_mask: optional (num_layers,) 0/1 values; 0 skips a block.
+      lora: optional adapters, merged block by block as
+        ``W + (alpha / r) * a @ b``.
     Returns:
       (B, C_out, T, H, W) in cfg.dtype.
     """
@@ -289,7 +326,10 @@ def dit_forward(model: DiT, x: torch.Tensor, timesteps: torch.Tensor,
     for i, blk in enumerate(model.blocks):
         if layer_mask is not None and float(layer_mask[i]) <= 0.5:
             continue
-        tokens = dit_block(blk, tokens, text_ctx, img_ctx, t_proj, cos, sin, hw, cfg)
+        adapters = None if lora is None else lora.blocks[i]
+        scaling = 0.0 if lora is None else lora.cfg.scaling
+        tokens = _run_block(cfg, blk, adapters, scaling, tokens, text_ctx, img_ctx,
+                            t_proj, cos, sin, hw, cfg)
 
     head = model.head
     mods = head.scale_shift_table.float()[None, None] + temb[:, :, None, :]

@@ -12,6 +12,8 @@ structural:
 - the DiT's stacked ``blocks`` (leading layer axis) unstack into the
   ``nn.ModuleList``;
 - lists (the VAE stages and res blocks) map index by index;
+- LoRA adapters' stacked ``a`` (L, d_in, r) and ``b`` (L, r, d_out)
+  unstack into each block's adapter, in JAX's layout;
 - every other leaf is copied by name.
 
 Every parameter of the module must be written exactly once, else it raises.
@@ -26,6 +28,7 @@ import torch
 from torch import nn
 
 from chronoedit_tpu_torch.models.dit import DiT
+from chronoedit_tpu_torch.models.lora import LoRA
 from chronoedit_tpu_torch.models.vae import VAE
 
 
@@ -80,6 +83,18 @@ def load_dit(model: DiT, params: dict) -> DiT:
     _load(model, {k: v for k, v in params.items() if k != "blocks"}, "", seen)
     _check_complete(model, seen)
     return model
+
+
+def load_lora(lora: LoRA, params: dict) -> LoRA:
+    """Copy a numpy-converted JAX LoRA tree (``{"blocks": {module: {layer:
+    {"a", "b"}}}}``) into ``lora``; returns it."""
+    seen: set = set()
+    blocks = params["blocks"]
+    for i, adapters in enumerate(lora.blocks):
+        layer = _map_tree(lambda a, i=i: np.asarray(a)[i], blocks)
+        _load(adapters, layer, f"blocks[{i}]", seen)
+    _check_complete(lora, seen)
+    return lora
 
 
 def load_vae(vae: VAE, params: dict) -> VAE:

@@ -1,8 +1,10 @@
 """Attention entry point, (B, S, H, D) layout.
 
-CPU tensors take the plain fp32 twin. CUDA tensors take the flash kernel
-(K1), which is built for head dim 128 only; any other head dim raises (the
-text and image encoders, whose head dims differ, come with a later port).
+Every call goes through the differentiable :class:`FlashAttention`
+Function: on CUDA tensors its forward is the flash kernel (K1/K5) and its
+backward K6/K7, all built for head dim 128 only (any other head dim
+raises; the text and image encoders, whose head dims differ, come with a
+later port); on CPU tensors the same Function runs the plain fp32 twins.
 """
 
 from __future__ import annotations

@@ -1,4 +1,5 @@
-"""Flash-attention forward (K1 and K5): a hand-written Hopper kernel and its twin.
+"""Flash attention: the forward (K1 and K5) and the backward (K6 and K7),
+hand-written Hopper kernels and their plain twins.
 
 The CUDA kernel (``csrc/flash_fwd.cu``) takes (B, S, H, 128) bf16 q/k/v in
 place — no transpose to a (B*H, S, D) layout and no padding: it masks the
@@ -10,6 +11,15 @@ kernel serves both TPU kernels, the resident K1 (the edit's 7,200 tokens
 and the cross-attention) and the streamed K5 (reasoning self-attention at
 28,800 tokens). Launches are counted by name and by KV length
 (``kernels/build.py``), which tells the two roles apart.
+
+The backward (``csrc/flash_bwd.cu``): K6 computes dQ, K7 dK and dV, both
+recomputing P from the forward's LSE as JAX's ``_backward`` does;
+``dsum = rowsum(dO * O)`` is one torch reduction in the wrapper. The
+autograd Function :class:`FlashAttention` ties the two together: its
+forward is the kernel (twin on the CPU), it saves q, k, v, O and the raw
+(B, H, Sq) LSE, and its backward launches only what ``needs_input_grad``
+asks for (no K7 when neither k nor v needs a gradient, no K6 when q does
+not).
 """
 
 from __future__ import annotations
@@ -53,13 +63,21 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("flash_fwd: empty sequence")
 
 
-def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                             scale: float) -> tuple[torch.Tensor, torch.Tensor]:
-    """Non-causal attention, BSHD. Returns ``(out, lse)`` with out
-    (B, Sq, H, D) in q's dtype and lse (B, Sq, H) fp32 (a view of the
-    kernel's (B, H, Sq) buffer)."""
+def _check_like_q(name: str, q: torch.Tensor, t: torch.Tensor, shape) -> None:
+    if (t.device != q.device or t.dtype != q.dtype or tuple(t.shape) != tuple(shape)
+            or not t.is_contiguous() or t.data_ptr() % 16):
+        raise ValueError(f"flash_bwd: {name} must be a contiguous {q.dtype} tensor of "
+                         f"shape {tuple(shape)} on {q.device}, got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
+
+
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """(out (B, Sq, H, D), lse (B, H, Sq) fp32): K1/K5 for CUDA tensors,
+    the twin for CPU tensors."""
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, scale)
+        out, lse = flash_attention_plain(q, k, v, scale)
+        return out, lse.transpose(1, 2)
     from chronoedit_tpu_torch.kernels import build
 
     _check(q, k, v)
@@ -70,10 +88,129 @@ def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
         b, sq, k.shape[1], h, d, scale, torch.cuda.current_stream().cuda_stream),
         "flash_fwd", kv_len=k.shape[1])
+    return out, lse
+
+
+def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """Non-causal attention, BSHD, not differentiable. Returns
+    ``(out, lse)`` with out (B, Sq, H, D) in q's dtype and lse (B, Sq, H)
+    fp32 (a view of the kernel's (B, H, Sq) buffer)."""
+    out, lse = _forward(q, k, v, scale)
     return out, lse.transpose(1, 2)
+
+
+def flash_attention_bwd_plain(q, k, v, out, dout, lse, scale: float,
+                              q_chunk: int | None = None, need_dq: bool = True,
+                              need_dkv: bool = True):
+    """fp32 twin of K6 + K7: ``(dq, dk, dv)`` in the inputs' dtypes from
+    lse (B, Sq, H), recomputing P = exp(scale q k^T - lse); None where not
+    asked for (``need_dq`` is K6's work, ``need_dkv`` K7's). With
+    ``q_chunk``, q rows go ``q_chunk`` at a time: dQ rows are independent,
+    dK and dV are summed over the chunks (each fp32 (B, H, rows, Skv)
+    score-sized matrix then stays bounded)."""
+    if q_chunk is not None and q_chunk < q.shape[1]:
+        dk = dv = None
+        if need_dkv:
+            dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+            dv = torch.zeros_like(dk)
+        dqs = []
+        for r0 in range(0, q.shape[1], q_chunk):
+            rows = slice(r0, r0 + q_chunk)
+            dq_c, dk_c, dv_c = _bwd_plain_f32(q[:, rows], k, v, out[:, rows], dout[:, rows],
+                                              lse[:, rows], scale, need_dq, need_dkv)
+            if need_dq:
+                dqs.append(dq_c.to(q.dtype))
+            if need_dkv:
+                dk += dk_c
+                dv += dv_c
+        dq = torch.cat(dqs, dim=1) if need_dq else None
+    else:
+        dq, dk, dv = _bwd_plain_f32(q, k, v, out, dout, lse, scale, need_dq, need_dkv)
+        dq = dq.to(q.dtype) if need_dq else None
+    if need_dkv:
+        dk, dv = dk.to(k.dtype), dv.to(v.dtype)
+    return dq, dk, dv
+
+
+def _bwd_plain_f32(q, k, v, out, dout, lse, scale, need_dq, need_dkv):
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), dout.float()
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    p = torch.exp(s - lse.float().transpose(1, 2)[..., None])
+    del s
+    dsum = (dof * out.float()).sum(-1).transpose(1, 2)[..., None]  # (B, H, Sq, 1)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof) if need_dkv else None
+    ds = p * (dp - dsum) * scale
+    del p, dp
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) if need_dq else None
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) if need_dkv else None
+    return dq, dk, dv
+
+
+def flash_attention_bwd(q, k, v, out, dout, lse, scale: float,
+                        need_dq: bool = True, need_dkv: bool = True):
+    """Flash backward given an explicit lse (B, Sq, H) fp32, the public
+    shape of JAX ``flash_attention_bwd``; a (B, Sq, H) view of a
+    contiguous (B, H, Sq) buffer (what the forward returns) is read without
+    a copy. Returns ``(dq, dk, dv)``, None where not asked for. CUDA
+    tensors launch K6 (``need_dq``) and K7 (``need_dkv``); CPU tensors run
+    the twin."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, out, dout, lse, scale,
+                                         need_dq=need_dq, need_dkv=need_dkv)
+    from chronoedit_tpu_torch.kernels import build
+
+    _check(q, k, v)
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    dout = dout.contiguous()  # gradients from _merge_heads may be strided
+    _check_like_q("out", q, out, q.shape)
+    _check_like_q("dout", q, dout, q.shape)
+    lse = lse.transpose(1, 2).contiguous()
+    if lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, sq):
+        raise ValueError(f"flash_bwd: lse must be (B, Sq, H) fp32, got {lse.dtype} "
+                         f"{tuple(lse.transpose(1, 2).shape)}")
+    dsum = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    stream = torch.cuda.current_stream().cuda_stream
+    dq = dk = dv = None
+    if need_dq:
+        dq = torch.empty_like(q)
+        build.check(build.lib().flash_bwd_dq_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            dsum.data_ptr(), dq.data_ptr(), b, sq, skv, h, d, scale, stream),
+            "flash_bwd_dq", kv_len=skv)
+    if need_dkv:
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        build.check(build.lib().flash_bwd_dkv_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            dsum.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq, skv, h, d, scale,
+            stream), "flash_bwd_dkv", kv_len=skv)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention: K1/K5 forward, K6/K7 backward (the
+    twins on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float):
+        out, lse = _forward(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        need_dq = ctx.needs_input_grad[0]
+        need_dkv = ctx.needs_input_grad[1] or ctx.needs_input_grad[2]
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, lse.transpose(1, 2),
+                                         ctx.scale, need_dq, need_dkv)
+        return dq, dk, dv, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float) -> torch.Tensor:
-    """Non-causal attention output only, (B, Sq, H, D)."""
-    return flash_attention_with_lse(q, k, v, scale)[0]
+    """Non-causal attention output, (B, Sq, H, D); differentiable."""
+    return FlashAttention.apply(q, k, v, scale)

@@ -7,9 +7,12 @@
 - :func:`rms_norm_fused` (K4) — the qk "rms_norm_across_heads": fp32
   statistics, cast, then the weight.
 
-Each wrapper launches its CUDA kernel (``csrc/``) for CUDA tensors and
-raises on what the kernel does not take; it runs the plain twin beside it
-(``*_plain``, the JAX package's jnp formulation) only for CPU tensors.
+Each wrapper is a ``torch.autograd.Function``. Its forward launches the
+CUDA kernel (``csrc/``) for CUDA tensors and raises on what the kernel does
+not take; it runs the plain twin beside it (``*_plain``, the JAX package's
+jnp formulation) only for CPU tensors. Its backward is the VJP of the plain
+twin, recomputed from the saved inputs, on either device: what the JAX
+package does (``fused_norms.py`` custom VJPs), so no backward kernel exists.
 """
 
 from __future__ import annotations
@@ -79,14 +82,9 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-# ----------------------------------------------------------- wrappers
+# ----------------------------------------------------------- kernels
 
-def layer_norm_modulate(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
-                        hw: int, eps: float = 1e-6) -> torch.Tensor:
-    """K2. x (B, S, D); scale/shift (B, T, D) fp32 with S = T*hw.
-    Returns (B, S, D) in x's dtype."""
-    if x.device.type == "cpu":
-        return ln_modulate_plain(x, scale, shift, hw, eps)
+def _ln_modulate_kernel(x, scale, shift, hw: int, eps: float) -> torch.Tensor:
     from chronoedit_tpu_torch.kernels import build
 
     _check_stream("ln_modulate", x)
@@ -101,12 +99,7 @@ def layer_norm_modulate(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tenso
     return out
 
 
-def gated_residual(x: torch.Tensor, delta: torch.Tensor, gate: torch.Tensor,
-                   hw: int) -> torch.Tensor:
-    """K3. x + delta*gate in fp32; gate (B, T, D) per frame; output in
-    x's dtype, in a new tensor."""
-    if x.device.type == "cpu":
-        return gated_residual_plain(x, delta, gate, hw)
+def _gated_residual_kernel(x, delta, gate, hw: int) -> torch.Tensor:
     from chronoedit_tpu_torch.kernels import build
 
     _check_stream("gated_residual", x)
@@ -121,18 +114,67 @@ def gated_residual(x: torch.Tensor, delta: torch.Tensor, gate: torch.Tensor,
     return out
 
 
-def rms_norm_fused(p: L.RMSNorm, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """K4 on (B, S, D): fp32 statistics, cast to x's dtype, then the weight."""
-    if x.device.type == "cpu":
-        return rms_norm_plain(p.scale, x, eps)
+def _rms_norm_kernel(w, x, eps: float) -> torch.Tensor:
     from chronoedit_tpu_torch.kernels import build
 
     _check_stream("rms_norm", x)
     b, s, d = x.shape
-    w = p.scale.to(torch.bfloat16)
     _check_like("rms_norm", x, w, (d,), torch.bfloat16)
     out = torch.empty_like(x)
     build.check(build.lib().rms_norm_bf16(
         x.data_ptr(), w.data_ptr(), out.data_ptr(), b * s, d, eps, _stream()),
         "rms_norm")
     return out
+
+
+# ----------------------------------------------------------- autograd
+
+class _Fused(torch.autograd.Function):
+    """Forward: the kernel for CUDA tensors, the twin for CPU tensors.
+    Backward: the twin's VJP, recomputed from the saved tensor inputs; the
+    trailing non-tensor arguments (hw, eps) get no gradient."""
+
+    @staticmethod
+    def forward(ctx, plain, kernel, n_tensors: int, *args):
+        tensors = args[:n_tensors]
+        ctx.plain, ctx.rest = plain, args[n_tensors:]
+        ctx.save_for_backward(*tensors)
+        fn = plain if tensors[0].device.type == "cpu" else kernel
+        return fn(*args)
+
+    @staticmethod
+    def backward(ctx, grad):
+        tensors = ctx.saved_tensors
+        need = ctx.needs_input_grad[3:3 + len(tensors)]
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(n) for t, n in zip(tensors, need)]
+            out = ctx.plain(*inputs, *ctx.rest)
+            wrt = [t for t, n in zip(inputs, need) if n]
+            grads = iter(torch.autograd.grad(out, wrt, grad) if wrt else ())
+        return (None, None, None, *(next(grads) if n else None for n in need),
+                *(None for _ in ctx.rest))
+
+
+# ----------------------------------------------------------- wrappers
+
+def layer_norm_modulate(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
+                        hw: int, eps: float = 1e-6) -> torch.Tensor:
+    """K2. x (B, S, D); scale/shift (B, T, D) fp32 with S = T*hw.
+    Returns (B, S, D) in x's dtype."""
+    return _Fused.apply(ln_modulate_plain, _ln_modulate_kernel, 3, x, scale, shift,
+                        hw, eps)
+
+
+def gated_residual(x: torch.Tensor, delta: torch.Tensor, gate: torch.Tensor,
+                   hw: int) -> torch.Tensor:
+    """K3. x + delta*gate in fp32; gate (B, T, D) per frame; output in
+    x's dtype, in a new tensor."""
+    return _Fused.apply(gated_residual_plain, _gated_residual_kernel, 3, x, delta,
+                        gate, hw)
+
+
+def rms_norm_fused(p: L.RMSNorm, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """K4 on (B, S, D): fp32 statistics, cast to x's dtype, then the weight
+    (cast to x's dtype first; its gradient flows back through the cast)."""
+    return _Fused.apply(rms_norm_plain, _rms_norm_kernel, 2, p.scale.to(x.dtype), x,
+                        eps)

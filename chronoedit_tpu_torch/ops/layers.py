@@ -47,8 +47,11 @@ class Linear(nn.Module):
             self.bias.zero_()
 
 
-def linear(p: Linear, x: torch.Tensor) -> torch.Tensor:
-    return F.linear(x, p.weight.to(x.dtype), p.bias.to(x.dtype))
+def linear(p: Linear, x: torch.Tensor, weight: torch.Tensor | None = None) -> torch.Tensor:
+    """``x @ W.T + b`` in x's dtype; ``weight`` stands in for ``p.weight``
+    (a LoRA-merged copy)."""
+    w = p.weight if weight is None else weight
+    return F.linear(x, w.to(x.dtype), p.bias.to(x.dtype))
 
 
 class LayerNorm(nn.Module):
