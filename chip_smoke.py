@@ -1,6 +1,7 @@
 """Drive the PyTorch port's paths once on one NVIDIA GPU: the 8-step 720p
-edit, the 29-frame temporal-reasoning edit, and LoRA fine-tuning of the
-full-width DiT at the edit's geometry.
+edit, the 29-frame temporal-reasoning edit, LoRA fine-tuning of the
+full-width DiT at the edit's geometry, and quantized serving (w4a16 with
+int8-score attention, and the mixed2 recipe).
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card, ``nvcc`` (sm_90a) and no network; it imports
@@ -21,12 +22,20 @@ non-zero and no result line is printed:
    3.35 TB/s): K1 and K6/K7 (against the q-chunked backward twin) at the
    edit's 7,200 tokens against KV 7,200, 512 and 257, K2-K4 at the edit's
    stream, and the flash kernel at the reasoning self-attention's 28,800
-   tokens as K5 (against the q-chunked twin). This runs before the model
-   exists: the plain attention needs ~35 GB;
+   tokens as K5 (against the q-chunked twin); K8 (the int4 matmul) at the
+   five projection shapes of a 720p forward and the three at the reasoning
+   forward's 28,800 rows, against its twin and against
+   cuBLAS on the dequantized bf16 weight (a yardstick, not the same
+   function), and K9 (int8 scores) at 28,800 tokens against its q-chunked
+   twin and SDPA in bf16. This runs before the model exists: the plain
+   attention needs ~35 GB;
 4. small references: the serving slice at 2 blocks x 2 heads of 128 on the
    card (bf16, kernels) against the same weights on the CPU (fp32, plain
    twins), as PSNR over the [-1, 1] pixel range: the edit, and reasoning
-   mode with the frame drop and without it, W-tiled streaming VAE; then two
+   mode with the frame drop and without it, W-tiled streaming VAE; the edit
+   quantized int8, w4a16 and mixed2, and the reasoning drop in w4a16 with
+   int8 scores (the rule lowered so that K9 runs at these lengths), each on
+   the same quantized weights on both sides; then two
    LoRA steps and two full-parameter steps of that DiT (loss, gradient
    cosine, grad_norm, then Adam's first moment and the update, against the
    CPU);
@@ -36,17 +45,24 @@ non-zero and no result line is printed:
    serve two 720p edits, then two 29-frame reasoning edits (the whole
    trajectory, k = 8; the drop, k = 2) through ``__call__``, then take three
    rank-32 LoRA steps (``make_lora_train_step``, remat "full") on 720p mock
-   edit pairs. The launch counters are zeroed just before each edit and
-   each step and must then show exactly the launches the path implies, by
-   kernel and by attention KV length; stage and step times, peak memory, a
+   edit pairs; then quantize that DiT in place to w4a16 (Lloyd grid) and
+   serve two 720p edits and a w4a16 + int8-score reasoning edit (k = 2),
+   and rebuild the bf16 model from the same seed, quantize it to mixed2
+   and serve one edit. The launch counters are zeroed just before each
+   edit and each step and must then show exactly the launches the path
+   implies, by kernel, by attention KV length and by the int4 matmul's
+   rows; stage and step times, peak memory, the memory after each
+   quantization, each quantized output's PSNR against the bf16 output of
+   the same request and noise (random weights: no bar), a
    tiled-against-untiled streaming decode of an 8-frame latent trajectory
    (fp32) and an unchanged-base checksum follow;
 6. print the kernel table as one JSON line, the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds one warm ``torch.profiler`` pass over each stage (DiT
-forward, VAE encode, VAE decode) of both serving paths at their shapes and
-over one LoRA train step, printing each one's device idle share and
+forward, VAE encode, VAE decode) of both serving paths at their shapes,
+over one LoRA train step and over one w4a16 and one mixed2 DiT forward at
+7,200 tokens, printing each one's device idle share and
 writing its per-kernel table to ``chiprun_out/profile_<stage>.txt`` under
 the repository root.
 """
@@ -114,9 +130,17 @@ TRAIN_GRAD_COS = 0.999
 TRAIN_LR = 1e-2
 TRAIN_MOMENT_REL = 5e-2
 TRAIN_UPDATE_REL = 0.25
-# The card's published peaks (H100 SXM, dense bf16 tensor cores; HBM3), for
-# each kernel's bound: the larger of FLOPs / peak and bytes / bandwidth
+# K8 against its twin: the dequantized bf16 weight is bitwise the twin's;
+# both sum in fp32 (in another order) and round once to bf16, so an output
+# may differ by one bf16 step, at most one step of max|ref|. K9 against
+# its twin: the integer scores and their fp32 dequantization are the same;
+# the kernel rounds P to bf16 as K1 does, so K1's bounds apply.
+K8_OUT_STEPS = 1.0
+# The card's published peaks (H100 SXM, dense bf16 and int8 tensor cores;
+# HBM3), for each kernel's bound: the larger of the operations' time (each
+# type at its peak) and bytes / bandwidth
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES_PER_S = 3.35e12
 # bf16 on the card against fp32 on the CPU; the repo's fidelity bar
 MIN_PSNR_DB = 35.0
@@ -169,9 +193,10 @@ def host_s(fn):
     return out, time.perf_counter() - t0
 
 
-def bound(flops: float, nbytes: float) -> dict:
+def bound(flops: float, nbytes: float, int8_ops: float = 0.0) -> dict:
     """The least time the card could take: {bound_ms, bound_by}."""
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = (flops / PEAK_BF16_FLOPS + int8_ops / PEAK_INT8_OPS) * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return {"bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
@@ -256,12 +281,103 @@ def compare_kernels(dev: torch.device) -> dict[str, dict]:
             raise AssertionError(f"{name} disagrees with its twin")
         results[name] = row
 
-    # K5: the same kernel over the reasoning self-attention's 28,800 tokens
+    # K5: the same kernel over the reasoning self-attention's 28,800 tokens;
+    # K9 on the same q, k, v
     q, k, v = (randn(1, REASONING_TOKENS, h, d) for _ in range(3))
     results["flash_fwd_streamed"] = compare_flash("K5", "self", q, k, v, q_chunk=Q_CHUNK)
+    results["flash_fwd_qk8"] = compare_qk8(q, k, v)
     del q, k, v
     torch.cuda.empty_cache()
+
+    # K8 at the projections of a 720p forward and of a reasoning forward's
+    # 28,800 tokens: M x K x N
+    for m, k_in, n in ((EDIT_TOKENS, dim, dim), (EDIT_TOKENS, dim, 13824),
+                       (EDIT_TOKENS, 13824, dim), (TEXT_TOKENS, dim, dim),
+                       (IMAGE_TOKENS, dim, dim), (REASONING_TOKENS, dim, dim),
+                       (REASONING_TOKENS, dim, 13824), (REASONING_TOKENS, 13824, dim)):
+        row = compare_int4(g, m, k_in, n)
+        results["int4_matmul"] = (add_rows(results["int4_matmul"], row)
+                                  if "int4_matmul" in results else row)
     return results
+
+
+def compare_int4(g: torch.Generator, m: int, k: int, n: int) -> dict:
+    """K8 against its twin on x (m, k) and a random (n, k) weight quantized
+    w4a16 on the Lloyd grid: within K8_OUT_STEPS bf16 steps of max|ref|.
+    CUDA-event times of K8, of the twin and of cuBLAS on the already
+    dequantized bf16 weight (the yardstick ``library_ms``: not the same
+    function, the weight's dequantization is not in it). Returns a row."""
+    from chronoedit_tpu_torch.ops import int4_matmul as i4
+    from chronoedit_tpu_torch.ops import layers as L
+    from chronoedit_tpu_torch.ops import quant
+
+    dev = g.device
+    lin = L.Linear(k, n, device=dev, dtype=torch.bfloat16, generator=g)
+    leaf = quant.quantize_linear_params_int4(lin)
+    del lin
+    x = torch.randn((m, k), generator=g, device=dev, dtype=torch.bfloat16)
+    args = (x, leaf.packed, leaf.scales, leaf.table)
+    got, ref = i4.int4_matmul(*args), i4.int4_matmul_plain(*args)
+    err, ref_max = max_err(got, ref), float(ref.float().abs().max())
+    tol = K8_OUT_STEPS * ULP_BF16 * ref_max
+    print(f"K8 int4_matmul {m} x {k} x {n} (Lloyd grid): max|out-ref| {err:.3e} "
+          f"(tol {tol:.3e}, max|ref| {ref_max:.3f})")
+    if not (err <= tol and bool(torch.isfinite(got).all())):
+        raise AssertionError(f"K8 disagrees with its twin at {m} x {k} x {n}")
+    w = i4.dequantize(leaf.packed, leaf.scales, leaf.table).to(torch.bfloat16)
+    ms = cuda_ms(lambda: i4.int4_matmul(*args))
+    plain = cuda_ms(lambda: i4.int4_matmul_plain(*args), reps=3, warmup=1)
+    library = cuda_ms(lambda: torch.matmul(x, w.T))
+    flops = 2 * m * k * n
+    # x read, packed weight, scales and table read, y written
+    nbytes = 2 * m * k + n * k // 2 + 4 * leaf.scales.numel() + 60 + 2 * m * n
+    row = {"max_abs_err": err, "ms": ms, "plain_ms": plain, "library_ms": library,
+           **bound(flops, nbytes)}
+    print(f"   kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), twin {plain:.3f} ms, cuBLAS "
+          f"on the dequantized bf16 weight {library:.3f} ms, bound {row['bound_ms']:.3f} ms "
+          f"({row['bound_by']})")
+    del got, ref, w
+    torch.cuda.empty_cache()
+    return row
+
+
+def compare_qk8(q, k, v) -> dict:
+    """K9 against its q-chunked twin on the int8 inputs of the same q, k, v
+    (the torch prologue, timed apart): K1's bounds. CUDA-event times of K9,
+    of the twin and of SDPA in bf16 (the yardstick ``library_ms``: float
+    scores, not the same function). Returns a row."""
+    from chronoedit_tpu_torch.ops import flash_attention as fa
+
+    scale = q.shape[-1] ** -0.5
+    q8, qs, k8, ks = fa.quantize_qk(q, k)
+    out = fa._forward_qk8(q8, k8, v, qs, ks, scale)
+    ref = fa.flash_attention_qk_int8_plain(q8, k8, v, qs, ks, scale, q_chunk=Q_CHUNK)
+    err, ref_max = max_err(out, ref), float(ref.float().abs().max())
+    tol = min(K1_OUT_MAX_TOL, K1_OUT_STEPS * ULP_BF16 * ref_max)
+    print(f"K9 flash_fwd_qk8 q {tuple(q.shape)} kv {k.shape[1]}: max|out-ref| {err:.3e} "
+          f"(tol {tol:.3e}, max|ref| {ref_max:.3f})")
+    if not (err <= tol and bool(torch.isfinite(out).all())):
+        raise AssertionError("K9 disagrees with its twin")
+    del out, ref
+    torch.cuda.empty_cache()
+    ms = cuda_ms(lambda: fa._forward_qk8(q8, k8, v, qs, ks, scale))
+    prologue = cuda_ms(lambda: fa.quantize_qk(q, k), reps=3)
+    plain = cuda_ms(lambda: fa.flash_attention_qk_int8_plain(q8, k8, v, qs, ks, scale,
+                                                             q_chunk=Q_CHUNK), reps=3, warmup=1)
+    library = cuda_ms(lambda: sdpa(q, k, v, scale))
+    b, sq, h, d = q.shape
+    unit = 2 * b * h * sq * k.shape[1] * d  # one (Sq x Skv x D) product
+    # q8, k8 read (1 byte), v read and O written (bf16), the fp32 scales
+    nbytes = b * h * d * (sq + k.shape[1]) + 2 * b * h * d * (k.shape[1] + sq) \
+        + 4 * b * h * (sq + k.shape[1])
+    row = {"max_abs_err": err, "ms": ms, "plain_ms": plain, "library_ms": library,
+           **bound(unit, nbytes, int8_ops=unit)}
+    print(f"   kernel {ms:.3f} ms, prologue (torch) {prologue:.3f} ms, twin {plain:.3f} ms, "
+          f"SDPA bf16 {library:.3f} ms, bound {row['bound_ms']:.3f} ms ({row['bound_by']}: the "
+          f"s8 scores at {PEAK_INT8_OPS / 1e12:.0f} TOPS plus P.V at "
+          f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s)")
+    torch.cuda.empty_cache()
+    return row
 
 
 def sdpa(q, k, v, scale):
@@ -399,10 +515,15 @@ def small_references(dev: torch.device) -> dict[str, float]:
     """The slice at 2 blocks x 2 heads of 128 on ``dev`` in bf16 against the
     same weights in fp32 on the CPU: the 64x64 edit, and 29-frame reasoning
     at 64x256 with the VAE W-tiled 4 ways (streaming encode and decode),
-    with the drop (k = 2) and without it (k = 8). Returns PSNRs in dB."""
+    with the drop (k = 2) and without it (k = 8); then the edit quantized
+    int8, w4a16 and mixed2, and the drop in w4a16 with int8 scores, each on
+    the CPU model's quantized weights copied bit for bit to the card.
+    Returns PSNRs in dB."""
     from chronoedit_tpu_torch.configs import chronoedit_14b_distilled
     from chronoedit_tpu_torch.models import dit as dit_lib
     from chronoedit_tpu_torch.models import vae as vae_lib
+    from chronoedit_tpu_torch.ops import flash_attention as fa
+    from chronoedit_tpu_torch.ops import quant
     from chronoedit_tpu_torch.pipeline.edit_pipeline import ChronoEditPipeline
 
     def small(dtype):
@@ -423,11 +544,11 @@ def small_references(dev: torch.device) -> dict[str, float]:
     dev_dit.load_state_dict(dit.state_dict())
     dev_vae.load_state_dict(vae.state_dict())
 
-    def compare(label, entry, tiles, h, w, noise, shape, **kw):
+    def compare(label, entry, tiles, h, w, noise, shape, dits=(dit, dev_dit), **kw):
         ref_pipe = ChronoEditPipeline(dataclasses.replace(ref_cfg, vae_spatial_tiles=tiles),
-                                      dit, vae)
+                                      dits[0], vae)
         dev_pipe = ChronoEditPipeline(dataclasses.replace(dev_cfg, vae_spatial_tiles=tiles),
-                                      dev_dit, dev_vae)
+                                      dits[1], dev_vae)
         req = request(ref_cfg, cpu, 2, h, w, 16)
         want = getattr(ref_pipe, entry)(**req, latents=noise, **kw)
         got = getattr(dev_pipe, entry)(**{k: v.to(dev) for k, v in req.items()},
@@ -443,14 +564,43 @@ def small_references(dev: torch.device) -> dict[str, float]:
             raise AssertionError(f"small reference {label}: PSNR {db:.2f} dB < {MIN_PSNR_DB} dB")
         return db
 
-    results = {"edit": compare("edit", "edit_image", None, 64, 64,
-                               torch.randn((1, 16, 2, 8, 8), generator=g), (1, 3, 64, 64))}
+    edit_noise = torch.randn((1, 16, 2, 8, 8), generator=g)
+    results = {"edit": compare("edit", "edit_image", None, 64, 64, edit_noise, (1, 3, 64, 64))}
     noise = torch.randn((1, 16, 8, 8, 32), generator=g)
     for k, frames in ((2, 5), (ref_cfg.num_steps, REASONING_FRAMES)):
         results[f"reasoning k={k}"] = compare(
             f"reasoning k={k}, 4 VAE tiles", "__call__", 4, 64, 256, noise,
             (1, 3, frames, 64, 256), enable_temporal_reasoning=True,
             num_temporal_reasoning_steps=k)
+
+    def quantized(mode, upgrade=(), qk_int8=False):
+        """(CPU DiT, card DiT) quantized from the float weights on the CPU,
+        the card's leaves overwritten with the CPU's bits."""
+        ref_q, dev_q = dit_lib.DiT(ref_cfg.dit), dit_lib.DiT(dev_cfg.dit, device=dev)
+        for m in (ref_q, dev_q):
+            m.load_state_dict(dit.state_dict())
+            quant.quantize_dit(m, mode=mode, upgrade=upgrade)
+            m.cfg = dataclasses.replace(m.cfg, attn_qk_int8=qk_int8)
+        dev_q.load_state_dict(ref_q.state_dict())
+        return ref_q, dev_q
+
+    for label, mode, upgrade in (("int8", "int8", ()), ("w4a16", "int4", ()),
+                                 ("mixed2", "int4_a8", quant.INT4_MIXED2_UPGRADE)):
+        results[f"edit {label}"] = compare(f"edit, {label}", "edit_image", None, 64, 64,
+                                           edit_noise, (1, 3, 64, 64),
+                                           dits=quantized(mode, upgrade))
+    # JAX's rule keeps int8 scores for KV past 12,288 tokens; lowered here so
+    # that K9 (and its twin) serve the reference's 512- and 128-token
+    # self-attention
+    resident = fa.QK8_RESIDENT_KV_BYTES
+    fa.QK8_RESIDENT_KV_BYTES = 0
+    try:
+        results["reasoning k=2 w4a16 qk8"] = compare(
+            "reasoning k=2, w4a16 + int8 scores, 4 VAE tiles", "__call__", 4, 64, 256, noise,
+            (1, 3, 5, 64, 256), dits=quantized("int4", qk_int8=True),
+            enable_temporal_reasoning=True, num_temporal_reasoning_steps=2)
+    finally:
+        fa.QK8_RESIDENT_KV_BYTES = resident
     return results
 
 
@@ -567,20 +717,42 @@ def training_references(dev: torch.device) -> dict[str, float]:
     return readings
 
 
-def expected_launches(cfg, tokens: list[int]) -> tuple[dict[str, int], dict[int, int]]:
+def expected_launches(cfg, tokens: list[int], int4: bool = False,
+                      qk8: bool = False) -> tuple[dict[str, int], dict[str, dict[int, int]]]:
     """Kernel launches of one edit whose step i self-attends over tokens[i]:
     per block and step 3 attentions (self, text, image), 2 LN-modulates, 2
     gated residuals and 5 RMSNorms (self q, k; cross q; text k; image k),
-    plus the head's LN-modulate, and no backward; and the attentions by KV
-    length."""
+    plus the head's LN-modulate, and no backward. With ``int4`` (w4a16)
+    every block's 12 projections run K8: 8 over the step's tokens, 2 over
+    the text and 2 over the image context; with ``qk8`` self-attention past
+    JAX's resident KV length runs K9 instead of the flash forward. Returns
+    ({name: count}, {name: {KV length or int4 rows: count}}), as
+    ``read_launches``."""
+    from chronoedit_tpu_torch.ops.flash_attention import uses_int8_scores
+
     n, steps = cfg.dit.num_layers, len(tokens)
-    by_name = {"flash_fwd": 3 * n * steps, "ln_modulate": (2 * n + 1) * steps,
-               "gated_residual": 2 * n * steps, "rms_norm": 5 * n * steps,
-               "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
     by_kv = {TEXT_TOKENS: n * steps, IMAGE_TOKENS: n * steps}
+    qk8_kv, rows = {}, {}
     for s in tokens:
-        by_kv[s] = by_kv.get(s, 0) + n
-    return by_name, by_kv
+        counts = qk8_kv if qk8 and uses_int8_scores(s, cfg.dit.head_dim, 2) else by_kv
+        counts[s] = counts.get(s, 0) + n
+        if int4:
+            for m, per_block in ((s, 8), (TEXT_TOKENS, 2), (IMAGE_TOKENS, 2)):
+                rows[m] = rows.get(m, 0) + per_block * n
+    by_name = {"flash_fwd": sum(by_kv.values()), "ln_modulate": (2 * n + 1) * steps,
+               "gated_residual": 2 * n * steps, "rms_norm": 5 * n * steps,
+               "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+               "int4_matmul": sum(rows.values()), "flash_fwd_qk8": sum(qk8_kv.values())}
+    return by_name, {"flash_fwd": by_kv, "flash_bwd_dq": {}, "flash_bwd_dkv": {},
+                     "int4_matmul": rows, "flash_fwd_qk8": qk8_kv}
+
+
+def read_launches() -> tuple[dict[str, int], dict[str, dict[int, int]]]:
+    """A copy of the launch counters: ({name: count}, {name: {KV length or
+    int4 rows: count}})."""
+    from chronoedit_tpu_torch.kernels import build
+
+    return dict(build.LAUNCHES), {k: dict(v) for k, v in build.SHAPE_LAUNCHES.items()}
 
 
 def build_model(dev: torch.device, cfg):
@@ -603,30 +775,33 @@ def build_model(dev: torch.device, cfg):
 
 
 def serve(entry, cfg, dev, label: str, seed: int, shape: tuple, tokens: list[int],
-          launches: tuple[Counter, Counter], **kw) -> None:
+          launches: tuple[Counter, Counter], int4: bool = False, qk8: bool = False,
+          **kw) -> torch.Tensor:
     """One 720p edit through ``entry`` (the pipeline or its ``edit_image``),
     with the launch counters zeroed just before it and read just after:
-    they must equal what the path implies, and are added to ``launches``
-    (by name, by KV length)."""
+    they must equal what the path implies (``expected_launches``), and are
+    added to ``launches`` (by name, flash forwards by KV length). Returns
+    the output, fp32 on the CPU."""
     from chronoedit_tpu_torch.kernels import build
 
     req = request(cfg, dev, seed, EDIT_H, EDIT_W, TEXT_TOKENS)
     gen = torch.Generator(device=dev).manual_seed(100 + seed)
-    want = expected_launches(cfg, tokens)
+    want = expected_launches(cfg, tokens, int4=int4, qk8=qk8)
     torch.cuda.reset_peak_memory_stats()
     build.reset_launches()
     out, secs = host_s(lambda: entry(**req, generator=gen, **kw))
-    got = dict(build.LAUNCHES), dict(build.FLASH_KV_LAUNCHES)
+    got = read_launches()
     print(f"{label}: {secs:.2f} s, peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
-          f"GiB, launches {got[0]}, attention launches by KV length {got[1]}")
+          f"GiB, launches {got[0]}, by KV length / int4 rows {got[1]}")
     if got != want:
         raise AssertionError(f"{label}: launches {got}, the path implies {want}")
     if tuple(out.shape) != shape or not bool(torch.isfinite(out).all()):
         raise AssertionError(f"{label}: output {tuple(out.shape)} is not finite {shape}")
     print(f"   output {tuple(out.shape)} finite, mean {float(out.float().mean()):.4f}, "
           f"std {float(out.float().std()):.4f}")
-    for total, counts in zip(launches, got):
+    for total, counts in zip(launches, (got[0], got[1]["flash_fwd"])):
         total.update(counts)
+    return out.float().cpu()
 
 
 def stages(pipe, dev, num_frames: int, seed: int, suffix: str = ""):
@@ -657,14 +832,16 @@ def stages(pipe, dev, num_frames: int, seed: int, suffix: str = ""):
     }, x, enc_s
 
 
-def edit_path(pipe, dev, launches: tuple[Counter, Counter], profile_dir: Path | None) -> None:
+def edit_path(pipe, dev, launches: tuple[Counter, Counter],
+              profile_dir: Path | None) -> dict[int, torch.Tensor]:
     """Two 720p edits through ``edit_image``, then warm per-stage times (and
-    profiles when ``profile_dir`` is set); adds their launches to ``launches``."""
+    profiles when ``profile_dir`` is set); adds their launches to
+    ``launches``. Returns the edits by request seed."""
     cfg = pipe.config
-    tokens = [2 * (EDIT_H // 16) * (EDIT_W // 16)] * cfg.num_steps
-    for i, seed in enumerate((10, 11)):
-        serve(pipe.edit_image, cfg, dev, f"edit {i} ({'cold' if i == 0 else 'warm'})", seed,
-              (1, 3, EDIT_H, EDIT_W), tokens, launches)
+    tokens = [EDIT_TOKENS] * cfg.num_steps
+    outs = {seed: serve(pipe.edit_image, cfg, dev, f"edit {i} ({'cold' if i == 0 else 'warm'})",
+                        seed, (1, 3, EDIT_H, EDIT_W), tokens, launches)
+            for i, seed in enumerate((10, 11))}
 
     fns, x, enc_s = stages(pipe, dev, cfg.num_frames, 12)
     _, dit_s = host_s(fns["dit_forward"])
@@ -673,24 +850,26 @@ def edit_path(pipe, dev, launches: tuple[Counter, Counter], profile_dir: Path | 
           f"{x.shape[3]}x{x.shape[4]} latents) {dit_s:.3f} s, VAE decode {dec_s:.3f} s")
     if profile_dir is not None:
         profile_stages(fns, profile_dir)
+    return outs
 
 
 def reasoning_path(pipe, dev, launches: tuple[Counter, Counter],
-                   profile_dir: Path | None) -> None:
+                   profile_dir: Path | None) -> dict[int, torch.Tensor]:
     """Two 29-frame reasoning edits through ``__call__``: the whole
     trajectory (k = num_steps, 8 forwards at 28,800 tokens) and the drop
     (k = 2: two forwards at 28,800 tokens, the rest at 7,200); then warm
     stage times (the dual decode of each submode among them), the
     tiled-against-untiled decode check and, with
-    ``profile_dir``, profiles. Adds the edits' launches to ``launches``."""
+    ``profile_dir``, profiles. Adds the edits' launches to ``launches``;
+    returns the edits by request seed."""
     cfg = pipe.config
-    steps, edit_tokens = cfg.num_steps, 2 * (EDIT_H // 16) * (EDIT_W // 16)
+    steps, outs = cfg.num_steps, {}
     for label, seed, k, frames in (("whole trajectory", 20, steps, REASONING_FRAMES),
                                    ("drop", 21, 2, 5)):
-        tokens = [REASONING_TOKENS] * k + [edit_tokens] * (steps - k)
-        serve(pipe, cfg, dev, f"reasoning edit ({label}, k = {k})", seed,
-              (1, 3, frames, EDIT_H, EDIT_W), tokens, launches,
-              enable_temporal_reasoning=True, num_temporal_reasoning_steps=k)
+        tokens = [REASONING_TOKENS] * k + [EDIT_TOKENS] * (steps - k)
+        outs[seed] = serve(pipe, cfg, dev, f"reasoning edit ({label}, k = {k})", seed,
+                           (1, 3, frames, EDIT_H, EDIT_W), tokens, launches,
+                           enable_temporal_reasoning=True, num_temporal_reasoning_steps=k)
 
     fns, x, enc_s = stages(pipe, dev, REASONING_FRAMES, 22, "_reasoning")
     _, dit_s = host_s(fns["dit_forward_reasoning"])
@@ -709,6 +888,7 @@ def reasoning_path(pipe, dev, launches: tuple[Counter, Counter],
     tiled_decode_check(pipe.vae, x)
     if profile_dir is not None:
         profile_stages(fns, profile_dir)
+    return outs
 
 
 def expected_train_launches(cfg) -> tuple[dict[str, int], dict[str, dict[int, int]]]:
@@ -718,14 +898,17 @@ def expected_train_launches(cfg) -> tuple[dict[str, int], dict[str, dict[int, in
     runs once, outside the blocks); the backward runs K6 for all 3
     attentions (q always needs a gradient) and K7 for self and text only
     (k_img/v_img are not LoRA targets and the image context is frozen).
-    Returns ({name: count}, {name: {KV length: count}})."""
+    Returns ({name: count}, {name: {KV length: count}}), as
+    ``read_launches``."""
     n = cfg.dit.num_layers
     by_name = {"flash_fwd": 2 * 3 * n, "ln_modulate": 2 * 2 * n + 1,
                "gated_residual": 2 * 2 * n, "rms_norm": 2 * 5 * n,
-               "flash_bwd_dq": 3 * n, "flash_bwd_dkv": 2 * n}
+               "flash_bwd_dq": 3 * n, "flash_bwd_dkv": 2 * n,
+               "int4_matmul": 0, "flash_fwd_qk8": 0}
     by_kv = {"flash_fwd": {EDIT_TOKENS: 2 * n, TEXT_TOKENS: 2 * n, IMAGE_TOKENS: 2 * n},
              "flash_bwd_dq": {EDIT_TOKENS: n, TEXT_TOKENS: n, IMAGE_TOKENS: n},
-             "flash_bwd_dkv": {EDIT_TOKENS: n, TEXT_TOKENS: n}}
+             "flash_bwd_dkv": {EDIT_TOKENS: n, TEXT_TOKENS: n},
+             "int4_matmul": {}, "flash_fwd_qk8": {}}
     return by_name, by_kv
 
 
@@ -783,8 +966,7 @@ def training_path(pipe, dev, launches: tuple[Counter, Counter],
         torch.cuda.reset_peak_memory_stats()
         build.reset_launches()
         metrics, secs = host_s(lambda: step(state, pipe.dit, batch, g))
-        got = (dict(build.LAUNCHES), {"flash_fwd": dict(build.FLASH_KV_LAUNCHES),
-                                      **{k: dict(v) for k, v in build.BWD_KV_LAUNCHES.items()}})
+        got = read_launches()
         peak = torch.cuda.max_memory_allocated() / 2**30
         loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
         times.append(secs)
@@ -811,6 +993,65 @@ def training_path(pipe, dev, launches: tuple[Counter, Counter],
         profile_stages({"lora_train_step": lambda: step(state, pipe.dit, batches[0], g)},
                        profile_dir)
     return {"first_s": times[0], "warm_s": warm, "peak_gib": max(peaks)}
+
+
+def w4a16_path(pipe, dev, launches: tuple[Counter, Counter], refs: dict[int, torch.Tensor],
+               profile_dir: Path | None) -> None:
+    """Quantize the pipeline's DiT in place to w4a16 (the Lloyd grid, all 12
+    projections of every block: K8), then serve two 720p edits and the
+    reasoning drop (k = 2) with int8 scores (K9 at 28,800 tokens), each
+    with exact launch counts and its PSNR against the bf16 output of the
+    same request and noise (``refs``, by seed); then a warm w4a16 DiT
+    forward, profiled when ``profile_dir`` is set."""
+    cfg = pipe.config
+    _, secs = host_s(lambda: pipe.quantize(mode="int4"))
+    print(f"quantized in place to w4a16 (Lloyd grid) in {secs:.1f} s: "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated (DiT and VAE)")
+    for i, seed in enumerate((10, 11)):
+        out = serve(pipe.edit_image, cfg, dev, f"w4a16 edit {i}", seed, (1, 3, EDIT_H, EDIT_W),
+                    [EDIT_TOKENS] * cfg.num_steps, launches, int4=True)
+        print(f"   PSNR against the bf16 edit of the same request and noise "
+              f"{psnr(out, refs[seed]):.2f} dB (random weights: no bar)")
+    pipe.dit.cfg = dataclasses.replace(pipe.dit.cfg, attn_qk_int8=True)
+    steps = cfg.num_steps
+    out = serve(pipe, cfg, dev, "w4a16 + int8-score reasoning edit (drop, k = 2)", 21,
+                (1, 3, 5, EDIT_H, EDIT_W), [REASONING_TOKENS] * 2 + [EDIT_TOKENS] * (steps - 2),
+                launches, int4=True, qk8=True, enable_temporal_reasoning=True,
+                num_temporal_reasoning_steps=2)
+    print(f"   PSNR against the bf16 reasoning edit of the same request and noise "
+          f"{psnr(out, refs[21]):.2f} dB (random weights: no bar)")
+    pipe.dit.cfg = dataclasses.replace(pipe.dit.cfg, attn_qk_int8=False)
+    fns, x, _ = stages(pipe, dev, cfg.num_frames, 12, "_w4a16")
+    _, dit_s = host_s(fns["dit_forward_w4a16"])
+    print(f"w4a16 DiT forward (one step, {x.shape[2]}x{x.shape[3]}x{x.shape[4]} latents) "
+          f"{dit_s:.3f} s")
+    if profile_dir is not None:
+        profile_stages({"dit_forward_w4a16": fns["dit_forward_w4a16"]}, profile_dir)
+
+
+def mixed2_path(pipe, dev, launches: tuple[Counter, Counter], refs: dict[int, torch.Tensor],
+                profile_dir: Path | None) -> None:
+    """Quantize the (bf16) pipeline's DiT in place to mixed2 (w4a8 with the
+    INT4_MIXED2_UPGRADE projections at w8a8: cuBLASLt's int8 products, no
+    K8) and serve one 720p edit with exact launch counts and its PSNR
+    against the bf16 edit of the same request and noise; then a warm mixed2
+    DiT forward, profiled when ``profile_dir`` is set."""
+    from chronoedit_tpu_torch.ops import quant
+
+    cfg = pipe.config
+    _, secs = host_s(lambda: pipe.quantize(mode="int4_a8", upgrade=quant.INT4_MIXED2_UPGRADE))
+    print(f"quantized in place to mixed2 in {secs:.1f} s: "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated (DiT and VAE)")
+    out = serve(pipe.edit_image, cfg, dev, "mixed2 edit", 10, (1, 3, EDIT_H, EDIT_W),
+                [EDIT_TOKENS] * cfg.num_steps, launches)
+    print(f"   PSNR against the bf16 edit of the same request and noise "
+          f"{psnr(out, refs[10]):.2f} dB (random weights: no bar)")
+    fns, x, _ = stages(pipe, dev, cfg.num_frames, 12, "_mixed2")
+    _, dit_s = host_s(fns["dit_forward_mixed2"])
+    print(f"mixed2 DiT forward (one step, {x.shape[2]}x{x.shape[3]}x{x.shape[4]} latents) "
+          f"{dit_s:.3f} s")
+    if profile_dir is not None:
+        profile_stages({"dit_forward_mixed2": fns["dit_forward_mixed2"]}, profile_dir)
 
 
 def tiled_decode_check(vae, x: torch.Tensor) -> None:
@@ -887,6 +1128,10 @@ SOURCES = {
                      "chronoedit_tpu/ops/flash_attention.py:588"),
     "flash_bwd_dkv": ("chronoedit_tpu_torch/csrc/flash_bwd.cu",
                       "chronoedit_tpu/ops/flash_attention.py:618"),
+    "int4_matmul": ("chronoedit_tpu_torch/csrc/int4_matmul.cu",
+                    "chronoedit_tpu/ops/int4_matmul.py:89"),
+    "flash_fwd_qk8": ("chronoedit_tpu_torch/csrc/flash_fwd_qk8.cu",
+                      "chronoedit_tpu/ops/flash_attention.py:326"),
 }
 
 
@@ -899,8 +1144,9 @@ def print_ptxas(log: Path) -> None:
     name = None
     for line in log.read_text().splitlines():
         if "Compiling entry function" in line:
-            name = next((k for k in ("flash_bwd_dq", "flash_bwd_dkv", "flash_fwd",
-                                     "ln_modulate", "gated_residual", "rms_norm")
+            name = next((k for k in ("flash_bwd_dq", "flash_bwd_dkv", "flash_fwd_qk8",
+                                     "flash_fwd", "ln_modulate", "gated_residual",
+                                     "rms_norm", "int4_matmul")
                          if k + "_kernel" in line), line)
         elif name and ("registers" in line or "spill" in line):
             print(f"ptxas {name}: {line.split(':', 1)[-1].strip()}")
@@ -910,7 +1156,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
                         help="profile one DiT forward and the VAE of each serving path, "
-                             "and one LoRA train step")
+                             "one LoRA train step and one w4a16 and one mixed2 DiT forward")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -946,10 +1192,19 @@ def main() -> int:
     pipe = build_model(dev, dataclasses.replace(
         cfg, dit=dataclasses.replace(cfg.dit, remat="full")))
     with torch.inference_mode():
-        edit_path(pipe, dev, (by_name, by_kv), profile_dir)
-        reasoning_path(pipe, dev, (by_name, by_kv), profile_dir)
+        refs = edit_path(pipe, dev, (by_name, by_kv), profile_dir)
+        refs.update(reasoning_path(pipe, dev, (by_name, by_kv), profile_dir))
     torch.cuda.empty_cache()
     training_path(pipe, dev, (by_name, by_kv), profile_dir)
+    # quantized serving: the trained-on bf16 DiT quantized in place (its
+    # bf16 weights freed as the walk goes), then the bf16 model rebuilt from
+    # the same seed for mixed2, so that no two copies of the DiT share the card
+    with torch.inference_mode():
+        w4a16_path(pipe, dev, (by_name, by_kv), refs, profile_dir)
+        del pipe
+        torch.cuda.empty_cache()
+        pipe = build_model(dev, cfg)
+        mixed2_path(pipe, dev, (by_name, by_kv), refs, profile_dir)
 
     # K5 is the flash kernel's launches over the 28,800-token reasoning
     # self-attention; K1 the rest of them

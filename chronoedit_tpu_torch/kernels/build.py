@@ -13,9 +13,9 @@ Every C entry point returns ``cudaGetLastError()`` after its launch; the
 wrappers call :func:`check` on it. A missing ``nvcc`` or a failed build
 raises. Nothing here runs at import time.
 
-``LAUNCHES`` counts kernel launches by kernel name;
-``FLASH_KV_LAUNCHES`` counts the flash-attention forward's launches by KV
-length, and ``BWD_KV_LAUNCHES`` those of each backward kernel. Each wrapper
+``LAUNCHES`` counts kernel launches by kernel name; ``SHAPE_LAUNCHES``
+counts them again by kernel name and shape: each attention kernel's by its
+KV length, the int4 matmul's by its flattened row count M. Each wrapper
 adds one right after a launch that returned success, and nowhere else.
 """
 
@@ -36,9 +36,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 LAUNCHES: dict[str, int] = {
     "flash_fwd": 0, "ln_modulate": 0, "gated_residual": 0, "rms_norm": 0,
-    "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
-FLASH_KV_LAUNCHES: dict[int, int] = {}
-BWD_KV_LAUNCHES: dict[str, dict[int, int]] = {"flash_bwd_dq": {}, "flash_bwd_dkv": {}}
+    "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "int4_matmul": 0, "flash_fwd_qk8": 0}
+SHAPE_LAUNCHES: dict[str, dict[int, int]] = {
+    name: {} for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "int4_matmul",
+                          "flash_fwd_qk8")}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures: pointers and the stream as void*, sizes as int
@@ -55,6 +56,10 @@ _SIGNATURES = {
     "gated_residual_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, weight, out, rows, D, eps, stream
     "rms_norm_bf16": [_P, _P, _P, _I, _I, _F, _P],
+    # x, packed, scales, table, y, M, N, K, stream
+    "int4_matmul_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # q8, k8, v, qs, ks, o, B, Sq, Skv, H, D, scale, stream
+    "flash_fwd_qk8_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
 }
 
 _LIB: ctypes.CDLL | None = None
@@ -63,8 +68,7 @@ _LIB: ctypes.CDLL | None = None
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
-    FLASH_KV_LAUNCHES.clear()
-    for counts in BWD_KV_LAUNCHES.values():
+    for counts in SHAPE_LAUNCHES.values():
         counts.clear()
 
 
@@ -143,13 +147,14 @@ def lib() -> ctypes.CDLL:
     return _LIB
 
 
-def check(err: int, name: str, kv_len: int | None = None) -> None:
-    """Raise if a C entry point reported a CUDA error; count the launch
-    (a flash launch also under its ``kv_len``)."""
+def check(err: int, name: str, key: int | None = None) -> None:
+    """Raise if a C entry point reported a CUDA error; count the launch,
+    and with ``key`` (an attention's KV length, an int4 matmul's rows) also
+    in ``SHAPE_LAUNCHES[name]``."""
     if err != 0:
         msg = lib().kernel_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err}: {msg}")
     LAUNCHES[name] += 1
-    if kv_len is not None:
-        counts = FLASH_KV_LAUNCHES if name == "flash_fwd" else BWD_KV_LAUNCHES[name]
-        counts[kv_len] = counts.get(kv_len, 0) + 1
+    if key is not None:
+        counts = SHAPE_LAUNCHES[name]
+        counts[key] = counts.get(key, 0) + 1

@@ -15,7 +15,11 @@ per latent frame, (B, T). The main path's kernels: K2 (LayerNorm +
 modulate), K3 (gated residual), K4 (RMSNorm, on every q and k including
 the text and image keys) and K1 (attention), through the wrappers in
 ``ops/``; in training, K6/K7 (attention's backward) through the same
-wrappers' autograd Functions.
+wrappers' autograd Functions. Quantized serving (``ops/quant.py``,
+``ChronoEditPipeline.quantize``) swaps block projections for int8/int4
+leaves that ``layers.linear`` dispatches on (K8 for w4a16), and
+``attn_qk_int8`` sends long self-attention to the int8-score forward (K9);
+cross-attention never takes it, as in JAX.
 
 Training: gradients flow to every parameter that requires one (full
 fine-tuning) and to LoRA adapters when ``dit_forward`` is given them (their
@@ -69,6 +73,9 @@ class DiTConfig:
     dtype: torch.dtype = torch.bfloat16  # compute / stream dtype
     param_dtype: torch.dtype = torch.float32
     remat: str = "none"  # "none" | "full", as the JAX DiT
+    # int8 q.k scores in self-attention (serving only, forward only; applies
+    # past JAX's resident KV length: ops/flash_attention.uses_int8_scores)
+    attn_qk_int8: bool = False
 
     @property
     def dim(self) -> int:
@@ -188,7 +195,7 @@ def _self_attention(p: SelfAttention, x, rope_cos, rope_sin, cfg: DiTConfig, wei
     cos, sin = rope_cos[:, None, :], rope_sin[:, None, :]
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    out = dot_product_attention(q, k, v)
+    out = dot_product_attention(q, k, v, qk_int8=cfg.attn_qk_int8)
     return _lin(p.o, _merge_heads(out), weights)
 
 

@@ -14,9 +14,18 @@ structural:
 - lists (the VAE stages and res blocks) map index by index;
 - LoRA adapters' stacked ``a`` (L, d_in, r) and ``b`` (L, r, d_out)
   unstack into each block's adapter, in JAX's layout;
+- quantized projections (``ops/quant.py``) map key by key onto the
+  port's leaf, which must already be there (quantize the port model in
+  the same mode first): ``kernel_q`` (in, out) int8 becomes ``weight_q``
+  (out, in), ``kernel_q4`` (in_pad/2, out) becomes ``packed`` (out,
+  in_pad/2), ``kernel_scale``, ``kernel_scale4`` (g, out), ``kernel_lut4``
+  (15,) and ``kernel_scale8`` are copied as they are into
+  ``weight_scale``, ``scales``, ``table`` and ``scale8``; a uniform-grid
+  int4 leaf (no ``kernel_lut4``) gets the table -7..7;
 - every other leaf is copied by name.
 
-Every parameter of the module must be written exactly once, else it raises.
+Every parameter and buffer of the module must be written exactly once,
+else it raises.
 """
 
 from __future__ import annotations
@@ -37,7 +46,7 @@ def _assign(param: torch.Tensor, value: np.ndarray, path: str, seen: set) -> Non
     if tuple(value.shape) != tuple(param.shape):
         raise ValueError(f"{path}: shape {value.shape} != {tuple(param.shape)}")
     with torch.no_grad():
-        param.copy_(torch.from_numpy(np.ascontiguousarray(value)).to(param.dtype))
+        param.copy_(torch.from_numpy(np.array(value, order="C")).to(param.dtype))
     seen.add(id(param))
 
 
@@ -50,6 +59,14 @@ def _kernel_to_weight(kernel: np.ndarray) -> np.ndarray:
     raise ValueError(f"unexpected kernel rank {kernel.ndim}")
 
 
+# quantized leaves: JAX key -> (the port leaf's buffer, transposed?)
+_QUANT_KEYS = {
+    "kernel_q": ("weight_q", True), "kernel_scale": ("weight_scale", False),
+    "kernel_q4": ("packed", True), "kernel_scale4": ("scales", False),
+    "kernel_lut4": ("table", False), "kernel_scale8": ("scale8", False),
+}
+
+
 def _load(module: nn.Module, tree: Any, path: str, seen: set) -> None:
     if isinstance(tree, (list, tuple)):
         if len(tree) != len(module):
@@ -57,10 +74,20 @@ def _load(module: nn.Module, tree: Any, path: str, seen: set) -> None:
         for i, sub in enumerate(tree):
             _load(module[i], sub, f"{path}[{i}]", seen)
         return
+    if "kernel_q4" in tree and "kernel_lut4" not in tree:  # the uniform grid
+        tree = dict(tree, kernel_lut4=np.arange(-7, 8, dtype=np.float32))
     for key, val in tree.items():
         sub_path = f"{path}.{key}" if path else key
         if key == "kernel":
             _assign(module.weight, _kernel_to_weight(val), sub_path, seen)
+        elif key in _QUANT_KEYS:
+            name, transpose = _QUANT_KEYS[key]
+            target = getattr(module, name, None)
+            if target is None:
+                raise ValueError(f"{sub_path}: the JAX leaf is quantized but the port's "
+                                 f"{type(module).__name__} has no {name}: quantize the port "
+                                 "model in the same mode first")
+            _assign(target, np.asarray(val).T if transpose else val, sub_path, seen)
         elif isinstance(val, (dict, list, tuple)):
             _load(getattr(module, key), val, sub_path, seen)
         else:
@@ -68,7 +95,8 @@ def _load(module: nn.Module, tree: Any, path: str, seen: set) -> None:
 
 
 def _check_complete(module: nn.Module, seen: set) -> None:
-    missing = [n for n, p in module.named_parameters() if id(p) not in seen]
+    missing = [n for n, p in [*module.named_parameters(), *module.named_buffers()]
+               if id(p) not in seen]
     if missing:
         raise ValueError(f"parameters not set from the JAX tree: {missing[:8]}")
 

@@ -14,8 +14,10 @@ checkpoint), so merged weights live one block at a time and are recomputed
 in the backward. The math is the same as merging the whole tree first, as
 JAX does: each block reads only its own merged weights.
 
-Not here yet: ``attach_lora`` / ``base_is_quantized`` (QLoRA, with the
-quantization slice) and ``merge_multi_lora`` (with the weights slice).
+A quantized projection (``ops/quant.py``) has no float weight to merge
+into: building adapters over it or merging into it raises. Not here yet:
+``attach_lora`` / ``base_is_quantized`` (QLoRA's side adapters over a
+quantized base) and ``merge_multi_lora`` (with the weights slice).
 """
 
 from __future__ import annotations
@@ -76,7 +78,13 @@ class LoRA(nn.Module):
 
 
 def _linear(block: nn.Module, target: str) -> nn.Module:
-    return block.get_submodule(target.replace("/", "."))
+    """The float linear layer of ``target`` in ``block``; raises for a
+    quantized one."""
+    lin = block.get_submodule(target.replace("/", "."))
+    if not hasattr(lin, "weight"):
+        raise ValueError(f"LoRA target {target} is quantized ({type(lin).__name__}): "
+                         "there is no float weight to merge into")
+    return lin
 
 
 def iter_adapters(adapters: nn.ModuleDict):

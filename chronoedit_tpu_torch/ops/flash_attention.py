@@ -20,6 +20,14 @@ forward is the kernel (twin on the CPU), it saves q, k, v, O and the raw
 (B, H, Sq) LSE, and its backward launches only what ``needs_input_grad``
 asks for (no K7 when neither k nor v needs a gradient, no K6 when q does
 not).
+
+The int8-score forward (K9, ``csrc/flash_fwd_qk8.cu``) serves
+``DiTConfig.attn_qk_int8``: :func:`flash_attention_qk_int8` quantizes q per
+token and the mean-centred k per token in plain torch, as JAX does in XLA,
+then runs K9 (its twin on the CPU). It keeps JAX's rule for where int8
+scores apply: only where JAX would stream the KV, past 6 MiB of K and V
+(:func:`uses_int8_scores`); shorter KV takes the bf16 kernel, as in JAX.
+Forward only, as JAX's.
 """
 
 from __future__ import annotations
@@ -87,7 +95,7 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     build.check(build.lib().flash_fwd_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
         b, sq, k.shape[1], h, d, scale, torch.cuda.current_stream().cuda_stream),
-        "flash_fwd", kv_len=k.shape[1])
+        "flash_fwd", k.shape[1])
     return out, lse
 
 
@@ -179,13 +187,13 @@ def flash_attention_bwd(q, k, v, out, dout, lse, scale: float,
         build.check(build.lib().flash_bwd_dq_bf16(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
             dsum.data_ptr(), dq.data_ptr(), b, sq, skv, h, d, scale, stream),
-            "flash_bwd_dq", kv_len=skv)
+            "flash_bwd_dq", skv)
     if need_dkv:
         dk, dv = torch.empty_like(k), torch.empty_like(v)
         build.check(build.lib().flash_bwd_dkv_bf16(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
             dsum.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq, skv, h, d, scale,
-            stream), "flash_bwd_dkv", kv_len=skv)
+            stream), "flash_bwd_dkv", skv)
     return dq, dk, dv
 
 
@@ -214,3 +222,100 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float) -> torch.Tensor:
     """Non-causal attention output, (B, Sq, H, D); differentiable."""
     return FlashAttention.apply(q, k, v, scale)
+
+
+# ------------------------------------------------------------ int8 scores
+
+# JAX keeps the KV "resident" in VMEM, and the scores in bf16, while
+# 2 * ceil(Skv / 256) * 256 * D * itemsize <= 6 MiB
+# (chronoedit_tpu/ops/flash_attention.py:833-836); only longer KV reaches
+# its int8-score kernel. The rule decides which arithmetic runs, so the port
+# keeps it: at D = 128 in bf16, int8 scores for KV > 12,288 tokens (the
+# reasoning self-attention's 28,800), bf16 for the edit's 7,200 and the
+# cross-attention's 512 and 257.
+QK8_RESIDENT_KV_BYTES = 6 * 1024 * 1024
+
+
+def uses_int8_scores(kv_len: int, head_dim: int, itemsize: int) -> bool:
+    """Whether :func:`flash_attention_qk_int8` runs int8 scores at this KV
+    length, head dim and element size (JAX's resident rule)."""
+    return 2 * (-(-kv_len // 256) * 256) * head_dim * itemsize > QK8_RESIDENT_KV_BYTES
+
+
+def quantize_qk(q: torch.Tensor, k: torch.Tensor):
+    """JAX's prologue to its int8-score kernel: k centred on its fp32 mean
+    over the tokens (softmax ignores the per-row shift this gives every
+    score), then q and k quantized per token, ``s = max(amax, 1e-20) /
+    127``, ``round(x / s)`` to int8. Returns (q8, qs, k8, ks) with the
+    scales (B, S, H) fp32."""
+    kc = k.to(torch.float32, copy=True)
+    kc -= kc.mean(dim=1, keepdim=True)
+    ks = kc.abs().amax(dim=-1, keepdim=True).clamp_min_(1e-20).div_(127.0)
+    k8 = kc.div_(ks).round_().to(torch.int8)
+    qf = q.to(torch.float32, copy=True)
+    qs = qf.abs().amax(dim=-1, keepdim=True).clamp_min_(1e-20).div_(127.0)
+    q8 = qf.div_(qs).round_().to(torch.int8)
+    return q8, qs[..., 0], k8, ks[..., 0]
+
+
+def flash_attention_qk_int8_plain(q8, k8, v, qs, ks, scale: float,
+                                  q_chunk: int | None = None) -> torch.Tensor:
+    """K9's twin: the int8 score products exactly (as integers in fp32:
+    |q8 . k8| <= 127**2 * 128 < 2**24), dequantized as ``(acc * (qs *
+    scale)) * ks``, fp32 softmax, P.V in fp32; out in v's dtype.
+    ``q_chunk`` rows of q at a time bound the fp32 score matrix."""
+    if q_chunk is not None and q_chunk < q8.shape[1]:
+        return torch.cat([flash_attention_qk_int8_plain(
+            q8[:, r:r + q_chunk], k8, v, qs[:, r:r + q_chunk], ks, scale)
+            for r in range(0, q8.shape[1], q_chunk)], dim=1)
+    s = torch.einsum("bqhd,bkhd->bhqk", q8.float(), k8.float())
+    s = s * (qs * scale).transpose(1, 2)[..., None] * ks.transpose(1, 2)[:, :, None, :]
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(v.dtype)
+
+
+def _check_qk8(q8, k8, v, qs, ks) -> None:
+    b, sq, h, d = q8.shape
+    skv = k8.shape[1]
+    for name, t, dtype, shape in (
+            ("q8", q8, torch.int8, (b, sq, h, HEAD_DIM)),
+            ("k8", k8, torch.int8, (b, skv, h, HEAD_DIM)),
+            ("v", v, torch.bfloat16, (b, skv, h, HEAD_DIM)),
+            ("qs", qs, torch.float32, (b, sq, h)), ("ks", ks, torch.float32, (b, skv, h))):
+        if (t.device != q8.device or t.dtype != dtype or tuple(t.shape) != shape
+                or not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError(f"flash_fwd_qk8: {name} must be a contiguous {dtype} tensor of "
+                             f"shape {shape} on {q8.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    if sq == 0 or skv == 0:
+        raise ValueError("flash_fwd_qk8: empty sequence")
+
+
+def _forward_qk8(q8, k8, v, qs, ks, scale: float) -> torch.Tensor:
+    """K9 for CUDA tensors, its twin for CPU tensors; out like v."""
+    if q8.device.type == "cpu":
+        return flash_attention_qk_int8_plain(q8, k8, v, qs, ks, scale)
+    from chronoedit_tpu_torch.kernels import build
+
+    _check_qk8(q8, k8, v, qs, ks)
+    b, sq, h, d = q8.shape
+    out = torch.empty(q8.shape, device=v.device, dtype=v.dtype)
+    build.check(build.lib().flash_fwd_qk8_bf16(
+        q8.data_ptr(), k8.data_ptr(), v.data_ptr(), qs.data_ptr(), ks.data_ptr(),
+        out.data_ptr(), b, sq, k8.shape[1], h, d, scale,
+        torch.cuda.current_stream().cuda_stream), "flash_fwd_qk8", k8.shape[1])
+    return out
+
+
+def flash_attention_qk_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            scale: float) -> torch.Tensor:
+    """Attention with int8 q.k scores where JAX's rule sends the KV length
+    to its int8-score kernel (:func:`uses_int8_scores`), else the bf16
+    flash forward. Forward only: raises when autograd would need a
+    gradient of the int8 path."""
+    if not uses_int8_scores(k.shape[1], q.shape[-1], q.element_size()):
+        return flash_attention(q, k, v, scale)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("flash_attention_qk_int8 is forward only, as JAX's")
+    q8, qs, k8, ks = quantize_qk(q, k)
+    return _forward_qk8(q8, k8, v, qs, ks, scale)

@@ -47,9 +47,18 @@ class Linear(nn.Module):
             self.bias.zero_()
 
 
-def linear(p: Linear, x: torch.Tensor, weight: torch.Tensor | None = None) -> torch.Tensor:
+def linear(p: nn.Module, x: torch.Tensor, weight: torch.Tensor | None = None) -> torch.Tensor:
     """``x @ W.T + b`` in x's dtype; ``weight`` stands in for ``p.weight``
-    (a LoRA-merged copy)."""
+    (a LoRA-merged copy). A quantized leaf (``ops/quant.py``) runs its own
+    product, as JAX dispatches on the leaf's keys."""
+    if not isinstance(p, Linear):
+        from chronoedit_tpu_torch.ops import quant
+
+        if weight is not None:
+            raise ValueError("a merged weight cannot stand in for a quantized layer")
+        if isinstance(p, quant.QuantLinear8):
+            return quant.quantized_linear(p, x)
+        return quant.quantized_linear_int4(p, x)
     w = p.weight if weight is None else weight
     return F.linear(x, w.to(x.dtype), p.bias.to(x.dtype))
 

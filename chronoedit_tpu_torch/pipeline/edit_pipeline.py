@@ -15,7 +15,9 @@ then keeps [first, last] of the solver state and the condition and runs
 the rest on those two; with k >= num_steps the whole trajectory survives.
 Either way it decodes twice: the reasoning video and the 2-frame edit.
 
-Prompt and CLIP image embeddings are passed in precomputed. Not here yet:
+``quantize`` switches the DiT to int8 / int4 projections in place
+(``ops/quant.py``). Prompt and CLIP image embeddings are passed in
+precomputed. Not here yet:
 guardrails, skip-layer guidance over two forwards, the block cache and
 multi-device meshes.
 """
@@ -91,6 +93,20 @@ class ChronoEditPipeline:
         self.config = config
         self.dit = dit
         self.vae = vae
+
+    def quantize(self, skip: tuple = (), mode: str = "int8",
+                 upgrade: tuple = ()) -> "ChronoEditPipeline":
+        """Switch the DiT to quantized serving in place (``ops/quant.py``
+        ``quantize_dit``): ``mode`` "int8" (w8a8), "int4" (w4a16, K8 on the
+        card) or "int4_a8" (w4a8); ``skip`` keeps (module, name)
+        projections in float, ``upgrade`` makes them w8a8 inside an int4
+        model (``INT4_MIXED2_UPGRADE`` is the recipe over the 35 dB bar).
+        Attention, the embedders, the head and the VAE keep their dtype.
+        Returns self."""
+        from chronoedit_tpu_torch.ops.quant import quantize_dit
+
+        quantize_dit(self.dit, skip=skip, mode=mode, upgrade=upgrade)
+        return self
 
     def _model_fn(self, condition, text_emb, neg_text_emb, image_emb, guidance):
         """Velocity closure ``fn(x, t)`` for the solver; with guidance > 1,

@@ -141,17 +141,16 @@ def test_bwd_launches_count_by_kernel_and_kv_length(monkeypatch):
     """``check`` counts K6/K7 launches under their names and their KV
     lengths, apart from the forward's; ``reset_launches`` zeroes them."""
     monkeypatch.setattr(build, "LAUNCHES", dict.fromkeys(build.LAUNCHES, 0))
-    monkeypatch.setattr(build, "FLASH_KV_LAUNCHES", {})
-    monkeypatch.setattr(build, "BWD_KV_LAUNCHES", {"flash_bwd_dq": {}, "flash_bwd_dkv": {}})
+    monkeypatch.setattr(build, "SHAPE_LAUNCHES", {k: {} for k in build.SHAPE_LAUNCHES})
     for kv in (7200, 512, 257):
-        build.check(0, "flash_bwd_dq", kv_len=kv)
-    build.check(0, "flash_bwd_dkv", kv_len=512)
+        build.check(0, "flash_bwd_dq", kv)
+    build.check(0, "flash_bwd_dkv", 512)
     assert build.LAUNCHES["flash_bwd_dq"] == 3 and build.LAUNCHES["flash_bwd_dkv"] == 1
-    assert build.BWD_KV_LAUNCHES == {"flash_bwd_dq": {7200: 1, 512: 1, 257: 1},
-                                     "flash_bwd_dkv": {512: 1}}
-    assert build.FLASH_KV_LAUNCHES == {}
+    assert build.SHAPE_LAUNCHES["flash_bwd_dq"] == {7200: 1, 512: 1, 257: 1}
+    assert build.SHAPE_LAUNCHES["flash_bwd_dkv"] == {512: 1}
+    assert build.SHAPE_LAUNCHES["flash_fwd"] == {}
     build.reset_launches()
-    assert build.BWD_KV_LAUNCHES == {"flash_bwd_dq": {}, "flash_bwd_dkv": {}}
+    assert not any(build.SHAPE_LAUNCHES.values())
 
 
 # ----------------------------------------------------------- K2-K4 gradients

@@ -151,7 +151,7 @@ def test_cpu_tensors_never_touch_the_kernel_loader(monkeypatch):
 
     monkeypatch.setattr(build, "build", refuse)
     monkeypatch.setattr(build, "lib", refuse)
-    before = dict(build.LAUNCHES), dict(build.FLASH_KV_LAUNCHES)
+    before = dict(build.LAUNCHES), {k: dict(v) for k, v in build.SHAPE_LAUNCHES.items()}
     x = torch.randn(1, 8, 128)
     mod = torch.randn(1, 2, 128)
     fn_t.layer_norm_modulate(x, mod, mod, 4)
@@ -160,21 +160,21 @@ def test_cpu_tensors_never_touch_the_kernel_loader(monkeypatch):
     q = torch.randn(1, 8, 2, 128)
     fa_t.flash_attention_with_lse(q, q, q, 0.1)
     dot_product_attention(q, q, q)
-    assert (build.LAUNCHES, build.FLASH_KV_LAUNCHES) == before
+    assert (build.LAUNCHES, build.SHAPE_LAUNCHES) == before
 
 
 def test_launch_counts_by_name_and_kv_length(monkeypatch):
     """``check`` counts a successful launch under its name and, for flash
     attention, under its KV length; ``reset_launches`` zeroes both."""
     monkeypatch.setattr(build, "LAUNCHES", dict.fromkeys(build.LAUNCHES, 0))
-    monkeypatch.setattr(build, "FLASH_KV_LAUNCHES", {})
+    monkeypatch.setattr(build, "SHAPE_LAUNCHES", {k: {} for k in build.SHAPE_LAUNCHES})
     for kv in (28800, 28800, 512):
-        build.check(0, "flash_fwd", kv_len=kv)
+        build.check(0, "flash_fwd", kv)
     build.check(0, "rms_norm")
     assert build.LAUNCHES["flash_fwd"] == 3 and build.LAUNCHES["rms_norm"] == 1
-    assert build.FLASH_KV_LAUNCHES == {28800: 2, 512: 1}
+    assert build.SHAPE_LAUNCHES["flash_fwd"] == {28800: 2, 512: 1}
     build.reset_launches()
-    assert not any(build.LAUNCHES.values()) and build.FLASH_KV_LAUNCHES == {}
+    assert not any(build.LAUNCHES.values()) and not any(build.SHAPE_LAUNCHES.values())
 
 
 @pytest.mark.parametrize("case", ["fp32", "head_dim", "kv_mismatch", "strided"])
