@@ -1,7 +1,8 @@
 """Drive the PyTorch port's paths once on one NVIDIA GPU: the 8-step 720p
 edit, the 29-frame temporal-reasoning edit, LoRA fine-tuning of the
-full-width DiT at the edit's geometry, and quantized serving (w4a16 with
-int8-score attention, and the mixed2 recipe).
+full-width DiT at the edit's geometry, quantized serving (w4a16 with
+int8-score attention, and the mixed2 recipe), and the two attention
+experiments (the grouped flash forward X1 and backward X2).
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card, ``nvcc`` (sm_90a) and no network; it imports
@@ -12,24 +13,35 @@ non-zero and no result line is printed:
    limit (``nvidia-smi``);
 2. build the kernels from ``chronoedit_tpu_torch/csrc`` (``kernels/build.py``,
    one ``nvcc`` per source in parallel) and print each kernel's registers
-   and spills;
+   and spills, each template instantiation under its own name;
 3. hold each kernel against its plain PyTorch twin on the card at the main
    paths' shapes in bf16, with CUDA-event times for both, for PyTorch's own
    call where one computes the same function (``library_ms``: SDPA, and
-   its backward asked for each backward kernel's own gradients, timed as
-   yardsticks, never called by the port) and each
+   its backward asked for each backward kernel's own gradients, and
+   ``torch.nn.functional.rms_norm`` beside K4, timed as yardsticks, never
+   called by the port) and each
    kernel's bound (the larger of FLOPs over 989 TFLOP/s and bytes over
-   3.35 TB/s): K1 and K6/K7 (against the q-chunked backward twin) at the
-   edit's 7,200 tokens against KV 7,200, 512 and 257, K2-K4 at the edit's
-   stream, and the flash kernel at the reasoning self-attention's 28,800
-   tokens as K5 (against the q-chunked twin); K8 (the int4 matmul) at the
+   3.35 TB/s): K1 and X1 (2, 3 and 4 KV tiles a step) and K6/K7 (against
+   the q-chunked backward twin) at the edit's 7,200 tokens against KV
+   7,200, 512 and 257, X2 (every grouped variant of the experiment) against
+   KV 7,200 and 257, K2-K4 at the edit's stream, and the flash kernel at
+   the reasoning self-attention's 28,800 tokens as K5 and X1 (against the
+   q-chunked twin, computed once); K8 (the int4 matmul) at the
    five projection shapes of a 720p forward and the three at the reasoning
    forward's 28,800 rows, against its twin and against
    cuBLAS on the dequantized bf16 weight (a yardstick, not the same
    function), and K9 (int8 scores) at 28,800 tokens against its q-chunked
    twin and SDPA in bf16. This runs before the model exists: the plain
    attention needs ~35 GB;
-4. small references: the serving slice at 2 blocks x 2 heads of 128 on the
+4. the experiment entry points at full width (B = 2, 40 heads of 128):
+   ``chronoedit_tpu_torch.tools.exp_flash_paired.main()`` (X1 at 28,800
+   tokens) and ``exp_flash_bwd_grouped.main(["--shapes", "both"])`` (X2 at
+   7,200 and 28,800 tokens, K6/K7 and every X2 variant also held against
+   the twin on three 128-row tiles of both batches), each checked and
+   timed by the tool itself, with the launch counters zeroed just before
+   each and read just after: they must be exactly what the tool's loops
+   imply (X1's and X2's launches in the kernel table are these);
+5. small references: the serving slice at 2 blocks x 2 heads of 128 on the
    card (bf16, kernels) against the same weights on the CPU (fp32, plain
    twins), as PSNR over the [-1, 1] pixel range: the edit, and reasoning
    mode with the frame drop and without it, W-tiled streaming VAE; the edit
@@ -39,7 +51,7 @@ non-zero and no result line is printed:
    LoRA steps and two full-parameter steps of that DiT (loss, gradient
    cosine, grad_norm, then Adam's first moment and the update, against the
    CPU);
-5. the main paths: ``chronoedit_14b_distilled`` at full width and depth
+6. the main paths: ``chronoedit_14b_distilled`` at full width and depth
    (40 blocks x 5120, bf16, random weights from a seeded generator, built
    outside ``inference_mode`` so that it can train) and the full-width VAE
    serve two 720p edits, then two 29-frame reasoning edits (the whole
@@ -51,12 +63,12 @@ non-zero and no result line is printed:
    and serve one edit. The launch counters are zeroed just before each
    edit and each step and must then show exactly the launches the path
    implies, by kernel, by attention KV length and by the int4 matmul's
-   rows; stage and step times, peak memory, the memory after each
+   rows (none of them grouped); stage and step times, peak memory, the memory after each
    quantization, each quantized output's PSNR against the bf16 output of
    the same request and noise (random weights: no bar), a
    tiled-against-untiled streaming decode of an 8-frame latent trajectory
    (fp32) and an unchanged-base checksum follow;
-6. print the kernel table as one JSON line, the card line again, and last
+7. print the kernel table as one JSON line, the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds one warm ``torch.profiler`` pass over each stage (DiT
@@ -75,6 +87,7 @@ import functools
 from collections import Counter
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -83,26 +96,14 @@ from pathlib import Path
 
 import torch
 
-# Tolerances, each with its reason. K2-K4 compute in fp32 and round once to
-# bf16, as their twins do, so they may differ by one bf16 rounding step at
-# the output's largest magnitude (2**-7 relative). K1 also rounds P to bf16
-# before P.V (<= 2**-9 per weight, fp32 accumulation), so its output may
-# differ by two bf16 steps at the case's largest output, and never by more
-# than 1e-2 (outputs reach ~1.3 against KV 512 and 257, ~0.13 in
-# self-attention). Its LSE is fp32 throughout.
-ULP_BF16 = 2.0 ** -7
-K1_OUT_STEPS = 2.0
-K1_OUT_MAX_TOL = 1e-2
-K1_LSE_TOL = 1e-3
-# K6/K7 against their twin (both from the same bf16 inputs, lse and dsum):
-# the kernels round P and dS to bf16 before the products that use them, as
-# JAX does, and both round the outputs to bf16. A CPU emulation of exactly
-# those roundings at 3,600 x {3,600, 512, 257} put the largest error at
-# 0.98 bf16 steps of max|ref| and the normwise relative error at 2.6e-3.
-# Bounds: 3 steps of max|ref|, and 1e-2 normwise (a lost or doubled tile
-# errs by the output's own size in that norm).
-K67_MAX_STEPS = 3.0
-K67_NORM_REL = 1e-2
+# The attention kernels' bounds (K1_*, K67_*, with their reasons) and the
+# CUDA-event timer are the experiment tools' own, so that both judge a
+# kernel alike. Tolerances, each with its reason: K2-K4 compute in fp32 and
+# round once to bf16, as their twins do, so they may differ by one bf16
+# rounding step (ULP_BF16) at the output's largest magnitude.
+from chronoedit_tpu_torch.tools import (K1_LSE_TOL, K1_OUT_MAX_TOL, K1_OUT_STEPS, K67_MAX_STEPS,
+                                        K67_NORM_REL, ULP_BF16, cuda_ms, k67_check, max_err)
+
 # Training references: the 2-block DiT in bf16 on the card against fp32 on
 # the CPU (same weights, batch and draws). The same comparison with the
 # bf16 side also on the CPU (the twins in bf16) gave a loss within 9.3e-5
@@ -161,27 +162,18 @@ EDIT_TOKENS = 2 * (EDIT_H // 16) * (EDIT_W // 16)
 REASONING_TOKENS = 8 * (EDIT_H // 16) * (EDIT_W // 16)
 # q rows per chunk of the plain twin at 28,800 tokens: ~8 GB of fp32 scores
 Q_CHUNK = 1800
+# X1's KV tiles a step, and X2's (n_dq, n_dkv) variants (the experiment's,
+# without production's (1, 1), which is K6/K7)
+X1_GROUPS = (2, 3, 4)
+X2_VARIANTS = ((2, 1), (1, 2), (2, 2), (4, 1), (4, 4), (2, 4))
+# the grouped kernels' launch names: none of the main paths launches them
+GROUPED = ("flash_fwd_grouped", "flash_bwd_dq_grouped", "flash_bwd_dkv_grouped")
 
 
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60).stdout.strip()
-
-
-def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Median device time of ``fn`` in ms, from CUDA events around each call."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def host_s(fn):
@@ -211,10 +203,6 @@ def add_rows(a: dict, b: dict) -> dict:
     return out
 
 
-def max_err(got: torch.Tensor, want: torch.Tensor) -> float:
-    return float((got.float() - want.float()).abs().max())
-
-
 def psnr(got: torch.Tensor, want: torch.Tensor) -> float:
     mse = float((got.double() - want.double()).square().mean())
     return math.inf if mse == 0 else 10.0 * math.log10(2.0 ** 2 / mse)
@@ -222,9 +210,20 @@ def psnr(got: torch.Tensor, want: torch.Tensor) -> float:
 
 # ----------------------------------------------------------- phase 3
 
+def accumulate(results: dict, name: str, row: dict, case: str | None = None) -> None:
+    """Add a kernel's row for one call shape to ``results[name]``
+    (``add_rows``); with ``case``, also keep its time under
+    ``results[name]["ms_by_case"][case]`` (the grouped kernels' sizes)."""
+    cases = results[name].get("ms_by_case", {}) if name in results else {}
+    results[name] = add_rows(results[name], row) if name in results else dict(row)
+    if case is not None:
+        results[name]["ms_by_case"] = {**cases, case: row["ms"]}
+
+
 def compare_kernels(dev: torch.device) -> dict[str, dict]:
     """Each kernel against its plain twin at main-path shapes; returns
-    {name: {max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms}}."""
+    {name: {max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms}}
+    (the grouped kernels' rows also hold ``ms_by_case``)."""
     from chronoedit_tpu_torch.ops import fused_norms as fn
     from chronoedit_tpu_torch.ops import layers as L
 
@@ -239,10 +238,16 @@ def compare_kernels(dev: torch.device) -> dict[str, dict]:
     q = randn(1, s, h, d)
     for skv, what in ((s, "self"), (TEXT_TOKENS, "text"), (IMAGE_TOKENS, "image")):
         k, v = randn(1, skv, h, d), randn(1, skv, h, d)
-        rows = {"flash_fwd": compare_flash("K1", what, q, k, v),
-                **compare_flash_bwd(what, q, k, v)}
-        for name, row in rows.items():
-            results[name] = add_rows(results[name], row) if name in results else row
+        ref = flash_reference(q, k, v)
+        accumulate(results, "flash_fwd", compare_flash("K1", what, q, k, v, ref))
+        for n in X1_GROUPS:
+            accumulate(results, "flash_fwd_grouped",
+                       compare_flash("X1", what, q, k, v, ref, group=n), f"n={n} kv={skv}")
+        del ref
+        # X2 against the self-attention's and the ragged image context's KV
+        for name, rows in compare_flash_bwd(what, q, k, v, grouped=what != "text").items():
+            for row, case in rows:
+                accumulate(results, name, row, case)
     del q, k, v
     torch.cuda.empty_cache()
 
@@ -255,36 +260,49 @@ def compare_kernels(dev: torch.device) -> dict[str, dict]:
     with torch.no_grad():
         norm.scale.copy_(1.0 + 0.1 * randn(dim))
     row_bytes = x.numel() * 2
-    cases = {  # kernel, twin, bytes moved (inputs read once, output written once)
+    cases = {  # kernel, twin, bytes moved (inputs read once, output written once), library
         "ln_modulate": (lambda: fn.layer_norm_modulate(x, mod_scale, mod_shift, hw),
                         lambda: fn.ln_modulate_plain(x, mod_scale, mod_shift, hw),
-                        2 * row_bytes + 2 * mod_scale.numel() * 4),
+                        2 * row_bytes + 2 * mod_scale.numel() * 4, None),
         "gated_residual": (lambda: fn.gated_residual(x, delta, gate, hw),
                            lambda: fn.gated_residual_plain(x, delta, gate, hw),
-                           3 * row_bytes + gate.numel() * 4),
+                           3 * row_bytes + gate.numel() * 4, None),
+        # PyTorch's rms_norm applies the weight before its one rounding; K4
+        # rounds, then applies the weight in bf16: a yardstick, not the same
+        # function
         "rms_norm": (lambda: fn.rms_norm_fused(norm, x),
                      lambda: fn.rms_norm_plain(norm.scale, x),
-                     2 * row_bytes + dim * 2),
+                     2 * row_bytes + dim * 2,
+                     lambda: torch.nn.functional.rms_norm(x, (dim,), norm.scale, 1e-6)),
     }
-    for name, (kernel, plain, nbytes) in cases.items():
+    for name, (kernel, plain, nbytes, library) in cases.items():
         with torch.no_grad():
             got, ref = kernel(), plain()
             err, tol = max_err(got, ref), ULP_BF16 * float(ref.float().abs().max())
             ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
+            library_ms = None if library is None else cuda_ms(library)
         # about 10 operations an element: far under the bytes
         row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-               **bound(10 * x.numel(), nbytes), "library_ms": None}
+               **bound(10 * x.numel(), nbytes), "library_ms": library_ms}
         print(f"{name} x {tuple(x.shape)}: max|out-ref| {err:.3e} (tol {tol:.3e}); "
               f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {row['bound_ms']:.3f} "
-              f"ms ({row['bound_by']}); no single PyTorch call computes it")
+              f"ms ({row['bound_by']}); " + (
+                  "no single PyTorch call computes it" if library is None else
+                  f"torch.nn.functional.rms_norm (weight before the rounding) {library_ms:.3f} ms"))
         if not err <= tol:
             raise AssertionError(f"{name} disagrees with its twin")
         results[name] = row
 
-    # K5: the same kernel over the reasoning self-attention's 28,800 tokens;
-    # K9 on the same q, k, v
+    # K5: the same kernel over the reasoning self-attention's 28,800 tokens,
+    # and X1 there against the same twin reference; K9 on the same q, k, v
     q, k, v = (randn(1, REASONING_TOKENS, h, d) for _ in range(3))
-    results["flash_fwd_streamed"] = compare_flash("K5", "self", q, k, v, q_chunk=Q_CHUNK)
+    ref = flash_reference(q, k, v, q_chunk=Q_CHUNK)
+    results["flash_fwd_streamed"] = compare_flash("K5", "self", q, k, v, ref)
+    for n in X1_GROUPS:
+        accumulate(results, "flash_fwd_grouped", compare_flash("X1", "self", q, k, v, ref, group=n),
+                   f"n={n} kv={REASONING_TOKENS}")
+    del ref
+    torch.cuda.empty_cache()
     results["flash_fwd_qk8"] = compare_qk8(q, k, v)
     del q, k, v
     torch.cuda.empty_cache()
@@ -295,9 +313,7 @@ def compare_kernels(dev: torch.device) -> dict[str, dict]:
                        (EDIT_TOKENS, 13824, dim), (TEXT_TOKENS, dim, dim),
                        (IMAGE_TOKENS, dim, dim), (REASONING_TOKENS, dim, dim),
                        (REASONING_TOKENS, dim, 13824), (REASONING_TOKENS, 13824, dim)):
-        row = compare_int4(g, m, k_in, n)
-        results["int4_matmul"] = (add_rows(results["int4_matmul"], row)
-                                  if "int4_matmul" in results else row)
+        accumulate(results, "int4_matmul", compare_int4(g, m, k_in, n))
     return results
 
 
@@ -394,48 +410,65 @@ def attention_bytes(q, k, n_q_like: int, n_kv_like: int, n_row_f32: int) -> int:
     return 2 * d * b * h * (n_q_like * sq + n_kv_like * k.shape[1]) + 4 * n_row_f32 * b * h * sq
 
 
-def compare_flash(kid: str, what: str, q, k, v, q_chunk: int | None = None) -> dict:
-    """The flash kernel against its plain twin on (q, k, v): output within
-    two bf16 steps of max|ref| (at most 1e-2), LSE within 1e-3; CUDA-event
-    times of both and of SDPA. Returns a kernel row."""
+def flash_reference(q, k, v, q_chunk: int | None = None) -> dict:
+    """The plain twin's output and LSE on (q, k, v), with CUDA-event times
+    of the twin and of SDPA: computed once and shared by the rows of every
+    group of the flash forward on these inputs."""
+    from chronoedit_tpu_torch.ops import flash_attention as fa
+
+    scale = q.shape[-1] ** -0.5
+    out, lse = fa.flash_attention_plain(q, k, v, scale, q_chunk=q_chunk)
+    plain = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, scale, q_chunk=q_chunk),
+                    reps=3, warmup=1)
+    torch.cuda.empty_cache()
+    return {"out": out, "lse": lse, "plain_ms": plain,
+            "library_ms": cuda_ms(lambda: sdpa(q, k, v, scale))}
+
+
+def compare_flash(kid: str, what: str, q, k, v, ref: dict, group: int = 1) -> dict:
+    """The flash kernel with ``group`` KV tiles a step (1: K1/K5; 2-4:
+    X1) against the twin's ``flash_reference`` on (q, k, v): output within
+    two bf16 steps of max|ref| (at most 1e-2), LSE within 1e-3; its
+    CUDA-event time beside the twin's and SDPA's. Returns a kernel row."""
     from chronoedit_tpu_torch.ops import flash_attention as fa
 
     scale = q.shape[-1] ** -0.5
     skv = k.shape[1]
-    out, lse = fa.flash_attention_with_lse(q, k, v, scale)
-    ref, ref_lse = fa.flash_attention_plain(q, k, v, scale, q_chunk=q_chunk)
-    e_out, e_lse = max_err(out, ref), max_err(lse, ref_lse)
-    ref_max = float(ref.float().abs().max())
+    out, lse = fa.flash_attention_with_lse(q, k, v, scale, group=group)
+    e_out, e_lse = max_err(out, ref["out"]), max_err(lse, ref["lse"])
+    ref_max = float(ref["out"].float().abs().max())
     out_tol = min(K1_OUT_MAX_TOL, K1_OUT_STEPS * ULP_BF16 * ref_max)
-    print(f"{kid} flash_fwd {what:5s} q {tuple(q.shape)} kv {skv}: max|out-ref| "
+    label = f"{kid} flash_fwd" + (f" group {group}" if group > 1 else "")
+    print(f"{label} {what:5s} q {tuple(q.shape)} kv {skv}: max|out-ref| "
           f"{e_out:.3e} (tol {out_tol:.3e}, max|ref| {ref_max:.3f})"
           f", max|lse-ref| {e_lse:.3e} (tol {K1_LSE_TOL})")
     if not (e_out <= out_tol and e_lse <= K1_LSE_TOL):
-        raise AssertionError(f"{kid} disagrees with its twin at kv={skv}")
-    del out, lse, ref, ref_lse
-    torch.cuda.empty_cache()
-    ms = cuda_ms(lambda: fa.flash_attention_with_lse(q, k, v, scale))
-    plain = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, scale, q_chunk=q_chunk),
-                    reps=3, warmup=1)
-    library = cuda_ms(lambda: sdpa(q, k, v, scale))
+        raise AssertionError(f"{label} disagrees with its twin at kv={skv}")
+    del out, lse
+    ms = cuda_ms(lambda: fa.flash_attention_with_lse(q, k, v, scale, group=group))
+    plain, library = ref["plain_ms"], ref["library_ms"]
     flops = 4 * q.shape[0] * q.shape[2] * q.shape[1] * skv * q.shape[3]
     row = {"max_abs_err": e_out, "ms": ms, "plain_ms": plain, "library_ms": library,
            **bound(flops, attention_bytes(q, k, 2, 2, 1))}
     print(f"   kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain:.3f} ms, "
           f"SDPA {library:.3f} ms, bound {row['bound_ms']:.3f} ms ({row['bound_by']})")
-    torch.cuda.empty_cache()
     return row
 
 
-def compare_flash_bwd(what: str, q, k, v) -> dict[str, dict]:
+def compare_flash_bwd(what: str, q, k, v, grouped: bool) -> dict[str, list[tuple]]:
     """K6 (dQ) and K7 (dK, dV) against the q-chunked fp32 twin on the same
     bf16 q, k, v, the forward kernel's O and LSE and a random dO: each
     gradient within K67_MAX_STEPS bf16 steps of its max|ref| and within
-    K67_NORM_REL normwise. CUDA-event times of each kernel (its wrapper,
-    which adds the dsum reduction) and, for each kernel's own outputs
-    alone (dQ for K6; dK and dV for K7), of the twin and of SDPA's backward
-    asked for just those gradients. Returns {flash_bwd_dq, flash_bwd_dkv}
-    rows."""
+    K67_NORM_REL normwise. With ``grouped``, every X2 variant
+    (``X2_VARIANTS``) against the same twin reference with the same bounds.
+    CUDA-event times of each kernel (its wrapper, which adds the dsum
+    reduction; X2's dQ and dK/dV kernels timed apart for each group size)
+    and, for each kernel's own outputs alone (dQ for K6; dK and dV for K7),
+    of the twin and of SDPA's backward asked for just those gradients (the
+    same yardsticks for X2's kernels). Returns {name: [(row, case)]}:
+    K6/K7's rows under ``flash_bwd_dq`` / ``flash_bwd_dkv`` (case None),
+    X2's under ``flash_bwd_dq_grouped`` / ``flash_bwd_dkv_grouped``, one
+    for each group size (case "n=<n> kv=<Skv>")."""
     from chronoedit_tpu_torch.ops import flash_attention as fa
 
     scale = q.shape[-1] ** -0.5
@@ -444,20 +477,25 @@ def compare_flash_bwd(what: str, q, k, v) -> dict[str, dict]:
     out, lse = fa.flash_attention_with_lse(q, k, v, scale)
     dout = torch.randn(out.shape, device=q.device, dtype=q.dtype,
                        generator=torch.Generator(device=q.device).manual_seed(skv))
-    got = fa.flash_attention_bwd(q, k, v, out, dout, lse, scale)
     ref = fa.flash_attention_bwd_plain(q, k, v, out, dout, lse, scale, q_chunk=Q_CHUNK)
-    errs = {}
-    for name, g_, r_ in zip(("dq", "dk", "dv"), got, ref):
-        ref_max = float(r_.float().abs().max())
-        err = max_err(g_, r_)
-        rel = float((g_.float() - r_.float()).norm() / r_.float().norm())
-        tol = K67_MAX_STEPS * ULP_BF16 * ref_max
-        print(f"K6/K7 flash_bwd {what:5s} kv {skv}: {name} max err {err:.3e} (tol {tol:.3e}, "
-              f"max|ref| {ref_max:.4f}), normwise {rel:.3e} (tol {K67_NORM_REL})")
-        if not (err <= tol and rel <= K67_NORM_REL and bool(torch.isfinite(g_).all())):
-            raise AssertionError(f"K6/K7 {name} disagrees with its twin at kv={skv}")
-        errs[name] = err
-    del got, ref
+
+    def check(label: str, got) -> dict[str, float]:
+        errs = {}
+        for name, g_, r_ in zip(("dq", "dk", "dv"), got, ref):
+            c = k67_check(g_, r_)
+            print(f"{label} flash_bwd {what:5s} kv {skv}: {name} max err {c['max']:.3e} (tol "
+                  f"{c['tol']:.3e}, {K67_MAX_STEPS:g} steps of max|ref|), normwise "
+                  f"{c['rel']:.3e} (tol {K67_NORM_REL})")
+            if not c["ok"]:
+                raise AssertionError(f"{label} {name} disagrees with its twin at kv={skv}")
+            errs[name] = c["max"]
+        return errs
+
+    errs = check("K6/K7", fa.flash_attention_bwd(q, k, v, out, dout, lse, scale))
+    x2_errs = {pair: check(f"X2 {pair}", fa.flash_attention_bwd(
+        q, k, v, out, dout, lse, scale, group_dq=pair[0], group_dkv=pair[1]))
+        for pair in (X2_VARIANTS if grouped else ())}
+    del ref
     torch.cuda.empty_cache()
 
     qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
@@ -467,27 +505,117 @@ def compare_flash_bwd(what: str, q, k, v) -> dict[str, dict]:
     rows = {}
     # K6: S, dP, dS k; reads q, k, v, dO, lse, dsum, writes dQ.
     # K7: S^T, dP^T, P^T dO, dS^T q; reads q, k, v, dO, lse, dsum, writes dK, dV
-    for name, need_dq, wrt, flops, nbytes, err in (
-            ("flash_bwd_dq", True, (qg,), 3 * unit, attention_bytes(q, k, 3, 2, 2), errs["dq"]),
-            ("flash_bwd_dkv", False, (kg, vg), 4 * unit, attention_bytes(q, k, 2, 4, 2),
-             max(errs["dk"], errs["dv"]))):
-        flags = {"need_dq": need_dq, "need_dkv": not need_dq}
+    for name, side, wrt, flops, nbytes, outs in (
+            ("flash_bwd_dq", 0, (qg,), 3 * unit, attention_bytes(q, k, 3, 2, 2), ("dq",)),
+            ("flash_bwd_dkv", 1, (kg, vg), 4 * unit, attention_bytes(q, k, 2, 4, 2),
+             ("dk", "dv"))):
+        flags = {"need_dq": side == 0, "need_dkv": side == 1}
         ms = cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, out, dout, lse, scale, **flags))
         plain = cuda_ms(lambda: fa.flash_attention_bwd_plain(
             q, k, v, out, dout, lse, scale, q_chunk=Q_CHUNK, **flags), reps=3, warmup=1)
         library = cuda_ms(lambda: torch.autograd.grad(lib_out, wrt, dout.transpose(1, 2),
                                                       retain_graph=True))
-        rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain, "library_ms": library,
-                      **bound(flops, nbytes)}
+        yardsticks = {"plain_ms": plain, "library_ms": library, **bound(flops, nbytes)}
+        rows[name] = [({"max_abs_err": max(errs[o] for o in outs), "ms": ms, **yardsticks},
+                       None)]
         print(f"   {name}: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), twin {plain:.3f} "
-              f"ms, SDPA backward for {'dQ' if need_dq else 'dK, dV'} {library:.3f} ms, bound "
-              f"{rows[name]['bound_ms']:.3f} ms ({rows[name]['bound_by']})")
+              f"ms, SDPA backward for {'dQ' if side == 0 else 'dK, dV'} {library:.3f} ms, bound "
+              f"{yardsticks['bound_ms']:.3f} ms ({yardsticks['bound_by']})")
+        if not grouped:
+            continue
+        # X2's kernel for this side alone, at each of its group sizes (a
+        # side at group 1 is K6/K7, timed above)
+        rows[name + "_grouped"] = []
+        for n in sorted({pair[side] for pair in X2_VARIANTS} - {1}):
+            group = {"group_dq" if side == 0 else "group_dkv": n}
+            t = cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, out, dout, lse, scale,
+                                                       **flags, **group))
+            err = max(x2_errs[p_][o] for p_ in X2_VARIANTS if p_[side] == n for o in outs)
+            rows[name + "_grouped"].append(({"max_abs_err": err, "ms": t, **yardsticks},
+                                            f"n={n} kv={skv}"))
+            print(f"   {name}_grouped (X2), {n} tiles a step: kernel {t:.3f} ms "
+                  f"({flops / t / 1e9:.1f} TFLOP/s)")
     del lib_out
     torch.cuda.empty_cache()
     return rows
 
 
-# ----------------------------------------------------------- phases 4, 5
+# ----------------------------------------------------------- phase 4
+
+def expected_tool_launches(calls: list[tuple[str, int, int]]
+                           ) -> tuple[dict[str, int], dict[str, dict[int, int]]]:
+    """The launch counters after ``calls``, a list of (kernel name, KV
+    length, launches), in ``read_launches``'s form."""
+    from chronoedit_tpu_torch.kernels import build
+
+    by_name = dict.fromkeys(build.LAUNCHES, 0)
+    by_kv = {name: {} for name in build.SHAPE_LAUNCHES}
+    for name, kv, count in calls:
+        by_name[name] += count
+        by_kv[name][kv] = by_kv[name].get(kv, 0) + count
+    return by_name, by_kv
+
+
+def paired_tool_calls() -> list[tuple[str, int, int]]:
+    """``exp_flash_paired.main()``'s launches at its defaults: group 1 on the
+    256-row head (the base of the head check), then for each group the
+    head, the whole check, the warm-up and the timed calls, all over
+    ``TOKENS`` KV rows; group 1 is K1/K5, the rest X1."""
+    from chronoedit_tpu_torch.tools import exp_flash_paired as xp
+
+    calls = [("flash_fwd", xp.TOKENS, 1)]
+    for n in xp.GROUPS:
+        calls.append(("flash_fwd" if n == 1 else "flash_fwd_grouped", xp.TOKENS, 3 + xp.REPS))
+    return calls
+
+
+def bwd_tool_calls() -> list[tuple[str, int, int]]:
+    """``exp_flash_bwd_grouped.main(["--shapes", "both"])``'s launches: for
+    each shape one forward, then for each variant the check's backward and
+    the timed ones; each side runs K6 or K7 at group 1, X2's kernel at 2 or
+    4."""
+    from chronoedit_tpu_torch.tools import exp_flash_bwd_grouped as xb
+
+    calls = []
+    for seq, reps in xb.SHAPES.values():
+        calls.append(("flash_fwd", seq, 1))
+        for n_dq, n_dkv in xb.VARIANTS:
+            calls.append(("flash_bwd_dq" + ("_grouped" if n_dq > 1 else ""), seq, 1 + reps))
+            calls.append(("flash_bwd_dkv" + ("_grouped" if n_dkv > 1 else ""), seq, 1 + reps))
+    return calls
+
+
+def experiment_tools() -> dict[str, int]:
+    """Both experiment entry points at full width, as a user runs them:
+    ``exp_flash_paired.main()`` (X1 at 2 x 28,800 tokens) and
+    ``exp_flash_bwd_grouped.main(["--shapes", "both"])`` (X2 at 2 x 7,200
+    and 2 x 28,800 tokens, each backward also held against the twin on
+    three 128-row tiles of every batch and head); each checks every group
+    against the ungrouped kernels (and against the twin) and prints its
+    timing table. The counters are zeroed just before each and read just
+    after: they must equal the launches the tool's loops imply, by kernel
+    and by KV length. Returns {grouped kernel name: launches}."""
+    from chronoedit_tpu_torch.kernels import build
+    from chronoedit_tpu_torch.tools import exp_flash_bwd_grouped, exp_flash_paired
+
+    launches = {}
+    for label, run, calls in (
+            ("exp_flash_paired", exp_flash_paired.main, paired_tool_calls()),
+            ("exp_flash_bwd_grouped", lambda: exp_flash_bwd_grouped.main(["--shapes", "both"]),
+             bwd_tool_calls())):
+        want = expected_tool_launches(calls)
+        build.reset_launches()
+        _, secs = host_s(run)
+        got = read_launches()
+        print(f"{label}: {secs:.1f} s; launches {got[0]}, by KV length {got[1]}")
+        if got != want:
+            raise AssertionError(f"{label}: launches {got}, its loops imply {want}")
+        launches.update({name: got[0][name] for name in GROUPED if got[0][name]})
+        torch.cuda.empty_cache()
+    return launches
+
+
+# ----------------------------------------------------------- phases 5, 6
 
 def redraw_zero_projections(dit, vae, g: torch.Generator) -> None:
     """The init zeroes the DiT's output projection and the VAE attention
@@ -725,7 +853,8 @@ def expected_launches(cfg, tokens: list[int], int4: bool = False,
     plus the head's LN-modulate, and no backward. With ``int4`` (w4a16)
     every block's 12 projections run K8: 8 over the step's tokens, 2 over
     the text and 2 over the image context; with ``qk8`` self-attention past
-    JAX's resident KV length runs K9 instead of the flash forward. Returns
+    JAX's resident KV length runs K9 instead of the flash forward. No
+    grouped kernel runs. Returns
     ({name: count}, {name: {KV length or int4 rows: count}}), as
     ``read_launches``."""
     from chronoedit_tpu_torch.ops.flash_attention import uses_int8_scores
@@ -742,9 +871,11 @@ def expected_launches(cfg, tokens: list[int], int4: bool = False,
     by_name = {"flash_fwd": sum(by_kv.values()), "ln_modulate": (2 * n + 1) * steps,
                "gated_residual": 2 * n * steps, "rms_norm": 5 * n * steps,
                "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-               "int4_matmul": sum(rows.values()), "flash_fwd_qk8": sum(qk8_kv.values())}
+               "int4_matmul": sum(rows.values()), "flash_fwd_qk8": sum(qk8_kv.values()),
+               **dict.fromkeys(GROUPED, 0)}
     return by_name, {"flash_fwd": by_kv, "flash_bwd_dq": {}, "flash_bwd_dkv": {},
-                     "int4_matmul": rows, "flash_fwd_qk8": qk8_kv}
+                     "int4_matmul": rows, "flash_fwd_qk8": qk8_kv,
+                     **{name: {} for name in GROUPED}}
 
 
 def read_launches() -> tuple[dict[str, int], dict[str, dict[int, int]]]:
@@ -904,11 +1035,11 @@ def expected_train_launches(cfg) -> tuple[dict[str, int], dict[str, dict[int, in
     by_name = {"flash_fwd": 2 * 3 * n, "ln_modulate": 2 * 2 * n + 1,
                "gated_residual": 2 * 2 * n, "rms_norm": 2 * 5 * n,
                "flash_bwd_dq": 3 * n, "flash_bwd_dkv": 2 * n,
-               "int4_matmul": 0, "flash_fwd_qk8": 0}
+               "int4_matmul": 0, "flash_fwd_qk8": 0, **dict.fromkeys(GROUPED, 0)}
     by_kv = {"flash_fwd": {EDIT_TOKENS: 2 * n, TEXT_TOKENS: 2 * n, IMAGE_TOKENS: 2 * n},
              "flash_bwd_dq": {EDIT_TOKENS: n, TEXT_TOKENS: n, IMAGE_TOKENS: n},
              "flash_bwd_dkv": {EDIT_TOKENS: n, TEXT_TOKENS: n},
-             "int4_matmul": {}, "flash_fwd_qk8": {}}
+             "int4_matmul": {}, "flash_fwd_qk8": {}, **{name: {} for name in GROUPED}}
     return by_name, by_kv
 
 
@@ -1132,22 +1263,42 @@ SOURCES = {
                     "chronoedit_tpu/ops/int4_matmul.py:89"),
     "flash_fwd_qk8": ("chronoedit_tpu_torch/csrc/flash_fwd_qk8.cu",
                       "chronoedit_tpu/ops/flash_attention.py:326"),
+    "flash_fwd_grouped": ("chronoedit_tpu_torch/csrc/flash_fwd.cu",
+                          "tools/exp_flash_paired.py:40"),
+    "flash_bwd_dq_grouped": ("chronoedit_tpu_torch/csrc/flash_bwd.cu",
+                             "tools/exp_flash_bwd_grouped.py:41"),
+    "flash_bwd_dkv_grouped": ("chronoedit_tpu_torch/csrc/flash_bwd.cu",
+                              "tools/exp_flash_bwd_grouped.py:78"),
 }
+
+
+def kernel_name(symbol: str) -> str:
+    """A kernel's name from its mangled symbol, with an integer template
+    argument as ``name<N>``: the last component of the (anonymous)
+    namespace path, e.g. ``flash_fwd_grouped_kernel<3>``."""
+    i = 3 if symbol.startswith("_ZN") else 2
+    name = symbol
+    while i < len(symbol) and symbol[i].isdigit():
+        j = i
+        while symbol[j].isdigit():
+            j += 1
+        name, i = symbol[j:j + int(symbol[i:j])], j + int(symbol[i:j])
+    arg = re.match(r"ILi(\d+)EE", symbol[i:])
+    return f"{name}<{arg.group(1)}>" if arg else name
 
 
 def print_ptxas(log: Path) -> None:
     """Each kernel's registers, spills and shared memory from nvcc's
-    ``-Xptxas=-v`` output (kept beside the library when it was built)."""
+    ``-Xptxas=-v`` output (kept beside the library when it was built), each
+    template instantiation under its own name."""
     if not log.exists():
         print("ptxas: no build log (the library was built before)")
         return
     name = None
     for line in log.read_text().splitlines():
-        if "Compiling entry function" in line:
-            name = next((k for k in ("flash_bwd_dq", "flash_bwd_dkv", "flash_fwd_qk8",
-                                     "flash_fwd", "ln_modulate", "gated_residual",
-                                     "rms_norm", "int4_matmul")
-                         if k + "_kernel" in line), line)
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            name = kernel_name(entry.group(1))
         elif name and ("registers" in line or "spill" in line):
             print(f"ptxas {name}: {line.split(':', 1)[-1].strip()}")
 
@@ -1184,6 +1335,8 @@ def main() -> int:
     with torch.no_grad():
         results = compare_kernels(dev)
     torch.cuda.empty_cache()
+    with torch.no_grad():
+        tool_launches = experiment_tools()
     with torch.inference_mode():
         small_references(dev)
     training_references(dev)
@@ -1207,8 +1360,8 @@ def main() -> int:
         mixed2_path(pipe, dev, (by_name, by_kv), refs, profile_dir)
 
     # K5 is the flash kernel's launches over the 28,800-token reasoning
-    # self-attention; K1 the rest of them
-    launches = dict(by_name, flash_fwd_streamed=by_kv[REASONING_TOKENS])
+    # self-attention; K1 the rest of them; X1 and X2 ran in phase 4 only
+    launches = dict(by_name, flash_fwd_streamed=by_kv[REASONING_TOKENS], **tool_launches)
     launches["flash_fwd"] -= launches["flash_fwd_streamed"]
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name], **results[name])

@@ -31,6 +31,24 @@
 //   never written.
 // The KV tile is loaded once per block and read by all 8 warps, so device
 // memory traffic is (Sq / 128) passes over K and V per head.
+//
+// X1: the grouped forward, `flash_fwd_grouped_kernel<N>` behind
+// `flash_fwd_grouped_bf16(..., group)`, N = 2, 3 or 4. Replaces the Pallas
+// kernel tools/exp_flash_paired.py `_grouped_kernel` (launched by
+// `paired_flash`), whose design became the TPU's production streamed
+// forward (`_fwd_kernel_streamed` with `group`). Same function as K1/K5,
+// same bound. Each step stages N 64-row KV tiles behind one barrier pair,
+// issues all N x 8 score tiles before any softmax work, takes one combined
+// row max and one alpha, rescales the accumulator once (a 1/N share of
+// K1's rescale multiplies) and then runs the N P.V products. The q
+// fragments are read from shared memory at every step instead of held in
+// registers: the N score tiles (32 N fp32 a thread) need the room. K1's
+// numerics are kept (fp32 scores scaled by scale * log2 e, masking in the
+// kernel, P rounded to bf16, fp32 LSE); only the running max a tile's P is
+// taken against differs, so outputs agree with K1's to bf16 rounding.
+// Dynamic shared memory (128 + 2 N 64) * 136 * 2 B: 104,448 (N = 2),
+// 139,264 (3), 174,080 (4); ptxas -v (sm_90a): 179, 250 and 255 registers
+// a thread, no spills (K1: 173); one block of 8 warps per SM.
 #include <math.h>
 
 #include "common.cuh"
@@ -218,4 +236,189 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
       static_cast<float*>(lse), Sq, Skv, H, scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------- X1
+
+namespace {
+
+template <int N>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_grouped_kernel(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                         int Sq, int Skv, int H, float scale_log2) {
+  constexpr int kStep = N * kBKV;  // KV rows a step
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* ks = qs + kBQ * kLd;
+  __nv_bfloat16* vs = ks + kStep * kLd;
+
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh % H;
+  const int q0 = blockIdx.x * kBQ;
+  const size_t row_stride = static_cast<size_t>(H) * kD;
+  const __nv_bfloat16* qb = q + (static_cast<size_t>(b) * Sq * H + h) * kD;
+  const __nv_bfloat16* kb = k + (static_cast<size_t>(b) * Skv * H + h) * kD;
+  const __nv_bfloat16* vb = v + (static_cast<size_t>(b) * Skv * H + h) * kD;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+
+  load_tile<kBQ>(qs, qb, row_stride, q0, Sq);
+  const __nv_bfloat16* q_r0 = qs + (warp * 16 + g) * kLd + t4 * 2;
+  const __nv_bfloat16* q_r1 = q_r0 + 8 * kLd;
+
+  float acc[kD / 8][4];
+#pragma unroll
+  for (int n = 0; n < kD / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY};
+  float l_run[2] = {0.f, 0.f};
+
+  for (int kv0 = 0; kv0 < Skv; kv0 += kStep) {
+    __syncthreads();  // every warp is done with the previous group (and q landed)
+    ce::load_rows<kStep, kD, kLd, kThreads>(ks, kb, row_stride, kv0, Skv);
+    ce::load_rows<kStep, kD, kLd, kThreads>(vs, vb, row_stride, kv0, Skv);
+    __syncthreads();
+
+    // all N x 8 score tiles first; each accumulates over D in K1's order
+    float s[N][kBKV / 8][4];
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+      for (int n = 0; n < kBKV / 8; ++n) s[i][n][0] = s[i][n][1] = s[i][n][2] = s[i][n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) {
+      uint32_t qa[4];
+      qa[0] = lds32(q_r0 + kk * 16);
+      qa[1] = lds32(q_r1 + kk * 16);
+      qa[2] = lds32(q_r0 + kk * 16 + 8);
+      qa[3] = lds32(q_r1 + kk * 16 + 8);
+#pragma unroll
+      for (int i = 0; i < N; ++i)
+#pragma unroll
+        for (int n = 0; n < kBKV / 8; ++n) {
+          const __nv_bfloat16* kr = ks + (i * kBKV + n * 8 + g) * kLd + t4 * 2 + kk * 16;
+          mma_16816(s[i][n], qa, lds32(kr), lds32(kr + 8));
+        }
+    }
+
+    // one combined row max over the N tiles, one alpha, one rescale
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+      for (int n = 0; n < kBKV / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = kv0 + i * kBKV + n * 8 + t4 * 2 + (e & 1);
+          s[i][n][e] = col < Skv ? s[i][n][e] * scale_log2 : -INFINITY;
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[i][n][e]);
+        }
+    float alpha[2], base[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m_run[r], mx[r]);
+      base[r] = m_new == -INFINITY ? 0.f : m_new;
+      alpha[r] = exp2f(m_run[r] - base[r]);
+      m_run[r] = m_new;
+      l_run[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int n = 0; n < kD / 8; ++n) {
+      acc[n][0] *= alpha[0];
+      acc[n][1] *= alpha[0];
+      acc[n][2] *= alpha[1];
+      acc[n][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+      for (int n = 0; n < kBKV / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[i][n][e] = exp2f(s[i][n][e] - base[e >> 1]);
+          l_run[e >> 1] += s[i][n][e];
+        }
+
+    // O += P_i V_i for the N tiles
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+      for (int kc = 0; kc < kBKV / 16; ++kc) {
+        uint32_t pa[4];
+        pa[0] = pack_bf16(s[i][2 * kc][0], s[i][2 * kc][1]);
+        pa[1] = pack_bf16(s[i][2 * kc][2], s[i][2 * kc][3]);
+        pa[2] = pack_bf16(s[i][2 * kc + 1][0], s[i][2 * kc + 1][1]);
+        pa[3] = pack_bf16(s[i][2 * kc + 1][2], s[i][2 * kc + 1][3]);
+        const __nv_bfloat16* v0 = vs + (i * kBKV + kc * 16 + t4 * 2) * kLd + g;
+#pragma unroll
+        for (int n = 0; n < kD / 8; ++n) {
+          const __nv_bfloat16* vp = v0 + n * 8;
+          const uint32_t b0 = pack_bf16(vp[0], vp[kLd]);
+          const uint32_t b1 = pack_bf16(vp[8 * kLd], vp[9 * kLd]);
+          mma_16816(acc[n], pa, b0, b1);
+        }
+      }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+  }
+  const float ln2 = 0.6931471805599453f;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + warp * 16 + g + r * 8;
+    if (row >= Sq) continue;
+    const float inv = 1.f / l_run[r];
+    __nv_bfloat16* orow = o + (static_cast<size_t>(b) * Sq + row) * row_stride +
+                          static_cast<size_t>(h) * kD + t4 * 2;
+#pragma unroll
+    for (int n = 0; n < kD / 8; ++n)
+      *reinterpret_cast<uint32_t*>(orow + n * 8) =
+          pack_bf16(acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
+    if (t4 == 0)
+      lse[static_cast<size_t>(bh) * Sq + row] = (m_run[r] + log2f(l_run[r])) * ln2;
+  }
+}
+
+template <int N>
+int launch_grouped(const void* q, const void* k, const void* v, void* o, void* lse,
+                   int B, int Sq, int Skv, int H, float scale, void* stream) {
+  constexpr int kSmem = (kBQ + 2 * N * kBKV) * kLd * 2;
+  static bool attr_set = false;  // one flag per instantiation
+  if (!attr_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_grouped_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attr_set = true;
+  }
+  const dim3 grid((Sq + kBQ - 1) / kBQ, B * H);
+  flash_fwd_grouped_kernel<N><<<grid, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      static_cast<float*>(lse), Sq, Skv, H, scale * 1.4426950408889634f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// X1: q (B, Sq, H, 128), k/v (B, Skv, H, 128) bf16 -> o like q, lse (B, H, Sq)
+// fp32; `group` KV tiles of 64 rows a step, 2, 3 or 4.
+extern "C" int flash_fwd_grouped_bf16(const void* q, const void* k, const void* v,
+                                      void* o, void* lse, int B, int Sq, int Skv,
+                                      int H, int D, float scale, int group,
+                                      void* stream) {
+  if (D != kD) return static_cast<int>(cudaErrorInvalidValue);
+  switch (group) {
+    case 2: return launch_grouped<2>(q, k, v, o, lse, B, Sq, Skv, H, scale, stream);
+    case 3: return launch_grouped<3>(q, k, v, o, lse, B, Sq, Skv, H, scale, stream);
+    case 4: return launch_grouped<4>(q, k, v, o, lse, B, Sq, Skv, H, scale, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -13,9 +13,11 @@ Every C entry point returns ``cudaGetLastError()`` after its launch; the
 wrappers call :func:`check` on it. A missing ``nvcc`` or a failed build
 raises. Nothing here runs at import time.
 
-``LAUNCHES`` counts kernel launches by kernel name; ``SHAPE_LAUNCHES``
-counts them again by kernel name and shape: each attention kernel's by its
-KV length, the int4 matmul's by its flattened row count M. Each wrapper
+``LAUNCHES`` counts kernel launches by kernel name (the grouped attention
+kernels apart: ``flash_fwd_grouped``, ``flash_bwd_dq_grouped``,
+``flash_bwd_dkv_grouped``); ``SHAPE_LAUNCHES`` counts them again by kernel
+name and shape: each attention kernel's by its KV length, the int4
+matmul's by its flattened row count M. Each wrapper
 adds one right after a launch that returned success, and nowhere else.
 """
 
@@ -36,20 +38,29 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 LAUNCHES: dict[str, int] = {
     "flash_fwd": 0, "ln_modulate": 0, "gated_residual": 0, "rms_norm": 0,
-    "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "int4_matmul": 0, "flash_fwd_qk8": 0}
+    "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "int4_matmul": 0, "flash_fwd_qk8": 0,
+    "flash_fwd_grouped": 0, "flash_bwd_dq_grouped": 0, "flash_bwd_dkv_grouped": 0}
 SHAPE_LAUNCHES: dict[str, dict[int, int]] = {
     name: {} for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "int4_matmul",
-                          "flash_fwd_qk8")}
+                          "flash_fwd_qk8", "flash_fwd_grouped", "flash_bwd_dq_grouped",
+                          "flash_bwd_dkv_grouped")}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures: pointers and the stream as void*, sizes as int
 _SIGNATURES = {
     # q, k, v, o, lse, B, Sq, Skv, H, D, scale, stream
     "flash_fwd_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # q, k, v, o, lse, B, Sq, Skv, H, D, scale, group, stream
+    "flash_fwd_grouped_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
     # q, k, v, dout, lse, dsum, dq, B, Sq, Skv, H, D, scale, stream
     "flash_bwd_dq_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     # q, k, v, dout, lse, dsum, dk, dv, B, Sq, Skv, H, D, scale, stream
     "flash_bwd_dkv_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # q, k, v, dout, lse, dsum, dq, B, Sq, Skv, H, D, scale, group, stream
+    "flash_bwd_dq_grouped_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
+    # q, k, v, dout, lse, dsum, dk, dv, B, Sq, Skv, H, D, scale, group, stream
+    "flash_bwd_dkv_grouped_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                                   _I, _P],
     # x, scale, shift, out, rows, T, hw, D, eps, stream
     "ln_modulate_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     # x, delta, gate, out, rows, T, hw, D, stream

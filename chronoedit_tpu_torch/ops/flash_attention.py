@@ -5,12 +5,24 @@ The CUDA kernel (``csrc/flash_fwd.cu``) takes (B, S, H, 128) bf16 q/k/v in
 place — no transpose to a (B*H, S, D) layout and no padding: it masks the
 ragged q and KV tails itself — and returns O in bf16 and the per-row
 log-sum-exp in fp32. The TPU kernel's VMEM planning (resident vs streamed
-KV, block planners, k-major and grouped variants) has no counterpart: the
-CUDA kernel always streams KV tiles through shared memory, so the one
-kernel serves both TPU kernels, the resident K1 (the edit's 7,200 tokens
-and the cross-attention) and the streamed K5 (reasoning self-attention at
-28,800 tokens). Launches are counted by name and by KV length
+KV, block planners, k-major) has no counterpart: the CUDA kernel always
+streams KV tiles through shared memory, so the one kernel serves both TPU
+kernels, the resident K1 (the edit's 7,200 tokens and the
+cross-attention) and the streamed K5 (reasoning self-attention at 28,800
+tokens). Launches are counted by name and by KV length
 (``kernels/build.py``), which tells the two roles apart.
+
+``group`` on :func:`flash_attention_with_lse` (as JAX
+``flash_attention(..., group=)``) picks how many 64-row KV tiles the
+kernel takes a step: 1 is K1/K5; 2, 3 or 4 is the grouped kernel X1
+(``flash_fwd_grouped_kernel`` in the same file: all the group's score
+products first, then one combined softmax update). JAX honours a group
+only on its streamed path; the port has no resident/streamed split, so it
+honours an explicit group at every KV length. Only the experiment tools
+(``chronoedit_tpu_torch/tools``) pass one; the differentiable
+:func:`flash_attention` is always K1/K5. :func:`flash_attention_bwd`'s
+``group_dq`` / ``group_dkv`` pick the grouped backward X2 for either side.
+On the CPU every group runs the twin: the same function.
 
 The backward (``csrc/flash_bwd.cu``): K6 computes dQ, K7 dK and dV, both
 recomputing P from the forward's LSE as JAX's ``_backward`` does;
@@ -35,6 +47,13 @@ from __future__ import annotations
 import torch
 
 HEAD_DIM = 128  # the only head dim K1 is built for
+FWD_GROUPS = (1, 2, 3, 4)  # KV tiles a step: 1 is K1/K5, the rest X1
+BWD_GROUPS = (1, 2, 4)  # tiles a step of each backward side: 1 is K6/K7, the rest X2
+
+
+def _check_group(name: str, group: int, allowed: tuple[int, ...]) -> None:
+    if group not in allowed:
+        raise ValueError(f"{name} must be one of {allowed}, got {group!r}")
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -80,9 +99,10 @@ def _check_like_q(name: str, q: torch.Tensor, t: torch.Tensor, shape) -> None:
 
 
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-             scale: float) -> tuple[torch.Tensor, torch.Tensor]:
-    """(out (B, Sq, H, D), lse (B, H, Sq) fp32): K1/K5 for CUDA tensors,
-    the twin for CPU tensors."""
+             scale: float, group: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
+    """(out (B, Sq, H, D), lse (B, H, Sq) fp32): K1/K5 (``group`` 1) or X1
+    (2-4) for CUDA tensors, the twin for CPU tensors."""
+    _check_group("flash_fwd: group", group, FWD_GROUPS)
     if q.device.type == "cpu":
         out, lse = flash_attention_plain(q, k, v, scale)
         return out, lse.transpose(1, 2)
@@ -92,19 +112,25 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, sq, h, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), device=q.device, dtype=torch.float32)
-    build.check(build.lib().flash_fwd_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        b, sq, k.shape[1], h, d, scale, torch.cuda.current_stream().cuda_stream),
-        "flash_fwd", k.shape[1])
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            b, sq, k.shape[1], h, d, scale)
+    stream = torch.cuda.current_stream().cuda_stream
+    if group == 1:
+        build.check(build.lib().flash_fwd_bf16(*args, stream), "flash_fwd", k.shape[1])
+    else:
+        build.check(build.lib().flash_fwd_grouped_bf16(*args, group, stream),
+                    "flash_fwd_grouped", k.shape[1])
     return out, lse
 
 
 def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                             scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+                             scale: float, group: int = 1
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Non-causal attention, BSHD, not differentiable. Returns
     ``(out, lse)`` with out (B, Sq, H, D) in q's dtype and lse (B, Sq, H)
-    fp32 (a view of the kernel's (B, H, Sq) buffer)."""
-    out, lse = _forward(q, k, v, scale)
+    fp32 (a view of the kernel's (B, H, Sq) buffer). ``group`` KV tiles a
+    step on the card (1: K1/K5; 2, 3, 4: X1); raises on any other value."""
+    out, lse = _forward(q, k, v, scale, group)
     return out, lse.transpose(1, 2)
 
 
@@ -157,13 +183,21 @@ def _bwd_plain_f32(q, k, v, out, dout, lse, scale, need_dq, need_dkv):
 
 
 def flash_attention_bwd(q, k, v, out, dout, lse, scale: float,
-                        need_dq: bool = True, need_dkv: bool = True):
+                        need_dq: bool = True, need_dkv: bool = True,
+                        group_dq: int = 1, group_dkv: int = 1):
     """Flash backward given an explicit lse (B, Sq, H) fp32, the public
     shape of JAX ``flash_attention_bwd``; a (B, Sq, H) view of a
     contiguous (B, H, Sq) buffer (what the forward returns) is read without
     a copy. Returns ``(dq, dk, dv)``, None where not asked for. CUDA
-    tensors launch K6 (``need_dq``) and K7 (``need_dkv``); CPU tensors run
-    the twin."""
+    tensors launch K6 for dQ (``need_dq``) and K7 for dK, dV
+    (``need_dkv``), each side on its own group: at 2 or 4 that side runs
+    X2's kernel instead, dQ with ``group_dq`` 64-row KV tiles a step, dK
+    and dV with ``group_dkv`` 32-row q tiles a step (each 1, 2 or 4;
+    anything else raises). X2 at one tile a step would compute K6/K7's
+    sums in K6/K7's order, so group 1 is K6/K7. CPU tensors run the twin
+    (the same function at every group)."""
+    _check_group("flash_bwd: group_dq", group_dq, BWD_GROUPS)
+    _check_group("flash_bwd: group_dkv", group_dkv, BWD_GROUPS)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, dout, lse, scale,
                                          need_dq=need_dq, need_dkv=need_dkv)
@@ -181,19 +215,25 @@ def flash_attention_bwd(q, k, v, out, dout, lse, scale: float,
                          f"{tuple(lse.transpose(1, 2).shape)}")
     dsum = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     stream = torch.cuda.current_stream().cuda_stream
+    ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+           dsum.data_ptr())
     dq = dk = dv = None
     if need_dq:
         dq = torch.empty_like(q)
-        build.check(build.lib().flash_bwd_dq_bf16(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-            dsum.data_ptr(), dq.data_ptr(), b, sq, skv, h, d, scale, stream),
-            "flash_bwd_dq", skv)
+        args = (*ins, dq.data_ptr(), b, sq, skv, h, d, scale)
+        if group_dq > 1:
+            build.check(build.lib().flash_bwd_dq_grouped_bf16(*args, group_dq, stream),
+                        "flash_bwd_dq_grouped", skv)
+        else:
+            build.check(build.lib().flash_bwd_dq_bf16(*args, stream), "flash_bwd_dq", skv)
     if need_dkv:
         dk, dv = torch.empty_like(k), torch.empty_like(v)
-        build.check(build.lib().flash_bwd_dkv_bf16(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-            dsum.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq, skv, h, d, scale,
-            stream), "flash_bwd_dkv", skv)
+        args = (*ins, dk.data_ptr(), dv.data_ptr(), b, sq, skv, h, d, scale)
+        if group_dkv > 1:
+            build.check(build.lib().flash_bwd_dkv_grouped_bf16(*args, group_dkv, stream),
+                        "flash_bwd_dkv_grouped", skv)
+        else:
+            build.check(build.lib().flash_bwd_dkv_bf16(*args, stream), "flash_bwd_dkv", skv)
     return dq, dk, dv
 
 
