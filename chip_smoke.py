@@ -21,7 +21,9 @@ non-zero and no result line is printed:
    ``torch.nn.functional.rms_norm`` beside K4, timed as yardsticks, never
    called by the port) and each
    kernel's bound (the larger of FLOPs over 989 TFLOP/s and bytes over
-   3.35 TB/s): K1 and X1 (2, 3 and 4 KV tiles a step) and K6/K7 (against
+   3.35 TB/s): first K1 at B = 2, 4 heads, over ragged (Sq, Skv) pairs
+   (``RAGGED_CASES``: one row, tile tails, a batch boundary inside a
+   tile), then K1 and X1 (2, 3 and 4 KV tiles a step) and K6/K7 (against
    the q-chunked backward twin) at the edit's 7,200 tokens against KV
    7,200, 512 and 257, X2 (every grouped variant of the experiment) against
    KV 7,200 and 257, K2-K4 at the edit's stream, and the flash kernel at
@@ -162,6 +164,10 @@ EDIT_TOKENS = 2 * (EDIT_H // 16) * (EDIT_W // 16)
 REASONING_TOKENS = 8 * (EDIT_H // 16) * (EDIT_W // 16)
 # q rows per chunk of the plain twin at 28,800 tokens: ~8 GB of fp32 scores
 Q_CHUNK = 1800
+# (Sq, Skv) of phase 3's ragged and batch-boundary check of K1/K5 at B = 2:
+# one row; tails of a q and a KV tile; one row past a tile; the edit's q
+# against the image context; a short q against the edit's KV
+RAGGED_CASES = ((1, 1), (127, 257), (129, 129), (7200, 257), (200, 7200))
 # X1's KV tiles a step, and X2's (n_dq, n_dkv) variants (the experiment's,
 # without production's (1, 1), which is K6/K7)
 X1_GROUPS = (2, 3, 4)
@@ -233,6 +239,7 @@ def compare_kernels(dev: torch.device) -> dict[str, dict]:
     def randn(*shape, dtype=bf16):
         return torch.randn(shape, generator=g, device=dev, dtype=dtype)
 
+    ragged_flash_check(randn)
     results = {}
     s, h, d = EDIT_TOKENS, 40, 128
     q = randn(1, s, h, d)
@@ -315,6 +322,28 @@ def compare_kernels(dev: torch.device) -> dict[str, dict]:
                        (REASONING_TOKENS, dim, 13824), (REASONING_TOKENS, 13824, dim)):
         accumulate(results, "int4_matmul", compare_int4(g, m, k_in, n))
     return results
+
+
+def ragged_flash_check(randn) -> None:
+    """K1/K5 through ``flash_attention_with_lse`` at B = 2, 4 heads of 128,
+    over ``RAGGED_CASES``, against the plain twin under K1's bounds: a
+    tensor map that read a row of the next batch, or a wrong mask on the
+    zero-filled tail of a tile, shows here."""
+    from chronoedit_tpu_torch.ops import flash_attention as fa
+
+    for sq, skv in RAGGED_CASES:
+        q = randn(2, sq, 4, 128)
+        k, v = randn(2, skv, 4, 128), randn(2, skv, 4, 128)
+        scale = q.shape[-1] ** -0.5
+        out, lse = fa.flash_attention_with_lse(q, k, v, scale)
+        ref, ref_lse = fa.flash_attention_plain(q, k, v, scale)
+        e_out, e_lse = max_err(out, ref), max_err(lse, ref_lse)
+        ref_max = float(ref.float().abs().max())
+        tol = min(K1_OUT_MAX_TOL, K1_OUT_STEPS * ULP_BF16 * ref_max)
+        print(f"K1 ragged q {tuple(q.shape)} kv {skv}: max|out-ref| {e_out:.3e} (tol {tol:.3e}), "
+              f"max|lse-ref| {e_lse:.3e} (tol {K1_LSE_TOL})")
+        if not (e_out <= tol and e_lse <= K1_LSE_TOL and bool(torch.isfinite(out).all())):
+            raise AssertionError(f"K1 disagrees with its twin at q {sq}, kv {skv}, B = 2")
 
 
 def compare_int4(g: torch.Generator, m: int, k: int, n: int) -> dict:
@@ -451,7 +480,8 @@ def compare_flash(kid: str, what: str, q, k, v, ref: dict, group: int = 1) -> di
     row = {"max_abs_err": e_out, "ms": ms, "plain_ms": plain, "library_ms": library,
            **bound(flops, attention_bytes(q, k, 2, 2, 1))}
     print(f"   kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain:.3f} ms, "
-          f"SDPA {library:.3f} ms, bound {row['bound_ms']:.3f} ms ({row['bound_by']})")
+          f"SDPA {library:.3f} ms, bound {row['bound_ms']:.3f} ms ({row['bound_by']}); "
+          f"{row['bound_ms'] / ms:.1%} of the bound, {ms / library:.2f}x SDPA's time")
     return row
 
 

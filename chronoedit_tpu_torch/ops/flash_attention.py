@@ -1,22 +1,27 @@
 """Flash attention: the forward (K1 and K5) and the backward (K6 and K7),
 hand-written Hopper kernels and their plain twins.
 
-The CUDA kernel (``csrc/flash_fwd.cu``) takes (B, S, H, 128) bf16 q/k/v in
-place — no transpose to a (B*H, S, D) layout and no padding: it masks the
-ragged q and KV tails itself — and returns O in bf16 and the per-row
-log-sum-exp in fp32. The TPU kernel's VMEM planning (resident vs streamed
-KV, block planners, k-major) has no counterpart: the CUDA kernel always
-streams KV tiles through shared memory, so the one kernel serves both TPU
-kernels, the resident K1 (the edit's 7,200 tokens and the
-cross-attention) and the streamed K5 (reasoning self-attention at 28,800
-tokens). Launches are counted by name and by KV length
-(``kernels/build.py``), which tells the two roles apart.
+The CUDA kernel (``csrc/flash_fwd.cu``, ``flash_fwd_wgmma_kernel``) takes
+(B, S, H, 128) bf16 q/k/v in place — no transpose to a (B*H, S, D) layout
+and no padding — and returns O in bf16 and the per-row log-sum-exp in
+fp32. A producer warpgroup loads 128-row tiles straight from BSHD with TMA
+(4-D tensor maps over (D, H, S, B), encoded on the host for every call, so
+rows past a sequence's end are zero-filled, never read from the next
+batch) into a two-stage mbarrier ring; two consumer warpgroups compute
+both products with ``wgmma`` and mask the ragged KV tail. The TPU kernel's
+VMEM planning (resident vs streamed KV, block planners, k-major) has no
+counterpart: the CUDA kernel always streams KV tiles through shared
+memory, so the one kernel serves both TPU kernels, the resident K1 (the
+edit's 7,200 tokens and the cross-attention) and the streamed K5
+(reasoning self-attention at 28,800 tokens). Launches are counted by name
+and by KV length (``kernels/build.py``), which tells the two roles apart.
 
 ``group`` on :func:`flash_attention_with_lse` (as JAX
-``flash_attention(..., group=)``) picks how many 64-row KV tiles the
-kernel takes a step: 1 is K1/K5; 2, 3 or 4 is the grouped kernel X1
-(``flash_fwd_grouped_kernel`` in the same file: all the group's score
-products first, then one combined softmax update). JAX honours a group
+``flash_attention(..., group=)``) picks the kernel: 1 is K1/K5 (128-row
+KV tiles); 2, 3 or 4 is the grouped kernel X1, which takes that many
+64-row KV tiles a step (``flash_fwd_grouped_kernel`` in the same file, the
+earlier ``mma.sync`` design: all the group's score products first, then
+one combined softmax update). JAX honours a group
 only on its streamed path; the port has no resident/streamed split, so it
 honours an explicit group at every KV length. Only the experiment tools
 (``chronoedit_tpu_torch/tools``) pass one; the differentiable
@@ -47,7 +52,7 @@ from __future__ import annotations
 import torch
 
 HEAD_DIM = 128  # the only head dim K1 is built for
-FWD_GROUPS = (1, 2, 3, 4)  # KV tiles a step: 1 is K1/K5, the rest X1
+FWD_GROUPS = (1, 2, 3, 4)  # 1 is K1/K5; 2-4 is X1, that many 64-row KV tiles a step
 BWD_GROUPS = (1, 2, 4)  # tiles a step of each backward side: 1 is K6/K7, the rest X2
 
 

@@ -5,7 +5,7 @@ n 64-row KV tiles a step in shared memory, issues all n score products
 before any softmax work, then takes one combined row max, rescales the
 accumulator once and runs the n P.V products
 (``csrc/flash_fwd.cu``, ``flash_fwd_grouped_kernel``); n = 1 is the
-ungrouped kernel K1/K5. :func:`main` holds every n against the group-1
+production kernel K1/K5 (the TMA and ``wgmma`` design, 128-row tiles). :func:`main` holds every n against the group-1
 kernel on the first 256 q rows (as the JAX tool does) and the whole output
 and LSE against the q-chunked fp32 twin, then times n = 1, 2, 3, 4 with
 CUDA events.
