@@ -13,7 +13,9 @@ non-zero and no result line is printed:
    limit (``nvidia-smi``);
 2. build the kernels from ``chronoedit_tpu_torch/csrc`` (``kernels/build.py``,
    one ``nvcc`` per source in parallel) and print each kernel's registers
-   and spills, each template instantiation under its own name;
+   and spills, each template instantiation under its own name, and for the
+   warp-specialised kernels (``setmaxnreg``) the highest register their
+   SASS uses;
 3. hold each kernel against its plain PyTorch twin on the card at the main
    paths' shapes in bf16, with CUDA-event times for both, for PyTorch's own
    call where one computes the same function (``library_ms``: SDPA, and
@@ -23,11 +25,13 @@ non-zero and no result line is printed:
    kernel's bound (the larger of FLOPs over 989 TFLOP/s and bytes over
    3.35 TB/s): first K1 at B = 2, 4 heads, over ragged (Sq, Skv) pairs
    (``RAGGED_CASES``: one row, tile tails, a batch boundary inside a
-   tile), then K1 and X1 (2, 3 and 4 KV tiles a step) and K6/K7 (against
-   the q-chunked backward twin) at the edit's 7,200 tokens against KV
-   7,200, 512 and 257, X2 (every grouped variant of the experiment) against
-   KV 7,200 and 257, K2-K4 at the edit's stream, and the flash kernel at
-   the reasoning self-attention's 28,800 tokens as K5 and X1 (against the
+   tile) and K6/K7 over the same pairs (with a global LSE, as a ring hop's
+   backward gets it, and one case with scores near -100), then K1 and X1
+   (2, 3 and 4 KV tiles a step) and K6/K7 (against the q-chunked backward
+   twin, and a second call bitwise the first) at the edit's 7,200 tokens
+   against KV 7,200, 512 and 257, X2 (every grouped variant of the
+   experiment) against KV 7,200 and 257, K2-K4 at the edit's stream, and
+   the flash kernel at the reasoning self-attention's 28,800 tokens as K5 and X1 (against the
    q-chunked twin, computed once); K8 (the int4 matmul) at the
    five projection shapes of a 720p forward and the three at the reasoning
    forward's 28,800 rows, against its twin and against
@@ -90,6 +94,7 @@ from collections import Counter
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -240,6 +245,7 @@ def compare_kernels(dev: torch.device) -> dict[str, dict]:
         return torch.randn(shape, generator=g, device=dev, dtype=dtype)
 
     ragged_flash_check(randn)
+    ragged_flash_bwd_check(randn)
     results = {}
     s, h, d = EDIT_TOKENS, 40, 128
     q = randn(1, s, h, d)
@@ -344,6 +350,40 @@ def ragged_flash_check(randn) -> None:
               f"max|lse-ref| {e_lse:.3e} (tol {K1_LSE_TOL})")
         if not (e_out <= tol and e_lse <= K1_LSE_TOL and bool(torch.isfinite(out).all())):
             raise AssertionError(f"K1 disagrees with its twin at q {sq}, kv {skv}, B = 2")
+
+
+def ragged_flash_bwd_check(randn) -> None:
+    """K6 and K7 through ``flash_attention_bwd`` at B = 2, 4 heads of 128,
+    over ``RAGGED_CASES``, against the q-chunked twin under the K67 bounds.
+    O and the LSE come from a forward over the case's KV and 64 more keys,
+    as a ring hop's backward gets them (over its own single key the case
+    (1, 1) would give dQ = dK = 0 up to rounding): a tensor map that read a
+    row of the next batch, or a q row past Sq left live, shows here. A last
+    case, (64, 129) with every score near -100 (q near 3, k near -3), holds
+    K6's mask of the KV columns past Skv: zero-filled K rows cancel an
+    unmasked column's P = exp(-lse) while it is finite, but here it
+    overflows and inf times a zero row is NaN."""
+    from chronoedit_tpu_torch.ops import flash_attention as fa
+
+    for sq, skv, far in [(*case, False) for case in RAGGED_CASES] + [(64, 129, True)]:
+        q, dout = randn(2, sq, 4, 128), randn(2, sq, 4, 128)
+        k, v = randn(2, skv + 64, 4, 128), randn(2, skv + 64, 4, 128)
+        if far:
+            q, k = 3.0 + 0.1 * q, -3.0 + 0.1 * k
+        scale = q.shape[-1] ** -0.5
+        out, lse = fa.flash_attention_with_lse(q, k, v, scale)
+        k, v = k[:, :skv].contiguous(), v[:, :skv].contiguous()
+        got = fa.flash_attention_bwd(q, k, v, out, dout, lse, scale)
+        ref = fa.flash_attention_bwd_plain(q, k, v, out, dout, lse, scale, q_chunk=Q_CHUNK)
+        for name, g_, r_ in zip(("dq", "dk", "dv"), got, ref):
+            c = k67_check(g_, r_)
+            print(f"K6/K7 ragged q {tuple(q.shape)} kv {skv} (global LSE"
+                  f"{', scores near -100' if far else ''}): {name} max err "
+                  f"{c['max']:.3e} (tol {c['tol']:.3e}), normwise {c['rel']:.3e} (tol "
+                  f"{K67_NORM_REL})")
+            if not c["ok"]:
+                raise AssertionError(f"K6/K7 {name} disagrees with its twin at q {sq}, kv {skv}, "
+                                     f"B = 2")
 
 
 def compare_int4(g: torch.Generator, m: int, k: int, n: int) -> dict:
@@ -495,8 +535,9 @@ def compare_flash_bwd(what: str, q, k, v, grouped: bool) -> dict[str, list[tuple
     reduction; X2's dQ and dK/dV kernels timed apart for each group size)
     and, for each kernel's own outputs alone (dQ for K6; dK and dV for K7),
     of the twin and of SDPA's backward asked for just those gradients (the
-    same yardsticks for X2's kernels). Returns {name: [(row, case)]}:
-    K6/K7's rows under ``flash_bwd_dq`` / ``flash_bwd_dkv`` (case None),
+    same yardsticks for X2's kernels). A second K6/K7 call on the same
+    inputs must be bitwise the first (no atomics). Returns
+    {name: [(row, case)]}: K6/K7's rows under ``flash_bwd_dq`` / ``flash_bwd_dkv`` (case None),
     X2's under ``flash_bwd_dq_grouped`` / ``flash_bwd_dkv_grouped``, one
     for each group size (case "n=<n> kv=<Skv>")."""
     from chronoedit_tpu_torch.ops import flash_attention as fa
@@ -521,7 +562,13 @@ def compare_flash_bwd(what: str, q, k, v, grouped: bool) -> dict[str, list[tuple
             errs[name] = c["max"]
         return errs
 
-    errs = check("K6/K7", fa.flash_attention_bwd(q, k, v, out, dout, lse, scale))
+    got = fa.flash_attention_bwd(q, k, v, out, dout, lse, scale)
+    errs = check("K6/K7", got)
+    again = fa.flash_attention_bwd(q, k, v, out, dout, lse, scale)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"K6/K7 at kv={skv}: two calls on the same inputs differ")
+    print(f"K6/K7 flash_bwd {what:5s} kv {skv}: a second call is bitwise the first (dq, dk, dv)")
+    del got, again
     x2_errs = {pair: check(f"X2 {pair}", fa.flash_attention_bwd(
         q, k, v, out, dout, lse, scale, group_dq=pair[0], group_dkv=pair[1]))
         for pair in (X2_VARIANTS if grouped else ())}
@@ -533,6 +580,12 @@ def compare_flash_bwd(what: str, q, k, v, grouped: bool) -> dict[str, list[tuple
         lib_out = sdpa(qg, kg, vg, scale)
     unit = 2 * b * h * sq * skv * d  # FLOPs of one (Sq x Skv x D) product
     rows = {}
+    # the wrapper asked for no gradient launches nothing: its checks, the
+    # lse copy and the dsum reduction, which every time below includes
+    wrapper = cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, out, dout, lse, scale,
+                                                     need_dq=False, need_dkv=False))
+    print(f"   the wrapper alone (lse copy, dsum = rowsum(dO * O) in torch): {wrapper:.3f} ms, "
+          f"inside each kernel time below")
     # K6: S, dP, dS k; reads q, k, v, dO, lse, dsum, writes dQ.
     # K7: S^T, dP^T, P^T dO, dS^T q; reads q, k, v, dO, lse, dsum, writes dK, dV
     for name, side, wrt, flops, nbytes, outs in (
@@ -550,7 +603,9 @@ def compare_flash_bwd(what: str, q, k, v, grouped: bool) -> dict[str, list[tuple
                        None)]
         print(f"   {name}: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), twin {plain:.3f} "
               f"ms, SDPA backward for {'dQ' if side == 0 else 'dK, dV'} {library:.3f} ms, bound "
-              f"{yardsticks['bound_ms']:.3f} ms ({yardsticks['bound_by']})")
+              f"{yardsticks['bound_ms']:.3f} ms ({yardsticks['bound_by']}); "
+              f"{yardsticks['bound_ms'] / ms:.1%} of the bound, {ms / library:.2f}x SDPA's "
+              f"backward")
         if not grouped:
             continue
         # X2's kernel for this side alone, at each of its group sizes (a
@@ -1318,9 +1373,10 @@ def kernel_name(symbol: str) -> str:
 
 
 def print_ptxas(log: Path) -> None:
-    """Each kernel's registers, spills and shared memory from nvcc's
+    """Each kernel's registers, spills and static shared memory from nvcc's
     ``-Xptxas=-v`` output (kept beside the library when it was built), each
-    template instantiation under its own name."""
+    template instantiation under its own name, and every warning (C7512:
+    wgmma serialized for want of registers)."""
     if not log.exists():
         print("ptxas: no build log (the library was built before)")
         return
@@ -1331,6 +1387,28 @@ def print_ptxas(log: Path) -> None:
             name = kernel_name(entry.group(1))
         elif name and ("registers" in line or "spill" in line):
             print(f"ptxas {name}: {line.split(':', 1)[-1].strip()}")
+        elif "C75" in line or ("ptxas" in line and "warning" in line.lower()):
+            print(f"ptxas warning: {line.strip()}")
+
+
+def print_sass_registers(lib: Path) -> None:
+    """For each kernel that rebalances its registers with ``setmaxnreg``,
+    whose consumer warpgroups may use more than the launch bound's count
+    that ptxas reports: the highest register its SASS names and its
+    local-memory stores and loads (``cuobjdump -sass`` on the library)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        print("sass: no cuobjdump")
+        return
+    sass = subprocess.run([tool, "-sass", str(lib)], check=True, capture_output=True, text=True,
+                          timeout=300).stdout
+    for fn in re.split(r"\n\s+Function : ", sass)[1:]:
+        if "USETMAXREG" not in fn:
+            continue
+        regs = max(int(r) for r in re.findall(r"\bR(\d+)\b", fn))
+        stores, loads = (len(re.findall(rf"\b{op}\b", fn)) for op in ("STL", "LDL"))
+        print(f"sass {kernel_name(fn.split(maxsplit=1)[0])}: setmaxnreg; highest register R{regs}, "
+              f"{stores} local stores, {loads} local loads")
 
 
 def main() -> int:
@@ -1359,6 +1437,7 @@ def main() -> int:
     _, secs = host_s(build.lib)
     print(f"kernels built and loaded in {secs:.1f} s: {build.library_path().name}")
     print_ptxas(build.build_log_path())
+    print_sass_registers(build.library_path())
 
     profile_dir = Path(__file__).resolve().parent / "chiprun_out" if args.profile else None
     by_name, by_kv = Counter(), Counter()

@@ -105,7 +105,7 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* tile,
 // ---------------------------------------------------------------- K1 / K5
 
 constexpr int kTile = 128;                  // q rows a block; KV rows a ring stage
-constexpr int kBoxBytes = kTile * 64 * 2;   // one 64-column TMA box: 128 rows x 128 B
+constexpr int kBoxBytes = sm90::box_bytes(kTile);  // one 64-column TMA box: 128 rows x 128 B
 constexpr int kTileBytes = 2 * kBoxBytes;   // a 128 x 128 bf16 tile
 constexpr int kWsThreads = 3 * 128;         // producer + two consumer warpgroups
 constexpr int kConsumerWarps = 8;           // arrivals that empty a stage
@@ -122,28 +122,6 @@ constexpr int kSmemBytes = kSmemBar + 8 * (1 + 4 * kStages) + 1024;  // + alignm
 // ---- the consumer's steps, on one warpgroup's 64 q rows. Fragments: s[4j +
 // e] and acc[4j + e] hold row g + 8 (e >> 1), column 8j + 2 t4 + (e & 1) of
 // the warp's 16 rows (g = lane / 4, t4 = lane % 4).
-
-// S = q k^T, issued and committed, not waited for: k-step kk reads 16
-// columns of D, 32 B into box kk / 4 of both K-major tiles.
-__device__ __forceinline__ void issue_qk(float (&s)[64], uint32_t q_addr, uint32_t k_addr) {
-#pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk) {
-    const uint32_t off = (kk >> 2) * kBoxBytes + (kk & 3) * 32;
-    sm90::wgmma_m64n128k16_ss(s, sm90::smem_desc(q_addr + off, 16, 1024),
-                              sm90::smem_desc(k_addr + off, 16, 1024), kk > 0);
-  }
-  sm90::wgmma_commit();
-}
-
-// O += P V, issued and committed: k-step kc reads V rows 16 kc.. (2 KB
-// on); the two 64-column boxes are the MN-major operand's leading step.
-__device__ __forceinline__ void issue_pv(float (&acc)[64], const uint32_t (&p)[kTile / 16][4],
-                                         uint32_t v_addr) {
-#pragma unroll
-  for (int kc = 0; kc < kTile / 16; ++kc)
-    sm90::wgmma_m64n128k16_rs_tb(acc, p[kc], sm90::smem_desc(v_addr + kc * 2048, kBoxBytes, 1024));
-  sm90::wgmma_commit();
-}
 
 // The online-softmax update of one tile of scores, in place: s becomes the
 // fp32 P (scaled to log2, masked past Skv, exp2 against the new running
@@ -184,14 +162,6 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m_run)[2], 
 __device__ __forceinline__ void rescale(float (&acc)[64], const float (&alpha)[2]) {
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] *= alpha[(i >> 1) & 1];
-}
-
-// P in bf16 as the A fragments of the 8 k-steps of P V
-__device__ __forceinline__ void to_bf16(uint32_t (&p)[kTile / 16][4], const float (&s)[64]) {
-#pragma unroll
-  for (int kc = 0; kc < kTile / 16; ++kc)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) p[kc][r] = ce::pack_bf16(s[8 * kc + 2 * r], s[8 * kc + 2 * r + 1]);
 }
 
 __device__ __forceinline__ void named_sync(int id) {
@@ -291,13 +261,14 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     sm90::mbar_wait(&k_full[0], 0);
     named_sync(1 + c);
     sm90::wgmma_fence();
-    issue_qk(s, q_addr, k_base);
+    sm90::issue_abt<kTile, kTile>(s, q_addr, k_base);  // S = q k^T
+    sm90::wgmma_commit();
     if (!(c == 1 && n_tiles == 1)) named_arrive(2 - c);
     sm90::wgmma_wait<0>();
     sm90::fence_regs(s);
     if (lane == 0) sm90::mbar_arrive(&k_empty[0]);
     softmax_tile(s, m_run, l_run, alpha, 0, Skv, t4, scale_log2);
-    to_bf16(p, s);
+    sm90::to_a_frags(p, s);
     int prev = 0, stage = 0;
     uint32_t prev_phase = 0, phase = 0;
     for (int it = 1; it < n_tiles; ++it) {
@@ -309,8 +280,10 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       sm90::mbar_wait(&v_full[prev], prev_phase);
       named_sync(1 + c);
       sm90::wgmma_fence();
-      issue_qk(s, q_addr, k_base + stage * kTileBytes);
-      issue_pv(acc, p, v_base + prev * kTileBytes);
+      sm90::issue_abt<kTile, kTile>(s, q_addr, k_base + stage * kTileBytes);
+      sm90::wgmma_commit();
+      sm90::issue_ab<kTile>(acc, p, v_base + prev * kTileBytes);  // O += P V
+      sm90::wgmma_commit();
       if (!(c == 1 && it == n_tiles - 1)) named_arrive(2 - c);
       sm90::wgmma_wait<1>();
       sm90::fence_regs(s);
@@ -321,13 +294,14 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       sm90::fence_regs(p);
       if (lane == 0) sm90::mbar_arrive(&v_empty[prev]);
       rescale(acc, alpha);
-      to_bf16(p, s);
+      sm90::to_a_frags(p, s);
       prev = stage;
       prev_phase = phase;
     }
     sm90::mbar_wait(&v_full[prev], prev_phase);
     sm90::wgmma_fence();
-    issue_pv(acc, p, v_base + prev * kTileBytes);
+    sm90::issue_ab<kTile>(acc, p, v_base + prev * kTileBytes);
+    sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
     sm90::fence_regs(acc);
     if (lane == 0) sm90::mbar_arrive(&v_empty[prev]);
@@ -356,54 +330,6 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// cuTensorMapEncodeTiled, fetched through the runtime's entry-point query
-// so that the library needs no -lcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-int encode_tiled(EncodeTiled* fn) {
-  static EncodeTiled cached = nullptr;
-  if (cached == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (found != cudaDriverEntryPointSuccess || p == nullptr)
-      return static_cast<int>(cudaErrorSymbolNotFound);
-    cached = reinterpret_cast<EncodeTiled>(p);
-  }
-  *fn = cached;
-  return 0;
-}
-
-// A (B, S, H, 128) bf16 tensor as a 4-D map (128, H, S, B), box (64, 1, 128,
-// 1), 128-byte swizzle, out-of-bounds rows zero-filled. Returns the encode's
-// error code (a CUresult), 0 on success.
-int bshd_map(CUtensorMap* map, const void* ptr, int B, int S, int H) {
-  EncodeTiled encode;
-  const int err = encode_tiled(&encode);
-  if (err != 0) return err;
-  const cuuint64_t row = kD * 2;  // bytes of one head's row
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(kD), static_cast<cuuint64_t>(H),
-                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {row, row * H, row * H * S};
-  const cuuint32_t box[4] = {64, 1, kTile, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-                            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return static_cast<int>(r);
-}
-
 }  // namespace
 
 extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
@@ -418,9 +344,9 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
     attr_set = true;
   }
   CUtensorMap tq, tk, tv;
-  int err = bshd_map(&tq, q, B, Sq, H);
-  if (err == 0) err = bshd_map(&tk, k, B, Skv, H);
-  if (err == 0) err = bshd_map(&tv, v, B, Skv, H);
+  int err = sm90::bshd_map(&tq, q, B, Sq, H, kTile);
+  if (err == 0) err = sm90::bshd_map(&tk, k, B, Skv, H, kTile);
+  if (err == 0) err = sm90::bshd_map(&tv, v, B, Skv, H, kTile);
   if (err != 0) return err;
   const dim3 grid((Sq + kTile - 1) / kTile, B * H);
   flash_fwd_wgmma_kernel<<<grid, kWsThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(

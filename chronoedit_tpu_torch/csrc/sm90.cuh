@@ -1,11 +1,16 @@
 // Hopper (sm_90a) building blocks written out in inline PTX: mbarriers,
-// TMA tile loads, warpgroup matrix multiply (wgmma) and register
-// rebalancing. Used by the flash-attention forward (flash_fwd.cu). No
-// CUTLASS or CuTe: the build stays one short nvcc call per source.
+// TMA tile loads, warpgroup matrix multiply (wgmma) and the tile products
+// built from it, register rebalancing, and on the host the 4-D tensor maps
+// over BSHD that feed the TMA loads. Used by the flash-attention forward
+// (flash_fwd.cu) and backward (flash_bwd.cu). No CUTLASS or CuTe: the build
+// stays one short nvcc call per source.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: no driver link)
+#include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "common.cuh"
 
 namespace sm90 {
 
@@ -164,7 +169,134 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs_tb(float (&d)[64], const uin
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b));
 }
 
+#define SM90_D32(d)                                                                           \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),        \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
+      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),           \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),           \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+
+#define SM90_D32_LIST                                                                        \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+
+// D (64 x 64 fp32) = A B (+ D if scale_d): A a 64 x 16 bf16 tile and B a
+// 16 x 64 bf16 tile, both in shared memory and both K-major. The fragment
+// is the m64n128k16 one cut to 8 column groups: d[4j + e] holds row g + 8
+// (e >> 1) of the warp's 16, column 8j + 2 t4 + (e & 1) (g = lane / 4, t4 =
+// lane % 4), so it converts to the A fragments of a following register-A
+// wgmma as the 128-column one does (k-step kc takes d[8kc .. 8kc + 7]).
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a,
+                                                   uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SM90_D32_LIST
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : SM90_D32(d)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 #undef SM90_D64
 #undef SM90_D64_LIST
+#undef SM90_D32
+#undef SM90_D32_LIST
+
+// ---- products over tiles of 128 bf16 columns as TMA lands them: two
+// 64-column boxes of `rows` rows (128 B a row, 128-byte swizzle), the second
+// box_bytes(rows) after the first
+
+__host__ __device__ constexpr int box_bytes(int rows) { return rows * 128; }
+
+// D = A B^T over the 128 columns (8 k-steps of 16), issued, not committed:
+// 64 rows of A (in a tile of kARows rows) against the 128 or 64 rows of B
+// (a tile of kBRows rows; D's width), both K-major; k-step kk reads 32 B
+// into box kk / 4 of each.
+template <int kARows, int kBRows, int N>
+__device__ __forceinline__ void issue_abt(float (&d)[N], uint32_t a, uint32_t b) {
+  static_assert(N == 64 || N == 32, "64 x 128 or 64 x 64 fp32 fragment");
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const uint64_t da = smem_desc(a + (kk >> 2) * box_bytes(kARows) + (kk & 3) * 32, 16, 1024);
+    const uint64_t db = smem_desc(b + (kk >> 2) * box_bytes(kBRows) + (kk & 3) * 32, 16, 1024);
+    if constexpr (N == 64)
+      wgmma_m64n128k16_ss(d, da, db, kk > 0);
+    else
+      wgmma_m64n64k16_ss(d, da, db, kk > 0);
+  }
+}
+
+// D (64 x 128) += A B, issued, not committed: A in registers (the A
+// fragments of kRows / 16 k-steps), B a kRows x 128 tile read MN-major;
+// k-step kc reads its rows 16 kc.. (2 KB on), and the two boxes are the
+// leading step.
+template <int kRows>
+__device__ __forceinline__ void issue_ab(float (&d)[64], const uint32_t (&a)[kRows / 16][4],
+                                         uint32_t b) {
+#pragma unroll
+  for (int kc = 0; kc < kRows / 16; ++kc)
+    wgmma_m64n128k16_rs_tb(d, a[kc], smem_desc(b + kc * 2048, box_bytes(kRows), 1024));
+}
+
+// An accumulator fragment in bf16 as the A fragments of the k-steps of a
+// following register-A product (k-step kc: d[8 kc .. 8 kc + 7])
+template <int kSteps>
+__device__ __forceinline__ void to_a_frags(uint32_t (&a)[kSteps][4],
+                                           const float (&d)[kSteps * 8]) {
+#pragma unroll
+  for (int kc = 0; kc < kSteps; ++kc)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) a[kc][r] = ce::pack_bf16(d[8 * kc + 2 * r], d[8 * kc + 2 * r + 1]);
+}
+
+// ---- host: tensor maps
+
+// cuTensorMapEncodeTiled, fetched through the runtime's entry-point query
+// so that the library needs no -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline int encode_tiled(EncodeTiled* fn) {
+  static EncodeTiled cached = nullptr;
+  if (cached == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (found != cudaDriverEntryPointSuccess || p == nullptr)
+      return static_cast<int>(cudaErrorSymbolNotFound);
+    cached = reinterpret_cast<EncodeTiled>(p);
+  }
+  *fn = cached;
+  return 0;
+}
+
+// A (B, S, H, 128) bf16 tensor as a 4-D map (128, H, S, B), box (64, 1,
+// box_rows, 1): one box is box_rows rows of 128 bytes, 128-byte swizzle,
+// rows past S zero-filled (never read from the next batch). Returns the
+// encode's error code (a CUresult), 0 on success.
+inline int bshd_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int box_rows) {
+  EncodeTiled encode;
+  const int err = encode_tiled(&encode);
+  if (err != 0) return err;
+  const cuuint64_t row = 128 * 2;  // bytes of one head's row
+  const cuuint64_t dims[4] = {128, static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {row, row * H, row * H * S};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+                            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return static_cast<int>(r);
+}
 
 }  // namespace sm90

@@ -31,7 +31,15 @@ On the CPU every group runs the twin: the same function.
 
 The backward (``csrc/flash_bwd.cu``): K6 computes dQ, K7 dK and dV, both
 recomputing P from the forward's LSE as JAX's ``_backward`` does;
-``dsum = rowsum(dO * O)`` is one torch reduction in the wrapper. The
+``dsum = rowsum(dO * O)`` is one torch reduction in the wrapper. Both have
+the forward's shape (``flash_bwd_dq_wgmma_kernel``,
+``flash_bwd_dkv_wgmma_kernel``): a producer warpgroup streams TMA tiles
+from 4-D maps over BSHD into a two-stage mbarrier ring (K and V tiles for
+K6, whose block keeps 128 q rows and their dO; q and dO tiles with their
+lse and dsum for K7, whose block keeps 128 KV rows) and two consumer
+warpgroups run every product with ``wgmma``. Each output row is summed by
+one block in a fixed order, with no atomics, so two calls give bitwise the
+same gradients. The
 autograd Function :class:`FlashAttention` ties the two together: its
 forward is the kernel (twin on the CPU), it saves q, k, v, O and the raw
 (B, H, Sq) LSE, and its backward launches only what ``needs_input_grad``
@@ -198,9 +206,12 @@ def flash_attention_bwd(q, k, v, out, dout, lse, scale: float,
     (``need_dkv``), each side on its own group: at 2 or 4 that side runs
     X2's kernel instead, dQ with ``group_dq`` 64-row KV tiles a step, dK
     and dV with ``group_dkv`` 32-row q tiles a step (each 1, 2 or 4;
-    anything else raises). X2 at one tile a step would compute K6/K7's
-    sums in K6/K7's order, so group 1 is K6/K7. CPU tensors run the twin
-    (the same function at every group)."""
+    anything else raises); group 1 is K6/K7. X2 (the earlier ``mma.sync``
+    design) has other tiles but chains the same 16-deep chunks of each sum
+    in the same order, so on the card its gradients have come out bitwise
+    K6/K7's; the experiment tool holds them to the K67 bounds
+    (``chronoedit_tpu_torch/tools``). CPU tensors run the twin (the same
+    function at every group)."""
     _check_group("flash_bwd: group_dq", group_dq, BWD_GROUPS)
     _check_group("flash_bwd: group_dkv", group_dkv, BWD_GROUPS)
     if q.device.type == "cpu":
