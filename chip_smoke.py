@@ -15,7 +15,7 @@ non-zero and no result line is printed:
    one ``nvcc`` per source in parallel) and print each kernel's registers
    and spills, each template instantiation under its own name, and for the
    warp-specialised kernels (``setmaxnreg``) the highest register their
-   SASS uses;
+   SASS uses and their local-memory traffic, which must be none;
 3. hold each kernel against its plain PyTorch twin on the card at the main
    paths' shapes in bf16, with CUDA-event times for both, for PyTorch's own
    call where one computes the same function (``library_ms``: SDPA, and
@@ -26,7 +26,10 @@ non-zero and no result line is printed:
    3.35 TB/s): first K1 at B = 2, 4 heads, over ragged (Sq, Skv) pairs
    (``RAGGED_CASES``: one row, tile tails, a batch boundary inside a
    tile) and K6/K7 over the same pairs (with a global LSE, as a ring hop's
-   backward gets it, and one case with scores near -100), then K1 and X1
+   backward gets it, and one case with scores near -100), K9 over the same
+   pairs (the int8 rule lowered) and K8 on both grids at ragged M (1, 130,
+   257), N = 136 and K = 256, each also bitwise against a second call of
+   itself, then K1 and X1
    (2, 3 and 4 KV tiles a step) and K6/K7 (against the q-chunked backward
    twin, and a second call bitwise the first) at the edit's 7,200 tokens
    against KV 7,200, 512 and 257, X2 (every grouped variant of the
@@ -37,7 +40,8 @@ non-zero and no result line is printed:
    forward's 28,800 rows, against its twin and against
    cuBLAS on the dequantized bf16 weight (a yardstick, not the same
    function), and K9 (int8 scores) at 28,800 tokens against its q-chunked
-   twin and SDPA in bf16. This runs before the model exists: the plain
+   twin and SDPA in bf16, both also bitwise against a second call of
+   themselves. This runs before the model exists: the plain
    attention needs ~35 GB;
 4. the experiment entry points at full width (B = 2, 40 heads of 128):
    ``chronoedit_tpu_torch.tools.exp_flash_paired.main()`` (X1 at 28,800
@@ -246,6 +250,8 @@ def compare_kernels(dev: torch.device) -> dict[str, dict]:
 
     ragged_flash_check(randn)
     ragged_flash_bwd_check(randn)
+    ragged_qk8_check(randn)
+    ragged_int4_check(g)
     results = {}
     s, h, d = EDIT_TOKENS, 40, 128
     q = randn(1, s, h, d)
@@ -386,44 +392,103 @@ def ragged_flash_bwd_check(randn) -> None:
                                      f"B = 2")
 
 
-def compare_int4(g: torch.Generator, m: int, k: int, n: int) -> dict:
-    """K8 against its twin on x (m, k) and a random (n, k) weight quantized
-    w4a16 on the Lloyd grid: within K8_OUT_STEPS bf16 steps of max|ref|.
-    CUDA-event times of K8, of the twin and of cuBLAS on the already
-    dequantized bf16 weight (the yardstick ``library_ms``: not the same
-    function, the weight's dequantization is not in it). Returns a row."""
+def int4_case(g: torch.Generator, m: int, k: int, n: int, grid: str = "lloyd"):
+    """x (m, k) and a random (n, k) weight quantized w4a16 on ``grid``:
+    (K8's arguments, its output, the twin's output, max error, bound).
+    Raises unless K8 is within K8_OUT_STEPS bf16 steps of max|ref|, finite,
+    and a second call is bitwise the first."""
     from chronoedit_tpu_torch.ops import int4_matmul as i4
     from chronoedit_tpu_torch.ops import layers as L
     from chronoedit_tpu_torch.ops import quant
 
     dev = g.device
     lin = L.Linear(k, n, device=dev, dtype=torch.bfloat16, generator=g)
-    leaf = quant.quantize_linear_params_int4(lin)
+    leaf = quant.quantize_linear_params_int4(lin, grid=grid)
     del lin
     x = torch.randn((m, k), generator=g, device=dev, dtype=torch.bfloat16)
     args = (x, leaf.packed, leaf.scales, leaf.table)
     got, ref = i4.int4_matmul(*args), i4.int4_matmul_plain(*args)
+    again = i4.int4_matmul(*args)
     err, ref_max = max_err(got, ref), float(ref.float().abs().max())
     tol = K8_OUT_STEPS * ULP_BF16 * ref_max
-    print(f"K8 int4_matmul {m} x {k} x {n} (Lloyd grid): max|out-ref| {err:.3e} "
-          f"(tol {tol:.3e}, max|ref| {ref_max:.3f})")
-    if not (err <= tol and bool(torch.isfinite(got).all())):
-        raise AssertionError(f"K8 disagrees with its twin at {m} x {k} x {n}")
-    w = i4.dequantize(leaf.packed, leaf.scales, leaf.table).to(torch.bfloat16)
+    same = bool(torch.equal(got, again))
+    print(f"K8 int4_matmul {m} x {k} x {n} ({grid} grid): max|out-ref| {err:.3e} "
+          f"(tol {tol:.3e}, max|ref| {ref_max:.3f}); a second call bitwise equal: {same}")
+    if not (err <= tol and bool(torch.isfinite(got).all()) and same):
+        raise AssertionError(f"K8 disagrees with its twin (or itself) at {m} x {k} x {n}, "
+                             f"{grid} grid")
+    del got, ref, again
+    return args, err
+
+
+def ragged_int4_check(g: torch.Generator) -> None:
+    """K8 on both grids at ragged M (1, 130, 257: partial 256-row tiles),
+    N = 136 (a partial 128-column tile) and K = 256 (one scale group a
+    half): a tensor map that reads past an edge, a tile row or column
+    stored past M or N, or a wrong table shows here."""
+    for grid in ("uniform", "lloyd"):
+        for m in (1, 130, 257):
+            int4_case(g, m, 256, 136, grid)
+
+
+def compare_int4(g: torch.Generator, m: int, k: int, n: int) -> dict:
+    """K8 against its twin on x (m, k) and a random (n, k) weight quantized
+    w4a16 on the Lloyd grid (``int4_case``). CUDA-event times of K8, of the
+    twin and of cuBLAS on the already dequantized bf16 weight (the
+    yardstick ``library_ms``: not the same function, the weight's
+    dequantization is not in it). Returns a row."""
+    from chronoedit_tpu_torch.ops import int4_matmul as i4
+
+    args, err = int4_case(g, m, k, n)
+    x, packed, scales, table = args
+    w = i4.dequantize(packed, scales, table).to(torch.bfloat16)
     ms = cuda_ms(lambda: i4.int4_matmul(*args))
     plain = cuda_ms(lambda: i4.int4_matmul_plain(*args), reps=3, warmup=1)
     library = cuda_ms(lambda: torch.matmul(x, w.T))
     flops = 2 * m * k * n
     # x read, packed weight, scales and table read, y written
-    nbytes = 2 * m * k + n * k // 2 + 4 * leaf.scales.numel() + 60 + 2 * m * n
+    nbytes = 2 * m * k + n * k // 2 + 4 * scales.numel() + 60 + 2 * m * n
     row = {"max_abs_err": err, "ms": ms, "plain_ms": plain, "library_ms": library,
            **bound(flops, nbytes)}
-    print(f"   kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), twin {plain:.3f} ms, cuBLAS "
-          f"on the dequantized bf16 weight {library:.3f} ms, bound {row['bound_ms']:.3f} ms "
-          f"({row['bound_by']})")
-    del got, ref, w
+    print(f"   kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+          f"{row['bound_ms'] / ms:.1%} of the bound), twin {plain:.3f} ms, cuBLAS "
+          f"on the dequantized bf16 weight {library:.3f} ms ({ms / library:.2f}x its time), "
+          f"bound {row['bound_ms']:.3f} ms ({row['bound_by']})")
+    del w
     torch.cuda.empty_cache()
     return row
+
+
+def ragged_qk8_check(randn) -> None:
+    """K9 through ``flash_attention_qk_int8`` (the int8 rule lowered, so that
+    every length takes it) at B = 2, 4 heads of 128, over ``RAGGED_CASES``,
+    against the twin on the same int8 inputs under K1's bounds: a tensor map
+    that read a row of the next batch, or a k scale or mask misplaced on the
+    zero-filled tail of a tile, shows here. Then a second call, bitwise the
+    first."""
+    from chronoedit_tpu_torch.ops import flash_attention as fa
+
+    saved = fa.QK8_RESIDENT_KV_BYTES
+    fa.QK8_RESIDENT_KV_BYTES = 0
+    try:
+        for sq, skv in RAGGED_CASES:
+            q = randn(2, sq, 4, 128)
+            k, v = randn(2, skv, 4, 128), randn(2, skv, 4, 128)
+            scale = q.shape[-1] ** -0.5
+            out = fa.flash_attention_qk_int8(q, k, v, scale)
+            again = fa.flash_attention_qk_int8(q, k, v, scale)
+            q8, qs, k8, ks = fa.quantize_qk(q, k)
+            ref = fa.flash_attention_qk_int8_plain(q8, k8, v, qs, ks, scale)
+            err, ref_max = max_err(out, ref), float(ref.float().abs().max())
+            tol = min(K1_OUT_MAX_TOL, K1_OUT_STEPS * ULP_BF16 * ref_max)
+            same = bool(torch.equal(out, again))
+            print(f"K9 ragged q {tuple(q.shape)} kv {skv}: max|out-ref| {err:.3e} (tol "
+                  f"{tol:.3e}); a second call bitwise equal: {same}")
+            if not (err <= tol and bool(torch.isfinite(out).all()) and same):
+                raise AssertionError(f"K9 disagrees with its twin (or itself) at q {sq}, "
+                                     f"kv {skv}, B = 2")
+    finally:
+        fa.QK8_RESIDENT_KV_BYTES = saved
 
 
 def compare_qk8(q, k, v) -> dict:
@@ -436,13 +501,14 @@ def compare_qk8(q, k, v) -> dict:
     scale = q.shape[-1] ** -0.5
     q8, qs, k8, ks = fa.quantize_qk(q, k)
     out = fa._forward_qk8(q8, k8, v, qs, ks, scale)
+    same = bool(torch.equal(out, fa._forward_qk8(q8, k8, v, qs, ks, scale)))
     ref = fa.flash_attention_qk_int8_plain(q8, k8, v, qs, ks, scale, q_chunk=Q_CHUNK)
     err, ref_max = max_err(out, ref), float(ref.float().abs().max())
     tol = min(K1_OUT_MAX_TOL, K1_OUT_STEPS * ULP_BF16 * ref_max)
     print(f"K9 flash_fwd_qk8 q {tuple(q.shape)} kv {k.shape[1]}: max|out-ref| {err:.3e} "
-          f"(tol {tol:.3e}, max|ref| {ref_max:.3f})")
-    if not (err <= tol and bool(torch.isfinite(out).all())):
-        raise AssertionError("K9 disagrees with its twin")
+          f"(tol {tol:.3e}, max|ref| {ref_max:.3f}); a second call bitwise equal: {same}")
+    if not (err <= tol and bool(torch.isfinite(out).all()) and same):
+        raise AssertionError("K9 disagrees with its twin (or itself)")
     del out, ref
     torch.cuda.empty_cache()
     ms = cuda_ms(lambda: fa._forward_qk8(q8, k8, v, qs, ks, scale))
@@ -457,7 +523,8 @@ def compare_qk8(q, k, v) -> dict:
         + 4 * b * h * (sq + k.shape[1])
     row = {"max_abs_err": err, "ms": ms, "plain_ms": plain, "library_ms": library,
            **bound(unit, nbytes, int8_ops=unit)}
-    print(f"   kernel {ms:.3f} ms, prologue (torch) {prologue:.3f} ms, twin {plain:.3f} ms, "
+    print(f"   kernel {ms:.3f} ms ({2 * unit / ms / 1e9:.1f} TOP/s, {row['bound_ms'] / ms:.1%} of "
+          f"the bound), prologue (torch) {prologue:.3f} ms, twin {plain:.3f} ms, "
           f"SDPA bf16 {library:.3f} ms, bound {row['bound_ms']:.3f} ms ({row['bound_by']}: the "
           f"s8 scores at {PEAK_INT8_OPS / 1e12:.0f} TOPS plus P.V at "
           f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s)")
@@ -1329,31 +1396,33 @@ def profile_stages(stages: dict, out_dir: Path) -> None:
 
 # ----------------------------------------------------------- main
 
+# name in the kernel table: (source, the TPU kernel it replaces, the kernel's
+# symbol; a template's base name)
 SOURCES = {
     "flash_fwd": ("chronoedit_tpu_torch/csrc/flash_fwd.cu",
-                  "chronoedit_tpu/ops/flash_attention.py:188"),
+                  "chronoedit_tpu/ops/flash_attention.py:188", "flash_fwd_wgmma_kernel"),
     "ln_modulate": ("chronoedit_tpu_torch/csrc/ln_modulate.cu",
-                    "chronoedit_tpu/ops/fused_norms.py:87"),
+                    "chronoedit_tpu/ops/fused_norms.py:87", "ln_modulate_kernel"),
     "gated_residual": ("chronoedit_tpu_torch/csrc/gated_residual.cu",
-                       "chronoedit_tpu/ops/fused_norms.py:177"),
+                       "chronoedit_tpu/ops/fused_norms.py:177", "gated_residual_kernel"),
     "rms_norm": ("chronoedit_tpu_torch/csrc/rms_norm.cu",
-                 "chronoedit_tpu/ops/fused_norms.py:251"),
+                 "chronoedit_tpu/ops/fused_norms.py:251", "rms_norm_kernel"),
     "flash_fwd_streamed": ("chronoedit_tpu_torch/csrc/flash_fwd.cu",
-                           "chronoedit_tpu/ops/flash_attention.py:227"),
+                           "chronoedit_tpu/ops/flash_attention.py:227", "flash_fwd_wgmma_kernel"),
     "flash_bwd_dq": ("chronoedit_tpu_torch/csrc/flash_bwd.cu",
-                     "chronoedit_tpu/ops/flash_attention.py:588"),
+                     "chronoedit_tpu/ops/flash_attention.py:588", "flash_bwd_dq_wgmma_kernel"),
     "flash_bwd_dkv": ("chronoedit_tpu_torch/csrc/flash_bwd.cu",
-                      "chronoedit_tpu/ops/flash_attention.py:618"),
+                      "chronoedit_tpu/ops/flash_attention.py:618", "flash_bwd_dkv_wgmma_kernel"),
     "int4_matmul": ("chronoedit_tpu_torch/csrc/int4_matmul.cu",
-                    "chronoedit_tpu/ops/int4_matmul.py:89"),
+                    "chronoedit_tpu/ops/int4_matmul.py:89", "int4_matmul_wgmma_kernel"),
     "flash_fwd_qk8": ("chronoedit_tpu_torch/csrc/flash_fwd_qk8.cu",
-                      "chronoedit_tpu/ops/flash_attention.py:326"),
+                      "chronoedit_tpu/ops/flash_attention.py:326", "flash_fwd_qk8_wgmma_kernel"),
     "flash_fwd_grouped": ("chronoedit_tpu_torch/csrc/flash_fwd.cu",
-                          "tools/exp_flash_paired.py:40"),
+                          "tools/exp_flash_paired.py:40", "flash_fwd_grouped_kernel"),
     "flash_bwd_dq_grouped": ("chronoedit_tpu_torch/csrc/flash_bwd.cu",
-                             "tools/exp_flash_bwd_grouped.py:41"),
+                             "tools/exp_flash_bwd_grouped.py:41", "flash_bwd_dq_grouped_kernel"),
     "flash_bwd_dkv_grouped": ("chronoedit_tpu_torch/csrc/flash_bwd.cu",
-                              "tools/exp_flash_bwd_grouped.py:78"),
+                              "tools/exp_flash_bwd_grouped.py:78", "flash_bwd_dkv_grouped_kernel"),
 }
 
 
@@ -1391,24 +1460,45 @@ def print_ptxas(log: Path) -> None:
             print(f"ptxas warning: {line.strip()}")
 
 
-def print_sass_registers(lib: Path) -> None:
+def print_sass_registers(lib: Path) -> dict[str, tuple[int, int, int]]:
     """For each kernel that rebalances its registers with ``setmaxnreg``,
     whose consumer warpgroups may use more than the launch bound's count
     that ptxas reports: the highest register its SASS names and its
-    local-memory stores and loads (``cuobjdump -sass`` on the library)."""
+    local-memory stores and loads (``cuobjdump -sass`` on the library).
+    Returns {kernel name: (highest register, stores, loads)}."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
         print("sass: no cuobjdump")
-        return
+        return {}
     sass = subprocess.run([tool, "-sass", str(lib)], check=True, capture_output=True, text=True,
                           timeout=300).stdout
+    found = {}
     for fn in re.split(r"\n\s+Function : ", sass)[1:]:
         if "USETMAXREG" not in fn:
             continue
+        name = kernel_name(fn.split(maxsplit=1)[0])
         regs = max(int(r) for r in re.findall(r"\bR(\d+)\b", fn))
         stores, loads = (len(re.findall(rf"\b{op}\b", fn)) for op in ("STL", "LDL"))
-        print(f"sass {kernel_name(fn.split(maxsplit=1)[0])}: setmaxnreg; highest register R{regs}, "
+        found[name] = (regs, stores, loads)
+        print(f"sass {name}: setmaxnreg; highest register R{regs}, "
               f"{stores} local stores, {loads} local loads")
+    return found
+
+
+def check_no_spills(sass: dict[str, tuple[int, int, int]]) -> None:
+    """Every warp-specialised kernel of the table has its SASS line and
+    touches no local memory: a spill in a consumer's registers serializes
+    its wgmma and shows here. Without ``cuobjdump`` there is nothing to
+    check (``print_sass_registers`` says so)."""
+    if not sass:
+        return
+    for name, (_, _, symbol) in SOURCES.items():
+        if not symbol.endswith("wgmma_kernel"):
+            continue
+        if symbol not in sass:
+            raise AssertionError(f"{name}: no SASS line for {symbol}")
+        if sass[symbol][1] or sass[symbol][2]:
+            raise AssertionError(f"{name}: {symbol} spills to local memory")
 
 
 def main() -> int:
@@ -1437,7 +1527,7 @@ def main() -> int:
     _, secs = host_s(build.lib)
     print(f"kernels built and loaded in {secs:.1f} s: {build.library_path().name}")
     print_ptxas(build.build_log_path())
-    print_sass_registers(build.library_path())
+    check_no_spills(print_sass_registers(build.library_path()))
 
     profile_dir = Path(__file__).resolve().parent / "chiprun_out" if args.profile else None
     by_name, by_kv = Counter(), Counter()
@@ -1474,7 +1564,7 @@ def main() -> int:
     launches["flash_fwd"] -= launches["flash_fwd_streamed"]
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name], **results[name])
-               for name, (src, rep) in SOURCES.items()]
+               for name, (src, rep, _) in SOURCES.items()]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

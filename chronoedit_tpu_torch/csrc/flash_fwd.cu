@@ -164,14 +164,6 @@ __device__ __forceinline__ void rescale(float (&acc)[64], const float (&alpha)[2
   for (int i = 0; i < 64; ++i) acc[i] *= alpha[(i >> 1) & 1];
 }
 
-__device__ __forceinline__ void named_sync(int id) {
-  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
-}
-
-__device__ __forceinline__ void named_arrive(int id) {
-  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
-}
-
 __global__ void __launch_bounds__(kWsThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
@@ -257,13 +249,13 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     // to issue (ping-pong on named barriers 1 and 2), so that one's
     // softmax runs under the other's products. Each warpgroup's syncs
     // meet as many arrivals: the second skips its last.
-    if (c == 1) named_arrive(1);  // the first warpgroup issues first
+    if (c == 1) sm90::named_arrive(1);  // the first warpgroup issues first
     sm90::mbar_wait(&k_full[0], 0);
-    named_sync(1 + c);
+    sm90::named_sync(1 + c);
     sm90::wgmma_fence();
     sm90::issue_abt<kTile, kTile>(s, q_addr, k_base);  // S = q k^T
     sm90::wgmma_commit();
-    if (!(c == 1 && n_tiles == 1)) named_arrive(2 - c);
+    if (!(c == 1 && n_tiles == 1)) sm90::named_arrive(2 - c);
     sm90::wgmma_wait<0>();
     sm90::fence_regs(s);
     if (lane == 0) sm90::mbar_arrive(&k_empty[0]);
@@ -278,13 +270,13 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       }
       sm90::mbar_wait(&k_full[stage], phase);
       sm90::mbar_wait(&v_full[prev], prev_phase);
-      named_sync(1 + c);
+      sm90::named_sync(1 + c);
       sm90::wgmma_fence();
       sm90::issue_abt<kTile, kTile>(s, q_addr, k_base + stage * kTileBytes);
       sm90::wgmma_commit();
       sm90::issue_ab<kTile>(acc, p, v_base + prev * kTileBytes);  // O += P V
       sm90::wgmma_commit();
-      if (!(c == 1 && it == n_tiles - 1)) named_arrive(2 - c);
+      if (!(c == 1 && it == n_tiles - 1)) sm90::named_arrive(2 - c);
       sm90::wgmma_wait<1>();
       sm90::fence_regs(s);
       if (lane == 0) sm90::mbar_arrive(&k_empty[stage]);

@@ -49,10 +49,12 @@ not).
 The int8-score forward (K9, ``csrc/flash_fwd_qk8.cu``) serves
 ``DiTConfig.attn_qk_int8``: :func:`flash_attention_qk_int8` quantizes q per
 token and the mean-centred k per token in plain torch, as JAX does in XLA,
-then runs K9 (its twin on the CPU). It keeps JAX's rule for where int8
-scores apply: only where JAX would stream the KV, past 6 MiB of K and V
-(:func:`uses_int8_scores`); shorter KV takes the bf16 kernel, as in JAX.
-Forward only, as JAX's.
+then runs K9 (its twin on the CPU): the forward's warp-specialised shape
+(``flash_fwd_qk8_wgmma_kernel``) with the scores from ``wgmma`` s8 x s8 ->
+s32 on TMA-loaded int8 tiles, dequantized in JAX's order. It keeps JAX's
+rule for where int8 scores apply: only where JAX would stream the KV, past
+6 MiB of K and V (:func:`uses_int8_scores`); shorter KV takes the bf16
+kernel, as in JAX. Forward only, as JAX's.
 """
 
 from __future__ import annotations

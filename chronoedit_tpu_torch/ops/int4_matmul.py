@@ -11,10 +11,14 @@ fp32, cast to x's dtype, and the product sums in fp32: the function JAX's
 int4 apply computes on both of its grids (the uniform grid's table holds
 the integers -7..7).
 
-The CUDA kernel (``csrc/int4_matmul.cu``) takes bf16 x; for CUDA tensors
-the wrapper launches it or raises. JAX launches its Pallas kernel only on
-one TPU, for the uniform grid and behind an environment switch; the port
-launches K8 for both grids, for every int4 linear on the card.
+The CUDA kernel (``csrc/int4_matmul.cu``, ``int4_matmul_wgmma_kernel``)
+takes bf16 x; for CUDA tensors the wrapper launches it or raises. It swaps
+the operands (y^T = W^T x^T): a TMA ring feeds x tiles and the packed
+bytes, and each consumer thread decodes its weight bytes straight into the
+register-A fragments of a bf16 ``wgmma`` with the twin's dequantization, bit
+for bit. JAX launches its Pallas kernel only on one TPU, for the uniform
+grid and behind an environment switch; the port launches K8 for both
+grids, for every int4 linear on the card.
 """
 
 from __future__ import annotations
