@@ -14,8 +14,9 @@ non-zero and no result line is printed:
 2. build the kernels from ``chronoedit_tpu_torch/csrc`` (``kernels/build.py``,
    one ``nvcc`` per source in parallel) and print each kernel's registers
    and spills, each template instantiation under its own name, and for the
-   warp-specialised kernels (``setmaxnreg``) the highest register their
-   SASS uses and their local-memory traffic, which must be none;
+   warp-specialised kernels (``setmaxnreg``) the highest register each
+   instantiation's SASS uses and its local-memory traffic, which must be
+   none for every instantiation a kernel row launches;
 3. hold each kernel against its plain PyTorch twin on the card at the main
    paths' shapes in bf16, with CUDA-event times for both, for PyTorch's own
    call where one computes the same function (``library_ms``: SDPA, and
@@ -23,17 +24,21 @@ non-zero and no result line is printed:
    ``torch.nn.functional.rms_norm`` beside K4, timed as yardsticks, never
    called by the port) and each
    kernel's bound (the larger of FLOPs over 989 TFLOP/s and bytes over
-   3.35 TB/s): first K1 at B = 2, 4 heads, over ragged (Sq, Skv) pairs
-   (``RAGGED_CASES``: one row, tile tails, a batch boundary inside a
-   tile) and K6/K7 over the same pairs (with a global LSE, as a ring hop's
-   backward gets it, and one case with scores near -100), K9 over the same
+   3.35 TB/s): first K1 and X1 at every group at B = 2, 4 heads, over
+   ragged (Sq, Skv) pairs (``RAGGED_CASES``: one row, tile tails, a batch
+   boundary inside a tile) and K6/K7 and X2 (both sides at group 2, then
+   4) over the same pairs (with a global LSE, as a ring hop's backward
+   gets it, and one case with scores near -100; X2 also bitwise against a
+   second call, and compared bitwise with K6/K7's), K9 over the same
    pairs (the int8 rule lowered) and K8 on both grids at ragged M (1, 130,
    257), N = 136 and K = 256, each also bitwise against a second call of
    itself, then K1 and X1
    (2, 3 and 4 KV tiles a step) and K6/K7 (against the q-chunked backward
    twin, and a second call bitwise the first) at the edit's 7,200 tokens
    against KV 7,200, 512 and 257, X2 (every grouped variant of the
-   experiment) against KV 7,200 and 257, K2-K4 at the edit's stream, and
+   experiment, each also bitwise against a second call and compared
+   bitwise with K6/K7's) against KV 7,200 and 257, K2-K4 at the edit's
+   stream, and
    the flash kernel at the reasoning self-attention's 28,800 tokens as K5 and X1 (against the
    q-chunked twin, computed once); K8 (the int4 matmul) at the
    five projection shapes of a 720p forward and the three at the reasoning
@@ -337,38 +342,43 @@ def compare_kernels(dev: torch.device) -> dict[str, dict]:
 
 
 def ragged_flash_check(randn) -> None:
-    """K1/K5 through ``flash_attention_with_lse`` at B = 2, 4 heads of 128,
-    over ``RAGGED_CASES``, against the plain twin under K1's bounds: a
-    tensor map that read a row of the next batch, or a wrong mask on the
-    zero-filled tail of a tile, shows here."""
+    """K1/K5 and X1 at every group through ``flash_attention_with_lse`` at
+    B = 2, 4 heads of 128, over ``RAGGED_CASES``, against the plain twin
+    under K1's bounds: a tensor map that read a row of the next batch, or a
+    wrong mask on the zero-filled tail of a tile or step, shows here."""
     from chronoedit_tpu_torch.ops import flash_attention as fa
 
     for sq, skv in RAGGED_CASES:
         q = randn(2, sq, 4, 128)
         k, v = randn(2, skv, 4, 128), randn(2, skv, 4, 128)
         scale = q.shape[-1] ** -0.5
-        out, lse = fa.flash_attention_with_lse(q, k, v, scale)
         ref, ref_lse = fa.flash_attention_plain(q, k, v, scale)
-        e_out, e_lse = max_err(out, ref), max_err(lse, ref_lse)
         ref_max = float(ref.float().abs().max())
         tol = min(K1_OUT_MAX_TOL, K1_OUT_STEPS * ULP_BF16 * ref_max)
-        print(f"K1 ragged q {tuple(q.shape)} kv {skv}: max|out-ref| {e_out:.3e} (tol {tol:.3e}), "
-              f"max|lse-ref| {e_lse:.3e} (tol {K1_LSE_TOL})")
-        if not (e_out <= tol and e_lse <= K1_LSE_TOL and bool(torch.isfinite(out).all())):
-            raise AssertionError(f"K1 disagrees with its twin at q {sq}, kv {skv}, B = 2")
+        for group in (1, *X1_GROUPS):
+            out, lse = fa.flash_attention_with_lse(q, k, v, scale, group=group)
+            e_out, e_lse = max_err(out, ref), max_err(lse, ref_lse)
+            label = "K1" if group == 1 else f"X1 group {group}"
+            print(f"{label} ragged q {tuple(q.shape)} kv {skv}: max|out-ref| {e_out:.3e} (tol "
+                  f"{tol:.3e}), max|lse-ref| {e_lse:.3e} (tol {K1_LSE_TOL})")
+            if not (e_out <= tol and e_lse <= K1_LSE_TOL and bool(torch.isfinite(out).all())):
+                raise AssertionError(f"{label} disagrees with its twin at q {sq}, kv {skv}, B = 2")
 
 
 def ragged_flash_bwd_check(randn) -> None:
-    """K6 and K7 through ``flash_attention_bwd`` at B = 2, 4 heads of 128,
+    """K6 and K7, and X2 at each of its instantiations (both sides at group
+    2, then at 4), through ``flash_attention_bwd`` at B = 2, 4 heads of 128,
     over ``RAGGED_CASES``, against the q-chunked twin under the K67 bounds.
     O and the LSE come from a forward over the case's KV and 64 more keys,
     as a ring hop's backward gets them (over its own single key the case
     (1, 1) would give dQ = dK = 0 up to rounding): a tensor map that read a
     row of the next batch, or a q row past Sq left live, shows here. A last
     case, (64, 129) with every score near -100 (q near 3, k near -3), holds
-    K6's mask of the KV columns past Skv: zero-filled K rows cancel an
+    the mask of the KV columns past Skv: zero-filled K rows cancel an
     unmasked column's P = exp(-lse) while it is finite, but here it
-    overflows and inf times a zero row is NaN."""
+    overflows and inf times a zero row is NaN. X2's gradients are also held
+    bitwise against a second call of themselves and compared bitwise with
+    K6/K7's."""
     from chronoedit_tpu_torch.ops import flash_attention as fa
 
     for sq, skv, far in [(*case, False) for case in RAGGED_CASES] + [(64, 129, True)]:
@@ -379,17 +389,38 @@ def ragged_flash_bwd_check(randn) -> None:
         scale = q.shape[-1] ** -0.5
         out, lse = fa.flash_attention_with_lse(q, k, v, scale)
         k, v = k[:, :skv].contiguous(), v[:, :skv].contiguous()
-        got = fa.flash_attention_bwd(q, k, v, out, dout, lse, scale)
         ref = fa.flash_attention_bwd_plain(q, k, v, out, dout, lse, scale, q_chunk=Q_CHUNK)
-        for name, g_, r_ in zip(("dq", "dk", "dv"), got, ref):
-            c = k67_check(g_, r_)
-            print(f"K6/K7 ragged q {tuple(q.shape)} kv {skv} (global LSE"
-                  f"{', scores near -100' if far else ''}): {name} max err "
-                  f"{c['max']:.3e} (tol {c['tol']:.3e}), normwise {c['rel']:.3e} (tol "
-                  f"{K67_NORM_REL})")
-            if not c["ok"]:
-                raise AssertionError(f"K6/K7 {name} disagrees with its twin at q {sq}, kv {skv}, "
-                                     f"B = 2")
+        base = None
+        for n in (1, 2, 4):
+            label = "K6/K7" if n == 1 else f"X2 ({n}, {n})"
+            got = fa.flash_attention_bwd(q, k, v, out, dout, lse, scale, group_dq=n, group_dkv=n)
+            for name, g_, r_ in zip(("dq", "dk", "dv"), got, ref):
+                c = k67_check(g_, r_)
+                print(f"{label} ragged q {tuple(q.shape)} kv {skv} (global LSE"
+                      f"{', scores near -100' if far else ''}): {name} max err "
+                      f"{c['max']:.3e} (tol {c['tol']:.3e}), normwise {c['rel']:.3e} (tol "
+                      f"{K67_NORM_REL})")
+                if not c["ok"]:
+                    raise AssertionError(f"{label} {name} disagrees with its twin at q {sq}, "
+                                         f"kv {skv}, B = 2")
+            if base is None:
+                base = got
+                continue
+            x2_determinism(label, f"ragged q {sq} kv {skv}", got, base,
+                           lambda: fa.flash_attention_bwd(q, k, v, out, dout, lse, scale,
+                                                          group_dq=n, group_dkv=n))
+
+
+def x2_determinism(label: str, where: str, got, k67, again) -> None:
+    """X2's (dq, dk, dv) ``got``: a second call (``again()``) must be
+    bitwise the first; prints whether they are also bitwise K6/K7's
+    ``k67`` on the same inputs (the design's expectation, not a bound)."""
+    second = again()
+    if not all(torch.equal(a, b) for a, b in zip(got, second)):
+        raise AssertionError(f"{label} at {where}: two calls on the same inputs differ")
+    same = [name for name, a, b in zip(("dq", "dk", "dv"), got, k67) if torch.equal(a, b)]
+    print(f"{label} {where}: a second call is bitwise the first (dq, dk, dv); bitwise K6/K7's: "
+          f"{', '.join(same) if same else 'none'}")
 
 
 def int4_case(g: torch.Generator, m: int, k: int, n: int, grid: str = "lloyd"):
@@ -635,11 +666,17 @@ def compare_flash_bwd(what: str, q, k, v, grouped: bool) -> dict[str, list[tuple
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError(f"K6/K7 at kv={skv}: two calls on the same inputs differ")
     print(f"K6/K7 flash_bwd {what:5s} kv {skv}: a second call is bitwise the first (dq, dk, dv)")
-    del got, again
-    x2_errs = {pair: check(f"X2 {pair}", fa.flash_attention_bwd(
-        q, k, v, out, dout, lse, scale, group_dq=pair[0], group_dkv=pair[1]))
-        for pair in (X2_VARIANTS if grouped else ())}
-    del ref
+    del again
+    x2_errs = {}
+    for pair in X2_VARIANTS if grouped else ():
+        def x2_call(pair=pair):
+            return fa.flash_attention_bwd(q, k, v, out, dout, lse, scale, group_dq=pair[0],
+                                          group_dkv=pair[1])
+        x2 = x2_call()
+        x2_errs[pair] = check(f"X2 {pair}", x2)
+        x2_determinism(f"X2 {pair}", f"flash_bwd {what:5s} kv {skv}", x2, got, x2_call)
+        del x2
+    del ref, got
     torch.cuda.empty_cache()
 
     qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
@@ -686,7 +723,8 @@ def compare_flash_bwd(what: str, q, k, v, grouped: bool) -> dict[str, list[tuple
             rows[name + "_grouped"].append(({"max_abs_err": err, "ms": t, **yardsticks},
                                             f"n={n} kv={skv}"))
             print(f"   {name}_grouped (X2), {n} tiles a step: kernel {t:.3f} ms "
-                  f"({flops / t / 1e9:.1f} TFLOP/s)")
+                  f"({flops / t / 1e9:.1f} TFLOP/s); {yardsticks['bound_ms'] / t:.1%} of the "
+                  f"bound, {t / library:.2f}x SDPA's backward")
     del lib_out
     torch.cuda.empty_cache()
     return rows
@@ -1396,33 +1434,43 @@ def profile_stages(stages: dict, out_dir: Path) -> None:
 
 # ----------------------------------------------------------- main
 
-# name in the kernel table: (source, the TPU kernel it replaces, the kernel's
-# symbol; a template's base name)
+# name in the kernel table: (source, the TPU kernel it replaces, the
+# kernel's symbols: each template instantiation the row's calls launch)
 SOURCES = {
     "flash_fwd": ("chronoedit_tpu_torch/csrc/flash_fwd.cu",
-                  "chronoedit_tpu/ops/flash_attention.py:188", "flash_fwd_wgmma_kernel"),
+                  "chronoedit_tpu/ops/flash_attention.py:188", ("flash_fwd_wgmma_kernel",)),
     "ln_modulate": ("chronoedit_tpu_torch/csrc/ln_modulate.cu",
-                    "chronoedit_tpu/ops/fused_norms.py:87", "ln_modulate_kernel"),
+                    "chronoedit_tpu/ops/fused_norms.py:87", ("ln_modulate_kernel",)),
     "gated_residual": ("chronoedit_tpu_torch/csrc/gated_residual.cu",
-                       "chronoedit_tpu/ops/fused_norms.py:177", "gated_residual_kernel"),
+                       "chronoedit_tpu/ops/fused_norms.py:177", ("gated_residual_kernel",)),
     "rms_norm": ("chronoedit_tpu_torch/csrc/rms_norm.cu",
-                 "chronoedit_tpu/ops/fused_norms.py:251", "rms_norm_kernel"),
+                 "chronoedit_tpu/ops/fused_norms.py:251", ("rms_norm_kernel",)),
     "flash_fwd_streamed": ("chronoedit_tpu_torch/csrc/flash_fwd.cu",
-                           "chronoedit_tpu/ops/flash_attention.py:227", "flash_fwd_wgmma_kernel"),
+                           "chronoedit_tpu/ops/flash_attention.py:227",
+                           ("flash_fwd_wgmma_kernel",)),
     "flash_bwd_dq": ("chronoedit_tpu_torch/csrc/flash_bwd.cu",
-                     "chronoedit_tpu/ops/flash_attention.py:588", "flash_bwd_dq_wgmma_kernel"),
+                     "chronoedit_tpu/ops/flash_attention.py:588",
+                     ("flash_bwd_dq_wgmma_kernel<128>",)),
     "flash_bwd_dkv": ("chronoedit_tpu_torch/csrc/flash_bwd.cu",
-                      "chronoedit_tpu/ops/flash_attention.py:618", "flash_bwd_dkv_wgmma_kernel"),
+                      "chronoedit_tpu/ops/flash_attention.py:618",
+                      ("flash_bwd_dkv_wgmma_kernel<64>",)),
     "int4_matmul": ("chronoedit_tpu_torch/csrc/int4_matmul.cu",
-                    "chronoedit_tpu/ops/int4_matmul.py:89", "int4_matmul_wgmma_kernel"),
+                    "chronoedit_tpu/ops/int4_matmul.py:89", ("int4_matmul_wgmma_kernel",)),
     "flash_fwd_qk8": ("chronoedit_tpu_torch/csrc/flash_fwd_qk8.cu",
-                      "chronoedit_tpu/ops/flash_attention.py:326", "flash_fwd_qk8_wgmma_kernel"),
+                      "chronoedit_tpu/ops/flash_attention.py:326",
+                      ("flash_fwd_qk8_wgmma_kernel",)),
     "flash_fwd_grouped": ("chronoedit_tpu_torch/csrc/flash_fwd.cu",
-                          "tools/exp_flash_paired.py:40", "flash_fwd_grouped_kernel"),
+                          "tools/exp_flash_paired.py:40",
+                          tuple(f"flash_fwd_grouped_wgmma_kernel<{n}>" for n in X1_GROUPS)),
+    # X2 is K6/K7 with a stage of 64 n KV rows / 32 n q rows: n = 2 is their
+    # own instantiation, n = 4 the one with two of their steps a stage
     "flash_bwd_dq_grouped": ("chronoedit_tpu_torch/csrc/flash_bwd.cu",
-                             "tools/exp_flash_bwd_grouped.py:41", "flash_bwd_dq_grouped_kernel"),
+                             "tools/exp_flash_bwd_grouped.py:41",
+                             ("flash_bwd_dq_wgmma_kernel<128>", "flash_bwd_dq_wgmma_kernel<256>")),
     "flash_bwd_dkv_grouped": ("chronoedit_tpu_torch/csrc/flash_bwd.cu",
-                              "tools/exp_flash_bwd_grouped.py:78", "flash_bwd_dkv_grouped_kernel"),
+                              "tools/exp_flash_bwd_grouped.py:78",
+                              ("flash_bwd_dkv_wgmma_kernel<64>",
+                               "flash_bwd_dkv_wgmma_kernel<128>")),
 }
 
 
@@ -1486,19 +1534,20 @@ def print_sass_registers(lib: Path) -> dict[str, tuple[int, int, int]]:
 
 
 def check_no_spills(sass: dict[str, tuple[int, int, int]]) -> None:
-    """Every warp-specialised kernel of the table has its SASS line and
-    touches no local memory: a spill in a consumer's registers serializes
-    its wgmma and shows here. Without ``cuobjdump`` there is nothing to
-    check (``print_sass_registers`` says so)."""
+    """Every instantiation of every warp-specialised kernel of the table
+    has its SASS line and touches no local memory: a spill in a consumer's
+    registers serializes its wgmma and shows here. Without ``cuobjdump``
+    there is nothing to check (``print_sass_registers`` says so)."""
     if not sass:
         return
-    for name, (_, _, symbol) in SOURCES.items():
-        if not symbol.endswith("wgmma_kernel"):
-            continue
-        if symbol not in sass:
-            raise AssertionError(f"{name}: no SASS line for {symbol}")
-        if sass[symbol][1] or sass[symbol][2]:
-            raise AssertionError(f"{name}: {symbol} spills to local memory")
+    for name, (_, _, symbols) in SOURCES.items():
+        for symbol in symbols:
+            if "wgmma_kernel" not in symbol:
+                continue
+            if symbol not in sass:
+                raise AssertionError(f"{name}: no SASS line for {symbol}")
+            if sass[symbol][1] or sass[symbol][2]:
+                raise AssertionError(f"{name}: {symbol} spills to local memory")
 
 
 def main() -> int:

@@ -53,48 +53,10 @@ __device__ __forceinline__ void load8f(const float* p, float (&f)[8]) {
   f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
 }
 
-// ---- mma.sync helpers for the flash kernels (flash_fwd.cu, flash_bwd.cu)
-
-// D += A B with A 16x16 (row), B 16x8 (col), bf16 in, fp32 accumulate.
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
+// Two floats as one bf16 pair (lo in the low half), each rounded once.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  __nv_bfloat162 v = __halves2bfloat162(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Copy kRows rows of kCols bf16 from a row-strided tensor into a smem tile
-// with row pitch kLd, zero-filling rows at or past `limit`.
-template <int kRows, int kCols, int kLd, int kThreads>
-__device__ __forceinline__ void load_rows(__nv_bfloat16* tile,
-                                          const __nv_bfloat16* base,
-                                          size_t row_stride, int row0,
-                                          int limit) {
-  constexpr int kVecPerRow = kCols / 8;
-  for (int i = threadIdx.x; i < kRows * kVecPerRow; i += kThreads) {
-    const int r = i / kVecPerRow;
-    const int c = (i % kVecPerRow) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < limit)
-      val = *reinterpret_cast<const uint4*>(base + (row0 + r) * row_stride + c);
-    *reinterpret_cast<uint4*>(tile + r * kLd + c) = val;
-  }
 }
 
 }  // namespace ce

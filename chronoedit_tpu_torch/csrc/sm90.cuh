@@ -39,14 +39,17 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t by
                : "memory");
 }
 
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+// The arrive and wait below also take the barrier's 32-bit shared-memory
+// address, which a kernel short of registers keeps instead of pointers.
+__device__ __forceinline__ void mbar_arrive(uint32_t addr) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(addr) : "memory");
 }
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) { mbar_arrive(smem_u32(bar)); }
 
 // Spins until the barrier's current phase differs from `parity`: the phase
 // with that parity has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
+__device__ __forceinline__ void mbar_wait(uint32_t addr, uint32_t parity) {
   uint32_t done;
   do {
     asm volatile(
@@ -57,6 +60,19 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "r"(addr), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  mbar_wait(smem_u32(bar), parity);
+}
+
+// A ring's stage index and the parity of its barriers' current phase,
+// moved to the next stage (the parity flips as the ring wraps).
+__device__ __forceinline__ void next_stage(int& stage, uint32_t& phase, int stages) {
+  if (++stage == stages) {
+    stage = 0;
+    phase ^= 1;
+  }
 }
 
 // ---- TMA
@@ -143,6 +159,12 @@ template <int N>
 __device__ __forceinline__ void fence_regs(int32_t (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+template <int M, int N>
+__device__ __forceinline__ void fence_regs(float (&r)[M][N]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i) fence_regs(r[i]);
 }
 
 template <int N>
@@ -267,6 +289,13 @@ __device__ __forceinline__ void wgmma_m64n128k32_s8(int32_t (&d)[64], uint64_t d
       "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),           \
       "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
 
+#define SM90_D32_OUT(d)                                                                       \
+  "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]),        \
+      "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), \
+      "=f"(d[14]), "=f"(d[15]), "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),           \
+      "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]), "=f"(d[25]),           \
+      "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
+
 #define SM90_D32_LIST                                                                        \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
   "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
@@ -285,6 +314,18 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc
       ", %32, %33, p, 1, 1, 0, 0;\n}\n"
       : SM90_D32(d)
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D = A B as above, D written only: the first k-step of a product whose
+// accumulator holds nothing live, so that its registers are free until then.
+__device__ __forceinline__ void wgmma_m64n64k16_ss_fresh(float (&d)[32], uint64_t desc_a,
+                                                         uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SM90_D32_LIST
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : SM90_D32_OUT(d)
+      : "l"(desc_a), "l"(desc_b), "r"(0));
 }
 
 // D (64 x 256 fp32) = A B (+ D if scale_d): A 64 x 16 bf16 in registers (the
@@ -307,6 +348,7 @@ __device__ __forceinline__ void wgmma_m64n256k16_rs(float (&d)[128], const uint3
 #undef SM90_D128
 #undef SM90_D128_LIST
 #undef SM90_D32
+#undef SM90_D32_OUT
 #undef SM90_D32_LIST
 
 // ---- products over tiles of 128 bf16 columns as TMA lands them: two
@@ -318,31 +360,37 @@ __host__ __device__ constexpr int box_bytes(int rows) { return rows * 128; }
 // D = A B^T over the 128 columns (8 k-steps of 16), issued, not committed:
 // 64 rows of A (in a tile of kARows rows) against the 128 or 64 rows of B
 // (a tile of kBRows rows; D's width), both K-major; k-step kk reads 32 B
-// into box kk / 4 of each.
-template <int kARows, int kBRows, int N>
+// into box kk / 4 of each. A and B may start at any multiple of 8 rows into
+// their tiles (whole 1,024-byte swizzle atoms). With kFresh (64-column D only)
+// the first k-step writes D without reading it.
+template <int kARows, int kBRows, bool kFresh = false, int N>
 __device__ __forceinline__ void issue_abt(float (&d)[N], uint32_t a, uint32_t b) {
   static_assert(N == 64 || N == 32, "64 x 128 or 64 x 64 fp32 fragment");
+  static_assert(!kFresh || N == 32, "the write-only first step is the 64-column form's");
 #pragma unroll
   for (int kk = 0; kk < 8; ++kk) {
     const uint64_t da = smem_desc(a + (kk >> 2) * box_bytes(kARows) + (kk & 3) * 32, 16, 1024);
     const uint64_t db = smem_desc(b + (kk >> 2) * box_bytes(kBRows) + (kk & 3) * 32, 16, 1024);
     if constexpr (N == 64)
       wgmma_m64n128k16_ss(d, da, db, kk > 0);
+    else if (kFresh && kk == 0)
+      wgmma_m64n64k16_ss_fresh(d, da, db);
     else
       wgmma_m64n64k16_ss(d, da, db, kk > 0);
   }
 }
 
 // D (64 x 128) += A B, issued, not committed: A in registers (the A
-// fragments of kRows / 16 k-steps), B a kRows x 128 tile read MN-major;
-// k-step kc reads its rows 16 kc.. (2 KB on), and the two boxes are the
-// leading step.
-template <int kRows>
+// fragments of kRows / 16 k-steps), B kRows rows (from any 16-row offset)
+// of a tile of kBoxRows rows x 128, read MN-major; k-step kc reads rows 16
+// kc.. (2 KB on), and the tile's two boxes, box_bytes(kBoxRows) apart, are
+// the leading step.
+template <int kRows, int kBoxRows = kRows>
 __device__ __forceinline__ void issue_ab(float (&d)[64], const uint32_t (&a)[kRows / 16][4],
                                          uint32_t b) {
 #pragma unroll
   for (int kc = 0; kc < kRows / 16; ++kc)
-    wgmma_m64n128k16_rs_tb(d, a[kc], smem_desc(b + kc * 2048, box_bytes(kRows), 1024));
+    wgmma_m64n128k16_rs_tb(d, a[kc], smem_desc(b + kc * 2048, box_bytes(kBoxRows), 1024));
 }
 
 // An accumulator fragment in bf16 as the A fragments of the k-steps of a

@@ -19,9 +19,10 @@ and by KV length (``kernels/build.py``), which tells the two roles apart.
 ``group`` on :func:`flash_attention_with_lse` (as JAX
 ``flash_attention(..., group=)``) picks the kernel: 1 is K1/K5 (128-row
 KV tiles); 2, 3 or 4 is the grouped kernel X1, which takes that many
-64-row KV tiles a step (``flash_fwd_grouped_kernel`` in the same file, the
-earlier ``mma.sync`` design: all the group's score products first, then
-one combined softmax update). JAX honours a group
+64-row KV tiles a step behind one barrier pair
+(``flash_fwd_grouped_wgmma_kernel`` in the same file, K1's TMA and
+``wgmma`` machinery: all the step's score products first, then one
+combined softmax update). JAX honours a group
 only on its streamed path; the port has no resident/streamed split, so it
 honours an explicit group at every KV length. Only the experiment tools
 (``chronoedit_tpu_torch/tools``) pass one; the differentiable
@@ -208,12 +209,13 @@ def flash_attention_bwd(q, k, v, out, dout, lse, scale: float,
     (``need_dkv``), each side on its own group: at 2 or 4 that side runs
     X2's kernel instead, dQ with ``group_dq`` 64-row KV tiles a step, dK
     and dV with ``group_dkv`` 32-row q tiles a step (each 1, 2 or 4;
-    anything else raises); group 1 is K6/K7. X2 (the earlier ``mma.sync``
-    design) has other tiles but chains the same 16-deep chunks of each sum
-    in the same order, so on the card its gradients have come out bitwise
-    K6/K7's; the experiment tool holds them to the K67 bounds
-    (``chronoedit_tpu_torch/tools``). CPU tensors run the twin (the same
-    function at every group)."""
+    anything else raises); group 1 is K6/K7. X2 is K6/K7's kernel with a
+    ring stage of that many tiles (at 2 their own step, at 4 two of their
+    steps behind one barrier pair), so it chains the same 16-deep chunks
+    of each sum in the same order and its gradients are K6/K7's bit for
+    bit (``chip_smoke.py`` compares them); the experiment tool holds them
+    to the K67 bounds (``chronoedit_tpu_torch/tools``). CPU tensors run
+    the twin (the same function at every group)."""
     _check_group("flash_bwd: group_dq", group_dq, BWD_GROUPS)
     _check_group("flash_bwd: group_dkv", group_dkv, BWD_GROUPS)
     if q.device.type == "cpu":

@@ -1,11 +1,13 @@
 """Experiment: the grouped flash backward (X2) on the card.
 
 Counterpart of the JAX package's ``tools/exp_flash_bwd_grouped.py``. X2's
-dQ kernel takes n_dq 64-row KV tiles a step and its dK/dV kernel n_dkv
-32-row q tiles a step, with every S and dP product of the step issued
-before the exp chain (``csrc/flash_bwd.cu``, ``flash_bwd_dq_grouped_kernel``
-and ``flash_bwd_dkv_grouped_kernel``); a side whose group is 1 runs K6 (dQ)
-or K7 (dK, dV). :func:`run_shape` runs production (1, 1), which is K6/K7,
+dQ side takes n_dq 64-row KV tiles a step and its dK/dV side n_dkv 32-row
+q tiles a step behind one barrier pair (``csrc/flash_bwd.cu``: K6's and
+K7's kernels with that ring stage, ``flash_bwd_dq_wgmma_kernel<64 n>`` and
+``flash_bwd_dkv_wgmma_kernel<32 n>``). At n = 2 that stage is K6's or K7's
+own, so the variant runs their instantiation; at n = 4 one barrier pair
+covers two of their steps. A side whose group is 1 runs K6 (dQ) or K7
+(dK, dV). :func:`run_shape` runs production (1, 1), which is K6/K7,
 then JAX's variants (2, 1), (1, 2), (2, 2), (4, 1), (4, 4) and (2, 4) on
 the same inputs. It holds each variant's dQ, dK and dV against K6/K7's
 whole, and against the fp32 twin on the rows of three 128-row tiles (the

@@ -1,11 +1,14 @@
 """Experiment: the grouped-KV flash forward (X1) on the card.
 
-Counterpart of the JAX package's ``tools/exp_flash_paired.py``. X1 stages
-n 64-row KV tiles a step in shared memory, issues all n score products
-before any softmax work, then takes one combined row max, rescales the
-accumulator once and runs the n P.V products
-(``csrc/flash_fwd.cu``, ``flash_fwd_grouped_kernel``); n = 1 is the
-production kernel K1/K5 (the TMA and ``wgmma`` design, 128-row tiles). :func:`main` holds every n against the group-1
+Counterpart of the JAX package's ``tools/exp_flash_paired.py``. X1
+(``csrc/flash_fwd.cu``, ``flash_fwd_grouped_wgmma_kernel<n>``) is built
+from K1/K5's machinery (a TMA ring feeding warp-specialised ``wgmma``):
+its ring stage is n 64-row KV tiles behind one barrier pair, a consumer
+issues all n score products before any softmax work, takes one combined
+row max and rescales the accumulator once, then runs each tile's P.V as
+soon as its P is built; n = 1 is the production kernel K1/K5 (128-row
+tiles, with FA3's overlap of one tile's scores under the last one's P.V),
+so the table compares like with like. :func:`main` holds every n against the group-1
 kernel on the first 256 q rows (as the JAX tool does) and the whole output
 and LSE against the q-chunked fp32 twin, then times n = 1, 2, 3, 4 with
 CUDA events.
