@@ -13,12 +13,16 @@ non-zero and no result line is printed:
    limit (``nvidia-smi``);
 2. build the kernels from ``chronoedit_tpu_torch/csrc`` (``kernels/build.py``,
    one ``nvcc`` per source in parallel) and print each kernel's registers
-   and spills, each template instantiation under its own name, and for the
-   warp-specialised kernels (``setmaxnreg``) the highest register each
-   instantiation's SASS uses and its local-memory traffic, which must be
-   none for every instantiation a kernel row launches;
+   and spills, each template instantiation under its own name, and for
+   every instantiation a kernel row launches the highest register its SASS
+   uses (above ptxas's count for the warp-specialised kernels, which
+   rebalance with ``setmaxnreg``) and its local-memory traffic, which must
+   be none;
 3. hold each kernel against its plain PyTorch twin on the card at the main
-   paths' shapes in bf16, with CUDA-event times for both, for PyTorch's own
+   paths' shapes in bf16, with device times for both (CUDA events with the
+   host's enqueue kept outside them, ``tools.cuda_ms``; the short calls,
+   K2-K4 and the cross-attention ones, also with the whole call's time,
+   host included, ``call_ms``), for PyTorch's own
    call where one computes the same function (``library_ms``: SDPA, and
    its backward asked for each backward kernel's own gradients, and
    ``torch.nn.functional.rms_norm`` beside K4, timed as yardsticks, never
@@ -37,8 +41,11 @@ non-zero and no result line is printed:
    twin, and a second call bitwise the first) at the edit's 7,200 tokens
    against KV 7,200, 512 and 257, X2 (every grouped variant of the
    experiment, each also bitwise against a second call and compared
-   bitwise with K6/K7's) against KV 7,200 and 257, K2-K4 at the edit's
-   stream, and
+   bitwise with K6/K7's) against KV 7,200 and 257, K2 and K4 over ragged
+   frame and batch boundaries (``RAGGED_NORM_CASES``, D = 5,120 and 256)
+   and K2-K4 at the edit's stream, K2 and K4 also at the reasoning
+   forward's 28,800 rows and K4 at the text and CLIP keys' 512 and 257
+   rows (``NORM_ROWS``; each also bitwise against 20 more calls), and
    the flash kernel at the reasoning self-attention's 28,800 tokens as K5 and X1 (against the
    q-chunked twin, computed once); K8 (the int4 matmul) at the
    five projection shapes of a 720p forward and the three at the reasoning
@@ -113,12 +120,14 @@ from pathlib import Path
 import torch
 
 # The attention kernels' bounds (K1_*, K67_*, with their reasons) and the
-# CUDA-event timer are the experiment tools' own, so that both judge a
+# CUDA-event timers (``cuda_ms``: the device alone; ``call_ms``: the whole
+# call, host included) are the experiment tools' own, so that both judge a
 # kernel alike. Tolerances, each with its reason: K2-K4 compute in fp32 and
 # round once to bf16, as their twins do, so they may differ by one bf16
 # rounding step (ULP_BF16) at the output's largest magnitude.
 from chronoedit_tpu_torch.tools import (K1_LSE_TOL, K1_OUT_MAX_TOL, K1_OUT_STEPS, K67_MAX_STEPS,
-                                        K67_NORM_REL, ULP_BF16, cuda_ms, k67_check, max_err)
+                                        K67_NORM_REL, ULP_BF16, call_ms, cuda_ms, k67_check,
+                                        max_err)
 
 # Training references: the 2-block DiT in bf16 on the card against fp32 on
 # the CPU (same weights, batch and draws). The same comparison with the
@@ -182,6 +191,16 @@ Q_CHUNK = 1800
 # one row; tails of a q and a KV tile; one row past a tile; the edit's q
 # against the image context; a short q against the edit's KV
 RAGGED_CASES = ((1, 1), (127, 257), (129, 129), (7200, 257), (200, 7200))
+# K2-K4 at the main paths' (1, rows, 5120) streams: the edit's and the
+# reasoning forward's tokens, and for K4 also the text and CLIP keys
+NORM_ROWS = {"ln_modulate": (EDIT_TOKENS, REASONING_TOKENS), "gated_residual": (EDIT_TOKENS,),
+             "rms_norm": (EDIT_TOKENS, REASONING_TOKENS, TEXT_TOKENS, IMAGE_TOKENS)}
+# (B, T, hw) of phase 3's ragged K2/K4 check: frames of 37 rows across a
+# batch boundary; then frames short enough that one block's rows span three
+# or more frames (K2 reuses a modulation slot), down to a frame a row
+RAGGED_NORM_CASES = ((2, 3, 37), (2, 150, 8), (2, 700, 1))
+# calls of K2-K4 held bitwise against the first on the same inputs
+NORM_REPEATS = 20
 # X1's KV tiles a step, and X2's (n_dq, n_dkv) variants (the experiment's,
 # without production's (1, 1), which is K6/K7)
 X1_GROUPS = (2, 3, 4)
@@ -214,10 +233,17 @@ def bound(flops: float, nbytes: float, int8_ops: float = 0.0) -> dict:
 
 
 def add_rows(a: dict, b: dict) -> dict:
-    """Two calls of one kernel as one row: times and bounds add, errors max."""
+    """Two calls of one kernel as one row: times and bounds add, errors max;
+    a call time (``call_ms``) stays only where both rows have one."""
     out = dict(b)
-    for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+    for key in ("ms", "plain_ms", "bound_ms"):
         out[key] = a[key] + b[key]
+    out["library_ms"] = (None if a["library_ms"] is None or b["library_ms"] is None
+                         else a["library_ms"] + b["library_ms"])
+    if "call_ms" in a and "call_ms" in b:
+        out["call_ms"] = a["call_ms"] + b["call_ms"]
+    else:
+        out.pop("call_ms", None)
     out["max_abs_err"] = max(a["max_abs_err"], b["max_abs_err"])
     out["bound_by"] = a["bound_by"] if a["bound_ms"] >= b["bound_ms"] else b["bound_by"]
     return out
@@ -233,20 +259,23 @@ def psnr(got: torch.Tensor, want: torch.Tensor) -> float:
 def accumulate(results: dict, name: str, row: dict, case: str | None = None) -> None:
     """Add a kernel's row for one call shape to ``results[name]``
     (``add_rows``); with ``case``, also keep its time under
-    ``results[name]["ms_by_case"][case]`` (the grouped kernels' sizes)."""
-    cases = results[name].get("ms_by_case", {}) if name in results else {}
-    results[name] = add_rows(results[name], row) if name in results else dict(row)
-    if case is not None:
-        results[name]["ms_by_case"] = {**cases, case: row["ms"]}
+    ``results[name]["ms_by_case"][case]``, and its call time, where the row
+    has one, under ``["call_ms_by_case"][case]``."""
+    prev = results.get(name, {})
+    results[name] = add_rows(prev, row) if prev else dict(row)
+    for key, by_case in (("ms", "ms_by_case"), ("call_ms", "call_ms_by_case")):
+        cases = dict(prev.get(by_case, {}))
+        if case is not None and key in row:
+            cases[case] = row[key]
+        if cases:
+            results[name][by_case] = cases
 
 
 def compare_kernels(dev: torch.device) -> dict[str, dict]:
     """Each kernel against its plain twin at main-path shapes; returns
     {name: {max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms}}
-    (the grouped kernels' rows also hold ``ms_by_case``)."""
-    from chronoedit_tpu_torch.ops import fused_norms as fn
-    from chronoedit_tpu_torch.ops import layers as L
-
+    (rows over several shapes also hold ``ms_by_case``; K2-K4's and K1's
+    cross-attention cases also the call time, ``call_ms``)."""
     g = torch.Generator(device=dev).manual_seed(0)
     bf16 = torch.bfloat16
 
@@ -263,7 +292,7 @@ def compare_kernels(dev: torch.device) -> dict[str, dict]:
     for skv, what in ((s, "self"), (TEXT_TOKENS, "text"), (IMAGE_TOKENS, "image")):
         k, v = randn(1, skv, h, d), randn(1, skv, h, d)
         ref = flash_reference(q, k, v)
-        accumulate(results, "flash_fwd", compare_flash("K1", what, q, k, v, ref))
+        accumulate(results, "flash_fwd", compare_flash("K1", what, q, k, v, ref), f"kv={skv}")
         for n in X1_GROUPS:
             accumulate(results, "flash_fwd_grouped",
                        compare_flash("X1", what, q, k, v, ref, group=n), f"n={n} kv={skv}")
@@ -275,47 +304,8 @@ def compare_kernels(dev: torch.device) -> dict[str, dict]:
     del q, k, v
     torch.cuda.empty_cache()
 
-    hw, t, dim = s // 2, 2, h * d
-    x = randn(1, s, dim) * 2.0 + 0.5
-    mod_scale, mod_shift, gate = (0.1 * randn(1, t, dim, dtype=torch.float32)
-                                  for _ in range(3))
-    delta = randn(1, s, dim)
-    norm = L.RMSNorm(dim, device=dev, dtype=bf16)
-    with torch.no_grad():
-        norm.scale.copy_(1.0 + 0.1 * randn(dim))
-    row_bytes = x.numel() * 2
-    cases = {  # kernel, twin, bytes moved (inputs read once, output written once), library
-        "ln_modulate": (lambda: fn.layer_norm_modulate(x, mod_scale, mod_shift, hw),
-                        lambda: fn.ln_modulate_plain(x, mod_scale, mod_shift, hw),
-                        2 * row_bytes + 2 * mod_scale.numel() * 4, None),
-        "gated_residual": (lambda: fn.gated_residual(x, delta, gate, hw),
-                           lambda: fn.gated_residual_plain(x, delta, gate, hw),
-                           3 * row_bytes + gate.numel() * 4, None),
-        # PyTorch's rms_norm applies the weight before its one rounding; K4
-        # rounds, then applies the weight in bf16: a yardstick, not the same
-        # function
-        "rms_norm": (lambda: fn.rms_norm_fused(norm, x),
-                     lambda: fn.rms_norm_plain(norm.scale, x),
-                     2 * row_bytes + dim * 2,
-                     lambda: torch.nn.functional.rms_norm(x, (dim,), norm.scale, 1e-6)),
-    }
-    for name, (kernel, plain, nbytes, library) in cases.items():
-        with torch.no_grad():
-            got, ref = kernel(), plain()
-            err, tol = max_err(got, ref), ULP_BF16 * float(ref.float().abs().max())
-            ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
-            library_ms = None if library is None else cuda_ms(library)
-        # about 10 operations an element: far under the bytes
-        row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-               **bound(10 * x.numel(), nbytes), "library_ms": library_ms}
-        print(f"{name} x {tuple(x.shape)}: max|out-ref| {err:.3e} (tol {tol:.3e}); "
-              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {row['bound_ms']:.3f} "
-              f"ms ({row['bound_by']}); " + (
-                  "no single PyTorch call computes it" if library is None else
-                  f"torch.nn.functional.rms_norm (weight before the rounding) {library_ms:.3f} ms"))
-        if not err <= tol:
-            raise AssertionError(f"{name} disagrees with its twin")
-        results[name] = row
+    results.update(compare_norms(randn))
+    dim = h * d
 
     # K5: the same kernel over the reasoning self-attention's 28,800 tokens,
     # and X1 there against the same twin reference; K9 on the same q, k, v
@@ -338,6 +328,95 @@ def compare_kernels(dev: torch.device) -> dict[str, dict]:
                        (IMAGE_TOKENS, dim, dim), (REASONING_TOKENS, dim, dim),
                        (REASONING_TOKENS, dim, 13824), (REASONING_TOKENS, 13824, dim)):
         accumulate(results, "int4_matmul", compare_int4(g, m, k_in, n))
+    return results
+
+
+def norm_calls(name: str, x, dim: int, hw: int, randn) -> tuple:
+    """K2, K3 or K4 on the (B, S, dim) stream ``x`` (frames of ``hw`` rows):
+    (kernel, twin, bytes moved (inputs read once, the output written once),
+    PyTorch's own call or None), each a function of no arguments."""
+    from chronoedit_tpu_torch.ops import fused_norms as fn
+    from chronoedit_tpu_torch.ops import layers as L
+
+    b, s, _ = x.shape
+    row_bytes = x.numel() * 2
+    if name == "ln_modulate":
+        scale, shift = (0.1 * randn(b, s // hw, dim, dtype=torch.float32) for _ in range(2))
+        return (lambda: fn.layer_norm_modulate(x, scale, shift, hw),
+                lambda: fn.ln_modulate_plain(x, scale, shift, hw),
+                2 * row_bytes + 2 * scale.numel() * 4, None)
+    if name == "gated_residual":
+        delta, gate = randn(b, s, dim), 0.1 * randn(b, s // hw, dim, dtype=torch.float32)
+        return (lambda: fn.gated_residual(x, delta, gate, hw),
+                lambda: fn.gated_residual_plain(x, delta, gate, hw),
+                3 * row_bytes + gate.numel() * 4, None)
+    norm = L.RMSNorm(dim, device=x.device, dtype=torch.bfloat16)
+    with torch.no_grad():
+        norm.scale.copy_(1.0 + 0.1 * randn(dim))
+    # PyTorch's rms_norm applies the weight before its one rounding; K4
+    # rounds, then applies the weight in bf16: a yardstick, not the same
+    # function
+    return (lambda: fn.rms_norm_fused(norm, x), lambda: fn.rms_norm_plain(norm.scale, x),
+            2 * row_bytes + dim * 2,
+            lambda: torch.nn.functional.rms_norm(x, (dim,), norm.scale, 1e-6))
+
+
+def check_norm(label: str, kernel, plain) -> float:
+    """A K2-K4 call against its twin, within one bf16 rounding step of
+    max|ref| (ULP_BF16), and ``NORM_REPEATS`` more calls each bitwise the
+    first (a fixed sum order; a ring stage read before its row landed, or
+    after the next one did, would differ). Returns the largest error."""
+    got, ref = kernel(), plain()
+    err, tol = max_err(got, ref), ULP_BF16 * float(ref.float().abs().max())
+    same = sum(torch.equal(got, kernel()) for _ in range(NORM_REPEATS))
+    print(f"{label}: max|out-ref| {err:.3e} (tol {tol:.3e}); {same} of {NORM_REPEATS} more "
+          f"calls bitwise the first")
+    if not err <= tol or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{label} disagrees with its twin")
+    if same != NORM_REPEATS:
+        raise AssertionError(f"{label}: calls on the same inputs differ")
+    return err
+
+
+def compare_norms(randn) -> dict[str, dict]:
+    """K2-K4: first K2 and K4 over ``RAGGED_NORM_CASES`` at D = 5,120 and
+    256, then each at its ``NORM_ROWS`` shapes (1, rows, 5120) with frames
+    of the edit's hw = 3,600 rows, against the twin (``check_norm``), with
+    the device time (``cuda_ms``), the call time (``call_ms``), the twin's
+    and, for K4, ``torch.nn.functional.rms_norm``'s device time, and beside
+    them the device time of a plain copy of the stream (``x.clone()``), the
+    memory system's practical rate for such traffic. Returns
+    {name: row} over the shapes (``ms_by_case``, ``call_ms_by_case``)."""
+    for b, t, hw in RAGGED_NORM_CASES:
+        for dim in (5120, 256):
+            x = randn(b, t * hw, dim) * 2.0 + 0.5
+            for name in ("ln_modulate", "rms_norm"):
+                kernel, plain, _, _ = norm_calls(name, x, dim, hw, randn)
+                with torch.no_grad():
+                    check_norm(f"{name} ragged B={b} T={t} hw={hw} D={dim}", kernel, plain)
+    results = {}
+    dim, hw = 40 * 128, EDIT_TOKENS // 2
+    for name, sizes in NORM_ROWS.items():
+        for rows in sizes:
+            x = randn(1, rows, dim) * 2.0 + 0.5
+            kernel, plain, nbytes, library = norm_calls(name, x, dim, hw, randn)
+            with torch.no_grad():
+                err = check_norm(f"{name} x {tuple(x.shape)}", kernel, plain)
+                ms, call, plain_ms = cuda_ms(kernel), call_ms(kernel), cuda_ms(plain)
+                library_ms = None if library is None else cuda_ms(library)
+                copy_ms = cuda_ms(x.clone)
+            # about 10 operations an element: far under the bytes
+            row = {"max_abs_err": err, "ms": ms, "call_ms": call, "plain_ms": plain_ms,
+                   **bound(10 * x.numel(), nbytes), "library_ms": library_ms}
+            print(f"   kernel {ms:.4f} ms on the device ({call:.4f} ms a call), plain "
+                  f"{plain_ms:.3f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}): "
+                  f"{row['bound_ms'] / ms:.1%} of the bound; a copy of the stream (x.clone(): "
+                  f"its bytes read and written once, no arithmetic) {copy_ms:.4f} ms; " + (
+                      "no single PyTorch call computes it" if library is None else
+                      f"torch.nn.functional.rms_norm (weight before the rounding) "
+                      f"{library_ms:.4f} ms"))
+            accumulate(results, name, row, f"rows={rows}")
+            del x
     return results
 
 
@@ -596,7 +675,8 @@ def compare_flash(kid: str, what: str, q, k, v, ref: dict, group: int = 1) -> di
     """The flash kernel with ``group`` KV tiles a step (1: K1/K5; 2-4:
     X1) against the twin's ``flash_reference`` on (q, k, v): output within
     two bf16 steps of max|ref| (at most 1e-2), LSE within 1e-3; its
-    CUDA-event time beside the twin's and SDPA's. Returns a kernel row."""
+    device time beside the twin's and SDPA's, and for cross-attention also
+    its call time (``call_ms``). Returns a kernel row."""
     from chronoedit_tpu_torch.ops import flash_attention as fa
 
     scale = q.shape[-1] ** -0.5
@@ -612,14 +692,22 @@ def compare_flash(kid: str, what: str, q, k, v, ref: dict, group: int = 1) -> di
     if not (e_out <= out_tol and e_lse <= K1_LSE_TOL):
         raise AssertionError(f"{label} disagrees with its twin at kv={skv}")
     del out, lse
-    ms = cuda_ms(lambda: fa.flash_attention_with_lse(q, k, v, scale, group=group))
+
+    def call():
+        return fa.flash_attention_with_lse(q, k, v, scale, group=group)
+
+    ms = cuda_ms(call)
     plain, library = ref["plain_ms"], ref["library_ms"]
     flops = 4 * q.shape[0] * q.shape[2] * q.shape[1] * skv * q.shape[3]
     row = {"max_abs_err": e_out, "ms": ms, "plain_ms": plain, "library_ms": library,
            **bound(flops, attention_bytes(q, k, 2, 2, 1))}
-    print(f"   kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain:.3f} ms, "
-          f"SDPA {library:.3f} ms, bound {row['bound_ms']:.3f} ms ({row['bound_by']}); "
-          f"{row['bound_ms'] / ms:.1%} of the bound, {ms / library:.2f}x SDPA's time")
+    if what != "self":  # cross-attention: a short call, its host time beside
+        row["call_ms"] = call_ms(call)
+    print(f"   kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s)"
+          + (f" on the device ({row['call_ms']:.3f} ms a call)" if "call_ms" in row else "")
+          + f", plain {plain:.3f} ms, SDPA {library:.3f} ms, bound {row['bound_ms']:.3f} ms "
+          f"({row['bound_by']}); {row['bound_ms'] / ms:.1%} of the bound, {ms / library:.2f}x "
+          f"SDPA's time")
     return row
 
 
@@ -1440,11 +1528,11 @@ SOURCES = {
     "flash_fwd": ("chronoedit_tpu_torch/csrc/flash_fwd.cu",
                   "chronoedit_tpu/ops/flash_attention.py:188", ("flash_fwd_wgmma_kernel",)),
     "ln_modulate": ("chronoedit_tpu_torch/csrc/ln_modulate.cu",
-                    "chronoedit_tpu/ops/fused_norms.py:87", ("ln_modulate_kernel",)),
+                    "chronoedit_tpu/ops/fused_norms.py:87", ("ln_modulate_ring_kernel",)),
     "gated_residual": ("chronoedit_tpu_torch/csrc/gated_residual.cu",
                        "chronoedit_tpu/ops/fused_norms.py:177", ("gated_residual_kernel",)),
     "rms_norm": ("chronoedit_tpu_torch/csrc/rms_norm.cu",
-                 "chronoedit_tpu/ops/fused_norms.py:251", ("rms_norm_kernel",)),
+                 "chronoedit_tpu/ops/fused_norms.py:251", ("rms_norm_ring_kernel",)),
     "flash_fwd_streamed": ("chronoedit_tpu_torch/csrc/flash_fwd.cu",
                            "chronoedit_tpu/ops/flash_attention.py:227",
                            ("flash_fwd_wgmma_kernel",)),
@@ -1509,10 +1597,11 @@ def print_ptxas(log: Path) -> None:
 
 
 def print_sass_registers(lib: Path) -> dict[str, tuple[int, int, int]]:
-    """For each kernel that rebalances its registers with ``setmaxnreg``,
-    whose consumer warpgroups may use more than the launch bound's count
-    that ptxas reports: the highest register its SASS names and its
-    local-memory stores and loads (``cuobjdump -sass`` on the library).
+    """For each kernel of the table (``SOURCES``' symbols): the highest
+    register its SASS names and its local-memory stores and loads
+    (``cuobjdump -sass`` on the library). ptxas reports the launch bound's
+    count for the kernels that rebalance registers with ``setmaxnreg``,
+    whose consumer warpgroups may use more: only the SASS shows theirs.
     Returns {kernel name: (highest register, stores, loads)}."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
@@ -1520,30 +1609,30 @@ def print_sass_registers(lib: Path) -> dict[str, tuple[int, int, int]]:
         return {}
     sass = subprocess.run([tool, "-sass", str(lib)], check=True, capture_output=True, text=True,
                           timeout=300).stdout
+    wanted = {symbol for _, _, symbols in SOURCES.values() for symbol in symbols}
     found = {}
     for fn in re.split(r"\n\s+Function : ", sass)[1:]:
-        if "USETMAXREG" not in fn:
-            continue
         name = kernel_name(fn.split(maxsplit=1)[0])
+        if name not in wanted:
+            continue
         regs = max(int(r) for r in re.findall(r"\bR(\d+)\b", fn))
         stores, loads = (len(re.findall(rf"\b{op}\b", fn)) for op in ("STL", "LDL"))
         found[name] = (regs, stores, loads)
-        print(f"sass {name}: setmaxnreg; highest register R{regs}, "
-              f"{stores} local stores, {loads} local loads")
+        print(f"sass {name}: {'setmaxnreg; ' if 'USETMAXREG' in fn else ''}highest register "
+              f"R{regs}, {stores} local stores, {loads} local loads")
     return found
 
 
 def check_no_spills(sass: dict[str, tuple[int, int, int]]) -> None:
-    """Every instantiation of every warp-specialised kernel of the table
-    has its SASS line and touches no local memory: a spill in a consumer's
-    registers serializes its wgmma and shows here. Without ``cuobjdump``
-    there is nothing to check (``print_sass_registers`` says so)."""
+    """Every instantiation of every kernel of the table has its SASS line
+    and touches no local memory: a spill in a consumer's registers
+    serializes its wgmma, and in a row kernel puts local-memory traffic
+    beside the bytes that bound it. Without ``cuobjdump`` there is nothing
+    to check (``print_sass_registers`` says so)."""
     if not sass:
         return
     for name, (_, _, symbols) in SOURCES.items():
         for symbol in symbols:
-            if "wgmma_kernel" not in symbol:
-                continue
             if symbol not in sass:
                 raise AssertionError(f"{name}: no SASS line for {symbol}")
             if sass[symbol][1] or sass[symbol][2]:

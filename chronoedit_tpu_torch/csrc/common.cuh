@@ -7,27 +7,13 @@
 
 namespace ce {
 
-// Sum of one float per thread over the whole block; every thread gets the
-// result. Safe to call several times in a row (it synchronises first).
-template <int kThreads>
-__device__ __forceinline__ float block_sum(float v) {
-  static_assert(kThreads % 32 == 0 && kThreads <= 1024, "block size");
-  __shared__ float partial[kThreads / 32];
-  __shared__ float total;
+// Sum of one float per lane over the warp by a butterfly (xor 16, 8, 4, 2,
+// 1): every lane gets the same value, since each step adds the same two
+// numbers on both lanes of a pair. A fixed order: equal inputs, equal bits.
+__device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  __syncthreads();
-  if (lane == 0) partial[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    float w = lane < kThreads / 32 ? partial[lane] : 0.f;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) w += __shfl_xor_sync(0xffffffffu, w, o);
-    if (lane == 0) total = w;
-  }
-  __syncthreads();
-  return total;
+  return v;
 }
 
 // 8 bf16 values <-> one 16-byte vector.
@@ -44,6 +30,22 @@ __device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&f)[8]) {
 #pragma unroll
   for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16(f[j]);
   *reinterpret_cast<uint4*>(p) = u;
+}
+
+// 4 bf16 values <-> one 8-byte vector.
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&f)[4]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&u);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) f[j] = __bfloat162float(e[j]);
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&f)[4]) {
+  uint2 u;
+  __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&u);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) e[j] = __float2bfloat16(f[j]);
+  *reinterpret_cast<uint2*>(p) = u;
 }
 
 __device__ __forceinline__ void load8f(const float* p, float (&f)[8]) {

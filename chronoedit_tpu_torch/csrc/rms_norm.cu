@@ -6,59 +6,104 @@
 //   out[r, :] = bf16( bf16(x * rsqrt(mean(x^2) + eps)) * w )
 //   normalise, cast to bf16, then multiply by the bf16 weight, in that order.
 //
-// Bound on the H100: bytes. One read and one write of a D = 5120 bf16 row;
-// the weight row stays in L1/L2. Design: one 128-thread block per row, the
-// row held in registers (16-byte vector loads), one block reduction for the
-// sum of squares.
-#include "common.cuh"
+// Bound on the H100: bytes. One read and one write of each bf16 row (20 KB
+// a row at D = 5120), a few operations an element. Design (row_ring.cuh):
+// one persistent block on each SM over a contiguous range of rows, so there
+// is no tail wave; the weight row is brought into shared memory once per
+// block, not re-read from L2 for every row; a ring of up to 16 row stages
+// filled by 1-D bulk copies keeps many rows in flight on each SM (16 at D =
+// 5120: 160 KB), and eight consumer warps take one row each, two stages a
+// warp: the sum of squares from shared memory (16-byte loads, each lane's
+// partial in a fixed order, then a butterfly), then a second pass that
+// normalises, rounds, multiplies by the weight and stores 16 bytes a lane.
+// No block-wide barrier after set-up.
+#include "row_ring.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kMaxVec = 8;  // D <= 8192
-
-__global__ void __launch_bounds__(kThreads)
-rms_norm_kernel(const __nv_bfloat16* __restrict__ x,
-                const __nv_bfloat16* __restrict__ w,
-                __nv_bfloat16* __restrict__ out, int D, float eps) {
-  const int nvec = D / 8;
-  const __nv_bfloat16* xr = x + static_cast<size_t>(blockIdx.x) * D;
-  float v[kMaxVec][8];
-  float sq = 0.f;
-#pragma unroll
-  for (int k = 0; k < kMaxVec; ++k) {
-    const int i = threadIdx.x + k * kThreads;
-    if (i < nvec) {
-      ce::load8(xr + i * 8, v[k]);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) sq += v[k][j] * v[k][j];
-    }
+__global__ void __launch_bounds__(rows::kThreads, 1)
+rms_norm_ring_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+                     __nv_bfloat16* __restrict__ out, int n_rows, int D, rows::Shape shape,
+                     float eps) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  __shared__ __align__(8) uint64_t full[rows::kMaxStages], empty[rows::kMaxStages], w_bar;
+  __nv_bfloat16* w_s = reinterpret_cast<__nv_bfloat16*>(smem);
+  const rows::Ring ring{full, empty, w_s + D, shape.stages, shape.warps, D};
+  const rows::Range range = rows::block_rows(n_rows);
+  const int n = range.end - range.begin;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    ring.init();
+    sm90::mbar_init(&w_bar, 1);
+    sm90::fence_barrier_init();
   }
-  const float r = rsqrtf(ce::block_sum<kThreads>(sq) / D + eps);
-  __nv_bfloat16* orow = out + static_cast<size_t>(blockIdx.x) * D;
-#pragma unroll
-  for (int k = 0; k < kMaxVec; ++k) {
-    const int i = threadIdx.x + k * kThreads;
-    if (i < nvec) {
-      float wv[8], o[8];
-      ce::load8(w + i * 8, wv);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float y = __bfloat162float(__float2bfloat16(v[k][j] * r));
-        o[j] = y * wv[j];
-      }
-      ce::store8(orow + i * 8, o);
+  __syncthreads();
+
+  if (warp == rows::kConsumerWarps) {
+    if (lane == 0) {
+      sm90::mbar_arrive_expect_tx(&w_bar, D * 2);
+      sm90::bulk_load_1d(w_s, w, D * 2, &w_bar);
+      for (int j = 0; j < n; ++j)
+        ring.load(j, x + static_cast<size_t>(range.begin + j) * D);
     }
+    return;
+  }
+  if (warp >= shape.warps) return;
+
+  const int nvec = D >> 3;
+  sm90::mbar_wait(&w_bar, 0);
+  for (int j = warp; j < n; j += shape.warps) {
+    const __nv_bfloat16* xs = ring.wait(j);
+    float sq = 0.f;
+#pragma unroll 4
+    for (int v = lane; v < nvec; v += 32) {
+      float f[8];
+      ce::load8(xs + v * 8, f);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) sq = fmaf(f[e], f[e], sq);
+    }
+    const float r = rsqrtf(ce::warp_sum(sq) / static_cast<float>(D) + eps);
+    __nv_bfloat16* orow = out + static_cast<size_t>(range.begin + j) * D;
+#pragma unroll 4
+    for (int v = lane; v < nvec; v += 32) {
+      float f[8], wv[8];
+      ce::load8(xs + v * 8, f);
+      ce::load8(w_s + v * 8, wv);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) f[e] = __bfloat162float(__float2bfloat16(f[e] * r)) * wv[e];
+      ce::store8(orow + v * 8, f);
+    }
+    ring.release(j);
   }
 }
 
 }  // namespace
 
-extern "C" int rms_norm_bf16(const void* x, const void* w, void* out, int rows,
-                             int D, float eps, void* stream) {
-  rms_norm_kernel<<<rows, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(w), static_cast<__nv_bfloat16*>(out), D,
-      eps);
+// With warps = 0 the ring is rows::ring_shape's; otherwise `warps` consumer
+// warps and `stages` stages (a variant, for experiments), if they fit.
+extern "C" int rms_norm_ring_bf16(const void* x, const void* w, void* out, int rows, int D,
+                                  float eps, int warps, int stages, void* stream) {
+  const rows::Shape shape =
+      warps == 0 ? rows::ring_shape(D * 2, D * 2) : rows::Shape{warps, stages};  // weight beside
+  if (!rows::fits(shape, D * 2, D * 2)) return static_cast<int>(cudaErrorInvalidValue);
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        rms_norm_ring_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, rows::kSmemBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attr_set = true;
+  }
+  int grid = 0;
+  const int err = rows::grid_for(rows, &grid);
+  if (err != 0) return err;
+  const int smem = (1 + shape.stages) * D * 2;
+  rms_norm_ring_kernel<<<grid, rows::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
+      static_cast<__nv_bfloat16*>(out), rows, D, shape, eps);
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int rms_norm_bf16(const void* x, const void* w, void* out, int rows, int D,
+                             float eps, void* stream) {
+  return rms_norm_ring_bf16(x, w, out, rows, D, eps, 0, 0, stream);
 }

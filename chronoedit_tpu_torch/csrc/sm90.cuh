@@ -1,10 +1,12 @@
 // Hopper (sm_90a) building blocks written out in inline PTX: mbarriers,
-// TMA tile loads, warpgroup matrix multiply (wgmma) and the tile products
-// built from it, register rebalancing, and on the host the tensor maps that
-// feed the TMA loads (4-D over BSHD, 2-D over a row-major matrix). Used by
-// the flash-attention forward (flash_fwd.cu, flash_fwd_qk8.cu) and backward
-// (flash_bwd.cu) and the int4 matmul (int4_matmul.cu). No CUTLASS or CuTe:
-// the build stays one short nvcc call per source.
+// TMA tile loads and 1-D bulk copies, warpgroup matrix multiply (wgmma) and
+// the tile products built from it, register rebalancing, and on the host
+// the tensor maps that feed the TMA loads (4-D over BSHD, 2-D over a
+// row-major matrix). Used by the flash-attention forward (flash_fwd.cu,
+// flash_fwd_qk8.cu) and backward (flash_bwd.cu), the int4 matmul
+// (int4_matmul.cu) and, through the row ring of row_ring.cuh (mbarriers and
+// 1-D bulk copies only), the norms (rms_norm.cu, ln_modulate.cu). No
+// CUTLASS or CuTe: the build stays one short nvcc call per source.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: no driver link)
@@ -46,6 +48,12 @@ __device__ __forceinline__ void mbar_arrive(uint32_t addr) {
 }
 
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) { mbar_arrive(smem_u32(bar)); }
+
+// `count` arrivals at once (1 <= count < 2^20), as if that many threads arrived.
+__device__ __forceinline__ void mbar_arrive_count(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
 
 // Spins until the barrier's current phase differs from `parity`: the phase
 // with that parity has completed.
@@ -96,6 +104,17 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// Contiguous bytes from global into shared memory without a tensor map:
+// `bytes` a multiple of 16, both addresses 16-byte aligned; completion (the
+// bytes) goes to `bar`, whose phase must expect them (mbar_arrive_expect_tx).
+__device__ __forceinline__ void bulk_load_1d(void* dst, const void* src, uint32_t bytes,
+                                             uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

@@ -21,7 +21,11 @@ import torch
 
 from chronoedit_tpu_torch.ops import layers as L
 
-_MAX_D = 8192  # the row kernels hold a row in registers, 64 values a thread
+# K2 and K4 stage whole rows (K2 also two frames' fp32 scale and shift) in
+# one block's shared memory, which holds K2's at most at D = 8192
+_MAX_D = 8192
+# K2's rows of one frame in one block, counted as arrivals on a barrier
+_MAX_HW = 2 ** 20 - 2
 
 
 # ----------------------------------------------------------- plain twins
@@ -90,6 +94,8 @@ def _ln_modulate_kernel(x, scale, shift, hw: int, eps: float) -> torch.Tensor:
     _check_stream("ln_modulate", x)
     b, s, d = x.shape
     t = _frames("ln_modulate", x, hw)
+    if hw > _MAX_HW:
+        raise ValueError(f"ln_modulate: hw={hw} must be <= {_MAX_HW}")
     _check_like("ln_modulate", x, scale, (b, t, d), torch.float32)
     _check_like("ln_modulate", x, shift, (b, t, d), torch.float32)
     out = torch.empty_like(x)

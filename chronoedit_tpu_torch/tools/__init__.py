@@ -1,17 +1,20 @@
-"""Experiment entry points of the port, the counterparts of the JAX
-package's ``tools/`` scripts of the same names. Run from the repository
-root:
+"""Experiment entry points of the port (the first two the counterparts of
+the JAX package's ``tools/`` scripts of the same names). Run from the
+repository root:
 
 - ``python -m chronoedit_tpu_torch.tools.exp_flash_paired``: the
   grouped-KV flash forward (X1) against the ungrouped kernel (K1/K5) at the
   reasoning self-attention's 28,800 tokens;
 - ``python -m chronoedit_tpu_torch.tools.exp_flash_bwd_grouped --shapes
   edit|reasoning|both``: the grouped flash backward (X2) against K6/K7 at
-  the edit's 7,200 and the reasoning's 28,800 tokens.
+  the edit's 7,200 and the reasoning's 28,800 tokens;
+- ``python -m chronoedit_tpu_torch.tools.exp_norm_ring``: ring shapes of
+  K4 and K2 against production's in same-call ABBA rounds (the card only;
+  it has no JAX counterpart).
 
-Both run on the card (``utils.platform.cuda_device``) unless the caller
-passes ``device=torch.device("cpu")``, as the tests do: the CPU runs the
-plain twins, so its checks exercise the control flow and it measures no
+The first two run on the card (``utils.platform.cuda_device``) unless the
+caller passes ``device=torch.device("cpu")``, as the tests do: the CPU runs
+the plain twins, so its checks exercise the control flow and it measures no
 time. The bounds and helpers below are the one copy that the tools and
 ``chip_smoke.py`` both judge the attention kernels by.
 """
@@ -19,6 +22,7 @@ time. The bounds and helpers below are the one copy that the tools and
 from __future__ import annotations
 
 import statistics
+import time
 
 import torch
 
@@ -63,8 +67,55 @@ def k67_check(got: torch.Tensor, want: torch.Tensor) -> dict:
     return {"max": err, "tol": tol, "rel": rel, "ok": ok}
 
 
+# The device's wait before a timed call, in clock cycles: at least
+# SLEEP_CYCLES (17 ms at 2 GHz, far above a wrapper's host time, so that a
+# call is repeated only when the host stalls, which the experiment tools'
+# exact launch counts would show) and four times the host's time for the
+# last warm-up call at 2 GHz; doubled until the host has enqueued the whole
+# call before the device reaches the start event
+SLEEP_CYCLES = 1 << 25
+MAX_SLEEP_CYCLES = 1 << 34
+
+
 def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Median device time of ``fn`` in ms, from CUDA events around each call."""
+    """Median device time of ``fn`` in ms: CUDA events around each call, with
+    the host's enqueue time kept outside them. A device-side wait
+    (``torch.cuda._sleep``) is enqueued before the start event; once ``fn``
+    and the end event are enqueued, the start event must not have been
+    reached yet (``start.query()`` false), so the device ran the call back to
+    back. If it had been reached, the wait doubles and the call repeats.
+    Raises if ``fn`` waits for the device itself (no wait is then long
+    enough)."""
+    host_s = 0.0
+    for _ in range(warmup):
+        t0 = time.perf_counter()
+        fn()
+        host_s = time.perf_counter() - t0
+    times = []
+    cycles = min(MAX_SLEEP_CYCLES, max(SLEEP_CYCLES, int(4 * host_s * 2e9)))
+    while len(times) < reps:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        fn()
+        end.record()
+        reached = start.query()
+        end.synchronize()
+        if not reached:
+            times.append(start.elapsed_time(end))
+        elif cycles >= MAX_SLEEP_CYCLES:
+            raise RuntimeError("cuda_ms: the device reached the start event before the call was "
+                               "enqueued, at the longest wait: does the call synchronise?")
+        else:
+            cycles *= 2
+    return statistics.median(times)
+
+
+def call_ms(fn, reps: int = 10, warmup: int = 2) -> float:
+    """Median time of ``fn`` in ms from CUDA events recorded on an idle
+    device around the whole call: the device reaches the start event at once
+    and then waits for the host, so a short kernel's reading includes its
+    wrapper's host time (what a caller that does not queue ahead sees)."""
     for _ in range(warmup):
         fn()
     times = []
