@@ -872,7 +872,10 @@ def experiment_tools() -> dict[str, int]:
     against the ungrouped kernels (and against the twin) and prints its
     timing table. The counters are zeroed just before each and read just
     after: they must equal the launches the tool's loops imply, by kernel
-    and by KV length. Returns {grouped kernel name: launches}."""
+    and by KV length, plus those of any timed calls that ``cuda_ms``
+    discarded and made again (``tools.DISCARDED``). Returns {grouped kernel
+    name: launches}."""
+    from chronoedit_tpu_torch import tools
     from chronoedit_tpu_torch.kernels import build
     from chronoedit_tpu_torch.tools import exp_flash_bwd_grouped, exp_flash_paired
 
@@ -881,11 +884,18 @@ def experiment_tools() -> dict[str, int]:
             ("exp_flash_paired", exp_flash_paired.main, paired_tool_calls()),
             ("exp_flash_bwd_grouped", lambda: exp_flash_bwd_grouped.main(["--shapes", "both"]),
              bwd_tool_calls())):
-        want = expected_tool_launches(calls)
+        tools.DISCARDED.clear()
+        tools.DISCARDED_BY_SHAPE.clear()
         build.reset_launches()
         _, secs = host_s(run)
         got = read_launches()
-        print(f"{label}: {secs:.1f} s; launches {got[0]}, by KV length {got[1]}")
+        want = expected_tool_launches(calls)
+        for name, n in tools.DISCARDED.items():
+            want[0][name] += n
+        for (name, kv), n in tools.DISCARDED_BY_SHAPE.items():
+            want[1][name][kv] = want[1][name].get(kv, 0) + n
+        print(f"{label}: {secs:.1f} s; launches {got[0]}, by KV length {got[1]}; "
+              f"discarded timing attempts' launches {dict(tools.DISCARDED)}")
         if got != want:
             raise AssertionError(f"{label}: launches {got}, its loops imply {want}")
         launches.update({name: got[0][name] for name in GROUPED if got[0][name]})

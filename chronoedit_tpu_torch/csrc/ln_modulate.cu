@@ -41,7 +41,7 @@ ln_modulate_ring_kernel(const __nv_bfloat16* __restrict__ x, const float* __rest
   __shared__ __align__(8) uint64_t mod_full[2], mod_empty[2];
   float* mod_s = reinterpret_cast<float*>(smem);  // [slot][scale, shift][D]
   const rows::Ring ring{full, empty, reinterpret_cast<__nv_bfloat16*>(mod_s + 4 * D),
-                        shape.stages, shape.warps, D};
+                        shape.stages, D};
   const rows::Range range = rows::block_rows(n_rows);
   const int n = range.end - range.begin;
   const int f0 = range.begin / hw;  // the range's first frame (b * T + t)
@@ -131,16 +131,12 @@ ln_modulate_ring_kernel(const __nv_bfloat16* __restrict__ x, const float* __rest
 
 }  // namespace
 
-// With warps = 0 the ring is rows::ring_shape's; otherwise `warps` consumer
-// warps and `stages` stages (a variant, for experiments), if they fit.
-extern "C" int ln_modulate_ring_bf16(const void* x, const void* scale, const void* shift,
-                                     void* out, int rows, int hw, int D, float eps, int warps,
-                                     int stages, void* stream) {
+// The frame of a row is row / hw over the flattened (B, T) frames: T is not needed.
+extern "C" int ln_modulate_bf16(const void* x, const void* scale, const void* shift, void* out,
+                                int rows, int /*T*/, int hw, int D, float eps, void* stream) {
   const int mod_bytes = 4 * D * 4;  // two slots of scale and shift
-  const rows::Shape shape =
-      warps == 0 ? rows::ring_shape(D * 2, mod_bytes) : rows::Shape{warps, stages};
-  if (!rows::fits(shape, D * 2, mod_bytes) || hw <= 0 ||
-      static_cast<uint32_t>(hw) >= kModArrivals)
+  const rows::Shape shape = rows::ring_shape(D * 2, mod_bytes);
+  if (hw <= 0 || static_cast<uint32_t>(hw) >= kModArrivals)
     return static_cast<int>(cudaErrorInvalidValue);
   static bool attr_set = false;
   if (!attr_set) {
@@ -158,10 +154,4 @@ extern "C" int ln_modulate_ring_bf16(const void* x, const void* scale, const voi
       static_cast<const float*>(shift), static_cast<__nv_bfloat16*>(out), rows, hw, D, shape,
       eps);
   return static_cast<int>(cudaGetLastError());
-}
-
-// The frame of a row is row / hw over the flattened (B, T) frames: T is not needed.
-extern "C" int ln_modulate_bf16(const void* x, const void* scale, const void* shift, void* out,
-                                int rows, int /*T*/, int hw, int D, float eps, void* stream) {
-  return ln_modulate_ring_bf16(x, scale, shift, out, rows, hw, D, eps, 0, 0, stream);
 }

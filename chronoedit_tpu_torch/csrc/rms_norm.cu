@@ -28,7 +28,7 @@ rms_norm_ring_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* _
   extern __shared__ __align__(128) uint8_t smem[];
   __shared__ __align__(8) uint64_t full[rows::kMaxStages], empty[rows::kMaxStages], w_bar;
   __nv_bfloat16* w_s = reinterpret_cast<__nv_bfloat16*>(smem);
-  const rows::Ring ring{full, empty, w_s + D, shape.stages, shape.warps, D};
+  const rows::Ring ring{full, empty, w_s + D, shape.stages, D};
   const rows::Range range = rows::block_rows(n_rows);
   const int n = range.end - range.begin;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -79,13 +79,9 @@ rms_norm_ring_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* _
 
 }  // namespace
 
-// With warps = 0 the ring is rows::ring_shape's; otherwise `warps` consumer
-// warps and `stages` stages (a variant, for experiments), if they fit.
-extern "C" int rms_norm_ring_bf16(const void* x, const void* w, void* out, int rows, int D,
-                                  float eps, int warps, int stages, void* stream) {
-  const rows::Shape shape =
-      warps == 0 ? rows::ring_shape(D * 2, D * 2) : rows::Shape{warps, stages};  // weight beside
-  if (!rows::fits(shape, D * 2, D * 2)) return static_cast<int>(cudaErrorInvalidValue);
+extern "C" int rms_norm_bf16(const void* x, const void* w, void* out, int rows, int D,
+                             float eps, void* stream) {
+  const rows::Shape shape = rows::ring_shape(D * 2, D * 2);  // the weight beside the ring
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -101,9 +97,4 @@ extern "C" int rms_norm_ring_bf16(const void* x, const void* w, void* out, int r
       static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
       static_cast<__nv_bfloat16*>(out), rows, D, shape, eps);
   return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int rms_norm_bf16(const void* x, const void* w, void* out, int rows, int D,
-                             float eps, void* stream) {
-  return rms_norm_ring_bf16(x, w, out, rows, D, eps, 0, 0, stream);
 }

@@ -7,14 +7,13 @@
 // Block b of G takes the rows [rows * b / G, rows * (b + 1) / G). W <= 8
 // consumer warps (warps 0 to W - 1) take one row each: local row j goes to
 // warp j % W, so no block-wide barrier runs after set-up. Lane 0 of warp 8
-// produces. The S stages are a multiple of W and warp w owns the stages w,
-// w + W, ...: row j's stage is j % W + W * ((j / W) % (S / W)), the one
-// that held row j - S. So a warp waits on a stage only after it has read
-// the stage's previous row: a parity wait is never two phases ahead, which
-// it cannot tell from the phase just gone. Each stage has a full barrier
-// (one arrival that expects the row's bytes) and an empty barrier (one
-// arrival: the owning warp's lane 0, once the whole warp has read the
-// stage for the last time).
+// produces. Row j goes to stage j % S, and S is a multiple of W, so warp
+// j % W always reads the same stages: it waits on a stage only after it
+// has read the stage's previous row, row j - S. A parity wait is then never
+// two phases ahead, which it cannot tell from the phase just gone. Each
+// stage has a full barrier (one arrival that expects the row's bytes) and
+// an empty barrier (one arrival: the owning warp's lane 0, once the whole
+// warp has read the stage for the last time).
 #pragma once
 
 #include "sm90.cuh"
@@ -40,15 +39,10 @@ struct Ring {
   uint64_t* full;
   uint64_t* empty;
   __nv_bfloat16* data;  // stages x D bf16
-  int stages, warps, D;
-
-  // Row j's stage: one of warp j % warps's own.
-  __device__ __forceinline__ int index(int j) const {
-    return j % warps + warps * ((j / warps) % (stages / warps));
-  }
+  int stages, D;
 
   __device__ __forceinline__ __nv_bfloat16* stage(int j) const {
-    return data + static_cast<size_t>(index(j)) * D;
+    return data + static_cast<size_t>(j % stages) * D;
   }
 
   // One thread, before the block-wide barrier that ends set-up.
@@ -63,7 +57,7 @@ struct Ring {
   // previous row, j - stages, has been released. Row j is the stage's
   // (j / stages)-th.
   __device__ __forceinline__ void load(int j, const __nv_bfloat16* src) const {
-    const int s = index(j);
+    const int s = j % stages;
     if (j >= stages) sm90::mbar_wait(&empty[s], ((j / stages) - 1) & 1);
     sm90::mbar_arrive_expect_tx(&full[s], D * 2);
     sm90::bulk_load_1d(data + static_cast<size_t>(s) * D, src, D * 2, &full[s]);
@@ -71,14 +65,14 @@ struct Ring {
 
   // Consumer warp: waits until local row j has landed; returns its stage.
   __device__ __forceinline__ const __nv_bfloat16* wait(int j) const {
-    sm90::mbar_wait(&full[index(j)], (j / stages) & 1);
+    sm90::mbar_wait(&full[j % stages], (j / stages) & 1);
     return stage(j);
   }
 
   // Consumer warp, after its last read of row j's stage.
   __device__ __forceinline__ void release(int j) const {
     __syncwarp();
-    if ((threadIdx.x & 31) == 0) sm90::mbar_arrive(&empty[index(j)]);
+    if ((threadIdx.x & 31) == 0) sm90::mbar_arrive(&empty[j % stages]);
   }
 };
 
@@ -96,14 +90,6 @@ inline Shape ring_shape(int row_bytes, int fixed_bytes) {
   s = s < kMaxStages ? s : kMaxStages;
   const int w = s < kConsumerWarps ? s : kConsumerWarps;
   return {w, s / w * w};
-}
-
-// Whether a ring shape works: 1 to kConsumerWarps warps, stages a positive
-// multiple of them (at most kMaxStages), all within kSmemBytes.
-inline bool fits(Shape shape, int row_bytes, int fixed_bytes) {
-  return shape.warps >= 1 && shape.warps <= kConsumerWarps && shape.stages >= shape.warps &&
-         shape.stages <= kMaxStages && shape.stages % shape.warps == 0 &&
-         fixed_bytes + shape.stages * row_bytes <= kSmemBytes;
 }
 
 // G = min(rows, SMs): one persistent block on each SM. Returns a CUDA error.

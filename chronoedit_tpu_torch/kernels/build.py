@@ -63,14 +63,10 @@ _SIGNATURES = {
                                    _I, _P],
     # x, scale, shift, out, rows, T, hw, D, eps, stream
     "ln_modulate_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
-    # x, scale, shift, out, rows, hw, D, eps, warps, stages, stream (a ring variant)
-    "ln_modulate_ring_bf16": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
     # x, delta, gate, out, rows, T, hw, D, stream
     "gated_residual_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, weight, out, rows, D, eps, stream
     "rms_norm_bf16": [_P, _P, _P, _I, _I, _F, _P],
-    # x, weight, out, rows, D, eps, warps, stages, stream (a ring variant)
-    "rms_norm_ring_bf16": [_P, _P, _P, _I, _I, _F, _I, _I, _P],
     # x, packed, scales, table, y, M, N, K, stream
     "int4_matmul_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     # q8, k8, v, qs, ks, o, B, Sq, Skv, H, D, scale, stream

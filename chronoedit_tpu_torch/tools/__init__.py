@@ -8,9 +8,10 @@ repository root:
 - ``python -m chronoedit_tpu_torch.tools.exp_flash_bwd_grouped --shapes
   edit|reasoning|both``: the grouped flash backward (X2) against K6/K7 at
   the edit's 7,200 and the reasoning's 28,800 tokens;
-- ``python -m chronoedit_tpu_torch.tools.exp_norm_ring``: ring shapes of
-  K4 and K2 against production's in same-call ABBA rounds (the card only;
-  it has no JAX counterpart).
+- ``python -m chronoedit_tpu_torch.tools.exp_norm_ring``: K4's and K2's
+  device time at the main paths' shapes, on an input used again and on one
+  just written, by CUDA events and by the profiler (the card only; it has
+  no JAX counterpart).
 
 The first two run on the card (``utils.platform.cuda_device``) unless the
 caller passes ``device=torch.device("cpu")``, as the tests do: the CPU runs
@@ -23,8 +24,11 @@ from __future__ import annotations
 
 import statistics
 import time
+from collections import Counter
 
 import torch
+
+from chronoedit_tpu_torch.kernels import build
 
 # A bf16 kernel against its fp32 twin. K1 (and every flash forward) rounds
 # P to bf16 before P.V (<= 2**-9 per weight, fp32 accumulation), so its
@@ -68,46 +72,69 @@ def k67_check(got: torch.Tensor, want: torch.Tensor) -> dict:
 
 
 # The device's wait before a timed call, in clock cycles: at least
-# SLEEP_CYCLES (17 ms at 2 GHz, far above a wrapper's host time, so that a
-# call is repeated only when the host stalls, which the experiment tools'
-# exact launch counts would show) and four times the host's time for the
-# last warm-up call at 2 GHz; doubled until the host has enqueued the whole
-# call before the device reaches the start event
+# SLEEP_CYCLES (17 ms at 2 GHz, far above a wrapper's host time) and four
+# times the host's time for the last warm-up call at 2 GHz; doubled until
+# the host has enqueued the whole call before the device reaches the start
+# event. One wait a call: calls queued behind one wait can fill the
+# device's launch queue (a plain twin's hundreds of launches a call), and
+# the host then waits for the device whatever the wait.
 SLEEP_CYCLES = 1 << 25
 MAX_SLEEP_CYCLES = 1 << 34
+# Launches of the timed calls that cuda_ms discarded and made again, by
+# kernel name and by (kernel name, shape key) as ``build.SHAPE_LAUNCHES``
+# keys them: a caller that counts launches around cuda_ms sees its loops'
+# launches plus these.
+DISCARDED: Counter = Counter()
+DISCARDED_BY_SHAPE: Counter = Counter()
 
 
-def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
+def _launch_counts() -> tuple[Counter, Counter]:
+    return Counter(build.LAUNCHES), Counter({(name, key): n
+                                             for name, counts in build.SHAPE_LAUNCHES.items()
+                                             for key, n in counts.items()})
+
+
+def cuda_ms(fn, reps: int = 10, warmup: int = 2, before=None) -> float:
     """Median device time of ``fn`` in ms: CUDA events around each call, with
     the host's enqueue time kept outside them. A device-side wait
-    (``torch.cuda._sleep``) is enqueued before the start event; once ``fn``
-    and the end event are enqueued, the start event must not have been
-    reached yet (``start.query()`` false), so the device ran the call back to
-    back. If it had been reached, the wait doubles and the call repeats.
-    Raises if ``fn`` waits for the device itself (no wait is then long
-    enough)."""
+    (``torch.cuda._sleep``) is enqueued before each call's start event
+    (``before``, if given, runs between the two, outside the timed span);
+    once ``fn`` and the end event are enqueued, the start event must not
+    have been reached yet (``start.query()`` false), so the device ran the
+    call back to back. If it had been reached, the reading is discarded (the
+    call's launches added to ``DISCARDED``), the wait doubles and the call is
+    made again. Raises if ``fn`` waits for the device itself (no wait is
+    then long enough)."""
     host_s = 0.0
     for _ in range(warmup):
+        if before is not None:
+            before()
         t0 = time.perf_counter()
         fn()
         host_s = time.perf_counter() - t0
     times = []
     cycles = min(MAX_SLEEP_CYCLES, max(SLEEP_CYCLES, int(4 * host_s * 2e9)))
     while len(times) < reps:
+        counts = _launch_counts()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(cycles)
+        if before is not None:
+            before()
         start.record()
         fn()
         end.record()
         reached = start.query()
-        end.synchronize()
+        torch.cuda.synchronize()
         if not reached:
             times.append(start.elapsed_time(end))
-        elif cycles >= MAX_SLEEP_CYCLES:
+            continue
+        now = _launch_counts()
+        DISCARDED.update(now[0] - counts[0])
+        DISCARDED_BY_SHAPE.update(now[1] - counts[1])
+        if cycles >= MAX_SLEEP_CYCLES:
             raise RuntimeError("cuda_ms: the device reached the start event before the call was "
                                "enqueued, at the longest wait: does the call synchronise?")
-        else:
-            cycles *= 2
+        cycles *= 2
     return statistics.median(times)
 
 

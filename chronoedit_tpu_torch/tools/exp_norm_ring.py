@@ -1,35 +1,35 @@
-"""Experiment: ring shapes of K4 and K2 on the card.
+"""Experiment: K4's and K2's device time on the card, and what the input's
+place in the cache does to it.
 
-K4 (``csrc/rms_norm.cu``) and K2 (``csrc/ln_modulate.cu``) share a
-persistent row ring (``csrc/row_ring.cuh``): W consumer warps, S ring
-stages of one row each (S a multiple of W). Production takes
-``ring_shape``'s choice, the most stages that fit (at most 16) beside the
-weight (K4) or two frames' fp32 scale and shift (K2), and W = min(8, S).
-:func:`main` times each variant in ``VARIANTS`` against production at the
-main paths' (1, rows, 5120) bf16 streams (``ROWS``; K2 with frames of the
-edit's 3,600 rows), in ``PAIRS`` same-call rounds of production, variant,
-variant, production, each a device time (``tools.cuda_ms``); the row
-arithmetic does not depend on the ring, so every variant's output must be
-bitwise production's. A variant wins a round when the mean of its two
-times is below the mean of production's two.
+K4 (``csrc/rms_norm.cu``) and K2 (``csrc/ln_modulate.cu``) run through the
+production wrappers at every shape the main paths give them
+(``PRODUCTION_ROWS`` of a (1, rows, 5120) bf16 stream; K2 with frames of
+the edit's 3,600 rows), each timed four ways:
 
-Run on the card: ``python -m chronoedit_tpu_torch.tools.exp_norm_ring``
-(no CPU path: the variants exist only as launches of the kernels). With
-``--production`` it times only the production wrappers, at every shape the
-main paths give them (``PRODUCTION_ROWS``), device and call time; that
-mode uses nothing but the wrappers, so this file and ``tools/__init__.py``
-copied into a checkout of an earlier commit time that commit's K4 and K2
-the same way, and runs of both checkouts in one call compare two designs
-on one card.
+- ``ms``: the device time (``tools.cuda_ms``) of repeated calls on one
+  input, as ``chip_smoke.py``'s kernel table times them;
+- ``written_ms``: the same, with the input rewritten (``x.copy_(y)``, a
+  stream of the same size) ahead of each timed call, outside its events, as
+  in a forward, where a projection or a residual has just written it;
+- ``profile_ms``, ``profile_written_ms``: the kernel's mean duration in a
+  ``torch.profiler`` trace of the same two sequences, which checks the
+  CUDA-event timer against the profiler's own device clock;
+- ``call_ms``: the whole call, host included (``tools.call_ms``).
+
+It uses nothing but the wrappers, so this file and
+``tools/__init__.py`` copied into a checkout of an earlier commit time that
+commit's K4 and K2 the same way, and runs of both checkouts in one call
+compare two designs on one card.
+
+Run on the card: ``python -m chronoedit_tpu_torch.tools.exp_norm_ring``.
 """
 
 from __future__ import annotations
 
-import argparse
+import statistics
 
 import torch
 
-from chronoedit_tpu_torch.kernels import build
 from chronoedit_tpu_torch.ops import fused_norms as fn
 from chronoedit_tpu_torch.ops import layers as L
 from chronoedit_tpu_torch.tools import call_ms, cuda_ms, describe
@@ -37,102 +37,69 @@ from chronoedit_tpu_torch.utils.platform import cuda_device
 
 D = 5120
 HW = 3600  # the edit's rows a frame (45 x 80 patches)
-ROWS = (7200, 28800)  # the edit's and the reasoning forward's tokens
-# (consumer warps, stages) tried against production's
-VARIANTS = {"rms_norm": ((8, 8), (4, 16), (4, 8)),
-            "ln_modulate": ((6, 12), (4, 12), (4, 8))}
-PAIRS = 3
 EPS = 1e-6
+REPS = 10
 # the main paths' rows of each kernel: the edit's and the reasoning
 # forward's tokens, and for K4 also the text and CLIP keys
 PRODUCTION_ROWS = {"rms_norm": (7200, 28800, 512, 257), "ln_modulate": (7200, 28800)}
 
 
-def _calls(name: str, rows: int, g: torch.Generator, dev: torch.device):
-    """(production, variant) for one stream: production through the
-    wrapper, ``variant(warps, stages)`` through the ring entry point."""
-    x = torch.randn((1, rows, D), generator=g, device=dev, dtype=torch.bfloat16) * 2.0 + 0.5
-    stream = torch.cuda.current_stream().cuda_stream
+def _call(name: str, x: torch.Tensor, g: torch.Generator):
+    """The production wrapper of ``name`` on ``x``, as a thunk."""
+    rows = x.shape[1]
     if name == "rms_norm":
-        norm = L.RMSNorm(D, device=dev, dtype=torch.bfloat16)
+        norm = L.RMSNorm(D, device=x.device, dtype=torch.bfloat16)
         with torch.no_grad():
-            norm.scale.copy_(1.0 + 0.1 * torch.randn(D, generator=g, device=dev))
-
-        def variant(warps: int, stages: int) -> torch.Tensor:
-            out = torch.empty_like(x)
-            build.check(build.lib().rms_norm_ring_bf16(
-                x.data_ptr(), norm.scale.data_ptr(), out.data_ptr(), rows, D, EPS, warps,
-                stages, stream), name)
-            return out
-
-        return (lambda: fn.rms_norm_fused(norm, x, EPS)), variant
-    scale, shift = (0.1 * torch.randn((1, rows // HW, D), generator=g, device=dev)
+            norm.scale.copy_(1.0 + 0.1 * torch.randn(D, generator=g, device=x.device))
+        return lambda: fn.rms_norm_fused(norm, x, EPS)
+    scale, shift = (0.1 * torch.randn((1, rows // HW, D), generator=g, device=x.device)
                     for _ in range(2))
-
-    def variant(warps: int, stages: int) -> torch.Tensor:
-        out = torch.empty_like(x)
-        build.check(build.lib().ln_modulate_ring_bf16(
-            x.data_ptr(), scale.data_ptr(), shift.data_ptr(), out.data_ptr(), rows, HW, D, EPS,
-            warps, stages, stream), name)
-        return out
-
-    return (lambda: fn.layer_norm_modulate(x, scale, shift, HW, EPS)), variant
+    return lambda: fn.layer_norm_modulate(x, scale, shift, HW, EPS)
 
 
-def time_production(g: torch.Generator, dev: torch.device) -> dict[tuple, dict]:
-    """Device and call time of the production wrappers at
-    ``PRODUCTION_ROWS``; returns {(kernel, rows): {ms, call_ms}}."""
-    results = {}
-    for name, sizes in PRODUCTION_ROWS.items():
-        for rows in sizes:
-            call = _calls(name, rows, g, dev)[0]
-            ms, whole = cuda_ms(call), call_ms(call)
-            results[(name, rows)] = {"ms": ms, "call_ms": whole}
-            print(f"{name} rows={rows}: {ms:.4f} ms on the device, {whole:.4f} ms a call",
-                  flush=True)
-    return results
+def profile_ms(name: str, call, before=None) -> float:
+    """Mean duration in ms of the kernels whose name holds ``name`` in a
+    ``torch.profiler`` trace of ``REPS`` calls (``before`` ahead of each)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(REPS):
+            if before is not None:
+                before()
+            call()
+        torch.cuda.synchronize()
+    spans = [(e.time_range.end - e.time_range.start) / 1e3 for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
+    if len(spans) != REPS:
+        raise AssertionError(f"profile of {name}: {len(spans)} kernels traced, {REPS} launched")
+    return statistics.mean(spans)
 
 
-def main(argv: list[str] | None = None,
-         device: torch.device | None = None) -> dict[tuple, dict]:
-    """Check and time every variant; returns {(kernel, rows, warps, stages):
-    {production_ms, variant_ms (lists of the rounds' means), wins}}, or with
-    ``--production`` ``time_production``'s result."""
-    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--production", action="store_true",
-                   help="time only the production wrappers at the main paths' shapes")
-    args = p.parse_args(argv)
+def main(device: torch.device | None = None) -> dict[tuple, dict]:
+    """Time each kernel at each of its shapes; returns {(kernel, rows):
+    {ms, written_ms, profile_ms, profile_written_ms, call_ms}}."""
     dev = cuda_device() if device is None else torch.device(device)
     if dev.type != "cuda":
-        raise ValueError("exp_norm_ring: the ring variants run only on a CUDA device")
+        raise ValueError("exp_norm_ring: times kernels, so runs only on a CUDA device")
     g = torch.Generator(device=dev).manual_seed(0)
-    print(f"K4 / K2 ring shapes, (1, rows, {D}) bf16 on {describe(dev)}", flush=True)
-    if args.production:
-        with torch.no_grad():
-            return time_production(g, dev)
+    print(f"K4 / K2, (1, rows, {D}) bf16 on {describe(dev)}", flush=True)
     results = {}
     with torch.no_grad():
-        for name, variants in VARIANTS.items():
-            for rows in ROWS:
-                prod, variant = _calls(name, rows, g, dev)
-                want = prod()
-                for warps, stages in variants:
-                    if not torch.equal(variant(warps, stages), want):
-                        raise AssertionError(f"{name} rows={rows} (W={warps}, S={stages}): "
-                                             f"not bitwise production's output")
-                    a_ms, b_ms = [], []
-                    for _ in range(PAIRS):
-                        a1 = cuda_ms(prod)
-                        b1, b2 = (cuda_ms(lambda: variant(warps, stages)) for _ in range(2))
-                        a_ms.append((a1 + cuda_ms(prod)) / 2)
-                        b_ms.append((b1 + b2) / 2)
-                    wins = sum(b < a for a, b in zip(a_ms, b_ms))
-                    results[(name, rows, warps, stages)] = {
-                        "production_ms": a_ms, "variant_ms": b_ms, "wins": wins}
-                    print(f"{name} rows={rows} W={warps} S={stages}: bitwise production's; "
-                          "rounds (production / variant ms) "
-                          + ", ".join(f"{a:.4f} / {b:.4f}" for a, b in zip(a_ms, b_ms))
-                          + f"; the variant wins {wins} of {PAIRS}", flush=True)
+        for name, sizes in PRODUCTION_ROWS.items():
+            for rows in sizes:
+                x, y = (torch.randn((1, rows, D), generator=g, device=dev, dtype=torch.bfloat16)
+                        * 2.0 + 0.5 for _ in range(2))
+                call = _call(name, x, g)
+                write = lambda: x.copy_(y)  # noqa: E731
+                row = {"ms": cuda_ms(call, REPS), "written_ms": cuda_ms(call, REPS, before=write),
+                       "profile_ms": profile_ms(name, call),
+                       "profile_written_ms": profile_ms(name, call, before=write),
+                       "call_ms": call_ms(call, REPS)}
+                results[(name, rows)] = row
+                print(f"{name} rows={rows}: " + ", ".join(f"{k} {v:.4f}" for k, v in row.items()),
+                      flush=True)
     return results
 
 

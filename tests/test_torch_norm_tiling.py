@@ -6,8 +6,8 @@ The kernels split the rows into G contiguous ranges: block b of G takes
 [rows * b / G, rows * (b + 1) / G), G = min(rows, SMs). In a block, one
 producer thread fills a ring of S row stages with bulk copies; local row j
 goes to consumer warp j % W (W = min(8, S), S cut to a multiple of W) and
-to one of that warp's own stages, j % W + W * ((j / W) % (S / W)), so a
-warp never waits on a stage two phases ahead. Lane l of the warp
+to stage j % S, so warp j % W always reads the same stages and never waits
+on a stage two phases ahead. Lane l of the warp
 reads the row's 16-byte vectors v = l, l + 32, ... (8 elements each) and
 keeps one fp32 partial, in that order (K4: ``fmaf(x, x, sq)``; K2: the sum,
 then ``fmaf(c, c, sq)`` of the centred values); a butterfly (xor 16, 8, 4,
@@ -67,9 +67,9 @@ def ring_shape(d: int, mod: bool) -> tuple[int, int]:
     return w, s // w * w
 
 
-def stage_index(j: int, warps: int, stages: int) -> int:
-    """``Ring::index``: row j's stage, one of warp j % W's own."""
-    return j % warps + warps * ((j // warps) % (stages // warps))
+def stage_index(j: int, stages: int) -> int:
+    """``Ring::stage``: row j's stage."""
+    return j % stages
 
 
 # ----------------------------------------------------------- the schedule
@@ -106,14 +106,13 @@ class Barrier:
 
 
 def row_schedule(rows: int, hw: int | None, d: int, g: int, warps: int, stages: int,
-                 seed: int = 0, index=stage_index) -> dict[int, int | None]:
+                 seed: int = 0) -> dict[int, int | None]:
     """Replays every block's producer, bulk copies and consumer warps in a
     random order that respects the barriers, as K2 (``hw`` given) or K4
     (``hw`` None) schedules them, and checks that each row's stage holds
     that row, and K2's slot that row's frame, for as long as the warp reads
     them. Returns {row: the frame whose scale and shift it read} (None for
-    K4). A schedule that stops short of its rows is a deadlock. ``index``
-    maps (j, warps, stages) to row j's stage."""
+    K4). A schedule that stops short of its rows is a deadlock."""
     rng = random.Random(seed)
     read: dict[int, int | None] = {}
     for begin, end in block_ranges(rows, g):
@@ -152,7 +151,7 @@ def row_schedule(rows: int, hw: int | None, d: int, g: int, warps: int, stages: 
                     mod_full[slot].arrive_expect_tx(2 * d * 4)
                     actors.append([copy_into(slot, 0, f, mod_full[slot], d * 4), None])
                     actors.append([copy_into(slot, 1, f, mod_full[slot], d * 4), None])
-                s = index(j, warps, stages)
+                s = stage_index(j, stages)
                 if j >= stages:
                     yield empty[s], ((j // stages) - 1) & 1
                 full[s].arrive_expect_tx(d * 2)
@@ -160,7 +159,7 @@ def row_schedule(rows: int, hw: int | None, d: int, g: int, warps: int, stages: 
 
         def consumer(w):
             for j in range(w, n, warps):
-                row, s = begin + j, index(j, warps, stages)
+                row, s = begin + j, stage_index(j, stages)
                 yield full[s], (j // stages) & 1
                 assert ring[s] == row, f"row {row} read stage {s} holding {ring[s]}"
                 yield None  # the statistics passes
@@ -271,14 +270,14 @@ def test_block_ranges_are_contiguous_and_balanced(rows, g):
 def test_ring_fits_shared_memory(d):
     """Both kernels get at least one warp and one stage a warp at every
     width the wrappers take (D <= 8192), within the block's shared memory;
-    every warp owns S / W stages."""
+    each stage is read by one warp only."""
     for mod in (False, True):
         w, s = ring_shape(d, mod)
         assert 1 <= w <= WARPS and s % w == 0 and 1 <= s <= MAX_STAGES
         assert (4 * d * 4 if mod else d * 2) + s * d * 2 <= SMEM_BYTES
         owners = {}
         for j in range(4 * s):
-            owners.setdefault(stage_index(j, w, s), set()).add(j % w)
+            owners.setdefault(stage_index(j, s), set()).add(j % w)
         assert sorted(owners) == list(range(s)) and all(len(o) == 1 for o in owners.values())
 
 
@@ -302,13 +301,14 @@ def test_schedule_reads_each_rows_own_stage_and_frame(b, t, hw, g, warps, stages
 
 
 def test_stages_shared_by_warps_break_the_parity_wait():
-    """Why each warp owns its stages: with row j in stage j % S and more
-    warps than stages, a warp waits on a stage whose previous row has not
-    landed, and the parity wait, which cannot tell the phase it wants from
-    the one before the current, lets it read the stage too early."""
+    """Why the stages are a multiple of the warps: with more warps than
+    stages (W = 8, S = 3), warp j % W does not always read the same stages,
+    so it waits on a stage whose previous row has not landed, and the
+    parity wait, which cannot tell the phase it wants from the one before
+    the current, lets it read the stage too early."""
     with pytest.raises(AssertionError, match="read stage"):
         for seed in range(20):
-            row_schedule(30, None, 8, 1, 8, 3, seed, index=lambda j, w, s: j % s)
+            row_schedule(30, None, 8, 1, 8, 3, seed)
 
 
 @pytest.mark.parametrize("d", [5120, 256])
