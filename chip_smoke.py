@@ -1,6 +1,7 @@
 """Drive the PyTorch port's paths once on one NVIDIA GPU: the 8-step 720p
-edit, the 29-frame temporal-reasoning edit, LoRA fine-tuning of the
-full-width DiT at the edit's geometry, quantized serving (w4a16 with
+edit from a checkpoint directory (weights, LoRA and the UMT5 / CLIP
+encoders loaded from files), the 29-frame temporal-reasoning edit, LoRA
+fine-tuning of the full-width DiT at the edit's geometry, quantized serving (w4a16 with
 int8-score attention, and the mixed2 recipe), and the two attention
 experiments (the grouped flash forward X1 and backward X2).
 
@@ -69,28 +70,50 @@ non-zero and no result line is printed:
    mode with the frame drop and without it, W-tiled streaming VAE; the edit
    quantized int8, w4a16 and mixed2, and the reasoning drop in w4a16 with
    int8 scores (the rule lowered so that K9 runs at these lengths), each on
-   the same quantized weights on both sides; then two
+   the same quantized weights on both sides; the encoders at full width
+   and two blocks, as dB over the CPU output's peak: UMT5 (bf16, 512 token
+   ids with a 300-token mask), CLIP ViT-H (bf16, 16 heads of 80 through
+   SDPA, a 720p frame through ``preprocess``) and XLM-R with its head
+   (fp32), each with the launch counters zeroed before it and zero after
+   (no encoder runs a hand-written kernel); then two
    LoRA steps and two full-parameter steps of that DiT (loss, gradient
    cosine, grad_norm, then Adam's first moment and the update, against the
    CPU);
 6. the main paths: ``chronoedit_14b_distilled`` at full width and depth
    (40 blocks x 5120, bf16, random weights from a seeded generator, built
-   outside ``inference_mode`` so that it can train) and the full-width VAE
-   serve two 720p edits, then two 29-frame reasoning edits (the whole
-   trajectory, k = 8; the drop, k = 2) through ``__call__``, then take three
+   outside ``inference_mode`` so that it can train), the full-width VAE, a
+   seeded UMT5-XXL and CLIP ViT-H and a rank-32 LoRA are written as a
+   checkpoint directory in the reference's layout under the git-ignored
+   ``build/`` (diffusers DiT shards in bf16, ``Wan2.1_VAE.pth``, the UMT5
+   file in bf16, the CLIP file in fp16, a diffusers LoRA in bf16; the free
+   disk is checked first), freed, and loaded back through
+   ``load_pipeline(..., loras=[(lora, 1.0)])``; against the same models
+   drawn again from their seeds, every DiT tensor is bitwise the original,
+   or for the LoRA's targets the fp32 merge of the file's bf16 adapters
+   rounded once to bf16, the VAE and the encoders bitwise the originals
+   after their files' casts. The loaded pipeline encodes 512 token ids and the 720p
+   image (``encode_prompt``, ``encode_image``; no kernel launch) and serves
+   a cold and a warm edit from those embeddings; the encoders are dropped,
+   and the same pipeline serves two more 720p edits, then two 29-frame
+   reasoning edits (the whole trajectory, k = 8; the drop, k = 2) through
+   ``__call__``, then takes three
    rank-32 LoRA steps (``make_lora_train_step``, remat "full") on 720p mock
-   edit pairs; then quantize that DiT in place to w4a16 (Lloyd grid) and
-   serve two 720p edits and a w4a16 + int8-score reasoning edit (k = 2),
-   and rebuild the bf16 model from the same seed, quantize it to mixed2
-   and serve one edit. The launch counters are zeroed just before each
+   edit pairs; then quantizes that DiT in place to w4a16 (Lloyd grid) and
+   serves two 720p edits and a w4a16 + int8-score reasoning edit (k = 2),
+   and loads the bf16 model again from the same files, quantizes it to
+   mixed2 and serves one edit; the directory is removed at the end,
+   whatever happened. The launch counters are zeroed just before each
    edit and each step and must then show exactly the launches the path
    implies, by kernel, by attention KV length and by the int4 matmul's
-   rows (none of them grouped); stage and step times, peak memory, the memory after each
+   rows (none of them grouped); write, load (per component, the LoRA merge
+   among them), encode, stage and step times, peak memory (of the
+   load's check, with the encoders and without), the memory after each
    quantization, each quantized output's PSNR against the bf16 output of
    the same request and noise (random weights: no bar), a
    tiled-against-untiled streaming decode of an 8-frame latent trajectory
    (fp32) and an unchanged-base checksum follow;
-7. print the kernel table as one JSON line, the card line again, and last
+7. print the command's seconds, the kernel table as one JSON line, the
+   card line again, and last
    ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds one warm ``torch.profiler`` pass over each stage (DiT
@@ -176,6 +199,31 @@ MIN_PSNR_DB = 35.0
 # algorithm (another summation order) for the narrower tile. A misplaced
 # tile or a short halo errs by the output's own scale, 1,000x this bound.
 TILED_DECODE_TOL = 1e-3
+# The encoders at full width and two blocks, bf16 on the card against fp32
+# on the CPU (same weights), as PSNR over the reference's peak magnitude.
+# ``python -m chronoedit_tpu_torch.tools.encoder_bounds --device cpu``
+# builds these same encoders and reads, with the bf16 side on the CPU,
+# 57.90 dB (UMT5, the valid tokens of a 300-of-512 mask) and 59.35 dB (CLIP
+# on a 720p frame) when sound; with one fault planted, 51.91 dB (UMT5's
+# logits scaled by head_dim**-0.5), 37.42 (pad keys let in), 32.19 (CLIP's
+# LayerNorm scales not loaded) and 14.38 (no antialiasing in preprocess).
+# The bound lies between the sound readings and the closest fault; a tanh
+# GELU in CLIP (59.34 dB) is below what it can see. XLM-R computes in fp32
+# on both sides (TF32 off): only the summation order differs, at about 1e-6
+# relative (over 100 dB).
+ENCODER_MIN_DB = 55.0
+XLMR_MIN_DB = 80.0
+# UMT5's and XLM-R's vocabularies in phase 5: an embedding lookup's table
+# size does not change the arithmetic, and the full ones would take 4 and
+# 1 GB of fp32 on the CPU
+SMALL_VOCAB = 4096
+# prompt length of the loaded path's 512 token ids (the rest is padding)
+PROMPT_LEN = 300
+# the checkpoint directory the main path writes and loads, under the
+# repository's git-ignored build/; removed when the run ends
+CHECKPOINT_DIR = Path(__file__).resolve().parent / "build" / "smoke_checkpoint"
+# the rank-32 LoRA file's alpha: alpha / rank = 0.5 scales every delta
+LORA_ALPHA = 16.0
 
 EDIT_H, EDIT_W = 720, 1280
 TEXT_TOKENS = 512
@@ -252,6 +300,13 @@ def add_rows(a: dict, b: dict) -> dict:
 def psnr(got: torch.Tensor, want: torch.Tensor) -> float:
     mse = float((got.double() - want.double()).square().mean())
     return math.inf if mse == 0 else 10.0 * math.log10(2.0 ** 2 / mse)
+
+
+def peak_db(got: torch.Tensor, want: torch.Tensor) -> float:
+    """PSNR over the reference's peak magnitude (features, not pixels)."""
+    mse = float((got.double() - want.double()).square().mean())
+    peak = float(want.double().abs().max())
+    return math.inf if mse == 0 else 10.0 * math.log10(peak ** 2 / mse)
 
 
 # ----------------------------------------------------------- phase 3
@@ -1020,6 +1075,100 @@ def small_references(dev: torch.device) -> dict[str, float]:
     return results
 
 
+def redraw_layer_norms(model, g: torch.Generator) -> None:
+    """CLIP's LayerNorms start at ones and zeros, which every dtype holds
+    exactly; redraw them (scale 1 + 0.1 N, bias 0.1 N), so that whether
+    they are kept in fp32 shows."""
+    from chronoedit_tpu_torch.ops import layers as L
+
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, L.LayerNorm):
+                m.scale.normal_(1.0, 0.1, generator=g)
+                m.bias.normal_(0.0, 0.1, generator=g)
+
+
+def encoder_references(dev: torch.device) -> dict[str, float]:
+    """The encoders at full width and two blocks on ``dev`` against the same
+    weights in fp32 on the CPU: UMT5 (dim 4,096, 64 heads, ffn 10,240) in
+    bf16 on 512 token ids with a ``PROMPT_LEN`` mask, CLIP (dim 1,280, 16
+    heads of 80; three layers, of which the penultimate path runs two) in
+    bf16 on a 720p frame through ``preprocess``, and XLM-R with its pooled
+    head (dim 1,024, 16 heads) in fp32 on two ragged sequences. The launch
+    counters are zeroed before each and must read zero after: no encoder
+    runs a hand-written kernel. Returns dB over the reference's peak."""
+    from chronoedit_tpu_torch.kernels import build
+    from chronoedit_tpu_torch.models import clip, umt5
+    from chronoedit_tpu_torch.models import xlm_roberta as xlmr
+
+    f32 = dict(dtype=torch.float32, param_dtype=torch.float32)
+    g = torch.Generator().manual_seed(4)
+    results = {}
+
+    def compare(label, fn, ref, bar):
+        want = fn(ref[0], torch.device("cpu"))
+        build.reset_launches()
+        got, secs = host_s(lambda: fn(ref[1], dev))
+        got = got.float().cpu()
+        db = peak_db(got, want)
+        launched = {k: v for k, v in build.LAUNCHES.items() if v}
+        print(f"encoder reference ({label}): card {secs:.3f} s, {tuple(got.shape)}, "
+              f"{db:.2f} dB over the CPU fp32 peak {float(want.abs().max()):.4f} "
+              f"(bound {bar} dB); hand-written kernel launches {launched or 'none'}")
+        if got.shape != want.shape or not bool(torch.isfinite(got).all()) or not db >= bar:
+            raise AssertionError(f"encoder reference {label}: the card disagrees with the CPU")
+        if launched:
+            raise AssertionError(f"encoder reference {label}: launched {launched}")
+        results[label] = db
+
+    def pair(make, cfg_dev, cfg_ref):
+        ref = make(cfg_ref)
+        on_dev = type(ref)(cfg_dev, device=dev)
+        on_dev.load_state_dict(ref.state_dict())
+        return ref, on_dev
+
+    t5_cfg = umt5.UMT5Config(vocab_size=SMALL_VOCAB, num_layers=2)
+    t5 = pair(lambda c: umt5.init_umt5_params(c, g), t5_cfg,
+              dataclasses.replace(t5_cfg, **f32))
+    ids = torch.randint(0, SMALL_VOCAB, (1, TEXT_TOKENS), generator=g)
+    mask = (torch.arange(TEXT_TOKENS) < PROMPT_LEN).long()[None]
+
+    def t5_fn(model, device):
+        out = umt5.UMT5TextEncoder(model).encode_ids(ids.to(device), mask.to(device))
+        if bool(out[:, PROMPT_LEN:].any()):
+            raise AssertionError("UMT5: the outputs past the prompt are not zero")
+        return out[:, :PROMPT_LEN]
+
+    compare(f"UMT5, 2 blocks, {PROMPT_LEN} of {TEXT_TOKENS} ids", t5_fn, t5, ENCODER_MIN_DB)
+    del t5
+
+    clip_cfg = clip.CLIPVisionConfig(num_layers=3)
+
+    def make_clip(c):
+        model = clip.init_clip_vision_params(c, g)
+        redraw_layer_norms(model, g)
+        return model
+
+    towers = pair(make_clip, clip_cfg, dataclasses.replace(clip_cfg, **f32))
+    image = torch.rand((1, 3, EDIT_H, EDIT_W), generator=g) * 2.0 - 1.0
+    compare(f"CLIP, 2 blocks of 16 x 80, {EDIT_H}x{EDIT_W} frame",
+            lambda model, device: clip.CLIPImageEncoder(model)(image.to(device)), towers,
+            ENCODER_MIN_DB)
+    del towers
+
+    xcfg = xlmr.XLMRobertaConfig(vocab_size=SMALL_VOCAB, num_layers=2, out_dim=1024)
+    towers = pair(lambda c: xlmr.init_xlm_roberta_params(c, g), xcfg, xcfg)
+    xids = torch.randint(2, SMALL_VOCAB, (2, 77), generator=g)
+    xids[0, 40:] = xcfg.pad_id
+
+    def xlmr_fn(model, device):
+        with torch.no_grad():
+            return xlmr.xlm_roberta_encode(model, xids.to(device))
+
+    compare("XLM-R with head, 2 blocks, fp32", xlmr_fn, towers, XLMR_MIN_DB)
+    return results
+
+
 def small_training_config(dtype, remat: str):
     """The small references' DiT (2 blocks x 2 heads of 128) for training."""
     from chronoedit_tpu_torch.configs import chronoedit_14b
@@ -1175,40 +1324,266 @@ def read_launches() -> tuple[dict[str, int], dict[str, dict[int, int]]]:
 
 
 def build_model(dev: torch.device, cfg):
-    """The full-size pipeline with seeded random weights on the card."""
+    """The full-size pipeline with seeded random weights on the card; the
+    same bits on every call."""
     from chronoedit_tpu_torch.models import dit as dit_lib
     from chronoedit_tpu_torch.models import vae as vae_lib
     from chronoedit_tpu_torch.pipeline.edit_pipeline import ChronoEditPipeline
 
+    g = torch.Generator(device=dev).manual_seed(0)
+    dit = dit_lib.init_dit_params(cfg.dit, g, device=dev)
+    vae = vae_lib.init_vae_params(cfg.vae, g, device=dev)
+    redraw_zero_projections(dit, vae, g)
+    return ChronoEditPipeline(cfg, dit, vae)
+
+
+def build_encoders(dev: torch.device, dit):
+    """A seeded UMT5-XXL, CLIP ViT-H (LayerNorms redrawn) and rank-32 LoRA
+    over ``dit`` (b drawn non-zero), on the card; the same bits on every
+    call."""
+    from chronoedit_tpu_torch.models import clip, umt5
+    from chronoedit_tpu_torch.models import lora as lora_lib
+
+    g = torch.Generator(device=dev).manual_seed(40)
+    t5 = umt5.init_umt5_params(umt5.UMT5Config(), g, dev)
+    tower = clip.init_clip_vision_params(clip.CLIPVisionConfig(), g, dev)
+    redraw_layer_norms(tower, g)
+    lora = lora_lib.init_lora_params(g, dit, lora_lib.LoRAConfig())
+    with torch.no_grad():
+        for blk in lora.blocks:
+            for _, ad in lora_lib.iter_adapters(blk):
+                ad.b.normal_(0.0, 0.02, generator=g)
+    return t5, tower, lora
+
+
+def checkpoint_bytes(*models) -> int:
+    """Bytes the checkpoint directory takes: each model's parameters in
+    their file dtype, ``(model, bytes per element)``."""
+    return sum(p.numel() * size for model, size in models for p in model.parameters())
+
+
+def write_checkpoint(root: Path, pipe, t5, tower, lora) -> None:
+    """Write the reference's checkpoint layout under ``root``: the DiT as
+    diffusers safetensors shards of 4 blocks each in bf16 (the patch
+    embedding as its Conv3d), ``Wan2.1_VAE.pth`` in fp32, the UMT5-XXL file
+    in bf16, the open-clip file's ``visual.`` tower in fp16 (the patch
+    embedding as its Conv2d) and a diffusers LoRA in bf16 with alpha
+    ``LORA_ALPHA``. The host holds one file's tensors at a time."""
+    from safetensors.torch import save_file
+
+    from chronoedit_tpu_torch.models import clip, umt5
+    from chronoedit_tpu_torch.models import weights as w
+
+    d = pipe.config.dit
+    (root / "transformer").mkdir(parents=True)
+    t0 = time.perf_counter()
+    sd = w.export_diffusers_dit(pipe.dit)
+    sd["patch_embedding.weight"] = sd["patch_embedding.weight"].reshape(
+        d.dim, d.in_channels, *d.patch_size)
+    shards: dict[int, list[str]] = {}
+    for ref in sd:
+        shards.setdefault(int(ref.split(".")[1]) // 4 + 1 if ref.startswith("blocks.") else 0,
+                          []).append(ref)
+    for k, refs in enumerate(shards.values()):
+        save_file({ref: sd[ref].cpu() for ref in refs},
+                  str(root / "transformer" / f"diffusion_pytorch_model-{k + 1:05d}-of-"
+                      f"{len(shards):05d}.safetensors"))
+    del sd
+    seconds = {"dit": time.perf_counter() - t0}
+
+    def host(model, names, dtype, shape):
+        params = dict(model.named_parameters())
+        return {ref: params[name].detach().to(dtype).cpu().reshape(shape(ref, params[name]))
+                for ref, name in names.items()}
+
+    def vae_shape(ref, v):  # RMS gains (C, 1, 1, 1); the spatial resample a Conv2d
+        if ref.endswith(".gamma"):
+            return (v.shape[0], 1, 1, 1)
+        return v.shape[:2] + v.shape[3:] if ".resample." in ref and v.dim() == 5 else v.shape
+
+    p = tower.cfg.patch_size
+    for kind, model, names, dtype, shape, name in (
+            ("vae", pipe.vae, w.wan_vae_names(pipe.vae.cfg), torch.float32, vae_shape,
+             "Wan2.1_VAE.pth"),
+            ("umt5", t5, umt5.reference_names(t5.cfg), torch.bfloat16, lambda ref, v: v.shape,
+             "models_t5_umt5-xxl-enc-bf16.pth"),
+            ("clip", tower, clip.reference_names(tower.cfg), torch.float16,
+             lambda ref, v: (v.shape[0], 3, p, p) if "patch" in ref else v.shape,
+             "models_clip_open-clip-xlm-roberta-large-vit-huge-14_fp16.pth")):
+        t0 = time.perf_counter()
+        torch.save(host(model, names, dtype, shape), root / name)
+        seconds[kind] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    save_file({k: v.cpu() if k.endswith("alpha") else v.to(torch.bfloat16).cpu()
+               for k, v in w.export_diffusers_lora(lora, alpha=LORA_ALPHA).items()},
+              str(root / "distill_lora.safetensors"))
+    seconds["lora"] = time.perf_counter() - t0
+    print(f"   write seconds by file kind (device to host included): "
+          f"{ {k: round(v, 1) for k, v in seconds.items()} }")
+
+
+def check_loaded(label: str, loaded, original, expect=None) -> None:
+    """Every parameter of ``loaded`` bitwise ``original``'s of the same name
+    after a cast to the loaded dtype, or ``expect(name, original's)`` where
+    that gives one (cast the same way)."""
+    got, want = dict(loaded.named_parameters()), dict(original.named_parameters())
+    if got.keys() != want.keys():
+        raise AssertionError(f"loaded {label}: other parameters than the original's")
+    bad = []
+    for name, p in got.items():
+        value = (expect(name, want[name]) if expect else None)
+        value = want[name] if value is None else value
+        if not torch.equal(p, value.to(p.dtype)):
+            bad.append(name)
+    print(f"loaded {label}: {len(got) - len(bad)} of {len(got)} tensors bitwise as expected")
+    if bad:
+        raise AssertionError(f"loaded {label}: {len(bad)} tensors differ, e.g. {bad[:4]}")
+
+
+def loaded_path(dev: torch.device, cfg, launches: tuple[Counter, Counter]):
+    """The production start from files: build the seeded model
+    (``build_model``) and a seeded UMT5-XXL, CLIP ViT-H and rank-32 LoRA
+    (``build_encoders``), write them in the reference's layout
+    (``write_checkpoint``) to ``CHECKPOINT_DIR``, free them, then
+    ``load_pipeline(cfg, dir, loras=[(lora, 1.0)])``. Against the same
+    models drawn again from their seeds: every DiT tensor no adapter
+    targets must be bitwise the original, every targeted one the fp32 merge
+    of the file's bf16 adapters rounded once to bf16, the VAE and the
+    encoders bitwise the originals after their files' casts. Then
+    ``encode_prompt`` on 512 token ids with a ``PROMPT_LEN`` mask and
+    ``encode_image`` (no hand-written kernel may launch), and a cold and a
+    warm 720p edit from those embeddings with exact launch counts. The
+    encoders are dropped before it returns the pipeline. Built and loaded
+    outside ``inference_mode``: the training path trains this DiT."""
+    from chronoedit_tpu_torch.kernels import build
+    from chronoedit_tpu_torch.models import umt5
+    from chronoedit_tpu_torch.models import lora as lora_lib
+    from chronoedit_tpu_torch.pipeline.loader import load_pipeline
+
     d = cfg.dit
     print(f"main path: {d.num_layers} blocks x {d.dim} wide, ffn {d.ffn_dim}, "
           f"{cfg.num_steps} steps, guidance {cfg.guidance_scale}, shift {cfg.flow_shift}")
-    g = torch.Generator(device=dev).manual_seed(0)
-    (dit, vae), secs = host_s(lambda: (dit_lib.init_dit_params(d, g, device=dev),
-                                       vae_lib.init_vae_params(cfg.vae, g, device=dev)))
-    redraw_zero_projections(dit, vae, g)
-    n_params = sum(p.numel() for p in dit.parameters())
-    print(f"random init {secs:.1f} s: DiT {n_params / 1e9:.2f} B parameters "
+    shutil.rmtree(CHECKPOINT_DIR, ignore_errors=True)
+    def build_all():
+        pipe = build_model(dev, cfg)
+        return pipe, build_encoders(dev, pipe.dit)
+
+    (pipe, (t5, tower, lora)), secs = host_s(build_all)
+    count = {name: sum(p.numel() for p in m.parameters())
+             for name, m in (("DiT", pipe.dit), ("UMT5", t5), ("CLIP", tower))}
+    print(f"random init {secs:.1f} s: DiT {count['DiT'] / 1e9:.2f} B parameters, UMT5-XXL "
+          f"{count['UMT5'] / 1e9:.2f} B, CLIP ViT-H {count['CLIP'] / 1e6:.1f} M, rank-32 LoRA "
           f"({torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card)")
-    return ChronoEditPipeline(cfg, dit, vae)
+
+    need = checkpoint_bytes((pipe.dit, 2), (pipe.vae, 4), (t5, 2), (tower, 2), (lora, 2))
+    CHECKPOINT_DIR.parent.mkdir(parents=True, exist_ok=True)
+    free = shutil.disk_usage(CHECKPOINT_DIR.parent).free
+    print(f"checkpoint directory {CHECKPOINT_DIR}: needs {need / 1e9:.2f} GB, "
+          f"{free / 1e9:.2f} GB free")
+    if free < need + 2**30:
+        raise AssertionError(f"disk: the checkpoint needs {need} bytes and {free} are free")
+    _, secs = host_s(lambda: write_checkpoint(CHECKPOINT_DIR, pipe, t5, tower, lora))
+    written = sum(f.stat().st_size for f in CHECKPOINT_DIR.rglob("*") if f.is_file())
+    print(f"wrote the checkpoint in {secs:.1f} s: {written / 1e9:.2f} GB "
+          f"({written / secs / 1e9:.2f} GB/s, device to host included)")
+    del pipe, t5, tower, lora
+    torch.cuda.empty_cache()
+
+    lora_path = str(CHECKPOINT_DIR / "distill_lora.safetensors")
+    torch.cuda.reset_peak_memory_stats()
+    pipe, load_s = host_s(lambda: load_pipeline(cfg, str(CHECKPOINT_DIR),
+                                                 loras=[(lora_path, 1.0)], device=dev))
+    print(f"load_pipeline in {load_s:.1f} s (seconds per component "
+          f"{ {k: round(v, 2) for k, v in pipe.load_seconds.items()} }, the LoRA merge "
+          f"included in 'loras'): {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+          f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    def check():
+        # the encoders first (the LoRA drawn after them is kept, rounded as
+        # its file holds it), then the DiT and VAE: one original at a time
+        t5, tower, lora = build_encoders(dev, pipe.dit)
+        check_loaded("UMT5", pipe.text_encoder.model, t5)
+        check_loaded("CLIP", pipe.image_encoder.model, tower,
+                     lambda name, p: p.to(torch.float16))
+        del t5, tower
+        torch.cuda.empty_cache()
+        scaling = 1.0 * (LORA_ALPHA / lora.cfg.rank)
+        targets = {f"blocks.{i}.{t.replace('/', '.')}.weight": ad
+                   for i, blk in enumerate(lora.blocks) for t, ad in lora_lib.iter_adapters(blk)}
+
+        def merged(name, w):
+            if name not in targets:
+                return None
+            a, b = (x.to(torch.bfloat16).float() for x in (targets[name].a, targets[name].b))
+            return (w.float() + ((a @ b) * scaling).T).to(w.dtype)
+
+        original = build_model(dev, cfg)
+        check_loaded("DiT", pipe.dit, original.dit, merged)
+        check_loaded("VAE", pipe.vae, original.vae)
+        print(f"   ({len(targets)} LoRA-targeted DiT weights among them)")
+
+    torch.cuda.reset_peak_memory_stats()
+    _, secs = host_s(check)
+    torch.cuda.empty_cache()
+    # the run's high-water mark: the loaded pipeline with both encoders and
+    # a second DiT drawn from the seed, side by side
+    print(f"   checked against the models drawn again from their seeds in {secs:.1f} s, "
+          f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    with torch.inference_mode():
+        g = torch.Generator(device=dev).manual_seed(41)
+        req = request(cfg, dev, 42, EDIT_H, EDIT_W, TEXT_TOKENS)
+        ids = torch.randint(0, umt5.UMT5Config().vocab_size, (1, TEXT_TOKENS), generator=g,
+                            device=dev)
+        mask = (torch.arange(TEXT_TOKENS, device=dev) < PROMPT_LEN).long()[None]
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        req["prompt_emb"], t5_s = host_s(lambda: pipe.encode_prompt(ids, mask))
+        req["image_emb"], clip_s = host_s(lambda: pipe.encode_image(req["image"]))
+        launched = {k: v for k, v in build.LAUNCHES.items() if v}
+        print(f"encode_prompt ({TEXT_TOKENS} ids, {PROMPT_LEN} unmasked) {t5_s:.3f} s -> "
+              f"{tuple(req['prompt_emb'].shape)}; encode_image ({EDIT_H}x{EDIT_W}) {clip_s:.3f} s "
+              f"-> {tuple(req['image_emb'].shape)}; hand-written kernel launches "
+              f"{launched or 'none'}")
+        emb_ok = (tuple(req["prompt_emb"].shape) == (1, TEXT_TOKENS, d.text_dim)
+                  and tuple(req["image_emb"].shape) == (1, IMAGE_TOKENS, d.image_dim)
+                  and all(bool(torch.isfinite(req[k]).all()) for k in ("prompt_emb", "image_emb"))
+                  and not bool(req["prompt_emb"][:, PROMPT_LEN:].any()))
+        if launched or not emb_ok:
+            raise AssertionError("the encoders launched a kernel or gave bad embeddings")
+        times = []
+        for label in ("cold", "warm"):
+            serve(pipe.edit_image, cfg, dev, f"loaded edit ({label})", 42, (1, 3, EDIT_H, EDIT_W),
+                  [EDIT_TOKENS] * cfg.num_steps, launches, req=req, times=times)
+        with_encoders = torch.cuda.max_memory_allocated() / 2**30
+        pipe.text_encoder = pipe.image_encoder = None
+        torch.cuda.empty_cache()
+    print(f"from files to the first edit: load {load_s:.1f} s + encode "
+          f"{t5_s + clip_s:.2f} s + cold edit {times[0]:.2f} s; warm edit {times[1]:.2f} s; "
+          f"peak {with_encoders:.2f} GiB with the encoders, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated after dropping them")
+    return pipe
 
 
 def serve(entry, cfg, dev, label: str, seed: int, shape: tuple, tokens: list[int],
           launches: tuple[Counter, Counter], int4: bool = False, qk8: bool = False,
-          **kw) -> torch.Tensor:
-    """One 720p edit through ``entry`` (the pipeline or its ``edit_image``),
-    with the launch counters zeroed just before it and read just after:
-    they must equal what the path implies (``expected_launches``), and are
-    added to ``launches`` (by name, flash forwards by KV length). Returns
-    the output, fp32 on the CPU."""
+          req: dict | None = None, times: list | None = None, **kw) -> torch.Tensor:
+    """One 720p edit through ``entry`` (the pipeline or its ``edit_image``)
+    of ``req`` (default: the seeded ``request``), with the launch counters
+    zeroed just before it and read just after: they must equal what the
+    path implies (``expected_launches``), and are added to ``launches`` (by
+    name, flash forwards by KV length); its seconds are appended to
+    ``times`` when given. Returns the output, fp32 on the CPU."""
     from chronoedit_tpu_torch.kernels import build
 
-    req = request(cfg, dev, seed, EDIT_H, EDIT_W, TEXT_TOKENS)
+    req = req or request(cfg, dev, seed, EDIT_H, EDIT_W, TEXT_TOKENS)
     gen = torch.Generator(device=dev).manual_seed(100 + seed)
     want = expected_launches(cfg, tokens, int4=int4, qk8=qk8)
     torch.cuda.reset_peak_memory_stats()
     build.reset_launches()
     out, secs = host_s(lambda: entry(**req, generator=gen, **kw))
+    if times is not None:
+        times.append(secs)
     got = read_launches()
     print(f"{label}: {secs:.2f} s, peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
           f"GiB, launches {got[0]}, by KV length / int4 rows {got[1]}")
@@ -1258,8 +1633,8 @@ def edit_path(pipe, dev, launches: tuple[Counter, Counter],
     ``launches``. Returns the edits by request seed."""
     cfg = pipe.config
     tokens = [EDIT_TOKENS] * cfg.num_steps
-    outs = {seed: serve(pipe.edit_image, cfg, dev, f"edit {i} ({'cold' if i == 0 else 'warm'})",
-                        seed, (1, 3, EDIT_H, EDIT_W), tokens, launches)
+    outs = {seed: serve(pipe.edit_image, cfg, dev, f"edit {i} (warm)", seed,
+                        (1, 3, EDIT_H, EDIT_W), tokens, launches)
             for i, seed in enumerate((10, 11))}
 
     fns, x, enc_s = stages(pipe, dev, cfg.num_frames, 12)
@@ -1660,8 +2035,10 @@ def main() -> int:
         return 1
     from chronoedit_tpu_torch.configs import chronoedit_14b_distilled
     from chronoedit_tpu_torch.kernels import build
+    from chronoedit_tpu_torch.pipeline.loader import load_pipeline
     from chronoedit_tpu_torch.utils.platform import cuda_device
 
+    t_start = time.perf_counter()
     # fp32 comparisons (the plain attention twin, the CPU reference) in full
     # fp32: no TF32 in matmuls or cuDNN convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1686,25 +2063,34 @@ def main() -> int:
         tool_launches = experiment_tools()
     with torch.inference_mode():
         small_references(dev)
+        encoder_references(dev)
     training_references(dev)
-    # built outside inference_mode: training saves these weights for backward
     cfg = chronoedit_14b_distilled()
-    pipe = build_model(dev, dataclasses.replace(
-        cfg, dit=dataclasses.replace(cfg.dit, remat="full")))
-    with torch.inference_mode():
-        refs = edit_path(pipe, dev, (by_name, by_kv), profile_dir)
-        refs.update(reasoning_path(pipe, dev, (by_name, by_kv), profile_dir))
-    torch.cuda.empty_cache()
-    training_path(pipe, dev, (by_name, by_kv), profile_dir)
-    # quantized serving: the trained-on bf16 DiT quantized in place (its
-    # bf16 weights freed as the walk goes), then the bf16 model rebuilt from
-    # the same seed for mixed2, so that no two copies of the DiT share the card
-    with torch.inference_mode():
-        w4a16_path(pipe, dev, (by_name, by_kv), refs, profile_dir)
-        del pipe
+    try:
+        # loaded outside inference_mode: training saves these weights for backward
+        pipe = loaded_path(dev, dataclasses.replace(
+            cfg, dit=dataclasses.replace(cfg.dit, remat="full")), (by_name, by_kv))
+        with torch.inference_mode():
+            refs = edit_path(pipe, dev, (by_name, by_kv), profile_dir)
+            refs.update(reasoning_path(pipe, dev, (by_name, by_kv), profile_dir))
         torch.cuda.empty_cache()
-        pipe = build_model(dev, cfg)
-        mixed2_path(pipe, dev, (by_name, by_kv), refs, profile_dir)
+        training_path(pipe, dev, (by_name, by_kv), profile_dir)
+        # quantized serving: the trained-on bf16 DiT quantized in place (its
+        # bf16 weights freed as the walk goes), then the bf16 model loaded
+        # again from the same files for mixed2, so that no two copies of the
+        # DiT share the card
+        with torch.inference_mode():
+            w4a16_path(pipe, dev, (by_name, by_kv), refs, profile_dir)
+            del pipe
+            torch.cuda.empty_cache()
+            pipe, secs = host_s(lambda: load_pipeline(
+                cfg, str(CHECKPOINT_DIR), loras=[(str(CHECKPOINT_DIR / "distill_lora.safetensors"),
+                                                  1.0)],
+                with_text_encoder=False, with_image_encoder=False, device=dev))
+            print(f"loaded the DiT and VAE again for mixed2 in {secs:.1f} s")
+            mixed2_path(pipe, dev, (by_name, by_kv), refs, profile_dir)
+    finally:
+        shutil.rmtree(CHECKPOINT_DIR, ignore_errors=True)
 
     # K5 is the flash kernel's launches over the 28,800-token reasoning
     # self-attention; K1 the rest of them; X1 and X2 ran in phase 4 only
@@ -1713,6 +2099,7 @@ def main() -> int:
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name], **results[name])
                for name, (src, rep, _) in SOURCES.items()]
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -14,6 +14,10 @@ structural:
 - lists (the VAE stages and res blocks) map index by index;
 - LoRA adapters' stacked ``a`` (L, d_in, r) and ``b`` (L, r, d_out)
   unstack into each block's adapter, in JAX's layout;
+- the encoders' trees (``models/umt5.py``, ``clip.py``, ``xlm_roberta.py``)
+  walk the same way: UMT5's and CLIP's stacked ``blocks`` unstack,
+  XLM-R's block list maps index by index, and XLM-R's bare head matrices
+  (in, out) become the head linears' (out, in) weights;
 - quantized projections (``ops/quant.py``) map key by key onto the
   port's leaf, which must already be there (quantize the port model in
   the same mode first): ``kernel_q`` (in, out) int8 becomes ``weight_q``
@@ -36,9 +40,12 @@ import numpy as np
 import torch
 from torch import nn
 
+from chronoedit_tpu_torch.models.clip import CLIPVision
 from chronoedit_tpu_torch.models.dit import DiT
 from chronoedit_tpu_torch.models.lora import LoRA
+from chronoedit_tpu_torch.models.umt5 import UMT5
 from chronoedit_tpu_torch.models.vae import VAE
+from chronoedit_tpu_torch.models.xlm_roberta import XLMRoberta
 
 
 def _assign(param: torch.Tensor, value: np.ndarray, path: str, seen: set) -> None:
@@ -101,14 +108,41 @@ def _check_complete(module: nn.Module, seen: set) -> None:
         raise ValueError(f"parameters not set from the JAX tree: {missing[:8]}")
 
 
-def load_dit(model: DiT, params: dict) -> DiT:
-    """Copy a numpy-converted JAX DiT tree into ``model``; returns it."""
+def _load_stacked(model: nn.Module, params: dict) -> nn.Module:
+    """A tree whose ``blocks`` leaves carry a leading layer axis."""
     seen: set = set()
     blocks = params["blocks"]
     for i, blk in enumerate(model.blocks):
         layer = _map_tree(lambda a, i=i: np.asarray(a)[i], blocks)
         _load(blk, layer, f"blocks[{i}]", seen)
     _load(model, {k: v for k, v in params.items() if k != "blocks"}, "", seen)
+    _check_complete(model, seen)
+    return model
+
+
+def load_dit(model: DiT, params: dict) -> DiT:
+    """Copy a numpy-converted JAX DiT tree into ``model``; returns it."""
+    return _load_stacked(model, params)
+
+
+def load_umt5(model: UMT5, params: dict) -> UMT5:
+    """Copy a numpy-converted JAX UMT5 tree into ``model``; returns it."""
+    return _load_stacked(model, params)
+
+
+def load_clip(model: CLIPVision, params: dict) -> CLIPVision:
+    """Copy a numpy-converted JAX CLIP vision tree into ``model``; returns
+    it."""
+    return _load_stacked(model, params)
+
+
+def load_xlm_roberta(model: XLMRoberta, params: dict) -> XLMRoberta:
+    """Copy a numpy-converted JAX XLM-R tree into ``model``; returns it."""
+    tree = dict(params)
+    if "head" in tree:
+        tree["head"] = {k: {"kernel": v} for k, v in tree["head"].items()}
+    seen: set = set()
+    _load(model, tree, "", seen)
     _check_complete(model, seen)
     return model
 

@@ -14,10 +14,14 @@ checkpoint), so merged weights live one block at a time and are recomputed
 in the backward. The math is the same as merging the whole tree first, as
 JAX does: each block reads only its own merged weights.
 
+Several adapters fuse one after another (:func:`merge_multi_lora`), each
+rounded to W's dtype before the next, as in JAX. Files of the reference's
+LoRA dialects convert through ``models/weights.py``.
+
 A quantized projection (``ops/quant.py``) has no float weight to merge
 into: building adapters over it or merging into it raises. Not here yet:
 ``attach_lora`` / ``base_is_quantized`` (QLoRA's side adapters over a
-quantized base) and ``merge_multi_lora`` (with the weights slice).
+quantized base).
 """
 
 from __future__ import annotations
@@ -126,13 +130,27 @@ def merged_weights(block: nn.Module, adapters: nn.ModuleDict,
     return out
 
 
-def merge_lora(model: nn.Module, lora: LoRA, scale: float = 1.0) -> nn.Module:
-    """A copy of ``model`` with ``W + scale * (alpha / r) * a @ b`` fused
-    into every target (the reference's ``fuse_lora``); ``model`` is not
-    changed."""
-    merged = copy.deepcopy(model)
+def merge_lora(model: nn.Module, lora: LoRA, scale: float = 1.0,
+               in_place: bool = False) -> nn.Module:
+    """``model`` with ``W + scale * (alpha / r) * a @ b`` fused into every
+    target (the reference's ``fuse_lora``), in fp32 and rounded once to W's
+    dtype. A copy, unless ``in_place`` (the loader's, for a 14B model that
+    has no room for a second copy)."""
+    merged = model if in_place else copy.deepcopy(model)
     with torch.no_grad():
         for blk, adapters in zip(merged.blocks, lora.blocks):
             for lin, w in merged_weights(blk, adapters, lora.cfg.scaling * scale).items():
                 lin.weight.copy_(w)
     return merged
+
+
+def merge_multi_lora(model: nn.Module, adapters: dict[str, tuple[LoRA, float]]) -> nn.Module:
+    """A copy of ``model`` with several adapters, ``{name: (adapters,
+    scale)}``, fused one after another (multi-adapter activation): each
+    merge adds in fp32 and rounds to W's dtype before the next, as JAX's
+    ``merge_multi_lora`` does, so the result is not the deltas' sum rounded
+    once."""
+    out = copy.deepcopy(model)
+    for lora, scale in adapters.values():
+        merge_lora(out, lora, scale, in_place=True)
+    return out

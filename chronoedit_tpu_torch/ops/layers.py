@@ -25,15 +25,16 @@ def empty_param(shape, device, dtype) -> nn.Parameter:
 
 
 class Linear(nn.Module):
-    """``y = x @ W.T + b`` in x's dtype. Init: xavier-uniform weight and zero
+    """``y = x @ W.T + b`` in x's dtype (no ``b`` with ``bias=False``, as the
+    encoders' bias-free projections). Init: xavier-uniform weight and zero
     bias (``linear_init``), or N(0, std) with ``std=`` (the embedders)."""
 
     def __init__(self, d_in: int, d_out: int, *, device=None, dtype=torch.float32,
                  generator: torch.Generator | None = None, std: float | None = None,
-                 zero: bool = False):
+                 zero: bool = False, bias: bool = True):
         super().__init__()
         self.weight = empty_param((d_out, d_in), device, dtype)
-        self.bias = empty_param((d_out,), device, dtype)
+        self.bias = empty_param((d_out,), device, dtype) if bias else None
         if generator is None:
             return
         with torch.no_grad():
@@ -44,7 +45,8 @@ class Linear(nn.Module):
             else:
                 limit = math.sqrt(6.0 / (d_in + d_out))
                 self.weight.uniform_(-limit, limit, generator=generator)
-            self.bias.zero_()
+            if self.bias is not None:
+                self.bias.zero_()
 
 
 def linear(p: nn.Module, x: torch.Tensor, weight: torch.Tensor | None = None) -> torch.Tensor:
@@ -60,7 +62,7 @@ def linear(p: nn.Module, x: torch.Tensor, weight: torch.Tensor | None = None) ->
             return quant.quantized_linear(p, x)
         return quant.quantized_linear_int4(p, x)
     w = p.weight if weight is None else weight
-    return F.linear(x, w.to(x.dtype), p.bias.to(x.dtype))
+    return F.linear(x, w.to(x.dtype), None if p.bias is None else p.bias.to(x.dtype))
 
 
 class LayerNorm(nn.Module):

@@ -16,8 +16,10 @@ the rest on those two; with k >= num_steps the whole trajectory survives.
 Either way it decodes twice: the reasoning video and the 2-frame edit.
 
 ``quantize`` switches the DiT to int8 / int4 projections in place
-(``ops/quant.py``). Prompt and CLIP image embeddings are passed in
-precomputed. Not here yet:
+(``ops/quant.py``). Prompt and CLIP image embeddings are passed in, or
+made by the attached encoders: ``encode_prompt`` (UMT5, from a prompt or
+from token ids) and ``encode_image`` (CLIP ViT-H); ``pipeline/loader.py``
+builds the whole pipeline from a checkpoint directory. Not here yet:
 guardrails, skip-layer guidance over two forwards, the block cache and
 multi-device meshes.
 """
@@ -87,12 +89,19 @@ def prepare_condition(vae: vae_lib.VAE, cfg: PipelineConfig, image: torch.Tensor
 
 
 class ChronoEditPipeline:
-    """Holds the DiT and VAE modules and exposes the edit API."""
+    """Holds the DiT and VAE modules, and optionally the text and image
+    encoders (``models/umt5.UMT5TextEncoder``, ``models/clip.
+    CLIPImageEncoder``), and exposes the edit API."""
 
-    def __init__(self, config: PipelineConfig, dit: dit_lib.DiT, vae: vae_lib.VAE):
+    def __init__(self, config: PipelineConfig, dit: dit_lib.DiT, vae: vae_lib.VAE,
+                 text_encoder=None, image_encoder=None):
         self.config = config
         self.dit = dit
         self.vae = vae
+        self.text_encoder = text_encoder
+        self.image_encoder = image_encoder
+        # seconds per component when ``pipeline/loader.py`` built it
+        self.load_seconds: dict[str, float] = {}
 
     def quantize(self, skip: tuple = (), mode: str = "int8",
                  upgrade: tuple = ()) -> "ChronoEditPipeline":
@@ -107,6 +116,25 @@ class ChronoEditPipeline:
 
         quantize_dit(self.dit, skip=skip, mode=mode, upgrade=upgrade)
         return self
+
+    def encode_prompt(self, prompt: str | torch.Tensor,
+                      mask: torch.Tensor | None = None) -> torch.Tensor:
+        """UMT5 embeddings (1 or B, text_len, dim), zero past each prompt's
+        length: of a prompt (through the tokenizer, whose vocabulary is a
+        download) or of token ids (B, S) with their 0/1 ``mask`` (all ones
+        by default)."""
+        if self.text_encoder is None:
+            raise ValueError("no text_encoder attached; pass prompt_emb instead")
+        if isinstance(prompt, str):
+            return self.text_encoder([prompt])
+        return self.text_encoder.encode_ids(prompt, torch.ones_like(prompt) if mask is None
+                                            else mask)
+
+    def encode_image(self, image: torch.Tensor) -> torch.Tensor:
+        """CLIP penultimate features (B, 257, 1280) of [-1, 1] images."""
+        if self.image_encoder is None:
+            raise ValueError("no image_encoder attached; pass image_emb instead")
+        return self.image_encoder(image)
 
     def _model_fn(self, condition, text_emb, neg_text_emb, image_emb, guidance):
         """Velocity closure ``fn(x, t)`` for the solver; with guidance > 1,

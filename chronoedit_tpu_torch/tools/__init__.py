@@ -11,7 +11,10 @@ repository root:
 - ``python -m chronoedit_tpu_torch.tools.exp_norm_ring``: K4's and K2's
   device time at the main paths' shapes, on an input used again and on one
   just written, by CUDA events and by the profiler (the card only; it has
-  no JAX counterpart).
+  no JAX counterpart);
+- ``python -m chronoedit_tpu_torch.tools.encoder_bounds [--device cpu]``:
+  the dB that ``chip_smoke.py``'s encoder bound reads for sound bf16 UMT5
+  and CLIP encoders and for planted faults (no kernel; either device).
 
 The first two run on the card (``utils.platform.cuda_device``) unless the
 caller passes ``device=torch.device("cpu")``, as the tests do: the CPU runs
