@@ -1,6 +1,8 @@
 """Drive the PyTorch port's paths once on one NVIDIA GPU: the 8-step 720p
 edit from a checkpoint directory (weights, LoRA and the UMT5 / CLIP
-encoders loaded from files), the 29-frame temporal-reasoning edit, LoRA
+encoders loaded from files), the 29-frame temporal-reasoning edit, serving
+(the batching EditServer and its HTTP endpoint, classifier-free and
+skip-layer guidance, the block cache, the video guardrails), LoRA
 fine-tuning of the full-width DiT at the edit's geometry, quantized serving (w4a16 with
 int8-score attention, and the mixed2 recipe), and the two attention
 experiments (the grouped flash forward X1 and backward X2).
@@ -46,7 +48,9 @@ non-zero and no result line is printed:
    frame and batch boundaries (``RAGGED_NORM_CASES``, D = 5,120 and 256)
    and K2-K4 at the edit's stream, K2 and K4 also at the reasoning
    forward's 28,800 rows and K4 at the text and CLIP keys' 512 and 257
-   rows (``NORM_ROWS``; each also bitwise against 20 more calls), and
+   rows (``NORM_ROWS``; each also bitwise against 20 more calls), K1
+   (against KV 7,200, 512 and 257, the twin in q chunks) and K2-K4 at the
+   edit's stream also at the serving phase's B = 2 and 4 (``BATCHES``), and
    the flash kernel at the reasoning self-attention's 28,800 tokens as K5 and X1 (against the
    q-chunked twin, computed once); K8 (the int4 matmul) at the
    five projection shapes of a 720p forward and the three at the reasoning
@@ -68,6 +72,8 @@ non-zero and no result line is printed:
    card (bf16, kernels) against the same weights on the CPU (fp32, plain
    twins), as PSNR over the [-1, 1] pixel range: the edit, and reasoning
    mode with the frame drop and without it, W-tiled streaming VAE; the edit
+   with batched CFG, with sequential CFG and skip-layer guidance, and with
+   the block cache (period 2); the edit
    quantized int8, w4a16 and mixed2, and the reasoning drop in w4a16 with
    int8 scores (the rule lowered so that K9 runs at these lengths), each on
    the same quantized weights on both sides; the encoders at full width
@@ -96,7 +102,20 @@ non-zero and no result line is printed:
    a cold and a warm edit from those embeddings; the encoders are dropped,
    and the same pipeline serves two more 720p edits, then two 29-frame
    reasoning edits (the whole trajectory, k = 8; the drop, k = 2) through
-   ``__call__``, then takes three
+   ``__call__``; then serves through ``EditServer(max_batch=4)`` with the
+   bundled text blocklist (``server_path``): three requests in one window
+   as one batch padded to 4, two as a batch of 2, the first three alone,
+   a blocked prompt rejected at submit, and two concurrent POSTs through
+   ``scripts/serve.make_handler``, each batch with exact launches and each
+   batched frame held against its solo frame (``SERVE_MIN_DB``, set
+   between the sound readings and planted faults this phase also reads);
+   guidance 5 with a negative prompt, batched CFG (B = 2) and sequential
+   CFG with block 9 skipped in the unconditional forward; the block cache
+   over blocks [8, 32) every second step and adaptively
+   (``guidance_cache_path``); the video guardrails at full size (SigLIP
+   so400m + MLP, RetinaFace R50, seeded weights) on a 5-frame 720p clip,
+   and their fp32 outputs on the card against the CPU (``GUARD_MIN_DB``;
+   ``guardrail_path``); then takes three
    rank-32 LoRA steps (``make_lora_train_step``, remat "full") on 720p mock
    edit pairs; then quantizes that DiT in place to w4a16 (Lloyd grid) and
    serves two 720p edits and a w4a16 + int8-score reasoning edit (k = 2),
@@ -127,6 +146,7 @@ the repository root.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 from collections import Counter
@@ -219,6 +239,38 @@ XLMR_MIN_DB = 80.0
 SMALL_VOCAB = 4096
 # prompt length of the loaded path's 512 token ids (the rest is padding)
 PROMPT_LEN = 300
+# The serving phase. The batcher's window: requests submitted together
+# (the HTTP pair: two uploads of 21 MB) join one batch.
+SERVER_WAIT_MS = 1000.0
+# A batched request's frame against the same request served alone, both
+# bf16 on the card, as PSNR over the [-1, 1] range. The bound lies between
+# the sound readings and the closest planted fault, both read by this phase
+# (``server_path``; H100 80GB HBM3, 700 W): sound, every batched frame
+# bitwise its solo frame (inf dB: each row's GEMM, attention and norm
+# arithmetic does not depend on the batch); faults, a request run with
+# another request's noise 15.17 dB and a frame handed to another request
+# 15.13 dB. The bound is the repo's fidelity bar, 35 dB: a batch whose
+# GEMMs took another tiling (another bf16 summation order) would read near
+# the 2-block references' 46-49 dB (bf16 against fp32) and pass. A
+# modulation read from the wrong batch row cannot show at any bound here:
+# every row of a batch shares its timestep, so the rows' modulations are
+# equal.
+SERVE_MIN_DB = 35.0
+# the block cache's middle blocks at full depth, and the adaptive
+# threshold: on the loaded model's 720p edit it refreshes on 7 of 8 steps
+# (H100 80GB HBM3, 700 W); the run checks that its schedule mixes
+CACHE_BLOCKS = (8, 32)
+CACHE_THRESH = 0.05
+# The guardrail models in fp32 on the card (TF32 off) against fp32 on the
+# CPU, where only the summation order differs, over the CPU's peak. The
+# bound lies between the sound readings and the closest of the other
+# readings ``guardrail_path`` takes itself (H100 80GB HBM3, 700 W): sound,
+# SigLIP 132.88 dB, RetinaFace loc / conf 127.04 / 129.29 dB; planted, an
+# exact GELU for SigLIP's tanh one 83.21 dB (the closest), the control
+# (TF32 on) 72.01 / 72.68 dB, RetinaFace's FPN upsampling `nearest` for
+# `nearest-exact` 37.41 dB, a ResNet v1 bottleneck 30.07 dB, SigLIP's
+# resize without antialiasing 15.32 dB. Each of them must read under it.
+GUARD_MIN_DB = 95.0
 # the checkpoint directory the main path writes and loads, under the
 # repository's git-ignored build/; removed when the run ends
 CHECKPOINT_DIR = Path(__file__).resolve().parent / "build" / "smoke_checkpoint"
@@ -247,6 +299,10 @@ NORM_ROWS = {"ln_modulate": (EDIT_TOKENS, REASONING_TOKENS), "gated_residual": (
 # batch boundary; then frames short enough that one block's rows span three
 # or more frames (K2 reuses a modulation slot), down to a frame a row
 RAGGED_NORM_CASES = ((2, 3, 37), (2, 150, 8), (2, 700, 1))
+# the batch sizes of the serving phase's main paths (batched CFG and the
+# server's pairs; the server's bucket of 4), at which phase 3 also holds
+# K1-K4 against their twins on the edit's 7,200 tokens
+BATCHES = (2, 4)
 # calls of K2-K4 held bitwise against the first on the same inputs
 NORM_REPEATS = 20
 # X1's KV tiles a step, and X2's (n_dq, n_dkv) variants (the experiment's,
@@ -358,6 +414,18 @@ def compare_kernels(dev: torch.device) -> dict[str, dict]:
                 accumulate(results, name, row, case)
     del q, k, v
     torch.cuda.empty_cache()
+    # K1 at the batched main paths' B = 2 (batched CFG, the server's pairs)
+    # and B = 4 (the server's bucket); the twin in q chunks bounds its scores
+    for b in BATCHES:
+        q = randn(b, s, h, d)
+        for skv, what in ((s, "self"), (TEXT_TOKENS, "text"), (IMAGE_TOKENS, "image")):
+            k, v = randn(b, skv, h, d), randn(b, skv, h, d)
+            ref = flash_reference(q, k, v, q_chunk=Q_CHUNK)
+            accumulate(results, "flash_fwd", compare_flash("K1", what, q, k, v, ref),
+                       f"B={b} kv={skv}")
+            del ref, k, v
+        del q
+        torch.cuda.empty_cache()
 
     results.update(compare_norms(randn))
     dim = h * d
@@ -435,8 +503,9 @@ def check_norm(label: str, kernel, plain) -> float:
 
 def compare_norms(randn) -> dict[str, dict]:
     """K2-K4: first K2 and K4 over ``RAGGED_NORM_CASES`` at D = 5,120 and
-    256, then each at its ``NORM_ROWS`` shapes (1, rows, 5120) with frames
-    of the edit's hw = 3,600 rows, against the twin (``check_norm``), with
+    256, then each at its ``NORM_ROWS`` shapes (1, rows, 5120) and at
+    (B, 7200, 5120) for each of ``BATCHES``, with frames of the edit's
+    hw = 3,600 rows, against the twin (``check_norm``), with
     the device time (``cuda_ms``), the call time (``call_ms``), the twin's
     and, for K4, ``torch.nn.functional.rms_norm``'s device time, and beside
     them the device time of a plain copy of the stream (``x.clone()``), the
@@ -452,8 +521,8 @@ def compare_norms(randn) -> dict[str, dict]:
     results = {}
     dim, hw = 40 * 128, EDIT_TOKENS // 2
     for name, sizes in NORM_ROWS.items():
-        for rows in sizes:
-            x = randn(1, rows, dim) * 2.0 + 0.5
+        for b, rows in [(1, rows) for rows in sizes] + [(b, EDIT_TOKENS) for b in BATCHES]:
+            x = randn(b, rows, dim) * 2.0 + 0.5
             kernel, plain, nbytes, library = norm_calls(name, x, dim, hw, randn)
             with torch.no_grad():
                 err = check_norm(f"{name} x {tuple(x.shape)}", kernel, plain)
@@ -470,7 +539,7 @@ def compare_norms(randn) -> dict[str, dict]:
                       "no single PyTorch call computes it" if library is None else
                       f"torch.nn.functional.rms_norm (weight before the rounding) "
                       f"{library_ms:.4f} ms"))
-            accumulate(results, name, row, f"rows={rows}")
+            accumulate(results, name, row, f"rows={rows}" if b == 1 else f"B={b} rows={rows}")
             del x
     return results
 
@@ -986,10 +1055,11 @@ def small_references(dev: torch.device) -> dict[str, float]:
     """The slice at 2 blocks x 2 heads of 128 on ``dev`` in bf16 against the
     same weights in fp32 on the CPU: the 64x64 edit, and 29-frame reasoning
     at 64x256 with the VAE W-tiled 4 ways (streaming encode and decode),
-    with the drop (k = 2) and without it (k = 8); then the edit quantized
-    int8, w4a16 and mixed2, and the drop in w4a16 with int8 scores, each on
-    the CPU model's quantized weights copied bit for bit to the card.
-    Returns PSNRs in dB."""
+    with the drop (k = 2) and without it (k = 8); the edit with batched CFG,
+    with sequential CFG and skip-layer guidance, and with the block cache;
+    then the edit quantized int8, w4a16 and mixed2, and the drop in w4a16
+    with int8 scores, each on the CPU model's quantized weights copied bit
+    for bit to the card. Returns PSNRs in dB."""
     from chronoedit_tpu_torch.configs import chronoedit_14b_distilled
     from chronoedit_tpu_torch.models import dit as dit_lib
     from chronoedit_tpu_torch.models import vae as vae_lib
@@ -1015,12 +1085,15 @@ def small_references(dev: torch.device) -> dict[str, float]:
     dev_dit.load_state_dict(dit.state_dict())
     dev_vae.load_state_dict(vae.state_dict())
 
-    def compare(label, entry, tiles, h, w, noise, shape, dits=(dit, dev_dit), **kw):
-        ref_pipe = ChronoEditPipeline(dataclasses.replace(ref_cfg, vae_spatial_tiles=tiles),
-                                      dits[0], vae)
-        dev_pipe = ChronoEditPipeline(dataclasses.replace(dev_cfg, vae_spatial_tiles=tiles),
-                                      dits[1], dev_vae)
+    def compare(label, entry, tiles, h, w, noise, shape, dits=(dit, dev_dit), cfg_kw=None,
+                **kw):
+        cfg_kw = dict(cfg_kw or {}, vae_spatial_tiles=tiles)
+        ref_pipe = ChronoEditPipeline(dataclasses.replace(ref_cfg, **cfg_kw), dits[0], vae)
+        dev_pipe = ChronoEditPipeline(dataclasses.replace(dev_cfg, **cfg_kw), dits[1], dev_vae)
         req = request(ref_cfg, cpu, 2, h, w, 16)
+        if "guidance_scale" in kw:  # a negative prompt for classifier-free guidance
+            req["neg_prompt_emb"] = torch.randn(req["prompt_emb"].shape,
+                                                generator=torch.Generator().manual_seed(3))
         want = getattr(ref_pipe, entry)(**req, latents=noise, **kw)
         got = getattr(dev_pipe, entry)(**{k: v.to(dev) for k, v in req.items()},
                                        latents=noise.to(dev), **kw)
@@ -1037,6 +1110,16 @@ def small_references(dev: torch.device) -> dict[str, float]:
 
     edit_noise = torch.randn((1, 16, 2, 8, 8), generator=g)
     results = {"edit": compare("edit", "edit_image", None, 64, 64, edit_noise, (1, 3, 64, 64))}
+    # the serving forms: CFG batched (B = 2) and sequential with block 1
+    # skipped in the unconditional forward, at guidance 5; the block cache
+    # over block 1, refreshed every second step
+    for label, cfg_kw, kw in (
+            ("CFG batched, guidance 5", {}, dict(guidance_scale=5.0)),
+            ("CFG sequential + SLG (1,), guidance 5", dict(cfg_batched=False),
+             dict(guidance_scale=5.0, slg_layers=(1,))),
+            ("block cache (1, 2), period 2", dict(cache_blocks=(1, 2), cache_period=2), {})):
+        results[f"edit {label}"] = compare(f"edit, {label}", "edit_image", None, 64, 64,
+                                           edit_noise, (1, 3, 64, 64), cfg_kw=cfg_kw, **kw)
     noise = torch.randn((1, 16, 8, 8, 32), generator=g)
     for k, frames in ((2, 5), (ref_cfg.num_steps, REASONING_FRAMES)):
         results[f"reasoning k={k}"] = compare(
@@ -1282,12 +1365,16 @@ def training_references(dev: torch.device) -> dict[str, float]:
     return readings
 
 
-def expected_launches(cfg, tokens: list[int], int4: bool = False,
-                      qk8: bool = False) -> tuple[dict[str, int], dict[str, dict[int, int]]]:
-    """Kernel launches of one edit whose step i self-attends over tokens[i]:
-    per block and step 3 attentions (self, text, image), 2 LN-modulates, 2
-    gated residuals and 5 RMSNorms (self q, k; cross q; text k; image k),
-    plus the head's LN-modulate, and no backward. With ``int4`` (w4a16)
+def expected_launches(cfg, tokens: list[int], int4: bool = False, qk8: bool = False,
+                      blocks: list[list[int]] | None = None
+                      ) -> tuple[dict[str, int], dict[str, dict[int, int]]]:
+    """Kernel launches of one edit whose step i self-attends over tokens[i]
+    and runs forwards of ``blocks[i]`` blocks each (default one forward of
+    every block; two under sequential CFG, fewer where skip-layer guidance
+    or the block cache skips blocks; a batch launches each kernel once):
+    per block 3 attentions (self, text, image), 2 LN-modulates, 2 gated
+    residuals and 5 RMSNorms (self q, k; cross q; text k; image k), plus
+    each forward's head LN-modulate, and no backward. With ``int4`` (w4a16)
     every block's 12 projections run K8: 8 over the step's tokens, 2 over
     the text and 2 over the image context; with ``qk8`` self-attention past
     JAX's resident KV length runs K9 instead of the flash forward. No
@@ -1296,17 +1383,23 @@ def expected_launches(cfg, tokens: list[int], int4: bool = False,
     ``read_launches``."""
     from chronoedit_tpu_torch.ops.flash_attention import uses_int8_scores
 
-    n, steps = cfg.dit.num_layers, len(tokens)
-    by_kv = {TEXT_TOKENS: n * steps, IMAGE_TOKENS: n * steps}
+    blocks = blocks or [[cfg.dit.num_layers]] * len(tokens)
+    by_kv = {TEXT_TOKENS: 0, IMAGE_TOKENS: 0}
     qk8_kv, rows = {}, {}
-    for s in tokens:
-        counts = qk8_kv if qk8 and uses_int8_scores(s, cfg.dit.head_dim, 2) else by_kv
-        counts[s] = counts.get(s, 0) + n
-        if int4:
-            for m, per_block in ((s, 8), (TEXT_TOKENS, 2), (IMAGE_TOKENS, 2)):
-                rows[m] = rows.get(m, 0) + per_block * n
-    by_name = {"flash_fwd": sum(by_kv.values()), "ln_modulate": (2 * n + 1) * steps,
-               "gated_residual": 2 * n * steps, "rms_norm": 5 * n * steps,
+    n_blocks = n_forwards = 0
+    for s, forwards in zip(tokens, blocks):
+        for n in forwards:
+            n_blocks += n
+            n_forwards += 1
+            by_kv[TEXT_TOKENS] += n
+            by_kv[IMAGE_TOKENS] += n
+            counts = qk8_kv if qk8 and uses_int8_scores(s, cfg.dit.head_dim, 2) else by_kv
+            counts[s] = counts.get(s, 0) + n
+            if int4:
+                for m, per_block in ((s, 8), (TEXT_TOKENS, 2), (IMAGE_TOKENS, 2)):
+                    rows[m] = rows.get(m, 0) + per_block * n
+    by_name = {"flash_fwd": sum(by_kv.values()), "ln_modulate": 2 * n_blocks + n_forwards,
+               "gated_residual": 2 * n_blocks, "rms_norm": 5 * n_blocks,
                "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
                "int4_matmul": sum(rows.values()), "flash_fwd_qk8": sum(qk8_kv.values()),
                **dict.fromkeys(GROUPED, 0)}
@@ -1567,24 +1660,28 @@ def loaded_path(dev: torch.device, cfg, launches: tuple[Counter, Counter]):
 
 def serve(entry, cfg, dev, label: str, seed: int, shape: tuple, tokens: list[int],
           launches: tuple[Counter, Counter], int4: bool = False, qk8: bool = False,
-          req: dict | None = None, times: list | None = None, **kw) -> torch.Tensor:
+          req: dict | None = None, times: list | None = None,
+          blocks: list[list[int]] | None = None, **kw) -> torch.Tensor:
     """One 720p edit through ``entry`` (the pipeline or its ``edit_image``)
     of ``req`` (default: the seeded ``request``), with the launch counters
     zeroed just before it and read just after: they must equal what the
-    path implies (``expected_launches``), and are added to ``launches`` (by
-    name, flash forwards by KV length); its seconds are appended to
-    ``times`` when given. Returns the output, fp32 on the CPU."""
+    path implies (``expected_launches``, with ``blocks`` per forward, or
+    what ``blocks()`` returns after the edit), and are added to
+    ``launches`` (by name, flash forwards by KV length); its
+    seconds are appended to ``times`` when given. Returns the output, fp32
+    on the CPU."""
     from chronoedit_tpu_torch.kernels import build
 
     req = req or request(cfg, dev, seed, EDIT_H, EDIT_W, TEXT_TOKENS)
     gen = torch.Generator(device=dev).manual_seed(100 + seed)
-    want = expected_launches(cfg, tokens, int4=int4, qk8=qk8)
     torch.cuda.reset_peak_memory_stats()
     build.reset_launches()
     out, secs = host_s(lambda: entry(**req, generator=gen, **kw))
     if times is not None:
         times.append(secs)
     got = read_launches()
+    want = expected_launches(cfg, tokens, int4=int4, qk8=qk8,
+                             blocks=blocks() if callable(blocks) else blocks)
     print(f"{label}: {secs:.2f} s, peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
           f"GiB, launches {got[0]}, by KV length / int4 rows {got[1]}")
     if got != want:
@@ -1683,6 +1780,401 @@ def reasoning_path(pipe, dev, launches: tuple[Counter, Counter],
     if profile_dir is not None:
         profile_stages(fns, profile_dir)
     return outs
+
+
+# ----------------------------------------------------------- serving
+
+class TimedPipeline:
+    """The pipeline as the batching server sees it (harness code): every
+    batch's call has the launch counters zeroed just before it and read just
+    after, in the batcher's thread, and they must be one edit's (each
+    kernel launches once for the whole batch); its batch size, seconds and
+    peak memory are kept in ``batches``, its launches added to
+    ``launches``."""
+
+    def __init__(self, pipe, launches: tuple[Counter, Counter]):
+        self._pipe, self._launches = pipe, launches
+        self.batches: list[tuple[int, float, float]] = []
+
+    def __getattr__(self, name):
+        return getattr(self._pipe, name)
+
+    def __call__(self, image, *args, **kw):
+        from chronoedit_tpu_torch.kernels import build
+
+        cfg = self._pipe.config
+        want = expected_launches(cfg, [EDIT_TOKENS] * cfg.num_steps)
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        out, secs = host_s(lambda: self._pipe(image, *args, **kw))
+        got = read_launches()
+        if got != want:
+            raise AssertionError(f"server batch of {image.shape[0]}: launches {got}, "
+                                 f"the path implies {want}")
+        self.batches.append((image.shape[0], secs, torch.cuda.max_memory_allocated() / 2**30))
+        for total, counts in zip(self._launches, (got[0], got[1]["flash_fwd"])):
+            total.update(counts)
+        return out
+
+
+def post_edit(port: int, req: dict, seed: int) -> torch.Tensor:
+    """One request through the HTTP endpoint: the edited frame."""
+    import io
+    import urllib.request
+
+    import numpy as np
+
+    buf = io.BytesIO()
+    np.savez(buf, **{k: v.float().cpu().numpy() for k, v in req.items()})
+    post = urllib.request.Request(f"http://127.0.0.1:{port}/edit?seed={seed}",
+                                  data=buf.getvalue(), method="POST")
+    with urllib.request.urlopen(post, timeout=600) as r:
+        with np.load(io.BytesIO(r.read())) as z:
+            return torch.from_numpy(z["edit"])
+
+
+def server_path(pipe, dev, launches: tuple[Counter, Counter]) -> dict:
+    """``EditServer(max_batch=4, buckets (1, 2, 4))`` around the loaded
+    pipeline with the bundled text blocklist attached: requests 20-22 queued
+    in one window run as one batch padded to 4, requests 23-24 as a batch of
+    2, then 20-22 one at a time, each batch with exact launches; a blocked
+    prompt fails its own future at submit; requests 20 and 21 come again as
+    two concurrent POSTs through ``scripts/serve.make_handler``. Each
+    batched frame is held against the same request's solo frame
+    (``SERVE_MIN_DB``), beside the planted faults' readings: request 20
+    with request 21's noise (one more edit) and frames handed to the wrong
+    request. Returns the readings."""
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    from chronoedit_tpu_torch.aux.guardrails import GuardrailBlocked, Guardrails, text_guardrail
+    from chronoedit_tpu_torch.pipeline.server import EditServer, ServerConfig
+    from chronoedit_tpu_torch.scripts import serve as serve_cli
+
+    cfg = pipe.config
+    reqs = {seed: request(cfg, dev, seed, EDIT_H, EDIT_W, TEXT_TOKENS) for seed in range(20, 25)}
+    timed = TimedPipeline(pipe, launches)
+    pipe.guardrails = Guardrails(text=text_guardrail())
+    srv = EditServer(timed, ServerConfig(max_batch=4, buckets=(1, 2, 4),
+                                         max_wait_ms=SERVER_WAIT_MS))
+    httpd = None
+    try:
+        first = {s: srv.submit(**reqs[s], seed=s) for s in (20, 21, 22)}  # one window
+        srv.start()
+        batched = {s: f.result(timeout=600) for s, f in first.items()}
+        pair = {s: srv.submit(**reqs[s], seed=s) for s in (23, 24)}
+        batched.update({s: f.result(timeout=600) for s, f in pair.items()})
+        solo = {s: srv.submit(**reqs[s], seed=s).result(timeout=600) for s in (20, 21, 22)}
+
+        n_batches = srv.stats["batches"]
+        blocked = srv.submit(**reqs[20], seed=20, prompt="a beheading video")
+        if not (blocked.done() and isinstance(blocked.exception(), GuardrailBlocked)
+                and srv.stats["rejected"] == 1 and srv.stats["batches"] == n_batches):
+            raise AssertionError(f"the blocked prompt was not rejected at submit: {srv.stats}")
+
+        httpd = ThreadingHTTPServer(("127.0.0.1", 0), serve_cli.make_handler(srv))
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        posted = {}
+        threads = [threading.Thread(target=lambda s=s: posted.update(
+            {s: post_edit(httpd.server_address[1], reqs[s], s)})) for s in (20, 21)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        health = srv.health()
+    finally:
+        if httpd is not None:
+            httpd.shutdown()
+            httpd.server_close()
+        srv.stop()
+        pipe.guardrails = None
+    want_stats = {"requests": 10, "batches": 6, "batched_requests": 10, "padded_slots": 1,
+                  "rejected": 1, "errors": 0}
+    sizes = [b for b, _, _ in timed.batches]
+    print(f"server: batches of {sizes}, stats {srv.stats}, health {health}")
+    if srv.stats != want_stats or sizes != [4, 2, 1, 1, 1, 2] or sorted(posted) != [20, 21]:
+        raise AssertionError(f"server: stats {srv.stats} (want {want_stats}), batch sizes "
+                             f"{sizes}, HTTP answers {sorted(posted)}")
+
+    readings = {}
+    for (size, secs, peak), label in zip(timed.batches, ("4 (3 requests + 1 pad)", "2", "1",
+                                                          "1", "1", "2 (HTTP)")):
+        print(f"   batch of {label}: {secs:.2f} s, {size / secs:.3f} slots/s, peak {peak:.2f} GiB")
+    per_bucket = {b: statistics.median(s for size, s, _ in timed.batches[:5] if size == b)
+                  for b in (1, 2, 4)}
+    for b, secs in per_bucket.items():
+        readings[f"bucket_{b}_s"] = secs
+        readings[f"bucket_{b}_slots_per_s"] = b / secs
+    # the batch of 4 served 3 requests and one pad slot
+    readings["bucket_4_requests_per_s"] = 3 / per_bucket[4]
+    readings["peak_gib_b4"] = timed.batches[0][2]
+    print(f"server seconds per batch {per_bucket}; at bucket 4 {4 / per_bucket[4]:.3f} slots/s "
+          f"({per_bucket[1] * 4 / per_bucket[4]:.3f}x bucket 1's {1 / per_bucket[1]:.3f}), "
+          f"{3 / per_bucket[4]:.3f} requests/s with its one pad slot; peak at B = 4 "
+          f"{timed.batches[0][2]:.2f} GiB")
+
+    for s in (20, 21, 22):
+        shapes_ok = tuple(batched[s].shape) == (3, EDIT_H, EDIT_W) == tuple(solo[s].shape)
+        if not (shapes_ok and bool(torch.isfinite(batched[s]).all())):
+            raise AssertionError(f"request {s}: batched frame {tuple(batched[s].shape)}")
+    sound = {s: psnr(batched[s], solo[s]) for s in (20, 21, 22)}
+    sound.update({f"{s} (HTTP)": psnr(posted[s], solo[s]) for s in (20, 21)})
+    wrong_row = min(psnr(batched[a], solo[b]) for a in (20, 21, 22) for b in (20, 21, 22)
+                    if a != b)
+    swapped = serve(pipe.edit_image, cfg, dev, "planted fault: request 20 with request 21's noise",
+                    20, (1, 3, EDIT_H, EDIT_W), [EDIT_TOKENS] * cfg.num_steps, launches,
+                    req=reqs[20], latents=torch.randn(
+                        (1, cfg.latent_channels, 2, EDIT_H // 8, EDIT_W // 8),
+                        generator=torch.Generator(device=dev).manual_seed(21), device=dev))[0]
+    noise_swap = psnr(swapped, solo[20])
+    print(f"batched against solo frames, PSNR dB: { {k: round(v, 2) for k, v in sound.items()} } "
+          f"(bound {SERVE_MIN_DB} dB); planted faults: request 20 with request 21's noise "
+          f"{noise_swap:.2f} dB, a frame handed to another request (the closest pair) "
+          f"{wrong_row:.2f} dB")
+    if not min(sound.values()) >= SERVE_MIN_DB:
+        raise AssertionError(f"a batched frame differs from its solo frame: {sound}")
+    readings.update(sound_min_db=min(sound.values()), noise_swap_db=noise_swap,
+                    wrong_row_db=wrong_row)
+    return readings
+
+
+def record_refreshes(log: list):
+    """Patch ``dit_forward`` to log each call's ``cache_refresh`` (harness
+    code); returns the undo."""
+    from chronoedit_tpu_torch.models import dit as dit_lib
+
+    forward = dit_lib.dit_forward
+
+    def recording(*a, cache_refresh=True, **kw):
+        log.append(bool(cache_refresh))
+        return forward(*a, cache_refresh=cache_refresh, **kw)
+
+    dit_lib.dit_forward = recording
+    return lambda: setattr(dit_lib, "dit_forward", forward)
+
+
+def guidance_cache_path(pipe, dev, launches: tuple[Counter, Counter]) -> dict:
+    """Guidance 5 with a negative prompt, batched CFG (one forward of B = 2
+    a step) and sequential CFG with block 9 skipped in the unconditional
+    forward (40 + 39 blocks a step); then the block cache over blocks
+    [8, 32) on the 8-step edit, every second step (40 and 16 blocks on
+    alternate steps) and adaptive (``CACHE_THRESH``; its schedule must mix
+    refresh and reuse). Each edit with exact launches; seconds and the
+    cached edits' PSNR against the uncached edit of the same request
+    (reported, no bar)."""
+    cfg = pipe.config
+    n = cfg.dit.num_layers
+    steps = cfg.num_steps
+    tokens = [EDIT_TOKENS] * steps
+    shape = (1, 3, EDIT_H, EDIT_W)
+    neg = torch.randn((1, TEXT_TOKENS, cfg.dit.text_dim),
+                      generator=torch.Generator(device=dev).manual_seed(32), device=dev)
+    readings, times = {}, []
+    try:
+        serve(pipe.edit_image, cfg, dev, "CFG batched, guidance 5", 30, shape, tokens, launches,
+              times=times, neg_prompt_emb=neg, guidance_scale=5.0)
+        pipe.config = dataclasses.replace(cfg, cfg_batched=False)
+        serve(pipe.edit_image, cfg, dev, "CFG sequential + SLG (9,), guidance 5", 30, shape,
+              tokens, launches, times=times, blocks=[[n, n - 1]] * steps, neg_prompt_emb=neg,
+              guidance_scale=5.0, slg_layers=(9,))
+        readings.update(cfg_batched_s=times[0], cfg_slg_s=times[1])
+
+        pipe.config = cfg
+        ref = serve(pipe.edit_image, cfg, dev, "uncached edit", 31, shape, tokens, launches,
+                    times=times)
+        lo, hi = CACHE_BLOCKS
+        pipe.config = dataclasses.replace(cfg, cache_blocks=CACHE_BLOCKS, cache_period=2)
+        period = serve(pipe.edit_image, cfg, dev, f"cached edit {CACHE_BLOCKS}, period 2", 31,
+                       shape, tokens, launches, times=times,
+                       blocks=[[n] if i % 2 == 0 else [n - (hi - lo)] for i in range(steps)])
+        sched = []
+        undo = record_refreshes(sched)
+        try:
+            pipe.config = dataclasses.replace(cfg, cache_blocks=CACHE_BLOCKS,
+                                              cache_thresh=CACHE_THRESH)
+            # the schedule is read from the edit's own forwards once it ran
+            adaptive = serve(pipe.edit_image, cfg, dev, f"cached edit {CACHE_BLOCKS}, adaptive "
+                             f"threshold {CACHE_THRESH}", 31, shape, tokens, launches,
+                             times=times,
+                             blocks=lambda: [[n] if r else [n - (hi - lo)] for r in sched])
+        finally:
+            undo()
+        if not 1 < sum(sched) < steps:
+            raise AssertionError(f"adaptive threshold {CACHE_THRESH}: schedule {sched} does "
+                                 f"not mix")
+    finally:
+        pipe.config = cfg
+    uncached_s, period_s, adaptive_s = times[2:5]
+    readings.update(uncached_s=uncached_s, period2_s=period_s, adaptive_s=adaptive_s,
+                    period2_db=psnr(period, ref), adaptive_db=psnr(adaptive, ref),
+                    schedule=sched)
+    print(f"block cache {CACHE_BLOCKS}: period 2 {period_s:.2f} s, PSNR "
+          f"{readings['period2_db']:.2f} dB; adaptive threshold {CACHE_THRESH} schedule {sched}, {adaptive_s:.2f} s, "
+          f"PSNR {readings['adaptive_db']:.2f} dB; against the uncached edit {uncached_s:.2f} s "
+          f"(random weights: PSNR reported, no bar)")
+    return readings
+
+
+def seeded_guardrail_models(g: torch.Generator):
+    """Full-size SigLIP so400m + the safety MLP and RetinaFace R50 on the CPU
+    in fp32 with seeded weights (harness code; the published weights are a
+    download): linears and convolutions N(0, 1/fan_in), RetinaFace's heads
+    100x smaller (box sizes are exponentials of their output), norms 1 +
+    0.1 N, biases 0.02 N, BatchNorm statistics drawn; the classifier's
+    class-0 (Safe) bias raised by 10, so that the slot passes random
+    frames."""
+    from chronoedit_tpu_torch.aux import face_detector as fd
+    from chronoedit_tpu_torch.aux import safety_classifier as sc
+
+    siglip = sc.SigLIPVision(sc.SigLIPVisionConfig())
+    classifier = sc.SafetyClassifier(siglip.cfg.hidden_size)
+    retina = fd.RetinaFace(fd.RetinaFaceConfig())
+    with torch.no_grad():
+        for name, p in [*siglip.named_parameters(), *classifier.named_parameters()]:
+            if p.dim() == 2:
+                p.normal_(0.0, p.shape[1] ** -0.5, generator=g)
+            elif name.endswith(("scale", "bn_var")):
+                p.normal_(1.0, 0.1, generator=g).abs_()
+            elif p.dim() == 3:  # the position embedding and the probe
+                p.normal_(0.0, p.shape[-1] ** -0.5, generator=g)
+            else:
+                p.normal_(0.0, 0.02, generator=g)
+        classifier.layers[-1].bias[0] += 10.0
+        heads = {id(m) for m in retina.heads.modules()}
+        for m in retina.modules():
+            if isinstance(m, fd.Conv):
+                std = m.weight[0].numel() ** -0.5 * (0.01 if id(m) in heads else 1.0)
+                m.weight.normal_(0.0, std, generator=g)
+                m.bias.normal_(0.0, 0.02, generator=g)
+    return siglip, classifier, retina
+
+
+@contextlib.contextmanager
+def tf32():
+    """TF32 in matmuls and cuDNN convolutions for the block (the run keeps
+    it off)."""
+    old = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
+
+
+def guardrail_path(dev: torch.device) -> dict:
+    """The video guardrail at full size: ``check_video`` with the SigLIP +
+    MLP classifier and RetinaFace face blur on one 5-frame 720p clip on the
+    card (fp32), timed; then the card against the CPU in fp32 (TF32 off):
+    the SigLIP embeddings of two frames and RetinaFace's loc / conf on one
+    720p frame, at least ``GUARD_MIN_DB`` over the CPU's peak, and each
+    under it with TF32 on (the control) and with each planted fault. No
+    hand-written kernel launches (SDPA at head dim 72, cuDNN
+    convolutions)."""
+    import copy
+    from unittest import mock
+
+    import numpy as np
+    import torch.nn.functional as F
+
+    from chronoedit_tpu_torch.aux import face_detector as fd
+    from chronoedit_tpu_torch.aux import safety_classifier as sc
+    from chronoedit_tpu_torch.aux.guardrails import Guardrails, video_guardrail
+    from chronoedit_tpu_torch.kernels import build
+    from chronoedit_tpu_torch.ops import layers as L
+
+    g = torch.Generator().manual_seed(50)
+    cpu_models = seeded_guardrail_models(g)
+    siglip, classifier, retina = (copy.deepcopy(m).to(dev) for m in cpu_models)
+    n_params = sum(p.numel() for m in cpu_models for p in m.parameters())
+    boxes = []
+    detect = fd.make_face_detect_fn(retina)
+    guard = Guardrails(video=video_guardrail(
+        classify_fn=sc.make_classify_fn(siglip, classifier),
+        face_detect_fn=lambda f: boxes.append(detect(f)) or boxes[-1]))
+    clip = torch.rand((1, 3, 5, EDIT_H, EDIT_W), generator=g).to(dev) * 2.0 - 1.0
+    build.reset_launches()
+    guard.check_video(clip)  # warm-up: cuDNN's algorithm choice, allocator
+    boxes.clear()
+    out, secs = host_s(lambda: guard.check_video(clip))
+    launched = {k: v for k, v in build.LAUNCHES.items() if v}
+    frames = ((clip[0].permute(1, 2, 3, 0).cpu().numpy() + 1) * 127.5).clip(0, 255)
+    frames = frames.astype(np.uint8)
+    _, classify_s = host_s(lambda: guard.video.checks[0][1](frames))
+    _, detect_s = host_s(lambda: [detect(f) for f in frames])
+    print(f"guardrails: SigLIP so400m + MLP and RetinaFace R50 ({n_params / 1e6:.1f} M fp32 "
+          f"parameters) check_video on a 5-frame {EDIT_H}x{EDIT_W} clip {secs:.3f} s (of which "
+          f"the classifier slot, host resize included, {classify_s:.3f} s and face detection "
+          f"{detect_s:.3f} s, each alone); faces blurred per frame {[len(b) for b in boxes]}; "
+          f"hand-written kernel launches {launched or 'none'}")
+    if (out.shape != clip.shape or out.dtype != clip.dtype or out.device != clip.device
+            or launched):
+        raise AssertionError("check_video returned another tensor or launched a kernel")
+
+    pixels = sc.preprocess(frames[:2], siglip.cfg)
+    bgr = torch.from_numpy(np.ascontiguousarray(
+        (frames[0][..., ::-1].astype(np.float32) - fd._BGR_MEANS).transpose(2, 0, 1)))[None]
+    readings = {"check_video_s": secs, "classify_s": classify_s, "detect_s": detect_s}
+    # the bound's readings beside the sound one: a lower precision (TF32)
+    # and planted faults, each on the card against the sound CPU reference
+    s_px = siglip.cfg.image_size
+    unsmoothed = torch.from_numpy(np.ascontiguousarray(frames[:2])).permute(0, 3, 1, 2).float()
+    unsmoothed = F.interpolate(unsmoothed, size=(s_px, s_px), mode="bicubic",
+                               align_corners=False).round().clamp(0, 255)
+    unsmoothed = (unsmoothed / 255.0 - 0.5) / 0.5
+
+    def v1_bottleneck(blk, x, stride):  # ResNet v1: the stride on the 1x1 conv
+        out = fd._conv(blk["conv1"], x, stride=stride, relu=True)
+        out = fd._conv(blk["conv3"], fd._conv(blk["conv2"], out, pad=1, relu=True))
+        return F.relu(out + (fd._conv(blk["down"], x, stride=stride) if "down" in blk else x))
+
+    controls = {
+        "SigLIP": {"no antialias in the resize": (contextlib.nullcontext, unsmoothed),
+                   "exact GELU for the tanh one": (
+                       lambda: mock.patch.object(L, "gelu_tanh", F.gelu), None)},
+        "RetinaFace": {"FPN upsampling nearest for nearest-exact": (
+                           lambda: mock.patch.object(fd, "_upsample_to", lambda x, like: (
+                               F.interpolate(x, size=like.shape[2:], mode="nearest"))), None),
+                       "ResNet v1 bottleneck": (
+                           lambda: mock.patch.object(fd, "_bottleneck", v1_bottleneck), None)}}
+    card_models = (siglip, classifier, retina)
+    for label, fn, inputs in (
+            ("SigLIP embedding, 2 frames", lambda m, x: (sc.siglip_encode(m[0], x),),
+             pixels),
+            ("RetinaFace loc / conf, one 720p frame",
+             lambda m, x: fd.retinaface_forward(m[2], x), bgr)):
+        want = fn(cpu_models, inputs)
+
+        def card_db(x):
+            return min(peak_db(a.float().cpu(), b) for a, b in zip(fn(card_models, x.to(dev)),
+                                                                    want))
+
+        got = fn(card_models, inputs.to(dev))
+        dbs = [peak_db(a.float().cpu(), b) for a, b in zip(got, want)]
+        print(f"guardrail reference ({label}): card fp32 against CPU fp32 "
+              f"{', '.join(f'{d:.2f}' for d in dbs)} dB over the CPU's peak (bound "
+              f"{GUARD_MIN_DB} dB)")
+        readings[label] = min(dbs)
+        with tf32():
+            seen = {"TF32 on (the control)": card_db(inputs)}
+        for fault, (planted, x) in controls[label.split()[0]].items():
+            with planted():
+                seen[f"planted: {fault}"] = card_db(inputs if x is None else x)
+        print("   " + "; ".join(f"{k} {v:.2f} dB ({'under' if v < GUARD_MIN_DB else 'over'} "
+                                 f"the bound)" for k, v in seen.items()))
+        readings.update({f"{label}: {k}": v for k, v in seen.items()})
+        if not min(dbs) >= GUARD_MIN_DB:
+            raise AssertionError(f"guardrail reference {label}: {dbs} dB")
+        if not max(seen.values()) < GUARD_MIN_DB:
+            raise AssertionError(f"guardrail reference {label}: the bound {GUARD_MIN_DB} dB "
+                                 f"does not see {seen}")
+    # the detector's forward alone (warm, one frame): the rest of a
+    # detection is the host's decode and NMS
+    _, readings["retinaface_forward_s"] = host_s(lambda: fd.retinaface_forward(
+        retina, bgr.to(dev)))
+    print(f"RetinaFace forward alone on one {EDIT_H}x{EDIT_W} frame "
+          f"{readings['retinaface_forward_s'] * 1e3:.1f} ms (fp32, TF32 off) against "
+          f"{detect_s / len(frames) * 1e3:.1f} ms a frame for the whole detection")
+    return readings
 
 
 def expected_train_launches(cfg) -> tuple[dict[str, int], dict[str, dict[int, int]]]:
@@ -2073,6 +2565,11 @@ def main() -> int:
         with torch.inference_mode():
             refs = edit_path(pipe, dev, (by_name, by_kv), profile_dir)
             refs.update(reasoning_path(pipe, dev, (by_name, by_kv), profile_dir))
+            torch.cuda.empty_cache()
+            server_path(pipe, dev, (by_name, by_kv))
+            torch.cuda.empty_cache()
+            guidance_cache_path(pipe, dev, (by_name, by_kv))
+            guardrail_path(dev)
         torch.cuda.empty_cache()
         training_path(pipe, dev, (by_name, by_kv), profile_dir)
         # quantized serving: the trained-on bf16 DiT quantized in place (its

@@ -1,2 +1,2 @@
 from chronoedit_tpu_torch.configs.presets import (  # noqa: F401
-    chronoedit_14b, chronoedit_14b_distilled, chronoedit_tiny)
+    EXPERIMENTS, chronoedit_14b, chronoedit_14b_distilled, chronoedit_tiny, get_experiment)

@@ -13,7 +13,8 @@ from chronoedit_tpu_torch.models.vae import VAEConfig
 from chronoedit_tpu_torch.pipeline.edit_pipeline import PipelineConfig
 
 
-def chronoedit_14b(dtype=torch.bfloat16, param_dtype=torch.bfloat16) -> PipelineConfig:
+def chronoedit_14b(dtype=torch.bfloat16, param_dtype=torch.bfloat16,
+                   remat: str = "none") -> PipelineConfig:
     """The full ChronoEdit-14B edit model."""
     return PipelineConfig(
         dit=DiTConfig(
@@ -32,6 +33,7 @@ def chronoedit_14b(dtype=torch.bfloat16, param_dtype=torch.bfloat16) -> Pipeline
             rope=Rope3DSpec(head_dim=128, temporal_skip_len=8),
             dtype=dtype,
             param_dtype=param_dtype,
+            remat=remat,
         ),
         vae=VAEConfig(dtype=dtype, param_dtype=param_dtype),
         num_steps=50,
@@ -72,3 +74,17 @@ def chronoedit_tiny(dtype=torch.float32) -> PipelineConfig:
         guidance_scale=2.0,
         flow_shift=2.0,
     )
+
+
+EXPERIMENTS = {
+    "chronoedit_14b": chronoedit_14b,
+    "chronoedit_14b_distilled": chronoedit_14b_distilled,
+    "tiny": chronoedit_tiny,
+}
+
+
+def get_experiment(name: str, **kw) -> PipelineConfig:
+    """The preset registered under ``name``, built with ``kw``."""
+    if name not in EXPERIMENTS:
+        raise KeyError(f"unknown experiment {name!r}; have {sorted(EXPERIMENTS)}")
+    return EXPERIMENTS[name](**kw)

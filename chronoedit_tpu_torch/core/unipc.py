@@ -187,11 +187,20 @@ def unipc_step(state: UniPCState, row: tuple[float, ...],
     return UniPCState(x=x_next, m0=m0, m1=m1, last_sample=last_sample)
 
 
-def run_unipc(model_fn: Callable[[torch.Tensor, float], torch.Tensor],
-              coeffs: UniPCCoeffs, state: UniPCState, start: int = 0,
-              end: int | None = None) -> UniPCState:
-    """Steps [start, end): ``model_fn(x, timestep) -> velocity`` each step."""
+def run_unipc(model_fn: Callable[..., torch.Tensor], coeffs: UniPCCoeffs,
+              state: UniPCState, start: int = 0, end: int | None = None, aux=None):
+    """Steps [start, end): ``model_fn(x, timestep) -> velocity`` each step.
+
+    With ``aux`` (any object), the model carries loop state, e.g. the
+    Δ-DiT block-delta cache: ``model_fn(x, timestep, step_index, aux) ->
+    (velocity, aux)``, and ``(state, aux)`` is returned."""
     end = coeffs.num_steps if end is None else end
-    for row in coeffs.slice(start, end).rows():
-        state = unipc_step(state, row, model_fn(state.x, row[0]))
-    return state
+    rows = coeffs.slice(start, end).rows()
+    if aux is None:
+        for row in rows:
+            state = unipc_step(state, row, model_fn(state.x, row[0]))
+        return state
+    for idx, row in zip(range(start, end), rows):
+        v, aux = model_fn(state.x, row[0], idx, aux)
+        state = unipc_step(state, row, v)
+    return state, aux

@@ -302,25 +302,48 @@ def _condition_embeddings(m: DiT, cfg: DiTConfig, timesteps, text_emb, image_emb
 
 def dit_forward(model: DiT, x: torch.Tensor, timesteps: torch.Tensor,
                 text_emb: torch.Tensor, image_emb: torch.Tensor | None = None,
-                layer_mask=None, lora: lora_lib.LoRA | None = None) -> torch.Tensor:
+                layer_mask=None, lora: lora_lib.LoRA | None = None,
+                cache_blocks: tuple[int, int] | None = None,
+                cache: torch.Tensor | None = None, cache_refresh: bool = True):
     """Velocity prediction.
 
     Args:
       x: (B, C_in, T, H, W) noisy latents plus condition channels.
       timesteps: (B,) shared or (B, T) per latent frame, in [0, 1000).
       text_emb: (B, L, text_dim); image_emb: (B, 257, image_dim) or None.
-      layer_mask: optional (num_layers,) 0/1 values; 0 skips a block.
+      layer_mask: optional (num_layers,) 0/1 values on the host (a sequence;
+        a tensor is read to the host once); 0 skips a block (skip-layer
+        guidance).
       lora: optional adapters, merged block by block as
         ``W + (alpha / r) * a @ b``.
+      cache_blocks, cache, cache_refresh: the Δ-DiT step cache
+        (arXiv:2406.01125). Blocks [a, b) contribute a token delta that
+        changes slowly across solver steps. With ``cache_refresh`` (a host
+        bool) every block runs and the sum of blocks [a, b)'s deltas
+        ``out - in``, accumulated block by block in the stream dtype, is
+        the new cache; otherwise blocks [a, b) are skipped and ``cache``
+        (zeros when None) is added once before block a. Returns ``(out,
+        new_cache)`` when ``cache_blocks`` is set. Exact when every step
+        refreshes.
     Returns:
-      (B, C_out, T, H, W) in cfg.dtype.
+      (B, C_out, T, H, W) in cfg.dtype (and the cache when active).
     """
     cfg = model.cfg
     b = x.shape[0]
+    if isinstance(layer_mask, torch.Tensor):
+        layer_mask = layer_mask.tolist()
+    if cache_blocks is not None:
+        if layer_mask is not None:
+            raise ValueError("cache_blocks is incompatible with SLG layer masks")
+        lo, hi = cache_blocks
+        if not 0 <= lo <= hi <= cfg.num_layers:
+            raise ValueError(f"cache_blocks {cache_blocks} out of range")
     tokens, grid = _patchify(x.to(cfg.dtype), cfg)
     gt, gh, gw = grid
     hw = gh * gw
     tokens = L.linear(model.patch_embed, tokens)
+    if cache_blocks is not None and not cache_refresh and cache is None:
+        cache = torch.zeros_like(tokens)
 
     if timesteps.dim() == 1:
         timesteps = timesteps[:, None].expand(b, gt)
@@ -330,17 +353,30 @@ def dit_forward(model: DiT, x: torch.Tensor, timesteps: torch.Tensor,
     tables = temporal_skip_rope_tables if cfg.temporal_skip else rope_3d_tables
     cos, sin = tables(cfg.rope, gt, gh, gw, device=x.device)
 
+    delta = None
     for i, blk in enumerate(model.blocks):
         if layer_mask is not None and float(layer_mask[i]) <= 0.5:
             continue
+        cached = cache_blocks is not None and lo <= i < hi
+        if cache_blocks is not None and i == lo and not cache_refresh:
+            tokens = tokens + cache
+        if cached and not cache_refresh:
+            continue
         adapters = None if lora is None else lora.blocks[i]
         scaling = 0.0 if lora is None else lora.cfg.scaling
-        tokens = _run_block(cfg, blk, adapters, scaling, tokens, text_ctx, img_ctx,
-                            t_proj, cos, sin, hw, cfg)
+        out = _run_block(cfg, blk, adapters, scaling, tokens, text_ctx, img_ctx,
+                         t_proj, cos, sin, hw, cfg)
+        if cached:
+            delta = out - tokens if delta is None else delta + (out - tokens)
+        tokens = out
 
     head = model.head
     mods = head.scale_shift_table.float()[None, None] + temb[:, :, None, :]
     shift, scale = mods[:, :, 0].contiguous(), mods[:, :, 1].contiguous()
     normed = layer_norm_modulate(tokens, scale, shift, hw, cfg.eps)
-    out = L.linear(head.proj, normed)
-    return _unpatchify(out, grid, cfg)
+    out = _unpatchify(L.linear(head.proj, normed), grid, cfg)
+    if cache_blocks is None:
+        return out
+    if not cache_refresh:
+        return out, cache
+    return out, torch.zeros_like(tokens) if delta is None else delta

@@ -8,7 +8,8 @@ structural:
 
 - a linear ``kernel`` (in, out) becomes ``weight`` (out, in);
 - a VAE conv ``kernel`` (kt, kh, kw, cin, cout) becomes ``weight``
-  (cout, cin, kt, kh, kw);
+  (cout, cin, kt, kh, kw), a RetinaFace conv ``kernel`` (kh, kw, cin,
+  cout) becomes ``weight`` (cout, cin, kh, kw);
 - the DiT's stacked ``blocks`` (leading layer axis) unstack into the
   ``nn.ModuleList``;
 - lists (the VAE stages and res blocks) map index by index;
@@ -18,6 +19,10 @@ structural:
   walk the same way: UMT5's and CLIP's stacked ``blocks`` unstack,
   XLM-R's block list maps index by index, and XLM-R's bare head matrices
   (in, out) become the head linears' (out, in) weights;
+- the guardrail models' trees (``aux/safety_classifier.py``,
+  ``aux/face_detector.py``) walk the same way: SigLIP's block list, the
+  classifier's layer list (its BatchNorm statistics copied by name) and
+  RetinaFace's nested stage lists;
 - quantized projections (``ops/quant.py``) map key by key onto the
   port's leaf, which must already be there (quantize the port model in
   the same mode first): ``kernel_q`` (in, out) int8 becomes ``weight_q``
@@ -40,6 +45,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from chronoedit_tpu_torch.aux.face_detector import RetinaFace
+from chronoedit_tpu_torch.aux.safety_classifier import SafetyClassifier, SigLIPVision
 from chronoedit_tpu_torch.models.clip import CLIPVision
 from chronoedit_tpu_torch.models.dit import DiT
 from chronoedit_tpu_torch.models.lora import LoRA
@@ -63,6 +70,8 @@ def _kernel_to_weight(kernel: np.ndarray) -> np.ndarray:
         return kernel.T
     if kernel.ndim == 5:  # (kt, kh, kw, cin, cout) -> (cout, cin, kt, kh, kw)
         return kernel.transpose(4, 3, 0, 1, 2)
+    if kernel.ndim == 4:  # (kh, kw, cin, cout) -> (cout, cin, kh, kw)
+        return kernel.transpose(3, 2, 0, 1)
     raise ValueError(f"unexpected kernel rank {kernel.ndim}")
 
 
@@ -159,12 +168,31 @@ def load_lora(lora: LoRA, params: dict) -> LoRA:
     return lora
 
 
+def _load_tree(module: nn.Module, params: dict) -> nn.Module:
+    seen: set = set()
+    _load(module, params, "", seen)
+    _check_complete(module, seen)
+    return module
+
+
 def load_vae(vae: VAE, params: dict) -> VAE:
     """Copy a numpy-converted JAX VAE tree into ``vae``; returns it."""
-    seen: set = set()
-    _load(vae, params, "", seen)
-    _check_complete(vae, seen)
-    return vae
+    return _load_tree(vae, params)
+
+
+def load_siglip(model: SigLIPVision, params: dict) -> SigLIPVision:
+    """Copy a numpy-converted JAX SigLIP tower tree into ``model``."""
+    return _load_tree(model, params)
+
+
+def load_safety_classifier(model: SafetyClassifier, params: dict) -> SafetyClassifier:
+    """Copy a numpy-converted JAX safety-classifier tree into ``model``."""
+    return _load_tree(model, params)
+
+
+def load_retinaface(model: RetinaFace, params: dict) -> RetinaFace:
+    """Copy a numpy-converted JAX RetinaFace tree into ``model``."""
+    return _load_tree(model, params)
 
 
 def _map_tree(fn, tree):

@@ -44,6 +44,7 @@ def load_pipeline(
     with_text_encoder: bool = True,
     with_image_encoder: bool = True,
     device: torch.device | None = None,
+    guardrails=None,
 ) -> ChronoEditPipeline:
     """Load every staged component and fuse any LoRAs, on ``device``
     (default :func:`~utils.platform.cuda_device`: the CPU only when asked
@@ -61,8 +62,8 @@ def load_pipeline(
 
     Seconds per component (``dit``, ``vae``, ``loras``, ``text_encoder``,
     ``image_encoder``) are kept in the pipeline's ``load_seconds``.
-    Not here (JAX has them): ``mesh`` (multi-device sharding) and
-    ``guardrails``.
+    ``guardrails`` (``aux/guardrails.Guardrails``) are attached to the
+    pipeline. Not here (JAX has it): ``mesh`` (multi-device sharding).
     """
     from chronoedit_tpu_torch.models.clip import CLIPImageEncoder, convert_clip_vision_checkpoint
     from chronoedit_tpu_torch.models.umt5 import UMT5TextEncoder, convert_umt5_checkpoint
@@ -111,6 +112,7 @@ def load_pipeline(
         seconds["image_encoder"] = _seconds(device, t0)
 
     pipe = ChronoEditPipeline(dataclasses.replace(config, vae=vae_cfg), dit, vae,
-                              text_encoder=text_encoder, image_encoder=image_encoder)
+                              text_encoder=text_encoder, image_encoder=image_encoder,
+                              guardrails=guardrails)
     pipe.load_seconds.update(seconds)
     return pipe

@@ -35,9 +35,14 @@ def test_port_imports_without_jax():
     assert int(proc.stdout.strip()) >= 20  # every module was walked
 
 
-# the modules of checkpoint loading and the encoders, which the walk must reach
+# the modules of checkpoint loading and the encoders, and of serving (the
+# server, the guardrails and their models, the CLIs and the host copies they
+# import), which the walk must reach
 LOADER_MODULES = ("models.weights", "models.umt5", "models.clip", "models.xlm_roberta",
                   "models.conditioner", "models.from_jax", "pipeline.loader")
+SERVING_MODULES = ("pipeline.server", "aux", "aux.guardrails", "aux.safety_classifier",
+                   "aux.face_detector", "scripts", "scripts.run_inference", "scripts.serve",
+                   "scripts.check_environment", "data.edit_dataset", "utils.visualize")
 
 _WALK = """
 import pkgutil, sys
@@ -49,14 +54,37 @@ for m in pkgutil.walk_packages(chronoedit_tpu_torch.__path__, "chronoedit_tpu_to
 """
 
 
-def test_walk_reaches_the_loader_and_encoders():
-    """The probe above imports every module the walk yields; the loader's and
-    the encoders' are among them."""
+def _walked() -> set[str]:
     proc = subprocess.run([sys.executable, "-c", _WALK], cwd=REPO, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    walked = set(proc.stdout.split())
-    assert {f"chronoedit_tpu_torch.{m}" for m in LOADER_MODULES} <= walked
+    return set(proc.stdout.split())
+
+
+def test_walk_reaches_the_loader_and_encoders():
+    """The probe above imports every module the walk yields; the loader's and
+    the encoders' are among them."""
+    assert {f"chronoedit_tpu_torch.{m}" for m in LOADER_MODULES} <= _walked()
+
+
+def test_walk_reaches_serving():
+    """... and serving's: the server, the guardrails, the CLIs."""
+    assert {f"chronoedit_tpu_torch.{m}" for m in SERVING_MODULES} <= _walked()
+
+
+def test_importing_the_scripts_starts_nothing():
+    """Importing a CLI module parses no arguments and starts no thread."""
+    proc = subprocess.run([sys.executable, "-c", _SCRIPTS, "--not-an-option"], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["1"]
+
+
+_SCRIPTS = """
+import threading
+from chronoedit_tpu_torch.scripts import check_environment, run_inference, serve
+print(threading.active_count())
+"""
 
 
 def test_attention_routes_by_head_dim(monkeypatch):
