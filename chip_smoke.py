@@ -3,9 +3,13 @@ edit from a checkpoint directory (weights, LoRA and the UMT5 / CLIP
 encoders loaded from files), the 29-frame temporal-reasoning edit, serving
 (the batching EditServer and its HTTP endpoint, classifier-free and
 skip-layer guidance, the block cache, the video guardrails), LoRA
-fine-tuning of the full-width DiT at the edit's geometry, quantized serving (w4a16 with
-int8-score attention, and the mixed2 recipe), and the two attention
-experiments (the grouped flash forward X1 and backward X2).
+fine-tuning of the full-width DiT at the edit's geometry (remat "full" and
+"matmul_only"), QLoRA over the w4a16 DiT, quantized serving (w4a16 with
+int8-score attention, and the mixed2 recipe), the training CLI from the
+checkpoint directory's files to an exported LoRA that serves an edit, the
+full-parameter Trainer with checkpoints, resume and ``convert_weights``,
+and the two attention experiments (the grouped flash forward X1 and
+backward X2).
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card, ``nvcc`` (sm_90a) and no network; it imports
@@ -81,10 +85,13 @@ non-zero and no result line is printed:
    ids with a 300-token mask), CLIP ViT-H (bf16, 16 heads of 80 through
    SDPA, a 720p frame through ``preprocess``) and XLM-R with its head
    (fp32), each with the launch counters zeroed before it and zero after
-   (no encoder runs a hand-written kernel); then two
-   LoRA steps and two full-parameter steps of that DiT (loss, gradient
-   cosine, grad_norm, then Adam's first moment and the update, against the
-   CPU);
+   (no encoder runs a hand-written kernel); then training that DiT
+   (``TRAIN_CASES``): LoRA and full-parameter steps, each also with
+   ``grad_accum = 2``, a LoRA step under remat "matmul_only", QLoRA over a
+   w4a16 and an int4_a8 base (loss, gradient cosine, grad_norm, then after
+   two applied updates Adam's first moment and the update, against the
+   CPU), and each QLoRA adapter gradient against the bf16-base one (JAX's
+   gate, cosine above 0.9);
 6. the main paths: ``chronoedit_14b_distilled`` at full width and depth
    (40 blocks x 5120, bf16, random weights from a seeded generator, built
    outside ``inference_mode`` so that it can train), the full-width VAE, a
@@ -117,11 +124,22 @@ non-zero and no result line is printed:
    and their fp32 outputs on the card against the CPU (``GUARD_MIN_DB``;
    ``guardrail_path``); then takes three
    rank-32 LoRA steps (``make_lora_train_step``, remat "full") on 720p mock
-   edit pairs; then quantizes that DiT in place to w4a16 (Lloyd grid) and
-   serves two 720p edits and a w4a16 + int8-score reasoning edit (k = 2),
-   and loads the bf16 model again from the same files, quantizes it to
-   mixed2 and serves one edit; the directory is removed at the end,
-   whatever happened. The launch counters are zeroed just before each
+   edit pairs and two under remat "matmul_only"; then quantizes that DiT in
+   place to w4a16 (Lloyd grid), takes three rank-32 QLoRA steps over it (K8
+   under autograd) and serves two 720p edits and a w4a16 + int8-score
+   reasoning edit (k = 2); loads the bf16 model again from the same files,
+   quantizes it to mixed2 and serves one edit; runs the training CLI
+   (``scripts/train.main``: rank-32 LoRA, remat "full", ``--grad-accum 2
+   --max-iter 4``) from the directory's DiT shards on two 720p PNG pairs
+   with UMT5-XXL embeddings written for it, and serves an edit with the
+   exported LoRA through ``load_pipeline``; removes the directory and runs
+   the ``Trainer`` (full-parameter, ``TRAINER_BLOCKS`` blocks at full
+   width, ``grad_accum = 2``, validation, ``guard_host_sync``, whose
+   guard must first raise on a device read) 4 iterations straight and 2 +
+   a resume + 2, which must end bitwise equal, then times a save and a
+   restore of its checkpoint and round-trips it through
+   ``convert_weights``; every directory is removed at the end, whatever
+   happened. The launch counters are zeroed just before each
    edit and each step and must then show exactly the launches the path
    implies, by kernel, by attention KV length and by the int4 matmul's
    rows (none of them grouped); write, load (per component, the LoRA merge
@@ -137,8 +155,8 @@ non-zero and no result line is printed:
 
 ``--profile`` adds one warm ``torch.profiler`` pass over each stage (DiT
 forward, VAE encode, VAE decode) of both serving paths at their shapes,
-over one LoRA train step and over one w4a16 and one mixed2 DiT forward at
-7,200 tokens, printing each one's device idle share and
+over one LoRA and one QLoRA train step and over one w4a16 and one mixed2
+DiT forward at 7,200 tokens, printing each one's device idle share and
 writing its per-kernel table to ``chiprun_out/profile_<stage>.txt`` under
 the repository root.
 """
@@ -150,6 +168,7 @@ import contextlib
 import dataclasses
 import functools
 from collections import Counter
+import gc
 import json
 import math
 import re
@@ -199,6 +218,21 @@ TRAIN_GRAD_COS = 0.999
 TRAIN_LR = 1e-2
 TRAIN_MOMENT_REL = 5e-2
 TRAIN_UPDATE_REL = 0.25
+# The same bounds hold the accumulated steps (grad_accum = 2 over the same
+# batch and draws: the mean of equal gradients is that gradient), the LoRA
+# step under remat "matmul_only" (the same arithmetic, other tensors kept)
+# and QLoRA (both sides on the same quantized bits; w4a16 adds the card's
+# one bf16 rounding of each product, w4a8 the activations' int8 roundings,
+# which may flip where x / xs lies within bf16 rounding of a .5). With the
+# bf16 side also on the CPU: cosine 0.999973 for LoRA, full, both
+# accumulated cases, matmul_only and QLoRA over w4a16, 0.999928 over w4a8;
+# the update within 8.9e-2 / 9.7e-2 / 9.3e-2 / 0.126 (LoRA / full / w4a16 /
+# w4a8). QLoRA's adapter gradient on the card against the bf16-base LoRA
+# step's: JAX's gate (``tests/test_conditioner_lora_train.py``), cosine
+# above 0.9 (0.988 with the bf16 side on the CPU); a quantized product with
+# no gradient path (what JAX measured before its straight-through product)
+# reads about 0.80.
+TRAIN_QLORA_COS = 0.9
 # K8 against its twin: the dequantized bf16 weight is bitwise the twin's;
 # both sum in fp32 (in another order) and round once to bf16, so an output
 # may differ by one bf16 step, at most one step of max|ref|. K9 against
@@ -1261,25 +1295,40 @@ def small_training_config(dtype, remat: str):
                                image_dim=32, image_tokens=9, remat=remat)
 
 
-def training_references(dev: torch.device) -> dict[str, float]:
-    """Two LoRA steps and two full-parameter steps of the 2-block DiT at the
-    64x64 edit's geometry: on ``dev`` in bf16 with the kernels (K6/K7 in
-    the backward) and remat "full", against the same weights, batch and
-    draws in fp32 on the CPU with the twins. Compares the loss (relative),
-    the cosine of the whole gradient vector, the first step's loss and
-    grad_norm (relative), and after the second step Adam's first moment
-    and the update of every trained weight (normwise). Returns the
-    readings."""
+# the training references' cases: (label, trained tensors, the card's remat,
+# grad_accum, the base's quantization mode)
+TRAIN_CASES = (("lora", "lora", "full", 1, None), ("full", "full", "full", 1, None),
+               ("lora, grad_accum 2", "lora", "full", 2, None),
+               ("full, grad_accum 2", "full", "full", 2, None),
+               ("lora, remat matmul_only", "lora", "matmul_only", 1, None),
+               ("QLoRA over w4a16", "lora", "full", 1, "int4"),
+               ("QLoRA over int4_a8", "lora", "full", 1, "int4_a8"))
+
+
+def training_references(dev: torch.device) -> dict[str, dict]:
+    """Steps of the 2-block DiT at the 64x64 edit's geometry, each case of
+    ``TRAIN_CASES`` on ``dev`` in bf16 with the kernels (K6/K7 in the
+    backward, K8 under a w4a16 base) against the same weights, batch and
+    draws in fp32 on the CPU with the twins (remat "none"): LoRA and
+    full-parameter steps, each also with ``grad_accum = 2``, a LoRA step
+    under remat "matmul_only", and QLoRA over a w4a16 and an int4_a8 base
+    (the CPU model's quantized bits copied to the card). Compares the loss
+    (relative), the cosine of the whole gradient vector, the first step's
+    loss and grad_norm (relative), and after two applied updates (the first
+    at the warm-up's learning rate 0, which must leave every weight's bits
+    as they were, as must a micro-step that only accumulates) Adam's first
+    moment and the update of every trained weight (normwise). On the card,
+    each QLoRA adapter gradient against the bf16-base LoRA gradient, at
+    JAX's gate (``TRAIN_QLORA_COS``). Returns the readings."""
     from chronoedit_tpu_torch.core.rectified_flow import RectifiedFlowConfig
     from chronoedit_tpu_torch.models import dit as dit_lib
     from chronoedit_tpu_torch.models import lora as lora_lib
+    from chronoedit_tpu_torch.ops import quant
     from chronoedit_tpu_torch.train import lora_train, train_step
 
     cpu = torch.device("cpu")
-    ref_cfg = small_training_config(torch.float32, "none")
-    dev_cfg = small_training_config(torch.bfloat16, "full")
     g = torch.Generator().manual_seed(3)
-    ref_dit = dit_lib.init_dit_params(ref_cfg, g)
+    ref_dit = dit_lib.init_dit_params(small_training_config(torch.float32, "none"), g)
     with torch.no_grad():  # a zero head would stop every gradient
         w = ref_dit.head.proj.weight
         w.uniform_(-w.shape[1] ** -0.5, w.shape[1] ** -0.5, generator=g)
@@ -1294,10 +1343,17 @@ def training_references(dev: torch.device) -> dict[str, float]:
              "image_emb": torch.randn((1, 9, 32), generator=g)}
     u, noise = torch.tensor([0.6]), torch.randn((1, 16, 2, 8, 8), generator=g)
     rf = RectifiedFlowConfig()
+    quantized = {}  # mode -> the CPU's quantized state dict
 
-    def on(device, cfg):
+    def on(side, device, cfg, qmode):
         dit = dit_lib.DiT(cfg, device=device)
         dit.load_state_dict(ref_dit.state_dict())
+        if qmode is not None:
+            quant.quantize_dit(dit, mode=qmode)
+            if side == "ref":
+                quantized[qmode] = dit.state_dict()
+            else:  # the CPU's bits: the same quantized weights on both sides
+                dit.load_state_dict(quantized[qmode])
         lora = lora_lib.LoRA(dit, lora_lib.LoRAConfig(), device=device)
         lora.load_state_dict(ref_lora.state_dict())
         return dit, lora, {k: v.to(device) for k, v in batch.items()}, u.to(device), noise.to(device)
@@ -1308,20 +1364,25 @@ def training_references(dev: torch.device) -> dict[str, float]:
     def rel(got, want):
         return float((got - want).norm() / want.norm())
 
-    readings = {}
-    for mode in ("lora", "full"):
+    def cosine(a, b):
+        return float(a @ b / (a.norm() * b.norm()))
+
+    readings, card_grads = {}, {}
+    for label, mode, remat, accum, qmode in TRAIN_CASES:
         sides, tcfg = {}, None
-        for name, device, cfg in (("ref", cpu, ref_cfg), ("dev", dev, dev_cfg)):
-            dit, lora, b, u_, noise_ = on(device, cfg)
+        for name, device, cfg in (("ref", cpu, small_training_config(torch.float32, "none")),
+                                  ("dev", dev, small_training_config(torch.bfloat16, remat))):
+            dit, lora, b, u_, noise_ = on(name, device, cfg, qmode)
             params = list(lora.parameters()) if mode == "lora" else list(dit.parameters())
             for p in params:
                 p.requires_grad_(True)
-            loss = train_step.velocity_loss(dit, cfg, rf, b["latents"], b["condition"],
-                                            b["text_emb"], b["image_emb"], u_, noise_,
-                                            lora=lora if mode == "lora" else None)
+            loss = train_step.velocity_loss(
+                dit, cfg, rf, b["latents"], b["condition"], b["text_emb"], b["image_emb"], u_,
+                noise_, lora=lora if mode == "lora" else None,
+                lora_attach=qmode is not None)
             grad = flat(torch.autograd.grad(loss, params))
             if tcfg is None:  # the clip acts on both sides
-                tcfg = train_step.TrainConfig(lr=TRAIN_LR, warmup_steps=1,
+                tcfg = train_step.TrainConfig(lr=TRAIN_LR, warmup_steps=1, grad_accum=accum,
                                               grad_clip=0.5 * float(grad.norm()))
             if mode == "lora":
                 state = lora_train.make_lora_train_state(lora, tcfg)
@@ -1331,9 +1392,16 @@ def training_references(dev: torch.device) -> dict[str, float]:
                 step = functools.partial(train_step.make_train_step(cfg, tcfg), state)
             before = [p.detach().clone() for p in params]
             metrics = step(b, u=u_, noise=noise_)
+            for _ in range(accum - 1):  # the rest of the first (lr 0) update
+                step(b, u=u_, noise=noise_)
             if not all(torch.equal(p, q) for p, q in zip(params, before)):
-                raise AssertionError(f"training reference {mode}: the warm-up step moved a weight")
-            step(b, u=u_, noise=noise_)
+                raise AssertionError(f"training reference {label}: the warm-up update or an "
+                                     "accumulating micro-step moved a weight")
+            for _ in range(accum):
+                step(b, u=u_, noise=noise_)
+            if state.optimizer.gradient_step != 2:
+                raise AssertionError(f"training reference {label}: "
+                                     f"{state.optimizer.gradient_step} updates, not 2")
             update = flat([p.detach().float() - q.float() for p, q in zip(params, before)])
             moment = flat([state.optimizer.adamw.state[p]["exp_avg"] for p in params])
             sides[name] = (float(loss.detach()), grad, float(metrics["loss"]),
@@ -1341,27 +1409,35 @@ def training_references(dev: torch.device) -> dict[str, float]:
             del dit, lora, state, step, params, before
         (l_ref, g_ref, sl_ref, gn_ref, up_ref, m_ref) = sides["ref"]
         (l_dev, g_dev, sl_dev, gn_dev, up_dev, m_dev) = sides["dev"]
+        card_grads[label] = g_dev
         loss_rel = abs(l_dev - l_ref) / abs(l_ref)
-        cos = float(g_ref @ g_dev / (g_ref.norm() * g_dev.norm()))
+        cos = cosine(g_ref, g_dev)
         step_rel = abs(sl_dev - sl_ref) / abs(sl_ref)
         norm_rel = abs(gn_dev - gn_ref) / gn_ref
         moment_rel, update_rel = rel(m_dev, m_ref), rel(up_dev, up_ref)
-        print(f"training reference ({mode}, 2 blocks x 2 heads, 64x64 edit geometry): "
+        print(f"training reference ({label}, 2 blocks x 2 heads, 64x64 edit geometry): "
               f"loss card bf16 {l_dev:.6f} vs CPU fp32 {l_ref:.6f}, relative {loss_rel:.2e} "
               f"(bound {TRAIN_LOSS_REL}); gradient cosine over {g_ref.numel()} entries "
               f"{cos:.6f} (bound {TRAIN_GRAD_COS}); the step's loss relative {step_rel:.2e} "
               f"(bound {TRAIN_LOSS_REL}), grad_norm {gn_dev:.4e} vs {gn_ref:.4e}, relative "
-              f"{norm_rel:.2e} (bound {TRAIN_NORM_REL}); after the second step (lr {TRAIN_LR}, "
-              f"clip {tcfg.grad_clip:.4e}) Adam's first moment {moment_rel:.3e} (bound "
-              f"{TRAIN_MOMENT_REL}), the update {update_rel:.3e} (bound "
-              f"{TRAIN_UPDATE_REL}) normwise, |update| {float(up_ref.norm()):.4e}")
+              f"{norm_rel:.2e} (bound {TRAIN_NORM_REL}); after two updates (lr {TRAIN_LR}, "
+              f"clip {tcfg.grad_clip:.4e}, grad_accum {accum}) Adam's first moment "
+              f"{moment_rel:.3e} (bound {TRAIN_MOMENT_REL}), the update {update_rel:.3e} "
+              f"(bound {TRAIN_UPDATE_REL}) normwise, |update| {float(up_ref.norm()):.4e}")
         if not (loss_rel <= TRAIN_LOSS_REL and cos >= TRAIN_GRAD_COS
                 and step_rel <= TRAIN_LOSS_REL and norm_rel <= TRAIN_NORM_REL and gn_dev > 0
                 and moment_rel <= TRAIN_MOMENT_REL and update_rel <= TRAIN_UPDATE_REL
                 and float(up_ref.norm()) > 0):
-            raise AssertionError(f"training reference {mode}: the card disagrees with the CPU")
-        readings[mode] = {"loss_rel": loss_rel, "grad_cos": cos, "norm_rel": norm_rel,
-                          "moment_rel": moment_rel, "update_rel": update_rel}
+            raise AssertionError(f"training reference {label}: the card disagrees with the CPU")
+        readings[label] = {"loss_rel": loss_rel, "grad_cos": cos, "norm_rel": norm_rel,
+                           "moment_rel": moment_rel, "update_rel": update_rel}
+    for label in ("QLoRA over w4a16", "QLoRA over int4_a8"):
+        cos = cosine(card_grads[label], card_grads["lora"])
+        print(f"{label} on the card: adapter gradient cosine against the bf16-base LoRA step "
+              f"{cos:.4f} (JAX's gate {TRAIN_QLORA_COS})")
+        if not cos > TRAIN_QLORA_COS:
+            raise AssertionError(f"{label}: adapter gradient cosine {cos} against the bf16 base")
+        readings[label]["float_base_cos"] = cos
     return readings
 
 
@@ -2177,47 +2253,62 @@ def guardrail_path(dev: torch.device) -> dict:
     return readings
 
 
-def expected_train_launches(cfg) -> tuple[dict[str, int], dict[str, dict[int, int]]]:
-    """Kernel launches of one LoRA step with remat "full": the forward and
-    the backward's recompute each run every block's 3 attentions, 2
-    LN-modulates, 2 gated residuals and 5 RMSNorms (the head's LN-modulate
-    runs once, outside the blocks); the backward runs K6 for all 3
-    attentions (q always needs a gradient) and K7 for self and text only
-    (k_img/v_img are not LoRA targets and the image context is frozen).
-    Returns ({name: count}, {name: {KV length: count}}), as
+def expected_train_launches(cfg, remat: str = "full", lora: bool = True, int4: bool = False,
+                            image: bool = True, steps: int = 1, forwards: int = 0
+                            ) -> tuple[dict[str, int], dict[str, dict[int, int]]]:
+    """Kernel launches of ``steps`` train steps at the edit's geometry and
+    ``forwards`` forward-only passes (validation). A step runs the blocks'
+    forward once, and again in the backward's recompute unless ``remat`` is
+    "none" ("matmul_only" recomputes every kernel: it keeps products
+    only): each block's attentions (self, text, and image unless ``image``
+    is False), 2 LN-modulates, 2 gated residuals and the RMSNorms (self q,
+    k; cross q; text k; image k), with the head's LN-modulate once a
+    forward. The backward runs K6 for every attention (q always needs a
+    gradient) and K7 for self and text, and for the image one too when
+    every parameter trains (``lora`` False: the image context then needs a
+    gradient; LoRA leaves k_img / v_img frozen). ``int4`` (QLoRA over
+    w4a16): each block's 12 projections run K8 in each forward, 8 over the
+    edit's tokens and 2 each over the text and image contexts. Returns
+    ({name: count}, {name: {KV length or int4 rows: count}}), as
     ``read_launches``."""
     n = cfg.dit.num_layers
-    by_name = {"flash_fwd": 2 * 3 * n, "ln_modulate": 2 * 2 * n + 1,
-               "gated_residual": 2 * 2 * n, "rms_norm": 2 * 5 * n,
-               "flash_bwd_dq": 3 * n, "flash_bwd_dkv": 2 * n,
-               "int4_matmul": 0, "flash_fwd_qk8": 0, **dict.fromkeys(GROUPED, 0)}
-    by_kv = {"flash_fwd": {EDIT_TOKENS: 2 * n, TEXT_TOKENS: 2 * n, IMAGE_TOKENS: 2 * n},
-             "flash_bwd_dq": {EDIT_TOKENS: n, TEXT_TOKENS: n, IMAGE_TOKENS: n},
-             "flash_bwd_dkv": {EDIT_TOKENS: n, TEXT_TOKENS: n},
-             "int4_matmul": {}, "flash_fwd_qk8": {}, **{name: {} for name in GROUPED}}
+    fwd = steps * (1 if remat == "none" else 2) + forwards
+    kvs = [EDIT_TOKENS, TEXT_TOKENS] + ([IMAGE_TOKENS] if image else [])
+    dkv = [EDIT_TOKENS, TEXT_TOKENS] if lora else kvs
+    rows = {EDIT_TOKENS: 8 * n * fwd, TEXT_TOKENS: 2 * n * fwd}
+    if image:
+        rows[IMAGE_TOKENS] = 2 * n * fwd
+    rows = rows if int4 else {}
+    by_name = {"flash_fwd": len(kvs) * n * fwd, "ln_modulate": 2 * n * fwd + steps + forwards,
+               "gated_residual": 2 * n * fwd, "rms_norm": (len(kvs) + 2) * n * fwd,
+               "flash_bwd_dq": len(kvs) * n * steps, "flash_bwd_dkv": len(dkv) * n * steps,
+               "int4_matmul": sum(rows.values()), "flash_fwd_qk8": 0,
+               **dict.fromkeys(GROUPED, 0)}
+    by_kv = {"flash_fwd": {kv: n * fwd for kv in kvs},
+             "flash_bwd_dq": {kv: n * steps for kv in kvs},
+             "flash_bwd_dkv": {kv: n * steps for kv in dkv},
+             "int4_matmul": rows, "flash_fwd_qk8": {}, **{name: {} for name in GROUPED}}
     return by_name, by_kv
 
 
 def base_checksum(model) -> int:
-    """An exact integer checksum of every parameter's bits."""
-    return sum(int(p.detach().view(torch.int16).sum(dtype=torch.int64))
-               for p in model.parameters())
+    """An exact, position-weighted integer checksum of the bytes of every
+    parameter and buffer (quantized leaves hold buffers), in chunks of 2^26
+    bytes."""
+    total = 0
+    for t in list(model.parameters()) + list(model.buffers()):
+        b = t.detach().reshape(-1).view(torch.uint8)
+        for i in range(0, b.numel(), 1 << 26):
+            c = b[i:i + (1 << 26)].to(torch.int64)
+            w = torch.arange(i, i + c.numel(), device=c.device) % 65521 + 1
+            total += int((c * w).sum())
+    return total
 
 
-def training_path(pipe, dev, launches: tuple[Counter, Counter],
-                  profile_dir: Path | None) -> dict:
-    """The slice at full width: rank-32 LoRA on the default targets over the
-    frozen bf16 DiT (remat "full"), three ``make_lora_train_step`` calls on
-    720p mock edit pairs through ``mock_batch_iterator``. The counters are
-    zeroed before each step and must show the launches the path implies;
-    every loss and grad_norm is finite (grad_norm > 0), every adapter's b
-    has moved after the second step (the warm-up gives the first update
-    learning rate 0) and the base's bits are unchanged. Adds the steps'
-    launches to ``launches``; returns the step readings."""
+def train_batches(pipe, n: int = 3) -> list[dict]:
+    """``n`` 720p mock edit pairs through ``mock_batch_iterator`` (the
+    pipeline's VAE encodes them): the training paths' batches."""
     from chronoedit_tpu_torch.data.mock import MockEditDataset, mock_batch_iterator
-    from chronoedit_tpu_torch.kernels import build
-    from chronoedit_tpu_torch.models import lora as lora_lib
-    from chronoedit_tpu_torch.train import lora_train, train_step
 
     cfg = pipe.config
     d = cfg.dit
@@ -2225,94 +2316,183 @@ def training_path(pipe, dev, launches: tuple[Counter, Counter],
                               text_dim=d.text_dim, image_tokens=d.image_tokens,
                               image_dim=d.image_dim, seed=30)
     batches_it = mock_batch_iterator(pipe.vae, cfg, dataset)
-    (batches, secs) = host_s(lambda: [next(batches_it) for _ in range(3)])
+    batches, secs = host_s(lambda: [next(batches_it) for _ in range(n)])
     b0 = batches[0]
-    print(f"training batches: 3 mock 720p edit pairs through edit_training_batch in "
+    print(f"training batches: {n} mock 720p edit pairs through edit_training_batch in "
           f"{secs:.2f} s: latents {tuple(b0['latents'].shape)}, condition "
           f"{tuple(b0['condition'].shape)}, text {tuple(b0['text_emb'].shape)}, image "
           f"{tuple(b0['image_emb'].shape)}")
     if (tuple(b0["latents"].shape) != (1, 16, 2, EDIT_H // 8, EDIT_W // 8)
             or tuple(b0["condition"].shape) != (1, 20, 2, EDIT_H // 8, EDIT_W // 8)):
         raise AssertionError("edit_training_batch gave the wrong shapes")
+    return batches
+
+
+def lora_steps(label: str, base, state, step, batches, dev, launches: tuple[Counter, Counter],
+               want, n: int) -> dict:
+    """``n`` LoRA steps of ``state`` over ``base`` on ``batches`` (cycled),
+    each with the counters zeroed just before it and compared with ``want``
+    just after; loss and grad_norm finite (grad_norm > 0). Adds the launches
+    to ``launches``; returns the first step's seconds, the median of the
+    rest and the peak memory."""
+    from chronoedit_tpu_torch.kernels import build
 
     g = torch.Generator(device=dev).manual_seed(31)
-    lcfg = lora_lib.LoRAConfig()
-    lora = lora_lib.init_lora_params(g, pipe.dit, lcfg)
-    tcfg = train_step.TrainConfig(lr=1e-4, warmup_steps=1)
-    state = lora_train.make_lora_train_state(lora, tcfg)
-    step = lora_train.make_lora_train_step(pipe.dit.cfg, tcfg)
-    n_lora = sum(p.numel() for p in lora.parameters())
-    print(f"LoRA rank {lcfg.rank} on {len(lcfg.targets)} targets x {len(lora.blocks)} blocks: "
-          f"{n_lora / 1e6:.2f} M fp32 parameters; remat {pipe.dit.cfg.remat!r}; "
-          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated before the first step")
-    checksum = base_checksum(pipe.dit)
-    want = expected_train_launches(cfg)
     times, peaks = [], []
-    for i, batch in enumerate(batches):
+    for i in range(n):
         torch.cuda.reset_peak_memory_stats()
         build.reset_launches()
-        metrics, secs = host_s(lambda: step(state, pipe.dit, batch, g))
+        metrics, secs = host_s(lambda: step(state, base, batches[i % len(batches)], g))
         got = read_launches()
         peak = torch.cuda.max_memory_allocated() / 2**30
         loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
         times.append(secs)
         peaks.append(peak)
-        print(f"LoRA train step {i} ({'cold' if i == 0 else 'warm'}): {secs:.3f} s, peak memory "
+        print(f"{label} step {i} ({'cold' if i == 0 else 'warm'}): {secs:.3f} s, peak memory "
               f"{peak:.2f} GiB, loss {loss:.5f}, grad_norm {gnorm:.4e}; launches {got[0]}; "
-              f"by KV length {got[1]}")
+              f"by KV length / int4 rows {got[1]}")
         if got != want:
-            raise AssertionError(f"train step {i}: launches {got}, the path implies {want}")
+            raise AssertionError(f"{label} step {i}: launches {got}, the path implies {want}")
         if not (math.isfinite(loss) and math.isfinite(gnorm) and gnorm > 0):
-            raise AssertionError(f"train step {i}: loss {loss}, grad_norm {gnorm}")
+            raise AssertionError(f"{label} step {i}: loss {loss}, grad_norm {gnorm}")
         for total, counts in zip(launches, (got[0], got[1]["flash_fwd"])):
             total.update(counts)
-    moved = [bool(ad.b.detach().any()) for blk in lora.blocks
-             for _, ad in lora_lib.iter_adapters(blk)]
-    if not all(moved):
-        raise AssertionError(f"{moved.count(False)} adapters' b did not move in 3 steps")
-    if base_checksum(pipe.dit) != checksum:
-        raise AssertionError("the frozen base's weights changed")
     warm = statistics.median(times[1:])
-    print(f"LoRA training at 720p: first step {times[0]:.3f} s, median of the rest {warm:.3f} s, "
-          f"peak {max(peaks):.2f} GiB; every b moved, base bits unchanged")
-    if profile_dir is not None:
-        profile_stages({"lora_train_step": lambda: step(state, pipe.dit, batches[0], g)},
-                       profile_dir)
+    print(f"{label} at 720p: first step {times[0]:.3f} s, median of the rest {warm:.3f} s, "
+          f"peak {max(peaks):.2f} GiB")
     return {"first_s": times[0], "warm_s": warm, "peak_gib": max(peaks)}
 
 
+def free() -> None:
+    """Collect what was dropped (an optimizer's state sits in reference
+    cycles) and return the cached blocks to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def check_adapters_moved(label: str, lora) -> None:
+    """Every adapter's b has moved from its zero init."""
+    from chronoedit_tpu_torch.models import lora as lora_lib
+
+    moved = [bool(ad.b.detach().any()) for blk in lora.blocks
+             for _, ad in lora_lib.iter_adapters(blk)]
+    if not all(moved):
+        raise AssertionError(f"{label}: {moved.count(False)} adapters' b did not move")
+
+
+def training_path(pipe, dev, launches: tuple[Counter, Counter], batches: list[dict],
+                  profile_dir: Path | None) -> dict:
+    """The slice at full width: rank-32 LoRA on the default targets over the
+    frozen bf16 DiT, three ``make_lora_train_step`` calls under remat
+    "full", then two under remat "matmul_only" (fresh adapters: the seconds
+    and peak memory of keeping the blocks' products), on 720p mock edit
+    pairs. The counters are zeroed before each step and must show the
+    launches the path implies; every loss and grad_norm is finite
+    (grad_norm > 0), every adapter's b has moved after each mode's steps
+    (the warm-up gives the first update learning rate 0) and the base's bits
+    are unchanged. Adds the steps' launches to ``launches``; returns the
+    step readings by remat mode."""
+    from chronoedit_tpu_torch.models import lora as lora_lib
+    from chronoedit_tpu_torch.train import lora_train, train_step
+
+    cfg = pipe.config
+    checksum = base_checksum(pipe.dit)
+    lcfg = lora_lib.LoRAConfig()
+    tcfg = train_step.TrainConfig(lr=1e-4, warmup_steps=1)
+    out = {}
+    for remat, n in (("full", 3), ("matmul_only", 2)):
+        pipe.dit.cfg = dataclasses.replace(pipe.dit.cfg, remat=remat)
+        lora = lora_lib.init_lora_params(torch.Generator(device=dev).manual_seed(31), pipe.dit,
+                                         lcfg)
+        state = lora_train.make_lora_train_state(lora, tcfg)
+        step = lora_train.make_lora_train_step(pipe.dit.cfg, tcfg)
+        n_lora = sum(p.numel() for p in lora.parameters())
+        print(f"LoRA rank {lcfg.rank} on {len(lcfg.targets)} targets x {len(lora.blocks)} "
+              f"blocks: {n_lora / 1e6:.2f} M fp32 parameters; remat {remat!r}; "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated before the first step")
+        out[remat] = lora_steps(f"LoRA train (remat {remat})", pipe.dit, state, step, batches,
+                                dev, launches, expected_train_launches(cfg, remat=remat), n)
+        check_adapters_moved(f"LoRA (remat {remat})", lora)
+        if profile_dir is not None and remat == "full":
+            g = torch.Generator(device=dev).manual_seed(32)
+            profile_stages({"lora_train_step": lambda: step(state, pipe.dit, batches[0], g)},
+                           profile_dir)
+        del lora, state, step
+        free()
+    pipe.dit.cfg = dataclasses.replace(pipe.dit.cfg, remat="full")
+    if base_checksum(pipe.dit) != checksum:
+        raise AssertionError("the frozen base's weights changed")
+    print("LoRA training: every b moved in each mode, base bits unchanged")
+    return out
+
+
 def w4a16_path(pipe, dev, launches: tuple[Counter, Counter], refs: dict[int, torch.Tensor],
-               profile_dir: Path | None) -> None:
+               batches: list[dict], profile_dir: Path | None) -> dict:
     """Quantize the pipeline's DiT in place to w4a16 (the Lloyd grid, all 12
-    projections of every block: K8), then serve two 720p edits and the
-    reasoning drop (k = 2) with int8 scores (K9 at 28,800 tokens), each
-    with exact launch counts and its PSNR against the bf16 output of the
-    same request and noise (``refs``, by seed); then a warm w4a16 DiT
-    forward, profiled when ``profile_dir`` is set."""
+    projections of every block: K8), outside ``inference_mode`` (QLoRA
+    trains over it); three QLoRA steps (rank 32, remat "full": the adapters
+    as side branches, K8 under autograd in the forward and the recompute)
+    with exact launches by kernel, KV length and K8 rows, finite loss and
+    grad_norm, every b moved and the base's bits (its int4 buffers)
+    unchanged; then, in ``inference_mode``, two 720p edits and the reasoning
+    drop (k = 2) with int8 scores (K9 at 28,800 tokens), each with exact
+    launch counts and its PSNR against the bf16 output of the same request
+    and noise (``refs``, by seed); then a warm w4a16 DiT forward, profiled
+    when ``profile_dir`` is set. Returns the QLoRA step readings."""
+    from chronoedit_tpu_torch.models import lora as lora_lib
+    from chronoedit_tpu_torch.train import lora_train, train_step
+
     cfg = pipe.config
     _, secs = host_s(lambda: pipe.quantize(mode="int4"))
     print(f"quantized in place to w4a16 (Lloyd grid) in {secs:.1f} s: "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated (DiT and VAE)")
-    for i, seed in enumerate((10, 11)):
-        out = serve(pipe.edit_image, cfg, dev, f"w4a16 edit {i}", seed, (1, 3, EDIT_H, EDIT_W),
-                    [EDIT_TOKENS] * cfg.num_steps, launches, int4=True)
-        print(f"   PSNR against the bf16 edit of the same request and noise "
-              f"{psnr(out, refs[seed]):.2f} dB (random weights: no bar)")
-    pipe.dit.cfg = dataclasses.replace(pipe.dit.cfg, attn_qk_int8=True)
-    steps = cfg.num_steps
-    out = serve(pipe, cfg, dev, "w4a16 + int8-score reasoning edit (drop, k = 2)", 21,
-                (1, 3, 5, EDIT_H, EDIT_W), [REASONING_TOKENS] * 2 + [EDIT_TOKENS] * (steps - 2),
-                launches, int4=True, qk8=True, enable_temporal_reasoning=True,
-                num_temporal_reasoning_steps=2)
-    print(f"   PSNR against the bf16 reasoning edit of the same request and noise "
-          f"{psnr(out, refs[21]):.2f} dB (random weights: no bar)")
-    pipe.dit.cfg = dataclasses.replace(pipe.dit.cfg, attn_qk_int8=False)
-    fns, x, _ = stages(pipe, dev, cfg.num_frames, 12, "_w4a16")
-    _, dit_s = host_s(fns["dit_forward_w4a16"])
-    print(f"w4a16 DiT forward (one step, {x.shape[2]}x{x.shape[3]}x{x.shape[4]} latents) "
-          f"{dit_s:.3f} s")
+    checksum = base_checksum(pipe.dit)
+    lcfg = lora_lib.LoRAConfig()
+    if not lora_lib.base_is_quantized(pipe.dit, lcfg):
+        raise AssertionError("the w4a16 base does not read as quantized")
+    lora = lora_lib.init_lora_params(torch.Generator(device=dev).manual_seed(33), pipe.dit, lcfg)
+    tcfg = train_step.TrainConfig(lr=1e-4, warmup_steps=1)
+    state = lora_train.make_lora_train_state(lora, tcfg)
+    step = lora_train.make_lora_train_step(pipe.dit.cfg, tcfg)
+    print(f"QLoRA rank {lcfg.rank} over the w4a16 base (remat {pipe.dit.cfg.remat!r}): "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated before the first step")
+    readings = lora_steps("QLoRA train (w4a16 base)", pipe.dit, state, step, batches, dev,
+                          launches, expected_train_launches(cfg, int4=True), 3)
+    check_adapters_moved("QLoRA", lora)
+    if base_checksum(pipe.dit) != checksum:
+        raise AssertionError("the quantized base's bits changed")
+    print("QLoRA: every b moved, the base's int4 bits unchanged")
     if profile_dir is not None:
-        profile_stages({"dit_forward_w4a16": fns["dit_forward_w4a16"]}, profile_dir)
+        g = torch.Generator(device=dev).manual_seed(34)
+        profile_stages({"qlora_train_step": lambda: step(state, pipe.dit, batches[0], g)},
+                       profile_dir)
+    del lora, state, step
+    free()
+
+    with torch.inference_mode():
+        for i, seed in enumerate((10, 11)):
+            out = serve(pipe.edit_image, cfg, dev, f"w4a16 edit {i}", seed,
+                        (1, 3, EDIT_H, EDIT_W), [EDIT_TOKENS] * cfg.num_steps, launches,
+                        int4=True)
+            print(f"   PSNR against the bf16 edit of the same request and noise "
+                  f"{psnr(out, refs[seed]):.2f} dB (random weights: no bar)")
+        pipe.dit.cfg = dataclasses.replace(pipe.dit.cfg, attn_qk_int8=True)
+        steps = cfg.num_steps
+        out = serve(pipe, cfg, dev, "w4a16 + int8-score reasoning edit (drop, k = 2)", 21,
+                    (1, 3, 5, EDIT_H, EDIT_W),
+                    [REASONING_TOKENS] * 2 + [EDIT_TOKENS] * (steps - 2),
+                    launches, int4=True, qk8=True, enable_temporal_reasoning=True,
+                    num_temporal_reasoning_steps=2)
+        print(f"   PSNR against the bf16 reasoning edit of the same request and noise "
+              f"{psnr(out, refs[21]):.2f} dB (random weights: no bar)")
+        pipe.dit.cfg = dataclasses.replace(pipe.dit.cfg, attn_qk_int8=False)
+        fns, x, _ = stages(pipe, dev, cfg.num_frames, 12, "_w4a16")
+        _, dit_s = host_s(fns["dit_forward_w4a16"])
+        print(f"w4a16 DiT forward (one step, {x.shape[2]}x{x.shape[3]}x{x.shape[4]} latents) "
+              f"{dit_s:.3f} s")
+        if profile_dir is not None:
+            profile_stages({"dit_forward_w4a16": fns["dit_forward_w4a16"]}, profile_dir)
+    return readings
 
 
 def mixed2_path(pipe, dev, launches: tuple[Counter, Counter], refs: dict[int, torch.Tensor],
@@ -2338,6 +2518,285 @@ def mixed2_path(pipe, dev, launches: tuple[Counter, Counter], refs: dict[int, to
           f"{dit_s:.3f} s")
     if profile_dir is not None:
         profile_stages({"dit_forward_mixed2": fns["dit_forward_mixed2"]}, profile_dir)
+
+
+def write_train_data(root: Path, dev: torch.device, text_dim: int, n: int = 2) -> Path:
+    """A metadata directory for the training CLI: ``n`` 720p ``image`` /
+    ``edit_image`` PNG pairs (seeded noise) and UMT5 embeddings of ``n``
+    seeded prompts (512 token ids, ``PROMPT_LEN`` unmasked) from the
+    checkpoint directory's UMT5-XXL, pickled as the reference's
+    ``umt5_emb`` files; returns ``metadata.csv``."""
+    import pickle
+
+    import numpy as np
+    from PIL import Image
+
+    from chronoedit_tpu_torch.models import umt5
+    from chronoedit_tpu_torch.models import weights as w
+    from chronoedit_tpu_torch.pipeline.loader import T5_FILE
+
+    root.mkdir(parents=True)
+    encoder, secs = host_s(lambda: umt5.UMT5TextEncoder(umt5.convert_umt5_checkpoint(
+        w.load_torch(str(CHECKPOINT_DIR / T5_FILE)), device=dev)))
+    rng = np.random.default_rng(50)
+    g = torch.Generator(device=dev).manual_seed(51)
+    mask = (torch.arange(TEXT_TOKENS, device=dev) < PROMPT_LEN).long()[None]
+    rows = []
+    for i in range(n):
+        for name in ("image", "edit_image"):
+            Image.fromarray(rng.integers(0, 256, (EDIT_H, EDIT_W, 3), dtype=np.uint8)).save(
+                root / f"{name}{i}.png")
+        ids = torch.randint(0, encoder.cfg.vocab_size, (1, TEXT_TOKENS), generator=g,
+                            device=dev)
+        emb = encoder.encode_ids(ids, mask)[0].float().cpu().numpy()
+        if emb.shape != (TEXT_TOKENS, text_dim) or not np.isfinite(emb).all():
+            raise AssertionError(f"UMT5 embedding {emb.shape} is not a finite "
+                                 f"({TEXT_TOKENS}, {text_dim})")
+        with open(root / f"umt5_emb{i}.pkl", "wb") as f:
+            pickle.dump(emb, f)
+        rows.append(f"image{i}.png,edit_image{i}.png,edit {i},umt5_emb{i}.pkl")
+    (root / "metadata.csv").write_text("image,edit_image,prompt,umt5_emb\n" + "\n".join(rows)
+                                       + "\n")
+    print(f"training data: {n} 720p PNG pairs and UMT5-XXL embeddings ({TEXT_TOKENS} ids, "
+          f"{PROMPT_LEN} unmasked; the encoder loaded in {secs:.1f} s) under {root}")
+    del encoder
+    free()
+    return root / "metadata.csv"
+
+
+def cli_path(dev: torch.device, cfg, launches: tuple[Counter, Counter]) -> dict:
+    """The training CLI as a user runs it: ``scripts.train.main`` with
+    ``--experiment chronoedit_14b --lora-rank 32 --remat full --grad-accum
+    2 --max-iter 4`` over the checkpoint directory's diffusers shards
+    (``--base-checkpoint``) on a metadata file of two 720p pairs with UMT5
+    embeddings (``write_train_data``), encoded by the CLI's random VAE.
+    Four step calls (micro-steps, as JAX's loop counts them: two applied
+    updates, the second at a learning rate above 0) with exact launches
+    (no image context: the metadata path has none), every b moved, the
+    exported ``lora.safetensors`` equal to the trained adapters; then
+    ``load_pipeline(cfg, dir, loras=[(that file, 1.0)])`` serves one 720p
+    edit with exact launches."""
+    from safetensors.torch import load_file
+
+    from chronoedit_tpu_torch.kernels import build
+    from chronoedit_tpu_torch.models import lora as lora_lib
+    from chronoedit_tpu_torch.models import weights as w
+    from chronoedit_tpu_torch.pipeline.loader import load_pipeline
+    from chronoedit_tpu_torch.scripts import train as train_cli
+
+    data_dir, out_dir = CHECKPOINT_DIR.parent / "smoke_train_data", CHECKPOINT_DIR / "trained"
+    meta = write_train_data(data_dir, dev, cfg.dit.text_dim)
+    argv = ["--experiment", "chronoedit_14b", "--lora-rank", "32", "--remat", "full",
+            "--grad-accum", "2", "--max-iter", "4", "--base-checkpoint",
+            str(CHECKPOINT_DIR / "transformer" / "*.safetensors"), "--data", str(meta),
+            "--base-path", str(data_dir), "--checkpoint-dir", str(out_dir)]
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    state, secs = host_s(lambda: train_cli.main(argv))
+    got = read_launches()
+    want = expected_train_launches(cfg, image=False, steps=4)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"training CLI ({' '.join(argv[:10])} ...): {secs:.1f} s from the call to the "
+          f"exported file (DiT load, VAE encodes and 4 micro-steps), peak {peak:.2f} GiB; "
+          f"{state.step} step calls, {state.optimizer.gradient_step} applied updates; launches "
+          f"{got[0]}, by KV length {got[1]}")
+    if got != want:
+        raise AssertionError(f"training CLI: launches {got}, the path implies {want}")
+    if state.step != 4 or state.optimizer.gradient_step != 2:
+        raise AssertionError("training CLI: not 4 micro-steps and 2 updates")
+    check_adapters_moved("training CLI", state.lora)
+    path = out_dir / "lora.safetensors"
+    sd = load_file(str(path))
+    modules = {t: m for m, t in w.LORA_NAMES.items()}  # target -> diffusers module
+    n_equal = 0
+    for i, blk in enumerate(state.lora.blocks):
+        for target, ad in lora_lib.iter_adapters(blk):
+            prefix = f"transformer.blocks.{i}.{modules[target]}"
+            for key, t in (("lora_A.weight", ad.a.T), ("lora_B.weight", ad.b.T)):
+                if not torch.equal(sd[f"{prefix}.{key}"], t.detach().cpu()):
+                    raise AssertionError(f"exported {prefix}.{key} differs from the trained one")
+                n_equal += 1
+    print(f"   {path.name}: {path.stat().st_size / 1e6:.1f} MB, {n_equal} adapter tensors "
+          f"bitwise the trained ones (fp32, alpha = rank)")
+    del state
+    free()
+    pipe, load_s = host_s(lambda: load_pipeline(cfg, str(CHECKPOINT_DIR), loras=[(str(path), 1.0)],
+                                                 with_text_encoder=False,
+                                                 with_image_encoder=False, device=dev))
+    print(f"loaded the pipeline with the trained LoRA in {load_s:.1f} s "
+          f"({ {k: round(v, 2) for k, v in pipe.load_seconds.items()} })")
+    with torch.inference_mode():
+        serve(pipe.edit_image, cfg, dev, "edit with the CLI-trained LoRA", 13,
+              (1, 3, EDIT_H, EDIT_W), [EDIT_TOKENS] * cfg.num_steps, launches)
+    del pipe
+    free()
+    shutil.rmtree(data_dir, ignore_errors=True)
+    return {"seconds": secs, "peak_gib": peak}
+
+
+
+# the Trainer's DiT: the 14B model's width at this depth (full-parameter
+# training of all 40 blocks needs about 197 GB: 16.39 B parameters x 12
+# bytes of bf16 parameters, gradients, two AdamW moments, EMA and
+# accumulator)
+TRAINER_BLOCKS = 2
+TRAINER_DIR = CHECKPOINT_DIR.parent / "smoke_trainer"
+
+
+def trainer_path(dev: torch.device, launches: tuple[Counter, Counter]) -> dict:
+    """The ``Trainer`` (full-parameter, the only mode JAX's runs) on the 14B
+    DiT's width at ``TRAINER_BLOCKS`` blocks, remat "none", 720p mock pairs
+    from a seeded full-width VAE: ``grad_accum = 2``, a checkpoint every 2
+    iterations, validation every 2 (one batch), ``guard_host_sync`` on (no
+    synchronising CUDA call inside a micro-step), the iteration-speed,
+    heartbeat, device-monitor and loss-logger callbacks, and the launch
+    counters zeroed at each iteration's start and read at its end (two
+    micro-steps, and a validation forward where due). 4 iterations straight
+    (no checkpoints), then 2 with a checkpoint at 2, a fresh trainer
+    resuming from it, and 2 more: the two end states (parameters, EMA, moments, accumulator,
+    counters) must be bitwise equal (K6/K7 are deterministic). Then a timed
+    synchronous save and restore of the state (GB/s), and the checkpoint
+    through ``convert_weights`` to diffusers safetensors and back, bitwise.
+    Returns the readings."""
+    from chronoedit_tpu_torch.configs import chronoedit_14b
+    from chronoedit_tpu_torch.data.mock import MockEditDataset, mock_batch_iterator
+    from chronoedit_tpu_torch.kernels import build
+    from chronoedit_tpu_torch.models import dit as dit_lib
+    from chronoedit_tpu_torch.models import vae as vae_lib
+    from chronoedit_tpu_torch.scripts import convert_weights
+    from chronoedit_tpu_torch.train import callbacks as cb
+    from chronoedit_tpu_torch.train import checkpoint as ck
+    from chronoedit_tpu_torch.train import train_step
+    from chronoedit_tpu_torch.train.trainer import Trainer, TrainerConfig
+    from chronoedit_tpu_torch.utils import sanitize
+
+    pipe_cfg = chronoedit_14b()
+    cfg = dataclasses.replace(pipe_cfg.dit, num_layers=TRAINER_BLOCKS, remat="none")
+    small = dataclasses.replace(pipe_cfg, dit=cfg)
+    vae = vae_lib.init_vae_params(pipe_cfg.vae, torch.Generator(device=dev).manual_seed(60),
+                                  device=dev)
+    it = mock_batch_iterator(vae, small, MockEditDataset(
+        height=EDIT_H, width=EDIT_W, text_tokens=TEXT_TOKENS, text_dim=cfg.text_dim,
+        image_tokens=cfg.image_tokens, image_dim=cfg.image_dim, seed=61))
+    batches, val = [next(it) for _ in range(8)], [next(it) for _ in range(2)]
+    del vae, it
+    torch.cuda.empty_cache()
+    tcfg = train_step.TrainConfig(lr=1e-4, warmup_steps=1, grad_accum=2)
+    iter_s = []
+
+    class Launches(cb.Callback):
+        """Zero the counters as an iteration starts; at its end they must
+        hold its two micro-steps and, where due, one validation forward."""
+
+        def on_step_start(self, trainer, step):
+            torch.cuda.synchronize()
+            self.t0 = time.perf_counter()
+            build.reset_launches()
+
+        def on_step_end(self, trainer, step, metrics):
+            torch.cuda.synchronize()
+            iter_s.append(time.perf_counter() - self.t0)
+            got = read_launches()
+            want = expected_train_launches(small, remat="none", lora=False, steps=2,
+                                           forwards=int("val_loss" in metrics))
+            if got != want:
+                raise AssertionError(f"Trainer iteration {step}: launches {got}, the path "
+                                     f"implies {want}")
+            for total, counts in zip(launches, (got[0], got[1]["flash_fwd"])):
+                total.update(counts)
+
+    def model():
+        dit = dit_lib.init_dit_params(cfg, torch.Generator(device=dev).manual_seed(62),
+                                      device=dev)
+        with torch.no_grad():  # a zero head would stop every block's gradient
+            w = dit.head.proj.weight
+            w.uniform_(-w.shape[1] ** -0.5, w.shape[1] ** -0.5,
+                       generator=torch.Generator(device=dev).manual_seed(63))
+        return dit
+
+    def run(directory, max_iter, skip, checkpoints=True):
+        lines = []
+        callbacks = [Launches(), cb.IterSpeedCallback(log_every=1, log_fn=lines.append),
+                     cb.HeartbeatCallback(path=str(directory / "heartbeat.txt"), every_s=0.0),
+                     cb.DeviceMonitorCallback(every_n=1, log_fn=lines.append),
+                     cb.LossLoggerCallback(str(directory / "loss.jsonl"), log_every=1)]
+        trainer = Trainer(cfg, tcfg, TrainerConfig(max_iter=max_iter, save_every=2,
+                                                   validate_every=2, validate_batches=1,
+                                                   guard_host_sync=True),
+                          ck.CheckpointConfig(directory=str(directory), max_to_keep=1)
+                          if checkpoints else None, callbacks)
+        state = trainer.init_state(model())
+        state = trainer.train(state, iter(batches[2 * skip:]), val_data=iter(val[skip // 2:]))
+        for line in lines:
+            print(f"   {line}")
+        return state
+
+    # the guard bites on the card: a read of a device value inside it raises
+    try:
+        with sanitize.no_host_sync():
+            float(torch.ones(2, device=dev).sum())
+    except RuntimeError as e:
+        print(f"no_host_sync on the card: a float() of a device sum raised ({e})")
+    else:
+        raise AssertionError("no_host_sync let a device read through")
+    print(f"Trainer: the 14B DiT's width at {TRAINER_BLOCKS} blocks, full-parameter, "
+          f"grad_accum 2, remat 'none', 720p mock pairs, guard_host_sync on")
+    torch.cuda.reset_peak_memory_stats()
+    straight, secs = host_s(lambda: run(TRAINER_DIR / "a", 4, 0, checkpoints=False))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = ck.state_tensors(straight), ck.state_counters(straight)
+    n_params = sum(p.numel() for p in straight.params)
+    print(f"Trainer, {n_params / 1e9:.3f} B parameters, 4 iterations straight (no "
+          f"checkpoints): {secs:.1f} s, "
+          f"iterations {[round(t, 3) for t in iter_s]} s, peak {peak:.2f} GiB, counters "
+          f"{want[1]}")
+    shutil.rmtree(TRAINER_DIR / "a", ignore_errors=True)
+    del iter_s[:]
+    first = run(TRAINER_DIR / "b", 2, 0)
+    del first
+    free()
+    resumed, secs = host_s(lambda: run(TRAINER_DIR / "b", 4, 2))
+    got = ck.state_tensors(resumed), ck.state_counters(resumed)
+    differ = [k for k in want[0] if not torch.equal(want[0][k], got[0][k])]
+    print(f"Trainer, 2 iterations (an async save at 2) then a resume from that checkpoint "
+          f"and 2 more (an async save at 4): {secs:.1f} s for the resumed part, iterations {[round(t, 3) for t in iter_s]} s; "
+          f"against the straight run {len(want[0]) - len(differ)} of {len(want[0])} tensors "
+          f"bitwise, counters {got[1]} vs {want[1]}")
+    if differ or got[1] != want[1]:
+        raise AssertionError(f"the resumed run differs from the straight one: {differ[:4]}")
+
+    nbytes = sum(t.numel() * t.element_size() for t in got[0].values())
+    mgr = ck.CheckpointManager(ck.CheckpointConfig(directory=str(TRAINER_DIR / "c"),
+                                                   async_save=False))
+    _, save_s = host_s(lambda: mgr.save(4, resumed))
+    _, restore_s = host_s(lambda: mgr.restore(straight))
+    again = [k for k, t in ck.state_tensors(straight).items() if not torch.equal(t, got[0][k])]
+    print(f"checkpoint of the state: {nbytes / 1e9:.2f} GB; synchronous save {save_s:.2f} s "
+          f"({nbytes / save_s / 1e9:.2f} GB/s, device to host included), restore into the live "
+          f"state {restore_s:.2f} s ({nbytes / restore_s / 1e9:.2f} GB/s); restored "
+          f"{'bitwise' if not again else f'with {len(again)} tensors differing'}")
+    if again:
+        raise AssertionError(f"the restored state differs: {again[:4]}")
+
+    flags = ["--experiment", "chronoedit_14b", "--num-layers", str(TRAINER_BLOCKS)]
+    dst = TRAINER_DIR / "dit.safetensors"
+    _, to_s = host_s(lambda: convert_weights.main(
+        ["checkpoint-to-diffusers", str(TRAINER_DIR / "c"), str(dst)] + flags))
+    _, from_s = host_s(lambda: convert_weights.main(
+        ["diffusers-to-checkpoint", str(dst), str(TRAINER_DIR / "params")] + flags))
+    back = ck.load_params(str(TRAINER_DIR / "params"))
+    params = dict(zip((n for n, _ in resumed.model.named_parameters()), resumed.params))
+    differ = [n for n, p in params.items() if not torch.equal(back[n].to(dev), p)]
+    print(f"convert_weights: checkpoint-to-diffusers {to_s:.1f} s, diffusers-to-checkpoint "
+          f"{from_s:.1f} s; {len(params) - len(differ)} of {len(params)} parameters back "
+          f"bitwise")
+    if differ or back.keys() != params.keys():
+        raise AssertionError(f"convert_weights round trip differs: {differ[:4]}")
+    shutil.rmtree(TRAINER_DIR, ignore_errors=True)
+    del straight, resumed, want, got, params, back
+    free()
+    return {"peak_gib": peak, "save_gbps": nbytes / save_s / 1e9,
+            "restore_gbps": nbytes / restore_s / 1e9, "checkpoint_gb": nbytes / 1e9}
 
 
 def tiled_decode_check(vae, x: torch.Tensor) -> None:
@@ -2520,7 +2979,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
                         help="profile one DiT forward and the VAE of each serving path, "
-                             "one LoRA train step and one w4a16 and one mixed2 DiT forward")
+                             "one LoRA and one QLoRA train step and one w4a16 and one mixed2 "
+                             "DiT forward")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -2571,23 +3031,33 @@ def main() -> int:
             guidance_cache_path(pipe, dev, (by_name, by_kv))
             guardrail_path(dev)
         torch.cuda.empty_cache()
-        training_path(pipe, dev, (by_name, by_kv), profile_dir)
-        # quantized serving: the trained-on bf16 DiT quantized in place (its
-        # bf16 weights freed as the walk goes), then the bf16 model loaded
-        # again from the same files for mixed2, so that no two copies of the
-        # DiT share the card
+        batches = train_batches(pipe)
+        training_path(pipe, dev, (by_name, by_kv), batches, profile_dir)
+        # quantized: the trained-on bf16 DiT quantized in place (its bf16
+        # weights freed as the walk goes), QLoRA over it, then serving; then
+        # the bf16 model loaded again from the same files for mixed2, so
+        # that no two copies of the DiT share the card
+        w4a16_path(pipe, dev, (by_name, by_kv), refs, batches, profile_dir)
+        del pipe, batches
+        free()
         with torch.inference_mode():
-            w4a16_path(pipe, dev, (by_name, by_kv), refs, profile_dir)
-            del pipe
-            torch.cuda.empty_cache()
             pipe, secs = host_s(lambda: load_pipeline(
                 cfg, str(CHECKPOINT_DIR), loras=[(str(CHECKPOINT_DIR / "distill_lora.safetensors"),
                                                   1.0)],
                 with_text_encoder=False, with_image_encoder=False, device=dev))
             print(f"loaded the DiT and VAE again for mixed2 in {secs:.1f} s")
             mixed2_path(pipe, dev, (by_name, by_kv), refs, profile_dir)
-    finally:
+            del pipe
+        free()
+        # training as a user runs it: the CLI from the directory's files, then
+        # the Trainer (the directory is removed first: its checkpoints need
+        # the disk)
+        cli_path(dev, cfg, (by_name, by_kv))
         shutil.rmtree(CHECKPOINT_DIR, ignore_errors=True)
+        trainer_path(dev, (by_name, by_kv))
+    finally:
+        for d in (CHECKPOINT_DIR, TRAINER_DIR, CHECKPOINT_DIR.parent / "smoke_train_data"):
+            shutil.rmtree(d, ignore_errors=True)
 
     # K5 is the flash kernel's launches over the 28,800-token reasoning
     # self-attention; K1 the rest of them; X1 and X2 ran in phase 4 only

@@ -12,7 +12,9 @@ The port of ``chronoedit_tpu/core/rectified_flow.py``:
 - loss weight: uniform, or the Gaussian "reweighting" bell over timesteps.
 
 The grid and the reweighting table are host float64 numpy, as in JAX; the
-lookups cast them to fp32 on the tensors' device.
+lookups cast them to fp32 and copy them to the tensors' device without
+waiting for it (``non_blocking``), so a train step runs under
+``utils/sanitize.no_host_sync``.
 """
 
 from __future__ import annotations
@@ -63,6 +65,11 @@ def sample_train_time(generator: torch.Generator, batch_size: int,
     raise NotImplementedError(cfg.train_time_distribution)
 
 
+def _on(table: np.ndarray, device) -> torch.Tensor:
+    """A host table as fp32 on ``device``, copied without a host wait."""
+    return torch.as_tensor(table, dtype=torch.float32).to(device, non_blocking=True)
+
+
 def discretize_time(u: torch.Tensor, cfg: RectifiedFlowConfig
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """u in [0, 1] -> (timesteps, sigmas) fp32 on the shifted train grid,
@@ -70,8 +77,8 @@ def discretize_time(u: torch.Tensor, cfg: RectifiedFlowConfig
     sigmas, timesteps = cfg.train_grid()
     n = cfg.num_train_timesteps
     idx = torch.clamp((u.float() * n).to(torch.int32), 0, n - 1).long()
-    t = torch.as_tensor(timesteps, dtype=torch.float32, device=u.device)[idx]
-    s = torch.as_tensor(sigmas, dtype=torch.float32, device=u.device)[idx]
+    t = _on(timesteps, u.device)[idx]
+    s = _on(sigmas, u.device)[idx]
     return t, s
 
 
@@ -95,8 +102,8 @@ def train_time_weight(timesteps: torch.Tensor, cfg: RectifiedFlowConfig) -> torc
         return torch.ones_like(timesteps)
     if cfg.train_time_weight == "reweighting":
         dev = timesteps.device
-        table = torch.as_tensor(cfg.reweighting_table(), dtype=torch.float32, device=dev)
-        grid = torch.as_tensor(cfg.train_grid()[1], dtype=torch.float32, device=dev)
+        table = _on(cfg.reweighting_table(), dev)
+        grid = _on(cfg.train_grid()[1], dev)
         idx = torch.argmin((grid[None, :] - timesteps.reshape(-1, 1)).abs(), dim=1)
         return table[idx].reshape(timesteps.shape)
     raise NotImplementedError(cfg.train_time_weight)

@@ -63,8 +63,11 @@ def _rope_3d_tables_np(spec: Rope3DSpec, t_positions: tuple[int, ...],
 
 def _to_device(tables, device) -> tuple[torch.Tensor, torch.Tensor]:
     cos, sin = tables
-    return (torch.as_tensor(cos, dtype=torch.float32, device=device),
-            torch.as_tensor(sin, dtype=torch.float32, device=device))
+    # non-blocking: a host-to-device copy that does not wait for the
+    # device (the staging copy of pageable memory ends before it returns),
+    # so a step runs under utils/sanitize.no_host_sync
+    return (torch.as_tensor(cos, dtype=torch.float32).to(device, non_blocking=True),
+            torch.as_tensor(sin, dtype=torch.float32).to(device, non_blocking=True))
 
 
 def rope_3d_tables(spec: Rope3DSpec, num_frames: int, height: int, width: int,

@@ -23,16 +23,25 @@ cross-attention never takes it, as in JAX.
 
 Training: gradients flow to every parameter that requires one (full
 fine-tuning) and to LoRA adapters when ``dit_forward`` is given them (their
-block's targets are merged inside the block, see ``models/lora.py``).
-``DiTConfig.remat = "full"`` recomputes blocks in the backward, as JAX's
-``jax.checkpoint`` does: only each block's inputs stay alive between the
-forward and the backward. (JAX's ``"matmul_only"`` policy is not ported: no
-path of the port sets it.)
+block's targets are merged inside the block, or attached as side branches
+over a quantized base, see ``models/lora.py``). ``DiTConfig.remat``:
+``"full"`` recomputes blocks in the backward, as JAX's ``jax.checkpoint``
+does: only each block's inputs stay alive between the forward and the
+backward. ``"matmul_only"`` is JAX's ``dots_with_no_batch_dims_saveable``
+policy as a selective checkpoint: the outputs of the block's 2-D products
+(``mm``, ``addmm``, ``_int_mm``: the projections, the LoRA side branches)
+are kept and the rest is recomputed, the attention and norm kernels
+included (a Pallas call is not a dot in JAX's policy). The per-block LoRA
+merge's fp32 ``a @ b`` is a 2-D product too, but one JAX computes outside
+its blocks: it is recomputed, never kept (at rank 32 it would hold about
+1.4 GB a block).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import math
 
 import torch
@@ -72,7 +81,7 @@ class DiTConfig:
     rope: Rope3DSpec = Rope3DSpec()
     dtype: torch.dtype = torch.bfloat16  # compute / stream dtype
     param_dtype: torch.dtype = torch.float32
-    remat: str = "none"  # "none" | "full", as the JAX DiT
+    remat: str = "none"  # "none" | "full" | "matmul_only", as the JAX DiT
     # int8 q.k scores in self-attention (serving only, forward only; applies
     # past JAX's resident KV length: ops/flash_attention.uses_int8_scores)
     attn_qk_int8: bool = False
@@ -184,7 +193,12 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
 
 
 def _lin(p: L.Linear, x, weights: dict | None):
-    return L.linear(p, x, None if weights is None else weights.get(p))
+    """``p``'s product, with its LoRA-merged weight or side branch (a
+    tuple, ``lora.attached_weights``) when ``weights`` holds one."""
+    w = None if weights is None else weights.get(p)
+    if isinstance(w, tuple):
+        return L.linear(p, x, side=w)
+    return L.linear(p, x, w)
 
 
 def _self_attention(p: SelfAttention, x, rope_cos, rope_sin, cfg: DiTConfig, weights):
@@ -237,21 +251,58 @@ def dit_block(p: DiTBlock, x, text_ctx, img_ctx, e, rope_cos, rope_sin, hw: int,
     return gated_residual(x, ff, c_gate, hw)
 
 
-def _lora_block(p: DiTBlock, adapters, scaling: float, x, text_ctx, img_ctx, e,
-                rope_cos, rope_sin, hw: int, cfg: DiTConfig) -> torch.Tensor:
-    """A block with its LoRA targets merged first (inside whatever
-    checkpoint wraps it, so merged weights live one block at a time)."""
-    weights = None if adapters is None else lora_lib.merged_weights(p, adapters, scaling)
+class _MatmulOnly:
+    """The selective-checkpoint policy of ``remat="matmul_only"``: keep the
+    outputs of 2-D products, recompute everything else. Inside
+    :meth:`recomputed` (the LoRA merge) products are recomputed too. One
+    instance serves one block call, its forward and its recompute."""
+
+    SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+             torch.ops.aten._int_mm.default)
+
+    def __init__(self):
+        self.skip = False
+
+    def __call__(self, ctx, op, *args, **kwargs):
+        if op in self.SAVED and not self.skip:
+            return ckpt.CheckpointPolicy.MUST_SAVE
+        return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+    @contextlib.contextmanager
+    def recomputed(self):
+        self.skip = True
+        try:
+            yield
+        finally:
+            self.skip = False
+
+
+def _lora_block(p: DiTBlock, adapters, lora_weights, policy: _MatmulOnly | None, x,
+                text_ctx, img_ctx, e, rope_cos, rope_sin, hw: int, cfg: DiTConfig
+                ) -> torch.Tensor:
+    """A block with its LoRA targets' weights made first by
+    ``lora_weights(block, adapters)`` (merged, or side branches), inside
+    whatever checkpoint wraps it, so they live one block at a time."""
+    weights = None
+    if adapters is not None:
+        with policy.recomputed() if policy is not None else contextlib.nullcontext():
+            weights = lora_weights(p, adapters)
     return dit_block(p, x, text_ctx, img_ctx, e, rope_cos, rope_sin, hw, cfg, weights)
 
 
-def _run_block(cfg: DiTConfig, *args) -> torch.Tensor:
-    """``_lora_block(*args)`` under ``cfg.remat`` when autograd records."""
+def _run_block(cfg: DiTConfig, blk, adapters, lora_weights, *args) -> torch.Tensor:
+    """``_lora_block`` under ``cfg.remat`` when autograd records."""
     if cfg.remat == "none" or not torch.is_grad_enabled():
-        return _lora_block(*args)
+        return _lora_block(blk, adapters, lora_weights, None, *args)
     if cfg.remat == "full":
-        return ckpt.checkpoint(_lora_block, *args, use_reentrant=False,
-                               preserve_rng_state=False)
+        return ckpt.checkpoint(_lora_block, blk, adapters, lora_weights, None, *args,
+                               use_reentrant=False, preserve_rng_state=False)
+    if cfg.remat == "matmul_only":
+        policy = _MatmulOnly()
+        return ckpt.checkpoint(
+            _lora_block, blk, adapters, lora_weights, policy, *args, use_reentrant=False,
+            preserve_rng_state=False,
+            context_fn=functools.partial(ckpt.create_selective_checkpoint_contexts, policy))
     raise ValueError(f"unknown remat mode {cfg.remat!r}")
 
 
@@ -303,7 +354,7 @@ def _condition_embeddings(m: DiT, cfg: DiTConfig, timesteps, text_emb, image_emb
 def dit_forward(model: DiT, x: torch.Tensor, timesteps: torch.Tensor,
                 text_emb: torch.Tensor, image_emb: torch.Tensor | None = None,
                 layer_mask=None, lora: lora_lib.LoRA | None = None,
-                cache_blocks: tuple[int, int] | None = None,
+                lora_attach: bool = False, cache_blocks: tuple[int, int] | None = None,
                 cache: torch.Tensor | None = None, cache_refresh: bool = True):
     """Velocity prediction.
 
@@ -315,7 +366,9 @@ def dit_forward(model: DiT, x: torch.Tensor, timesteps: torch.Tensor,
         a tensor is read to the host once); 0 skips a block (skip-layer
         guidance).
       lora: optional adapters, merged block by block as
-        ``W + (alpha / r) * a @ b``.
+        ``W + (alpha / r) * a @ b``, or with ``lora_attach`` added as side
+        branches ``(x @ a) @ ((alpha / r) * b)`` (QLoRA over a quantized
+        base, where merging raises).
       cache_blocks, cache, cache_refresh: the Δ-DiT step cache
         (arXiv:2406.01125). Blocks [a, b) contribute a token delta that
         changes slowly across solver steps. With ``cache_refresh`` (a host
@@ -353,6 +406,11 @@ def dit_forward(model: DiT, x: torch.Tensor, timesteps: torch.Tensor,
     tables = temporal_skip_rope_tables if cfg.temporal_skip else rope_3d_tables
     cos, sin = tables(cfg.rope, gt, gh, gw, device=x.device)
 
+    lora_weights = None
+    if lora is not None:
+        lora_weights = functools.partial(
+            lora_lib.attached_weights if lora_attach else lora_lib.merged_weights,
+            scaling=lora.cfg.scaling)
     delta = None
     for i, blk in enumerate(model.blocks):
         if layer_mask is not None and float(layer_mask[i]) <= 0.5:
@@ -363,8 +421,7 @@ def dit_forward(model: DiT, x: torch.Tensor, timesteps: torch.Tensor,
         if cached and not cache_refresh:
             continue
         adapters = None if lora is None else lora.blocks[i]
-        scaling = 0.0 if lora is None else lora.cfg.scaling
-        out = _run_block(cfg, blk, adapters, scaling, tokens, text_ctx, img_ctx,
+        out = _run_block(cfg, blk, adapters, lora_weights, tokens, text_ctx, img_ctx,
                          t_proj, cos, sin, hw, cfg)
         if cached:
             delta = out - tokens if delta is None else delta + (out - tokens)

@@ -18,10 +18,14 @@ Several adapters fuse one after another (:func:`merge_multi_lora`), each
 rounded to W's dtype before the next, as in JAX. Files of the reference's
 LoRA dialects convert through ``models/weights.py``.
 
-A quantized projection (``ops/quant.py``) has no float weight to merge
-into: building adapters over it or merging into it raises. Not here yet:
-``attach_lora`` / ``base_is_quantized`` (QLoRA's side adapters over a
-quantized base).
+QLoRA: a quantized projection (``ops/quant.py``) has no float weight to
+merge into, and merging into one raises. Over a quantized base
+(:func:`base_is_quantized`) the adapters ride unmerged as side branches,
+``y += (x @ a) @ (scaling * b)`` in fp32 after the quantized product
+(:func:`attached_weights`, JAX's ``attach_lora`` one block at a time; the
+scaling folds into b), on every target, as JAX attaches every target once
+any is quantized. Adapters over a quantized leaf take the float layer's
+dims (an int4 leaf records its unpadded in-dim).
 """
 
 from __future__ import annotations
@@ -73,12 +77,24 @@ class LoRA(nn.Module):
             adapters = nn.ModuleDict()
             for target in cfg.targets:
                 module, layer = target.split("/")
-                w = _linear(blk, target).weight  # (d_out, d_in)
+                d_in, d_out = _dims(blk.get_submodule(target.replace("/", ".")), target)
                 if module not in adapters:
                     adapters[module] = nn.ModuleDict()
-                adapters[module][layer] = Adapter(w.shape[1], w.shape[0], cfg.rank,
-                                                  device=device)
+                adapters[module][layer] = Adapter(d_in, d_out, cfg.rank, device=device)
             self.blocks.append(adapters)
+
+
+def _dims(lin: nn.Module, target: str) -> tuple[int, int]:
+    """(d_in, d_out) of a float or quantized linear layer."""
+    from chronoedit_tpu_torch.ops import quant
+
+    if isinstance(lin, quant.QuantLinear8):
+        return lin.weight_q.shape[1], lin.weight_q.shape[0]
+    if isinstance(lin, quant.QuantLinear4):
+        if lin.in_features is None:
+            raise ValueError(f"LoRA target {target}: the int4 leaf does not record its in-dim")
+        return lin.in_features, lin.packed.shape[0]
+    return lin.weight.shape[1], lin.weight.shape[0]
 
 
 def _linear(block: nn.Module, target: str) -> nn.Module:
@@ -89,6 +105,28 @@ def _linear(block: nn.Module, target: str) -> nn.Module:
         raise ValueError(f"LoRA target {target} is quantized ({type(lin).__name__}): "
                          "there is no float weight to merge into")
     return lin
+
+
+def base_is_quantized(model: nn.Module, cfg: LoRAConfig | None = None) -> bool:
+    """True when any LoRA target of any block of ``model`` is a quantized
+    leaf: such a base takes its adapters as side branches
+    (:func:`attached_weights`), not merged."""
+    from chronoedit_tpu_torch.ops import quant
+
+    targets = cfg.targets if cfg else DEFAULT_TARGETS
+    for blk in model.blocks:
+        for target in targets:
+            module, layer = target.split("/")
+            parent = getattr(blk, module, None)
+            if parent is not None and quant.is_quantized(getattr(parent, layer, None)):
+                return True
+    return False
+
+
+def lora_trainable_filter(lora: LoRA) -> dict[str, bool]:
+    """{parameter name: trainable} of ``lora``: every adapter tensor (JAX's
+    optax mask of the same name)."""
+    return {name: True for name, _ in lora.named_parameters()}
 
 
 def iter_adapters(adapters: nn.ModuleDict):
@@ -128,6 +166,15 @@ def merged_weights(block: nn.Module, adapters: nn.ModuleDict,
         delta = (ad.a.float() @ ad.b.float()) * scaling
         out[lin] = (lin.weight.float() + delta.T).to(lin.weight.dtype)
     return out
+
+
+def attached_weights(block: nn.Module, adapters: nn.ModuleDict, scaling: float
+                     ) -> dict[nn.Module, tuple[torch.Tensor, torch.Tensor]]:
+    """{linear layer: (a, b * scaling)} for one block's targets, the side
+    branches ``ops/layers.linear`` adds after the layer's own (float or
+    quantized) product; b scaled in fp32, differentiable in the adapters."""
+    return {block.get_submodule(target.replace("/", ".")): (ad.a, ad.b.float() * scaling)
+            for target, ad in iter_adapters(adapters)}
 
 
 def merge_lora(model: nn.Module, lora: LoRA, scale: float = 1.0,

@@ -300,10 +300,17 @@ def export_diffusers_dit(model: DiT) -> dict[str, torch.Tensor]:
     """Inverse of :func:`convert_diffusers_dit`: the model's parameters
     under diffusers names (the patch embedding in its flat (out, in * p)
     form, the modulation tables as (1, n, dim)), on the model's device."""
-    params = dict(model.named_parameters())
+    return diffusers_dit_state(dict(model.named_parameters()), model.cfg)
+
+
+def diffusers_dit_state(params: Mapping[str, torch.Tensor], cfg: DiTConfig
+                        ) -> dict[str, torch.Tensor]:
+    """{DiT parameter name: tensor} (a model's, or a checkpoint's) -> the
+    diffusers state dict :func:`export_diffusers_dit` writes, for ``cfg``'s
+    layers, without building a model."""
     return {ref: (params[name].detach().unsqueeze(0) if ref.endswith("scale_shift_table")
                   else params[name].detach())
-            for ref, name in diffusers_dit_names(model.cfg).items()}
+            for ref, name in diffusers_dit_names(cfg).items()}
 
 
 def convert_native_dit(sd: StateDict, cfg: DiTConfig, device=None) -> DiT:

@@ -19,6 +19,15 @@ register-A fragments of a bf16 ``wgmma`` with the twin's dequantization, bit
 for bit. JAX launches its Pallas kernel only on one TPU, for the uniform
 grid and behind an environment switch; the port launches K8 for both
 grids, for every int4 linear on the card.
+
+Under autograd (QLoRA over a w4a16 base) :func:`int4_matmul` is a
+``torch.autograd.Function``: its forward is the launch above (or the twin
+on the CPU), its backward ``dx = dy @ dequant(W)`` in x's dtype through
+the twin's :func:`dequantize` and ``torch.matmul``, the product JAX's
+autodiff forms in XLA outside any Pallas kernel; the frozen weight gets
+no gradient. A raw-pointer launch into ``torch.empty`` carries no
+``grad_fn`` by itself, which would cut every path from a block's input to
+its output.
 """
 
 from __future__ import annotations
@@ -74,11 +83,9 @@ def _check(x2: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
         raise ValueError("int4_matmul: no rows")
 
 
-def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
-                table: torch.Tensor) -> torch.Tensor:
-    """``x @ dequant(packed, scales, table)``: x (..., K), returns (..., N)
-    in x's dtype. K8 for CUDA tensors (bf16 x), the twin for CPU tensors.
-    Launches are counted by name and by the flattened row count M."""
+def _int4_matmul_forward(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
+                         table: torch.Tensor) -> torch.Tensor:
+    """K8 for CUDA tensors (bf16 x), the twin for CPU tensors."""
     if x.device.type == "cpu":
         return int4_matmul_plain(x, packed, scales, table)
     from chronoedit_tpu_torch.kernels import build
@@ -92,3 +99,27 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
         x2.data_ptr(), packed.data_ptr(), scales.data_ptr(), table.data_ptr(), out.data_ptr(),
         m, n, x2.shape[1], torch.cuda.current_stream().cuda_stream), "int4_matmul", m)
     return out.reshape(*lead, n)
+
+
+class _Int4Matmul(torch.autograd.Function):
+    """K8 (or its twin) forward; ``dx = dy @ dequant(W)`` backward."""
+
+    @staticmethod
+    def forward(ctx, x, packed, scales, table):
+        ctx.save_for_backward(packed, scales, table)
+        return _int4_matmul_forward(x, packed, scales, table)
+
+    @staticmethod
+    def backward(ctx, dy):
+        packed, scales, table = ctx.saved_tensors
+        w = dequantize(packed, scales, table).to(dy.dtype)  # (N, K)
+        return torch.matmul(dy, w), None, None, None
+
+
+def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
+                table: torch.Tensor) -> torch.Tensor:
+    """``x @ dequant(packed, scales, table)``: x (..., K), returns (..., N)
+    in x's dtype. K8 for CUDA tensors (bf16 x), the twin for CPU tensors;
+    differentiable in x. Launches are counted by name and by the flattened
+    row count M."""
+    return _Int4Matmul.apply(x, packed, scales, table)

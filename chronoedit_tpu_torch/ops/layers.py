@@ -49,20 +49,30 @@ class Linear(nn.Module):
                 self.bias.zero_()
 
 
-def linear(p: nn.Module, x: torch.Tensor, weight: torch.Tensor | None = None) -> torch.Tensor:
+def linear(p: nn.Module, x: torch.Tensor, weight: torch.Tensor | None = None,
+           side: tuple[torch.Tensor, torch.Tensor] | None = None) -> torch.Tensor:
     """``x @ W.T + b`` in x's dtype; ``weight`` stands in for ``p.weight``
     (a LoRA-merged copy). A quantized leaf (``ops/quant.py``) runs its own
-    product, as JAX dispatches on the leaf's keys."""
+    product, as JAX dispatches on the leaf's keys. ``side = (a, b)`` adds
+    the unmerged LoRA branch ``((x @ a) @ b)`` in fp32, cast to the
+    output's dtype, after any product (QLoRA's composition over a
+    quantized leaf; the adapter scaling is folded into b)."""
     if not isinstance(p, Linear):
         from chronoedit_tpu_torch.ops import quant
 
         if weight is not None:
             raise ValueError("a merged weight cannot stand in for a quantized layer")
         if isinstance(p, quant.QuantLinear8):
-            return quant.quantized_linear(p, x)
-        return quant.quantized_linear_int4(p, x)
-    w = p.weight if weight is None else weight
-    return F.linear(x, w.to(x.dtype), None if p.bias is None else p.bias.to(x.dtype))
+            y = quant.quantized_linear(p, x)
+        else:
+            y = quant.quantized_linear_int4(p, x)
+    else:
+        w = p.weight if weight is None else weight
+        y = F.linear(x, w.to(x.dtype), None if p.bias is None else p.bias.to(x.dtype))
+    if side is not None:
+        a, b = side
+        y = y + ((x.float() @ a.float()) @ b.float()).to(y.dtype)
+    return y
 
 
 class LayerNorm(nn.Module):

@@ -1,0 +1,286 @@
+"""Training checkpoints: the Orbax manager's contract on safetensors.
+
+The port of ``chronoedit_tpu/train/checkpoint.py``. JAX's manager wraps
+Orbax; the port writes one directory per step under
+``CheckpointConfig.directory``:
+
+- ``<step>/state.safetensors``: the trained parameters (``params/<name>``),
+  the EMA (``ema_params/<name>``), AdamW's moments
+  (``opt_state/exp_avg/<name>``, ``opt_state/exp_avg_sq/<name>``) and the
+  gradient accumulator (``opt_state/acc/<name>``), each in its own dtype;
+- ``<step>/counters.json``: ``step`` (micro-steps), ``gradient_step``
+  (applied updates, which is also AdamW's step) and ``mini_step``.
+
+A save is written under a temporary name and renamed into place, so
+:meth:`CheckpointManager.latest_step` never sees half a checkpoint; an
+async save copies every tensor to host memory before :meth:`save` returns
+and writes on a thread (one at a time), as Orbax's async checkpointer does.
+The file is written here in the safetensors layout (:func:`_save_file`)
+with plain ``write`` calls, which release the interpreter lock: the
+``safetensors`` package's writer holds it for the whole write, which
+stalled the training thread for as long (9 s of a 13 s save of 10.5 GB,
+H100 80GB HBM3 host, 700 W).
+:meth:`CheckpointManager.restore` copies into the live state, in place:
+the parameters, moments, accumulator and counters, so a restored state
+continues bitwise where the saved one would have gone, in the middle of an
+accumulation too. ``keys_not_to_resume`` keeps the live values of whole
+top-level fields (``step``, ``params``, ``opt_state``, ``ema_params``, JAX's
+``TrainState`` field names); ``load_ema_to_reg`` restores the EMA into the
+parameters as well. :func:`save_params` / :func:`load_params` are the
+one-shot form for a model's parameters alone.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import shutil
+import struct
+import threading
+from typing import Any
+
+import torch
+from torch import nn
+
+STATE_FILE = "state.safetensors"
+COUNTERS_FILE = "counters.json"
+PARAMS_FILE = "params.safetensors"
+_TMP = ".tmp"
+
+
+@dataclasses.dataclass(frozen=True)
+class CheckpointConfig:
+    directory: str = "checkpoints"
+    max_to_keep: int = 3
+    save_interval: int = 1000
+    async_save: bool = True
+    keys_not_to_resume: tuple[str, ...] = ()
+    # restore the EMA weights INTO the regular params (the reference's
+    # ``load_ema_to_reg`` regexp swap, ModelWrapper dcp.py:454-503)
+    load_ema_to_reg: bool = False
+
+
+def _param_names(state: Any) -> list[str]:
+    """The names of ``state.params`` in order: the model's parameters for a
+    full-parameter state, the adapters' for a LoRA state."""
+    owner = state.model if hasattr(state, "model") else state.lora
+    names = [n for n, _ in owner.named_parameters()]
+    if len(names) != len(state.params):
+        raise ValueError("the state's parameters are not its module's")
+    return names
+
+
+def state_tensors(state: Any) -> dict[str, torch.Tensor]:
+    """Every tensor of a train state under its checkpoint name."""
+    names = _param_names(state)
+    opt = state.optimizer
+    out = {f"params/{n}": p for n, p in zip(names, state.params)}
+    if state.ema_params is not None:
+        out.update({f"ema_params/{n}": e for n, e in zip(names, state.ema_params)})
+    for n, p in zip(names, state.params):
+        st = opt.adamw.state.get(p, {})
+        for key in ("exp_avg", "exp_avg_sq"):
+            out[f"opt_state/{key}/{n}"] = st[key] if key in st else torch.zeros_like(p)
+    if opt.acc is not None:
+        out.update({f"opt_state/acc/{n}": a for n, a in zip(names, opt.acc)})
+    return out
+
+
+def state_counters(state: Any) -> dict[str, int]:
+    opt = state.optimizer
+    return {"step": state.step, "gradient_step": opt.gradient_step,
+            "mini_step": opt.mini_step}
+
+
+_DTYPES = {torch.float64: "F64", torch.float32: "F32", torch.bfloat16: "BF16",
+           torch.float16: "F16", torch.int64: "I64", torch.int32: "I32", torch.int16: "I16",
+           torch.int8: "I8", torch.uint8: "U8", torch.bool: "BOOL"}
+
+
+def _save_file(tensors: dict[str, torch.Tensor], path: str) -> None:
+    """Contiguous host tensors as one safetensors file (an 8-byte header
+    length, the JSON header padded with spaces to 8 bytes, then every
+    tensor's bytes in order, no holes), written tensor by tensor."""
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": _DTYPES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    blob = json.dumps(header, separators=(",", ":")).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(blob)))
+        f.write(blob)
+        for t in tensors.values():
+            f.write(t.reshape(-1).view(torch.uint8).numpy())
+
+
+def _write(path: str, tensors: dict[str, torch.Tensor], counters: dict | None) -> None:
+    """Write host tensors (and counters) as the directory ``path``, through a
+    temporary name and a rename."""
+    tmp = path + _TMP
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    if counters is None:
+        _save_file(tensors, os.path.join(tmp, PARAMS_FILE))
+    else:
+        _save_file(tensors, os.path.join(tmp, STATE_FILE))
+        with open(os.path.join(tmp, COUNTERS_FILE), "w") as f:
+            json.dump(counters, f)
+    shutil.rmtree(path, ignore_errors=True)
+    os.replace(tmp, path)
+
+
+def _to_host(tensors: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """Contiguous host copies, none sharing memory with the live state."""
+    return {k: t.detach().to("cpu", copy=True).contiguous() for k, t in tensors.items()}
+
+
+class CheckpointManager:
+    """Step directories under ``cfg.directory``: save, find the latest,
+    restore into a live train state, keep the newest ``max_to_keep``."""
+
+    def __init__(self, cfg: CheckpointConfig):
+        self.cfg = cfg
+        self.directory = os.path.abspath(cfg.directory)
+        os.makedirs(self.directory, exist_ok=True)
+        # saved steps, in-flight async saves included (Orbax counts those too)
+        self._steps = sorted(int(d) for d in os.listdir(self.directory) if d.isdigit())
+        self._thread: threading.Thread | None = None
+        self._error: BaseException | None = None
+
+    def _path(self, step: int) -> str:
+        return os.path.join(self.directory, str(step))
+
+    def save(self, step: int, state: Any, force: bool = False) -> bool:
+        """Save ``state`` as ``step``; False (nothing written) when that
+        step is already saved and ``force`` is not set. An async save
+        returns once the tensors are on the host."""
+        if step in self._steps and not force:
+            return False
+        self.wait_until_finished()
+        host = _to_host(state_tensors(state))
+        counters = state_counters(state)
+        if step not in self._steps:
+            self._steps.append(step)
+            self._steps.sort()
+        stale = self._steps[:-self.cfg.max_to_keep] if self.cfg.max_to_keep else []
+        self._steps = [s for s in self._steps if s not in stale]
+
+        def write():
+            try:
+                _write(self._path(step), host, counters)
+                for s in stale:
+                    shutil.rmtree(self._path(s), ignore_errors=True)
+            except BaseException as e:  # raised by wait_until_finished
+                self._error = e
+
+        if self.cfg.async_save:
+            self._thread = threading.Thread(target=write, name=f"checkpoint-{step}")
+            self._thread.start()
+        else:
+            write()
+            self._raise()
+        return True
+
+    def latest_step(self) -> int | None:
+        return self._steps[-1] if self._steps else None
+
+    def restore(self, template: Any, step: int | None = None) -> Any:
+        """Copy the checkpoint of ``step`` (default the latest) into the live
+        state ``template`` and return it; None when there is none."""
+        from safetensors import safe_open
+
+        step = self.latest_step() if step is None else step
+        if step is None:
+            return None
+        self.wait_until_finished()
+        path = self._path(step)
+        skip = set(self.cfg.keys_not_to_resume)
+        live = state_tensors(template)
+        with safe_open(os.path.join(path, STATE_FILE), framework="pt") as f:
+            keys = set(f.keys())
+            for name, t in live.items():
+                if name.split("/", 1)[0] in skip:
+                    continue
+                if name not in keys:
+                    raise KeyError(f"checkpoint {path} has no {name}")
+                with torch.no_grad():
+                    t.copy_(f.get_tensor(name))
+        with open(os.path.join(path, COUNTERS_FILE)) as fc:
+            counters = json.load(fc)
+        if "step" not in skip:
+            template.step = counters["step"]
+        if "opt_state" not in skip:
+            _restore_optimizer(template, live, counters)
+        if self.cfg.load_ema_to_reg and template.ema_params is not None:
+            with torch.no_grad():
+                for p, e in zip(template.params, template.ema_params):
+                    p.copy_(e)
+        return template
+
+    def _raise(self) -> None:
+        err, self._error = self._error, None
+        if err is not None:
+            raise err
+
+    def wait_until_finished(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        self._raise()
+
+    def close(self) -> None:
+        self.wait_until_finished()
+
+
+def _restore_optimizer(state: Any, live: dict[str, torch.Tensor], counters: dict) -> None:
+    """AdamW's per-parameter state from the restored moments (copied into
+    the live tensors above, or made here when AdamW has not stepped yet)
+    and the counters."""
+    opt = state.optimizer
+    opt.gradient_step = counters["gradient_step"]
+    opt.mini_step = counters["mini_step"]
+    for n, p in zip(_param_names(state), state.params):
+        st = opt.adamw.state[p]
+        for key in ("exp_avg", "exp_avg_sq"):
+            if key not in st:
+                st[key] = live[f"opt_state/{key}/{n}"]
+        st["step"] = torch.tensor(float(opt.gradient_step))
+
+
+def save_params(path: str, params: nn.Module | dict[str, torch.Tensor]) -> None:
+    """One-shot save of a model's parameters (or a {name: tensor} dict) as
+    ``<path>/params.safetensors``, e.g. exported or EMA weights."""
+    if isinstance(params, nn.Module):
+        params = dict(params.named_parameters())
+    _write(os.path.abspath(path), _to_host(params), None)
+
+
+def load_params(path: str, template: nn.Module | None = None, field: str = "params"):
+    """The parameters :func:`save_params` wrote, or a step directory's
+    ``field`` (``"params"`` or ``"ema_params"``), read tensor by tensor: a
+    {name: CPU tensor} dict, or copied into ``template``'s parameters of the
+    same names and ``template`` returned."""
+    from safetensors import safe_open
+
+    file = os.path.join(path, PARAMS_FILE)
+    if os.path.exists(file):
+        if field != "params":
+            raise KeyError(f"{path} holds parameters alone, no {field}")
+        prefix = ""
+    else:
+        file, prefix = os.path.join(path, STATE_FILE), f"{field}/"
+    with safe_open(file, framework="pt") as f:
+        names = [k[len(prefix):] for k in f.keys() if k.startswith(prefix)]
+        if template is None:
+            return {n: f.get_tensor(prefix + n) for n in names}
+        named = dict(template.named_parameters())
+        if set(named) != set(names):
+            raise KeyError(f"{path}: other parameters than the template's")
+        with torch.no_grad():
+            for name, p in named.items():
+                p.copy_(f.get_tensor(prefix + name))
+    return template

@@ -1,13 +1,22 @@
 """LoRA fine-tuning: train only the adapters over a frozen base DiT.
 
-The port of ``chronoedit_tpu/train/lora_train.py`` (bf16 base; the QLoRA
-branch over a quantized base waits for the quantization slice). The base's
-parameters keep ``requires_grad=False`` and are never written; gradients
-reach the adapters through the merge each block makes of its targets
-(``models/lora.py``). With ``DiTConfig.remat = "full"`` only the blocks'
+The port of ``chronoedit_tpu/train/lora_train.py``. The base's parameters
+keep ``requires_grad=False`` and are never written; gradients reach the
+adapters through the merge each block makes of its targets
+(``models/lora.py``), or, over a quantized base (QLoRA: w8a8, w4a16 or
+w4a8 leaves with no float weight to merge into), through the side branches
+``(x @ a) @ (scaling * b)`` after each quantized product, whose backward is
+the straight-through int8 product or ``dy @ dequant(W)`` (``ops/quant.py``,
+``ops/int4_matmul.py``). With ``DiTConfig.remat = "full"`` only the blocks'
 inputs stay alive between the forward and the backward, which is what lets
-the 14B model train at 720p on one 80 GB card. As in the full-parameter
-step, every step applies one update (JAX's ``grad_accum`` is not ported).
+the 14B model train at 720p on one 80 GB card.
+
+``TrainConfig.grad_accum`` accumulates as the full-parameter step does
+(``train/train_step.py``). The EMA moves after each applied update at the
+applied count: JAX's LoRA step moves it on every micro-step at the
+micro-step count, the same rule when ``grad_accum = 1``; under
+accumulation the port follows JAX's full-parameter rule (``ROADMAP.md``
+queue 3).
 """
 
 from __future__ import annotations
@@ -44,8 +53,9 @@ def make_lora_train_state(lora: lora_lib.LoRA, cfg: TrainConfig) -> LoRATrainSta
 def make_lora_train_step(dit_cfg: dit_lib.DiTConfig, cfg: TrainConfig
                          ) -> Callable[..., dict]:
     """``step(state, base, batch, generator=None, *, u=None, noise=None)``:
-    one step of the adapters over the frozen ``base`` DiT, in
-    place; returns {"loss", "grad_norm"}."""
+    one micro-step of the adapters over the frozen ``base`` DiT (merged
+    into a float base, attached to a quantized one), in place; returns
+    {"loss", "grad_norm"}."""
 
     def step(state: LoRATrainState, base: dit_lib.DiT, batch: dict,
              generator: torch.Generator | None = None, *,
@@ -54,7 +64,8 @@ def make_lora_train_step(dit_cfg: dit_lib.DiTConfig, cfg: TrainConfig
             u, noise = draw_train_noise(generator, batch["latents"], cfg.rectified_flow)
         loss = velocity_loss(base, dit_cfg, cfg.rectified_flow, batch["latents"],
                              batch["condition"], batch["text_emb"],
-                             batch.get("image_emb"), u, noise, lora=state.lora)
+                             batch.get("image_emb"), u, noise, lora=state.lora,
+                             lora_attach=lora_lib.base_is_quantized(base, state.lora.cfg))
         metrics = apply_step(loss, state.params, state.optimizer, state.ema_params, cfg)
         state.step += 1
         return metrics

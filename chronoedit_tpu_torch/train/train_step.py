@@ -1,22 +1,32 @@
 """The training step: rectified-flow velocity loss, AdamW with clipping and
-warm-up, EMA.
+warm-up, gradient accumulation, EMA.
 
 The port of ``chronoedit_tpu/train/train_step.py``. JAX's step is one
 jitted pure function over an optax chain; here the step runs eagerly and
 updates the parameters, the optimizer's moments and the EMA in place.
 :class:`Optimizer` reproduces the optax chain the JAX package builds:
 
-- ``clip_by_global_norm``: scale by ``max / |g|`` only when ``|g| >= max``
-  (``torch.nn.utils.clip_grad_norm_`` would add 1e-6 to the norm);
+- ``clip_by_global_norm``: ``select(|g| < max, g, (g / |g|) * max)`` with
+  the norm cast to the gradient's dtype, on the device (``torch.where``:
+  no read of the norm on the host, so a step runs under
+  ``utils/sanitize.no_host_sync``; ``torch.nn.utils.clip_grad_norm_``
+  would add 1e-6 to the norm);
 - ``adamw`` over ``warmup_constant_schedule(0, lr, warmup_steps)``: the
   first update has learning rate 0. ``torch.optim.AdamW`` computes the same
-  update (decoupled decay scaled by lr, eps outside the square root).
+  update (decoupled decay scaled by lr, eps outside the square root);
+- ``grad_accum = k > 1``: ``optax.MultiSteps``. Each micro-step folds its
+  gradient into a running mean ``acc + (g - acc) / (mini_step + 1)`` held in
+  the parameter's dtype (Welford, as optax: not a sum divided by k); every
+  k-th micro-step clips and applies AdamW to the mean and zeroes it. The
+  warm-up counts applied updates.
 
-Every step applies one update: JAX's ``grad_accum`` (``optax.MultiSteps``)
-is not ported, as no path of the port accumulates yet. The EMA moves after
-each update at the update count, as in JAX. ``grad_norm`` is the norm of
-the raw gradient, before clipping. The random draws (train time u and the noise) are arguments of
-:func:`velocity_loss`, so a caller can feed the same draws to JAX and here;
+``grad_norm`` is the norm of the micro-step's raw gradient, before
+clipping. The EMA moves after each applied update, at the applied count,
+in both the full-parameter and the LoRA step (JAX's full-parameter rule;
+JAX's LoRA step moves it every micro-step at the micro-step count, which
+differs only under accumulation, see ``ROADMAP.md`` queue 3). The random
+draws (train time u and the noise) are arguments of :func:`velocity_loss`,
+so a caller can feed the same draws to JAX and here;
 :func:`draw_train_noise` makes them from a ``torch.Generator``.
 """
 
@@ -42,6 +52,8 @@ class TrainConfig:
     eps: float = 1e-8
     grad_clip: float = 1.0
     warmup_steps: int = 1000
+    total_steps: int = 100_000
+    grad_accum: int = 1  # micro-batches per optimizer step (optax.MultiSteps)
     rectified_flow: rf.RectifiedFlowConfig = rf.RectifiedFlowConfig()
     ema: EMAConfig = EMAConfig()
 
@@ -61,24 +73,48 @@ def warmup_lr(cfg: TrainConfig, count: int) -> float:
 
 
 class Optimizer:
-    """The port of JAX's ``make_optimizer`` (``grad_accum = 1``): optax
-    ``chain(clip_by_global_norm, adamw)`` over a list of parameters,
-    updating them in place."""
+    """The port of JAX's ``make_optimizer``: optax ``chain(clip_by_global_norm,
+    adamw)``, under ``MultiSteps`` when ``cfg.grad_accum > 1``, over a list
+    of parameters, updating them in place. ``gradient_step`` counts applied
+    updates, ``mini_step`` the micro-steps of the accumulation under way,
+    ``acc`` holds its running mean (None without accumulation)."""
 
     def __init__(self, params: list[torch.Tensor], cfg: TrainConfig):
         self.params, self.cfg = params, cfg
         self.adamw = torch.optim.AdamW(params, lr=0.0, betas=cfg.betas, eps=cfg.eps,
                                        weight_decay=cfg.weight_decay)
-        self.gradient_step = 0  # updates so far
+        self.gradient_step = 0
+        self.mini_step = 0
+        self.acc = ([torch.zeros_like(p) for p in params] if cfg.grad_accum > 1
+                    else None)
 
     @torch.no_grad()
-    def update(self, grads: list[torch.Tensor]) -> None:
-        """One clip + AdamW update of the parameters with ``grads``."""
+    def update(self, grads: list[torch.Tensor]) -> bool:
+        """One micro-step with ``grads``; returns whether it applied an
+        update (every step without accumulation, every k-th with)."""
+        if self.acc is None:
+            self._apply(grads)
+            return True
+        n = self.mini_step + 1
+        for a, g in zip(self.acc, grads):
+            a.add_((g.to(a.dtype) - a) / n)
+        if n < self.cfg.grad_accum:
+            self.mini_step = n
+            return False
+        self._apply(self.acc)
+        for a in self.acc:
+            a.zero_()
+        self.mini_step = 0
+        return True
+
+    def _apply(self, grads: list[torch.Tensor]) -> None:
+        """Clip by the global norm (on the device), then one AdamW update at
+        the warm-up's learning rate for ``gradient_step``."""
         cfg = self.cfg
         g_norm = global_norm(grads)
-        clip = None if bool(g_norm < cfg.grad_clip) else g_norm
+        below = g_norm < cfg.grad_clip
         for p, g in zip(self.params, grads):
-            p.grad = g if clip is None else (g / clip) * cfg.grad_clip
+            p.grad = torch.where(below, g, (g / g_norm.to(g.dtype)) * cfg.grad_clip)
         for group in self.adamw.param_groups:
             group["lr"] = warmup_lr(cfg, self.gradient_step)
         self.adamw.step()
@@ -91,7 +127,7 @@ class Optimizer:
 class TrainState:
     """Full-parameter training state: the model (its parameters are the
     trained ones), the optimizer, the EMA copies (None when disabled) and
-    the step count."""
+    the micro-step count."""
 
     model: dit_lib.DiT
     optimizer: Optimizer
@@ -142,25 +178,25 @@ def velocity_loss(model: dit_lib.DiT, dit_cfg: dit_lib.DiTConfig,
                   rf_cfg: rf.RectifiedFlowConfig, latents: torch.Tensor,
                   condition: torch.Tensor, text_emb: torch.Tensor,
                   image_emb: torch.Tensor | None, u: torch.Tensor, noise: torch.Tensor,
-                  lora=None) -> torch.Tensor:
+                  lora=None, lora_attach: bool = False) -> torch.Tensor:
     """Time-weighted velocity MSE for given draws u (B,) and noise."""
     b = latents.shape[0]
     timesteps, sigmas = rf.discretize_time(u, rf_cfg)
     x_t, v_target = rf.get_interpolation(noise.float(), latents.float(), sigmas)
     xin = torch.cat([x_t.to(dit_cfg.dtype), condition.to(dit_cfg.dtype)], dim=1)
-    v_pred = dit_lib.dit_forward(model, xin, timesteps, text_emb, image_emb, lora=lora)
+    v_pred = dit_lib.dit_forward(model, xin, timesteps, text_emb, image_emb, lora=lora,
+                                 lora_attach=lora_attach)
     per_sample = (v_pred.float() - v_target).square().reshape(b, -1).mean(dim=1)
     return (rf.train_time_weight(timesteps, rf_cfg) * per_sample).mean()
 
 
 def apply_step(loss: torch.Tensor, params: list[torch.Tensor], optimizer: Optimizer,
                ema_params: list[torch.Tensor] | None, cfg: TrainConfig) -> dict:
-    """Backward through ``loss`` to ``params``, one optimizer update and one
-    EMA step at the update count."""
+    """Backward through ``loss`` to ``params``, one optimizer micro-step,
+    and one EMA step at the applied count when it applied an update."""
     grads = torch.autograd.grad(loss, params)
     g_norm = global_norm(grads)
-    optimizer.update(list(grads))
-    if ema_params is not None:
+    if optimizer.update(list(grads)) and ema_params is not None:
         ema_update(ema_params, params, optimizer.gradient_step - 1, cfg.ema)
     return {"loss": loss.detach(), "grad_norm": g_norm}
 
@@ -168,7 +204,7 @@ def apply_step(loss: torch.Tensor, params: list[torch.Tensor], optimizer: Optimi
 def make_train_step(dit_cfg: dit_lib.DiTConfig, cfg: TrainConfig
                     ) -> Callable[..., dict]:
     """``step(state, batch, generator=None, *, u=None, noise=None)`` runs
-    one step in place and returns {"loss", "grad_norm"}; batch =
+    one micro-step in place and returns {"loss", "grad_norm"}; batch =
     {"latents", "condition", "text_emb", "image_emb" (optional)}. The draws
     come from ``generator`` unless u and noise are given."""
 

@@ -44,6 +44,13 @@ SERVING_MODULES = ("pipeline.server", "aux", "aux.guardrails", "aux.safety_class
                    "aux.face_detector", "scripts", "scripts.run_inference", "scripts.serve",
                    "scripts.check_environment", "data.edit_dataset", "utils.visualize")
 
+# the modules of training (the trainer, its checkpoints, callbacks and
+# guards, the training and conversion CLIs and the host copies they import)
+TRAINING_MODULES = ("train.trainer", "train.checkpoint", "train.callbacks", "utils.config",
+                    "utils.easy_io", "utils.sanitize", "parallel", "parallel.distributed",
+                    "parallel.consistency", "data.loaders", "scripts.train",
+                    "scripts.convert_weights")
+
 _WALK = """
 import pkgutil, sys
 for blocked in ("jax", "jaxlib", "chronoedit_tpu"):
@@ -72,6 +79,11 @@ def test_walk_reaches_serving():
     assert {f"chronoedit_tpu_torch.{m}" for m in SERVING_MODULES} <= _walked()
 
 
+def test_walk_reaches_training():
+    """... and training's."""
+    assert {f"chronoedit_tpu_torch.{m}" for m in TRAINING_MODULES} <= _walked()
+
+
 def test_importing_the_scripts_starts_nothing():
     """Importing a CLI module parses no arguments and starts no thread."""
     proc = subprocess.run([sys.executable, "-c", _SCRIPTS, "--not-an-option"], cwd=REPO,
@@ -82,7 +94,8 @@ def test_importing_the_scripts_starts_nothing():
 
 _SCRIPTS = """
 import threading
-from chronoedit_tpu_torch.scripts import check_environment, run_inference, serve
+from chronoedit_tpu_torch.scripts import (check_environment, convert_weights, run_inference,
+                                          serve, train)
 print(threading.active_count())
 """
 

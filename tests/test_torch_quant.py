@@ -279,12 +279,15 @@ def test_diagnostics_match_jax():
 
 
 def test_lora_refuses_quantized_targets():
-    """No float weight to merge into: building adapters over a quantized
-    projection raises."""
+    """No float weight to merge into: merging adapters into a quantized
+    projection raises. (Adapters over a quantized base are QLoRA's: they
+    are built with the float layer's dims and ride as side branches,
+    ``tests/test_torch_qlora.py``.)"""
     model = quant_t.quantize_dit(
         dit_t.init_dit_params(_kernel_dit(dit_t), torch.Generator().manual_seed(3)))
+    lora = lora_t.LoRA(model, lora_t.LoRAConfig(rank=2))
     with pytest.raises(ValueError, match="quantized"):
-        lora_t.LoRA(model, lora_t.LoRAConfig(rank=2))
+        lora_t.merge_lora(model, lora)
 
 
 def test_launch_counts_by_rows_and_kv_length(monkeypatch):

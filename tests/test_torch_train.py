@@ -1,15 +1,20 @@
 """The port's training path against the JAX package, on CPU, fp32: the
 rectified-flow math, the velocity loss and its gradient through the whole
-DiT (both remat modes), the optimizer chain against optax, whole train
-steps (full-parameter and LoRA) over 3 steps with JAX's random draws, EMA,
-the LoRA adapters and the edit training batch.
+DiT (every remat mode; "matmul_only" also against JAX's, with a count of
+what its selective checkpoint keeps), the optimizer chain against optax
+(the clip at, below and above the norm; gradient accumulation against
+``optax.MultiSteps``), whole train steps (full-parameter and LoRA, with and
+without accumulation) with JAX's random draws, EMA, the LoRA adapters and
+the edit training batch.
 
 Weights are drawn by numpy (``randomize``) and loaded on both sides;
 JAX's random draws (train time u and noise) are replayed into the port,
 whose ``torch.Generator`` would draw other numbers.
 """
 
+import contextlib
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -235,9 +240,9 @@ def test_lora_grads_under_remat_full_equal_none():
 
 
 def test_unknown_remat_mode_raises():
-    """Only "none" and "full" are ported; any other mode (JAX's
-    "matmul_only" among them) is refused, not silently run without remat."""
-    _, cfg_t, params = _tiny_pair("matmul_only")
+    """JAX's modes ("none", "full", "matmul_only") are ported; any other is
+    refused, not silently run without remat."""
+    _, cfg_t, params = _tiny_pair("dots_saveable")
     model = load_dit(dit_t.DiT(cfg_t), params)
     for p in model.parameters():
         p.requires_grad_(True)
@@ -480,3 +485,287 @@ def test_edit_training_batch_and_mock_iterator_match_jax():
     with torch.no_grad():
         lat, _ = ts_t.edit_training_batch(vae, pipe_t, torch.from_numpy(raw["video"]))
     torch.testing.assert_close(batch["latents"], lat, rtol=0, atol=0)
+
+
+# ----------------------------------------------------------- remat "matmul_only"
+
+def _lora_inputs(cfg_t, seed=8):
+    batch = {k: torch.from_numpy(v) for k, v in _batch(tiny_j().dit, seed=seed).items()}
+    noise = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(
+        batch["latents"].shape).astype(np.float32))
+    return batch, torch.tensor([0.4]), noise
+
+
+def test_matmul_only_equals_none_and_jax(loss_and_grads_j):
+    """remat "matmul_only" (a selective checkpoint that keeps the 2-D
+    products) recomputes the rest exactly: the loss and every gradient
+    equal "none"'s bitwise, for the full model and for LoRA adapters, and
+    match JAX's "matmul_only" gradient within the 1e-4-of-scale bound of
+    the other modes."""
+    loss_j, grads_j, batch, u, noise = loss_and_grads_j
+    cfg_j, cfg_t, params = _tiny_pair("matmul_only")
+    want = _flat_by_name(load_dit(dit_t.DiT(cfg_t), params), jax.tree.map(
+        np.asarray, jax.grad(lambda p: ts_j.velocity_loss(
+            p, dataclasses.replace(cfg_j, remat="matmul_only"), rf_j.RectifiedFlowConfig(),
+            *(jnp.asarray(batch[k]) for k in ("latents", "condition", "text_emb",
+                                             "image_emb")),
+            jax.random.PRNGKey(11))[0])(_tree_t(params))))
+    got = {}
+    for remat in ("none", "matmul_only"):
+        model = load_dit(dit_t.DiT(dataclasses.replace(cfg_t, remat=remat)), params)
+        for p in model.parameters():
+            p.requires_grad_(True)
+        loss = ts_t.velocity_loss(model, model.cfg, rf_t.RectifiedFlowConfig(),
+                                  *(torch.from_numpy(batch[k]) for k in (
+                                      "latents", "condition", "text_emb", "image_emb")),
+                                  u, noise)
+        loss.backward()
+        got[remat] = (loss.detach(), {n: p.grad for n, p in model.named_parameters()})
+    torch.testing.assert_close(got["matmul_only"][0], got["none"][0], rtol=0, atol=0)
+    for name, g in got["matmul_only"][1].items():
+        torch.testing.assert_close(g, got["none"][1][name], rtol=0, atol=0, msg=name)
+        w = want[name]
+        np.testing.assert_allclose(g.numpy(), w, atol=1e-4 * max(1e-3, float(np.abs(w).max())),
+                                   err_msg=name)
+    np.testing.assert_allclose(float(got["none"][0]), loss_j, rtol=1e-5)
+
+    cfg_j, cfg_t, params, lcfg_j, lora_np, base, lora = _lora_pair()
+    batch_t, u, noise = _lora_inputs(cfg_t)
+    grads = []
+    for remat in ("none", "matmul_only"):
+        base.cfg = dataclasses.replace(cfg_t, remat=remat)
+        loss = ts_t.velocity_loss(base, base.cfg, rf_t.RectifiedFlowConfig(),
+                                  *(batch_t[k] for k in ("latents", "condition", "text_emb",
+                                                         "image_emb")), u, noise, lora=lora)
+        grads.append(torch.autograd.grad(loss, list(lora.parameters())))
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def _kept_bytes(monkeypatch, base, lora, batch, u, noise, merge_saved=False):
+    """What a forward under "matmul_only" keeps for the backward: (bytes
+    autograd saves outside the blocks' checkpoints, counted by
+    ``saved_tensors_hooks``; bytes each selective checkpoint caches, fp32,
+    counted from its storage; the cached tensors' shapes). ``merge_saved``
+    plants the naive policy that keeps the LoRA merge's products too."""
+    storages = []
+    make = torch.utils.checkpoint.create_selective_checkpoint_contexts
+
+    def recording(policy, *a, **k):
+        if merge_saved:
+            policy.recomputed = contextlib.nullcontext
+        ctxs = make(policy, *a, **k)
+        storages.append(ctxs[0].storage)
+        return ctxs
+
+    monkeypatch.setattr(dit_t.ckpt, "create_selective_checkpoint_contexts", recording)
+    saved = []
+
+    def pack(t):
+        saved.append(t.untyped_storage().nbytes())
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        loss = ts_t.velocity_loss(base, base.cfg, rf_t.RectifiedFlowConfig(),
+                                  *(batch[k] for k in ("latents", "condition", "text_emb",
+                                                       "image_emb")), u, noise, lora=lora)
+    cached = []
+    for storage in storages:
+        for entries in storage.values():
+            for entry in (entries.values() if isinstance(entries, dict) else entries):
+                for w in torch.utils._pytree.tree_leaves(entry):
+                    if hasattr(w, "val") and isinstance(w.val, torch.Tensor):
+                        cached.append(tuple(w.val.shape))
+    if lora is not None:
+        torch.autograd.grad(loss, list(lora.parameters()))
+    return sum(saved), sum(4 * math.prod(s) for s in cached), cached
+
+
+def test_matmul_only_keeps_no_lora_merge(monkeypatch):
+    """The LoRA merge runs inside each block, and its fp32 ``a @ b`` is a 2-D
+    product, the kind "matmul_only" keeps; the port recomputes it instead
+    (JAX merges outside its blocks). Counted: the checkpoints cache as many
+    bytes with adapters as without them (the merged weight changes no
+    output's shape), no cached tensor has a merge product's (d_in, d_out)
+    shape, and a planted naive policy keeps, over what autograd saves and
+    the checkpoints cache, exactly the merge products more (every target of
+    every block, fp32)."""
+    cfg_j, cfg_t, params, lcfg_j, lora_np, base, lora = _lora_pair()
+    base.cfg = dataclasses.replace(cfg_t, remat="matmul_only")
+    batch, u, noise = _lora_inputs(cfg_t)
+    saved, cache, cached = _kept_bytes(monkeypatch, base, lora, batch, u, noise)
+    _, cache_without, _ = _kept_bytes(monkeypatch, base, None, batch, u, noise)
+    merge_shapes = {tuple(ad.a.shape[:1]) + tuple(ad.b.shape[1:])
+                    for blk in lora.blocks for _, ad in lora_t.iter_adapters(blk)}
+    tokens = batch["latents"].shape[2] * batch["latents"].shape[3] * batch["latents"].shape[4] // 4
+    assert all(s[0] != tokens for s in merge_shapes)  # shapes tell them apart
+    assert cached and not merge_shapes & set(cached)
+    assert saved > 0 and cache == cache_without
+    naive_saved, naive_cache, _ = _kept_bytes(monkeypatch, base, lora, batch, u, noise,
+                                              merge_saved=True)
+    merge_bytes = sum(4 * ad.a.shape[0] * ad.b.shape[1]
+                      for blk in lora.blocks for _, ad in lora_t.iter_adapters(blk))
+    assert (naive_saved + naive_cache) - (saved + cache) == merge_bytes
+
+
+# ----------------------------------------------------------- clip and accumulation
+
+@pytest.mark.parametrize("where", ["below", "at", "above"])
+def test_clip_matches_optax_at_below_and_above_the_norm(where):
+    """``clip_by_global_norm`` on the device: below the norm the gradient
+    passes unchanged, at it and above it the gradient is scaled by
+    ``clip / |g|`` (optax's ``select(|g| < clip, g, g / |g| * clip)``), with
+    no read of the norm on the host. One update at lr 1 (warm-up off):
+    parameters and Adam's first moment within 1e-6 of optax's."""
+    rng = np.random.default_rng(12)
+    g = rng.standard_normal((5, 3)).astype(np.float32)
+    norm = float(ts_t.global_norm([torch.from_numpy(g)]))
+    clip = {"below": 2 * norm, "at": norm, "above": 0.5 * norm}[where]
+    cfg = dict(lr=1.0, warmup_steps=0, grad_clip=clip, weight_decay=0.0)
+    opt_j = ts_j.make_optimizer(ts_j.TrainConfig(**dict(cfg, warmup_steps=1)))
+    p0 = rng.standard_normal((5, 3)).astype(np.float32)
+    state_j = opt_j.init([jnp.asarray(p0)])
+    state_j = opt_j.update([jnp.zeros_like(jnp.asarray(g))], state_j, [jnp.asarray(p0)])[1]
+    upd, state_j = opt_j.update([jnp.asarray(g)], state_j, [jnp.asarray(p0)])
+    p_t = torch.from_numpy(p0.copy())
+    opt_t = ts_t.Optimizer([p_t], ts_t.TrainConfig(**cfg))
+    opt_t.gradient_step = 1  # past optax's warm-up, at its lr
+    clipped = []
+    orig_step = opt_t.adamw.step
+
+    def step():
+        clipped.append(p_t.grad.clone())
+        orig_step()
+
+    opt_t.adamw.step = step
+    opt_t.update([torch.from_numpy(g)])
+    want_g = g if where == "below" else g / np.float32(norm) * np.float32(clip)
+    np.testing.assert_allclose(clipped[0].numpy(), want_g, rtol=1e-6, atol=1e-7)
+    if where == "below":
+        np.testing.assert_array_equal(clipped[0].numpy(), g)
+    mu_j = np.asarray(state_j[1][0].mu[0])
+    np.testing.assert_allclose(opt_t.adamw.state[p_t]["exp_avg"].numpy(), mu_j / 1.0,
+                               atol=1e-6)
+
+
+ACCUM = 3
+
+
+@pytest.mark.parametrize("warmup", [1, 2])
+def test_accumulation_matches_optax_multisteps(warmup):
+    """``grad_accum = 3`` against ``optax.MultiSteps`` over JAX's chain, fed
+    the same gradients, 8 micro-steps: the running mean (Welford), the
+    parameters (moving only on every third micro-step), Adam's moments,
+    ``mini_step``, ``gradient_step`` and the warm-up's count of applied
+    updates (the first applied update has learning rate 0) within 1e-6."""
+    cfg = dict(lr=1e-2, weight_decay=0.1, warmup_steps=warmup, grad_clip=1.0,
+               grad_accum=ACCUM)
+    opt_j = ts_j.make_optimizer(ts_j.TrainConfig(**cfg))
+    rng = np.random.default_rng(5)
+    shapes = [(4, 3), (6,)]
+    params_np = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    params_j = [jnp.asarray(p) for p in params_np]
+    state_j = opt_j.init(params_j)
+    params_t = [torch.from_numpy(p.copy()) for p in params_np]
+    opt_t = ts_t.Optimizer(params_t, ts_t.TrainConfig(**cfg))
+    applied = 0
+    for step in range(8):
+        grads = [rng.standard_normal(s).astype(np.float32) * 0.8 for s in shapes]
+        upd, state_j = opt_j.update([jnp.asarray(g) for g in grads], state_j, params_j)
+        params_j = optax.apply_updates(params_j, upd)
+        before = [p.clone() for p in params_t]
+        emitted = opt_t.update([torch.from_numpy(g) for g in grads])
+        assert emitted == ((step + 1) % ACCUM == 0)
+        applied += emitted
+        assert opt_t.mini_step == int(state_j.mini_step)
+        assert opt_t.gradient_step == int(state_j.gradient_step) == applied
+        for a, b in zip(opt_t.acc, state_j.acc_grads):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-6, rtol=0)
+        for a, b in zip(params_t, params_j):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-6, rtol=0)
+        moved = any(bool((a != b).any()) for a, b in zip(params_t, before))
+        assert moved == (emitted and applied > 1)  # the first applied update has lr 0
+        adam, _, schedule = state_j.inner_opt_state[1]
+        assert int(adam.count) == int(schedule.count) == applied  # the warm-up's count
+        if applied:
+            for p, mu, nu in zip(params_t, adam.mu, adam.nu):
+                st = opt_t.adamw.state[p]
+                np.testing.assert_allclose(st["exp_avg"].numpy(), np.asarray(mu), atol=1e-6)
+                np.testing.assert_allclose(st["exp_avg_sq"].numpy(), np.asarray(nu), atol=1e-6)
+    assert applied == 8 // ACCUM
+
+
+def test_train_step_with_accumulation_matches_jax():
+    """The full-parameter step with ``grad_accum = 2`` against JAX's
+    (``optax.MultiSteps``), 4 micro-steps on two batches with JAX's draws:
+    each micro-step's loss and raw grad_norm within 1e-4 relative; the
+    parameters and the EMA (moved on the two applied updates, at the
+    applied count) within the whole-step bounds; two applied updates."""
+    cfg_j, cfg_t, params = _tiny_pair()
+    batches = [_batch(cfg_j, seed=s) for s in (6, 7)]
+    tcfg = dict(lr=LR, warmup_steps=1, grad_clip=1.0, grad_accum=2)
+    state_j = ts_j.make_train_state(_tree_t(params), ts_j.TrainConfig(**tcfg))
+    step_j = ts_j.make_train_step(cfg_j, ts_j.TrainConfig(**tcfg), donate=False)
+    model = load_dit(dit_t.DiT(cfg_t), params)
+    state_t = ts_t.make_train_state(model, ts_t.TrainConfig(**tcfg))
+    step_t = ts_t.make_train_step(cfg_t, ts_t.TrainConfig(**tcfg))
+    for i in range(4):
+        batch = batches[i % 2]
+        key = jax.random.PRNGKey(20 + i)
+        state_j, m_j = step_j(state_j, {k: jnp.asarray(v) for k, v in batch.items()}, key)
+        u, noise = _jax_draws(key, batch["latents"], rf_j.RectifiedFlowConfig())
+        m_t = step_t(state_t, {k: torch.from_numpy(v) for k, v in batch.items()},
+                     u=u, noise=noise)
+        for name in ("loss", "grad_norm"):
+            np.testing.assert_allclose(float(m_t[name]), float(m_j[name]), rtol=1e-4)
+    assert state_t.step == 4 and state_t.optimizer.gradient_step == 2
+    assert state_t.optimizer.mini_step == 0 == int(state_j.opt_state.mini_step)
+    want = _flat_by_name(model, state_j.params)
+    want_ema = _flat_by_name(model, state_j.ema_params)
+    for (name, p), e in zip(model.named_parameters(), state_t.ema_params):
+        _assert_params_close(p.detach().numpy(), want[name], name)
+        _assert_params_close(e.numpy(), want_ema[name], "ema " + name)
+
+
+@pytest.mark.parametrize("accum", [1, 2])
+def test_lora_ema_rule_differs_from_jax_only_under_accumulation(accum):
+    """The EMA rule decided for the port: after each applied update, at the
+    applied count (JAX's full-parameter rule). JAX's LoRA step moves its
+    EMA every micro-step at the micro-step count. With ``grad_accum = 1``
+    the two are one rule: the port's adapters and EMA match JAX's. With
+    ``grad_accum = 2`` the adapters still match, and the port's EMA equals
+    the applied-update rule replayed on JAX's own adapters (1e-6), while
+    JAX's EMA is more than 1e-5 away."""
+    cfg_j, cfg_t, params, lcfg_j, lora_np, base, lora = _lora_pair()
+    batch = _batch(cfg_j, seed=7)
+    tcfg = dict(lr=LR, warmup_steps=1, grad_clip=1.0, grad_accum=accum)
+    state_j = lt_j.make_lora_train_state(_tree_t(lora_np), ts_j.TrainConfig(**tcfg))
+    step_j = lt_j.make_lora_train_step(cfg_j, ts_j.TrainConfig(**tcfg), lcfg_j, donate=False)
+    state_t = lt_t.make_lora_train_state(lora, ts_t.TrainConfig(**tcfg))
+    step_t = lt_t.make_lora_train_step(cfg_t, ts_t.TrainConfig(**tcfg))
+    batch_t = {k: torch.from_numpy(v) for k, v in batch.items()}
+    replay = jax.tree.map(np.asarray, _tree_t(lora_np))  # the applied rule, on JAX's adapters
+    for i in range(4):
+        key = jax.random.PRNGKey(30 + i)
+        state_j, _ = step_j(state_j, _tree_t(params),
+                            {k: jnp.asarray(v) for k, v in batch.items()}, key)
+        u, noise = _jax_draws(key, batch["latents"], rf_j.RectifiedFlowConfig())
+        step_t(state_t, base, batch_t, u=u, noise=noise)
+        if (i + 1) % accum == 0:
+            replay = ema_j.ema_update(replay, state_j.lora_params,
+                                      jnp.asarray((i + 1) // accum - 1), ema_j.EMAConfig())
+
+    def as_lora(tree):
+        return load_lora(lora_t.LoRA(base, lora_t.LoRAConfig(rank=2)),
+                         jax.tree.map(np.asarray, tree))
+
+    for p, w in zip(lora.parameters(), as_lora(state_j.lora_params).parameters()):
+        _assert_params_close(p.detach().numpy(), w.detach().numpy(), "adapter")
+    ema_t = torch.cat([e.flatten() for e in state_t.ema_params])
+    ema_jax = torch.cat([e.detach().flatten() for e in as_lora(state_j.ema_params).parameters()])
+    ema_rule = torch.cat([e.detach().flatten() for e in as_lora(replay).parameters()])
+    np.testing.assert_allclose(ema_t.numpy(), ema_rule.numpy(), atol=1e-6)
+    if accum == 1:
+        np.testing.assert_allclose(ema_t.numpy(), ema_jax.numpy(), atol=1e-6)
+    else:  # about 1e-4 at lr 1e-3, 100x the agreement's bound
+        assert float((ema_t - ema_jax).abs().max()) > 1e-5
