@@ -91,7 +91,27 @@ non-zero and no result line is printed:
    w4a16 and an int4_a8 base (loss, gradient cosine, grad_norm, then after
    two applied updates Adam's first moment and the update, against the
    CPU), and each QLoRA adapter gradient against the bf16-base one (JAX's
-   gate, cosine above 0.9);
+   gate, cosine above 0.9); then context parallelism (``context_path``):
+   the distilled model at full width cut to ``CP_BLOCKS`` blocks, seeded,
+   its forwards at 28,800 and 7,200 tokens, a 720p edit and a reasoning
+   edit with the drop (k = 2) in this one process, then worlds of 2 and 4
+   worker processes on the same card (``parallel/launch.run_world``, gloo
+   asked for explicitly: NCCL refuses two ranks on one device; the
+   collectives staged through pinned host memory, a transport and not a
+   scaling setup), each rank rebuilding the same weights (checked across
+   ranks and against this process's digest) and running ring and Ulysses
+   forwards at both lengths (held against this process's as dB over its
+   peak, ``CP_MIN_DB``, beside two planted faults the phase reads itself;
+   every rank's gathered output bitwise alike), the edit under a mesh of
+   context 2 and the drop under context 4 (against this process's at the
+   fidelity bar), and at 4 the flash ring's forward and backward at full
+   width and 28,800 tokens (against K1 and K6/K7 on the whole sequence,
+   at their bounds); every worker's launches zeroed before and checked
+   after each run, by kernel and by KV length (the ring's P hops at S / P,
+   Ulysses' one call at S); each world's seconds, peak memory per rank
+   and bytes staged printed; then ``run_inference --mesh context=1`` under
+   ``torch.distributed.run``: NCCL as a world of one, rank 0 writing the
+   edit;
 6. the main paths: ``chronoedit_14b_distilled`` at full width and depth
    (40 blocks x 5120, bf16, random weights from a seeded generator, built
    outside ``inference_mode`` so that it can train), the full-width VAE, a
@@ -149,8 +169,9 @@ non-zero and no result line is printed:
    the same request and noise (random weights: no bar), a
    tiled-against-untiled streaming decode of an 8-frame latent trajectory
    (fp32) and an unchanged-base checksum follow;
-7. print the command's seconds, the kernel table as one JSON line, the
-   card line again, and last
+7. print the command's seconds, the kernel table as one JSON line (its
+   launches include the context phase's workers', not its planted
+   faults'), the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds one warm ``torch.profiler`` pass over each stage (DiT
@@ -2856,6 +2877,407 @@ def profile_stages(stages: dict, out_dir: Path) -> None:
             sort_by="self_device_time_total", row_limit=80, max_name_column_width=100))
 
 
+# ----------------------------------------------------------- context parallelism
+
+# The context-parallel phase (``context_path``) runs the DiT at full width
+# (5,120; 40 heads of 128; FFN 13,824) cut in depth to CP_BLOCKS blocks: its
+# P worker processes on the one card each hold a replica, and the parent
+# held the unsharded reference; at 40 blocks that would be (P + 1) x 30.5
+# GiB, at 4 blocks a replica is about 3.7 GB with the embedders.
+CP_BLOCKS = 4
+# the context sizes: 2 (the edit's 7,200 tokens one frame a rank,
+# reasoning's 28,800 four) and 4 (half a frame; two frames)
+CP_WORLDS = (2, 4)
+# A context-parallel forward (bf16, on every rank) against the same
+# forward in one process on the same weights and inputs, as PSNR over the
+# reference's peak. The bound lies between the sound readings (ring and
+# Ulysses at both lengths and both sizes) and the planted faults that this
+# phase also reads: the ring's hops merged with equal weights instead of by
+# their LSE, and each rank given the RoPE rows of the rank before it. Read
+# by this phase (H100 80GB HBM3, 700.00 W): the ring 54.20-54.41 dB (one
+# bf16 rounding of each hop's output), Ulysses bitwise, or 88.62 dB at P =
+# 4 and 7,200 tokens (half a frame a rank); the faults 23.10-31.56 dB.
+CP_MIN_DB = 40.0
+# seconds a world of workers may take before it is ended and the phase fails
+CP_TIMEOUT = 900.0
+# the KV length past which the flash forward plays K5's part, as in JAX (it
+# streams KV past 6 MiB of K and V: 12,288 tokens at D = 128 in bf16)
+STREAMED_KV = 12288
+# the ring's backward at attention level: full width at 28,800 tokens
+CP_BWD_SHAPE = (1, REASONING_TOKENS, 40, 128)
+
+
+def cp_model(dev, cfg):
+    """The CP_BLOCKS-deep pipeline with ``build_model``'s seeded weights,
+    then, from a seeded generator (the same bits in every process on the
+    card), each block's attention and FFN gates redrawn N(1, 0.1) and its
+    self-attention's q and k norm scales doubled. The init's modulation is
+    O(1e-2), so a block's attention barely moves the bf16 stream, and its
+    scores are N(0, 1) over thousands of keys, so attention is diffuse and
+    every ring hop's LSE nearly the same: what the planted faults perturb
+    would not show. With the gates only, the first full card run of this
+    phase read the ring whose hops were merged with equal weights at
+    53.44-53.55 dB against one process, beside the sound ring's
+    53.73-54.03 dB (H100 80GB HBM3, 700.00 W). Doubling both norms
+    quadruples the scores' spread (standard deviation about 4)."""
+    pipe = build_model(dev, cfg)
+    g = torch.Generator(device=dev).manual_seed(5)
+    with torch.no_grad():
+        for blk in pipe.dit.blocks:
+            for row in (2, 5):  # gate_msa, c_gate
+                blk.scale_shift_table[row].normal_(1.0, 0.1, generator=g)
+            blk.self_attn.q_norm.scale.mul_(2.0)
+            blk.self_attn.k_norm.scale.mul_(2.0)
+    return pipe
+
+
+def cp_config():
+    """The edit model at full width, CP_BLOCKS deep."""
+    from chronoedit_tpu_torch.configs import chronoedit_14b_distilled
+
+    cfg = chronoedit_14b_distilled()
+    return dataclasses.replace(cfg, dit=dataclasses.replace(cfg.dit, num_layers=CP_BLOCKS))
+
+
+def cp_inputs(cfg, dev, tokens: int, seed: int = 30) -> tuple:
+    """A DiT forward's inputs at ``tokens`` tokens of 720p latent frames,
+    the same on every process of the card (seeded on the device)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    d, frames = cfg.dit, tokens // ((EDIT_H // 16) * (EDIT_W // 16))
+    x = torch.randn((1, d.in_channels, frames, EDIT_H // 8, EDIT_W // 8), generator=g,
+                    device=dev).to(d.dtype)
+    ts = torch.full((1,), 999.0, device=dev)
+    req = request(cfg, dev, seed, EDIT_H, EDIT_W, TEXT_TOKENS)
+    return x, ts, req["prompt_emb"], req["image_emb"]
+
+
+def cp_launches(cfg, forwards: list[tuple[int, str, int]]):
+    """The launch counters one rank reads after ``forwards``, each (tokens,
+    mode, context size): per block the ring's P hops at KV tokens / P, or
+    one attention at KV tokens (Ulysses: the whole sequence, H / P heads;
+    or unsharded), the cross-attention at the text's and CLIP's KV (queries
+    the rank's tokens), 2 LN-modulates, 2 gated residuals and 5 RMSNorms,
+    and each forward's head LN-modulate; in ``read_launches``' form."""
+    n = cfg.dit.num_layers
+    calls = []
+    for tokens, mode, p in forwards:
+        calls += ([("flash_fwd", tokens // p, p * n)] if mode == "ring"
+                  else [("flash_fwd", tokens, n)])
+        calls += [("flash_fwd", TEXT_TOKENS, n), ("flash_fwd", IMAGE_TOKENS, n)]
+    by_name, by_kv = expected_tool_launches(calls)
+    by_name.update(ln_modulate=(2 * n + 1) * len(forwards), gated_residual=2 * n * len(forwards),
+                   rms_norm=5 * n * len(forwards))
+    return by_name, by_kv
+
+
+def _equal_merge(q, k, v, group, scale):
+    """A planted fault: the ring's hops averaged with equal weights instead
+    of weighted by their LSE (launches as the ring)."""
+    import torch.distributed as dist
+
+    from chronoedit_tpu_torch.ops.flash_attention import flash_attention_with_lse
+    from chronoedit_tpu_torch.parallel import collectives
+
+    n, kv, outs, lse = dist.get_world_size(group), [k, v], [], None
+    for step in range(n):
+        o, lse_i = flash_attention_with_lse(q, *kv, scale)
+        outs.append(o.float())
+        lse = lse_i if lse is None else torch.logaddexp(lse, lse_i)
+        if step != n - 1:
+            kv = collectives.ring_shift(kv, group)
+    return (sum(outs) / n).to(q.dtype), lse.contiguous()
+
+
+@contextlib.contextmanager
+def planted(fault: str | None, p: int):
+    """Plant ``fault`` for the duration: "equal_merge" (``_equal_merge``) or
+    "rope_rows" (each rank's RoPE rows those of the rank before it)."""
+    from chronoedit_tpu_torch.models import dit as dit_lib
+    from chronoedit_tpu_torch.parallel import context
+
+    saved = (context._ring_flash_forward, dit_lib.temporal_skip_rope_tables)
+    if fault == "equal_merge":
+        context._ring_flash_forward = _equal_merge
+    elif fault == "rope_rows":
+        def rolled(*a, **kw):
+            cos, sin = saved[1](*a, **kw)
+            return (torch.roll(t, cos.shape[0] // p, 0) for t in (cos, sin))
+        dit_lib.temporal_skip_rope_tables = rolled
+    try:
+        yield
+    finally:
+        context._ring_flash_forward, dit_lib.temporal_skip_rope_tables = saved
+
+
+def _cp_run(label: str, fn, want, rank: int, keep: bool) -> dict:
+    """``fn()`` with the launch counters zeroed just before and read just
+    after (they must be ``want``) and the bytes staged through the host
+    counted; returns its seconds, launches, bytes, output digest and, with
+    ``keep``, the output (fp32, numpy)."""
+    from chronoedit_tpu_torch.kernels import build
+    from chronoedit_tpu_torch.parallel import collectives
+    from chronoedit_tpu_torch.parallel.consistency import tree_digest
+
+    staged = collectives.STAGED_BYTES["bytes"]
+    build.reset_launches()
+    out, secs = host_s(fn)
+    got = read_launches()
+    if want is not None and got != want:
+        raise AssertionError(f"rank {rank} {label}: launches {got}, the path implies {want}")
+    res = {"secs": secs, "launches": got, "digest": tree_digest(out),
+           "staged": collectives.STAGED_BYTES["bytes"] - staged,
+           "finite": bool(torch.isfinite(out).all())}
+    if keep:
+        res["out"] = out.float().cpu().numpy()
+    return res
+
+
+def _ring_backward(rank: int, p: int, dev, mesh) -> dict:
+    """The flash ring at attention level, forward and backward, at full
+    width and 28,800 tokens: the gathered output and dq, dk, dv; rank 0
+    also computes the whole sequence's K1 and K6/K7 in its own process
+    (outside the counted launches) and holds the ring against them."""
+    from chronoedit_tpu_torch.ops import flash_attention as fa
+    from chronoedit_tpu_torch.parallel import context
+    from chronoedit_tpu_torch.parallel.consistency import tree_digest
+
+    g = torch.Generator(device=dev).manual_seed(77)
+    q, k, v, dout = (torch.randn(CP_BWD_SHAPE, generator=g, device=dev, dtype=torch.bfloat16)
+                     for _ in range(4))
+    local = [context.split_sequence(t, mesh, seq_dim=1).contiguous().requires_grad_()
+             for t in (q, k, v)]
+    d_local = context.split_sequence(dout, mesh, seq_dim=1).contiguous()
+    kv = CP_BWD_SHAPE[1] // p
+    kept = {}
+
+    def run():
+        kept["out"] = context.ring_attention(*local, mesh)
+        kept["out"].backward(d_local)
+        return kept["out"].detach()
+
+    want = expected_tool_launches([(name, kv, p) for name in
+                                   ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")])
+    res = _cp_run("ring backward", run, want, rank, False)
+    out = context.gather_sequence(kept.pop("out").detach(), mesh, seq_dim=1)
+    grads = [context.gather_sequence(t.grad, mesh, seq_dim=1) for t in local]
+    if rank == 0:
+        scale = CP_BWD_SHAPE[-1] ** -0.5
+        ref_out, lse = fa.flash_attention_with_lse(q, k, v, scale)
+        ref = fa.flash_attention_bwd(q, k, v, ref_out, dout, lse, scale)
+        e_out = max_err(out, ref_out)
+        res["out_err"] = e_out
+        res["out_tol"] = min(K1_OUT_MAX_TOL, K1_OUT_STEPS * ULP_BF16 *
+                             float(ref_out.float().abs().max()))
+        res["checks"] = {name: k67_check(g_, r_) for name, g_, r_ in zip(("dq", "dk", "dv"),
+                                                                        grads, ref)}
+    res["grad_digests"] = [tree_digest(t) for t in grads]
+    return res
+
+
+def cp_worker(rank: int, p: int, plan: dict) -> dict:
+    """One rank of a world of ``p`` processes on the one card, joined over
+    gloo (NCCL refuses two ranks on one device), its collectives staged
+    through pinned host memory. It builds the CP_BLOCKS-deep model from the
+    parent's seeds (the same bits on every rank: the replica check below
+    and the digest the parent compares prove it), loads the kernels the
+    parent built, and runs ``plan``: DiT forwards (tokens, mode, planted
+    fault), the 720p edit, the reasoning edit with the drop, and the
+    ring's backward; each with its launch counters zeroed just before it
+    and held to what the path implies just after. Rank 0 returns the
+    outputs; every rank their digests, its seconds, staged bytes and peak
+    memory."""
+    from chronoedit_tpu_torch.kernels import build
+    from chronoedit_tpu_torch.models import dit as dit_lib
+    from chronoedit_tpu_torch.parallel import consistency
+    from chronoedit_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(plan["device"])
+    build.lib()  # the parent's build, loaded: every source hashes the same
+    mesh = make_mesh(MeshConfig(data=-1, context=p), device=dev)
+    cfg = cp_config()
+    steps = cfg.num_steps
+    res = {"forwards": {}}
+    with torch.inference_mode():
+        pipe = cp_model(dev, cfg)
+        pipe.mesh = mesh
+        res["diverged"] = consistency.check_replica_consistency(pipe.dit)
+        if rank == 0:
+            res["digest"] = consistency.tree_digest(pipe.dit)
+        for tokens, mode, fault in plan["forwards"]:
+            pipe.dit.cfg = dataclasses.replace(cfg.dit, context_parallel=mode)
+            args = cp_inputs(cfg, dev, tokens)
+            with planted(fault, p):
+                res["forwards"][(tokens, mode, fault)] = _cp_run(
+                    f"forward {tokens} {mode} {fault}", functools.partial(
+                        dit_lib.dit_forward, pipe.dit, *args, mesh=mesh),
+                    cp_launches(cfg, [(tokens, mode, p)]), rank, rank == 0)
+        pipe.dit.cfg = cfg.dit  # "auto": Ulysses, 40 heads over 2 or 4
+        if plan.get("edit"):
+            req = request(cfg, dev, 40, EDIT_H, EDIT_W, TEXT_TOKENS)
+            gen = torch.Generator(device=dev).manual_seed(140)
+            res["edit"] = _cp_run("edit", functools.partial(pipe.edit_image, **req, generator=gen),
+                                  cp_launches(cfg, [(EDIT_TOKENS, "ulysses", p)] * steps),
+                                  rank, rank == 0)
+        if plan.get("drop"):
+            req = request(cfg, dev, 41, EDIT_H, EDIT_W, TEXT_TOKENS)
+            gen = torch.Generator(device=dev).manual_seed(141)
+            res["drop"] = _cp_run(
+                "reasoning drop", functools.partial(
+                    pipe, **req, enable_temporal_reasoning=True, num_temporal_reasoning_steps=2,
+                    generator=gen),
+                cp_launches(cfg, [(REASONING_TOKENS, "ulysses", p)] * 2
+                            + [(EDIT_TOKENS, "ulysses", p)] * (steps - 2)), rank, rank == 0)
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    if plan.get("ring_backward"):
+        res["ring_backward"] = _ring_backward(rank, p, dev, mesh)
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return res
+
+
+def cp_plan(p: int) -> dict:
+    """What a world of ``p`` runs on ``cuda:0``: ring and Ulysses forwards at
+    both lengths, both planted faults at the edit's length, and the edit
+    (P = 2) or the reasoning drop and the ring's backward (P = 4)."""
+    forwards = [(tokens, mode, None) for tokens in (REASONING_TOKENS, EDIT_TOKENS)
+                for mode in ("ring", "ulysses")]
+    forwards += [(EDIT_TOKENS, "ring", "equal_merge"), (EDIT_TOKENS, "ulysses", "rope_rows")]
+    return {"forwards": forwards, "edit": p == 2, "drop": p == 4, "ring_backward": p == 4,
+            "device": "cuda:0"}
+
+
+def nccl_cli(card: str) -> float:
+    """``run_inference --mesh context=1`` under ``torch.distributed.run
+    --nproc-per-node 1``: a world of one over NCCL (``init_distributed``'s
+    choice for a CUDA rank), the distilled model at full width and depth on
+    random weights (``--smoke``), rank 0 writing the edit. Returns its
+    seconds."""
+    out = CHECKPOINT_DIR.parent / "cp_nccl_edit.png"
+    out.unlink(missing_ok=True)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           "1", "-m", "chronoedit_tpu_torch.scripts.run_inference", "--smoke", "--experiment",
+           "chronoedit_14b_distilled", "--mesh", "context=1", "--output", str(out)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=Path(__file__).resolve().parent, capture_output=True,
+                          text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    print(proc.stdout[-2000:], end="")
+    if proc.returncode != 0 or not out.exists() or "over nccl" not in proc.stdout:
+        raise AssertionError(f"run_inference --mesh context=1 under torchrun: rc "
+                             f"{proc.returncode}\n{proc.stderr[-4000:]}")
+    out.unlink()
+    print(f"NCCL, a world of 1 through the CLI under torchrun: {secs:.1f} s, rank 0 wrote "
+          f"the edit ({card})")
+    return secs
+
+
+def context_path(dev, launches: tuple[Counter, Counter]) -> dict:
+    """Context parallelism on the one card: worlds of P = 2 and 4 processes
+    on ``cuda:0`` over host-staged gloo (a check of correctness and of the
+    per-rank kernel launches, not a scaling figure), against this process's
+    unsharded forwards, edit and reasoning drop on the same weights and
+    inputs; then NCCL at a world of 1 through the CLI. Adds the workers'
+    launches (forwards, edits, the ring's backward; not the planted faults)
+    to ``launches``."""
+    from chronoedit_tpu_torch.models import dit as dit_lib
+    from chronoedit_tpu_torch.parallel import consistency
+    from chronoedit_tpu_torch.parallel.launch import run_world
+
+    card = card_line()
+    cfg = cp_config()
+    t_phase = time.perf_counter()
+    with torch.inference_mode():
+        pipe = cp_model(dev, cfg)
+        digest = consistency.tree_digest(pipe.dit)
+        refs = {}
+        for tokens in (REASONING_TOKENS, EDIT_TOKENS):
+            out, secs = host_s(lambda: dit_lib.dit_forward(pipe.dit, *cp_inputs(cfg, dev, tokens)))
+            refs[tokens] = out.float().cpu()
+            print(f"context_path: one process, {CP_BLOCKS}-block forward at {tokens} tokens "
+                  f"{secs:.3f} s")
+        req = request(cfg, dev, 40, EDIT_H, EDIT_W, TEXT_TOKENS)
+        refs["edit"] = pipe.edit_image(
+            **req, generator=torch.Generator(device=dev).manual_seed(140)).float().cpu()
+        req = request(cfg, dev, 41, EDIT_H, EDIT_W, TEXT_TOKENS)
+        refs["drop"] = pipe(**req, enable_temporal_reasoning=True,
+                            num_temporal_reasoning_steps=2,
+                            generator=torch.Generator(device=dev).manual_seed(141)).float().cpu()
+    del pipe
+    free()
+
+    sound, faults, summary = {}, {}, {}
+    for p in CP_WORLDS:
+        plan = cp_plan(p)
+        results, secs = host_s(lambda: run_world(cp_worker, p, (p, plan), backend="gloo",
+                                                 device=plan["device"], timeout=CP_TIMEOUT,
+                                                 threads=2))
+        print(f"context_path P = {p}: {p} processes sharing one card over host-staged gloo "
+              f"(not a scaling figure): the world's {secs:.1f} s, peak memory per rank "
+              f"{[round(r['peak_gib'], 2) for r in results]} GiB ({card})")
+        if results[0]["digest"] != digest or any(r["diverged"] for r in results):
+            raise AssertionError(f"P = {p}: the ranks' weights differ from the parent's or "
+                                 f"from each other's: {[r['diverged'] for r in results]}")
+        print(f"   weights: every rank's replica bitwise the others' (check_replica_consistency) "
+              f"and the parent's (tree_digest)")
+        runs = [(key, "forwards") for key in plan["forwards"]]
+        runs += [(name, None) for name in ("edit", "drop") if plan.get(name)]
+        for key, group in runs:
+            per_rank = [r[group][key] if group else r[key] for r in results]
+            first = per_rank[0]
+            if any(r["digest"] != first["digest"] for r in per_rank) or not first["finite"]:
+                raise AssertionError(f"P = {p} {key}: the ranks' outputs differ or are not "
+                                     f"finite")
+            got = torch.from_numpy(first["out"])
+            if group:
+                tokens, mode, fault = key
+                db = peak_db(got, refs[tokens])
+                (faults if fault else sound)[(p,) + key] = db
+                label = f"forward {tokens} tokens {mode}" + (f", planted {fault}" if fault else "")
+            else:
+                db = psnr(got, refs[key])
+                label = {"edit": "720p edit (8 steps)", "drop": "reasoning drop (k = 2)"}[key]
+                if not db >= MIN_PSNR_DB:
+                    raise AssertionError(f"P = {p} {label}: {db:.2f} dB against one process "
+                                         f"< {MIN_PSNR_DB} dB")
+            print(f"   {label}: rank 0 {first['secs']:.3f} s, {first['staged'] / 1e9:.3f} GB "
+                  f"staged a rank, every rank bitwise alike, {db:.2f} dB against one process; "
+                  f"launches {first['launches'][0]}, flash by KV {first['launches'][1]['flash_fwd']}")
+            summary[f"P{p} {label}"] = db
+            if not (group and key[2]):  # the planted faults are checks, not the path
+                for r in per_rank:
+                    launches[0].update(r["launches"][0])
+                    launches[1].update(r["launches"][1]["flash_fwd"])
+        if plan.get("ring_backward"):
+            rb = results[0]["ring_backward"]
+            if any(r["ring_backward"]["grad_digests"] != rb["grad_digests"] for r in results):
+                raise AssertionError(f"P = {p} ring backward: the ranks' gradients differ")
+            print(f"   ring backward {CP_BWD_SHAPE} over {p} ranks: rank 0 {rb['secs']:.3f} s, "
+                  f"{rb['staged'] / 1e9:.3f} GB staged a rank; output against one process's K1 "
+                  f"{rb['out_err']:.3e} (tol {rb['out_tol']:.3e}); launches {rb['launches'][0]}")
+            for name, c in rb["checks"].items():
+                print(f"   {name} against one process's K6/K7: max err {c['max']:.3e} (tol "
+                      f"{c['tol']:.3e}), normwise {c['rel']:.3e} (tol {K67_NORM_REL})")
+            if not (rb["out_err"] <= rb["out_tol"] and all(c["ok"] for c in rb["checks"].values())):
+                raise AssertionError(f"P = {p}: the ring's backward disagrees with K6/K7")
+            for r in results:
+                launches[0].update(r["ring_backward"]["launches"][0])
+                launches[1].update(r["ring_backward"]["launches"][1]["flash_fwd"])
+    print(f"context_path: sound {min(sound.values()):.2f}-{max(sound.values()):.2f} dB, planted "
+          f"faults {min(faults.values()):.2f}-{max(faults.values()):.2f} dB "
+          f"(CP_MIN_DB {CP_MIN_DB}) ({card})")
+    low = {k: v for k, v in sound.items() if not v >= CP_MIN_DB}
+    high = {k: v for k, v in faults.items() if v >= CP_MIN_DB}
+    if low or high:
+        raise AssertionError(f"context_path: sound readings under CP_MIN_DB {low}, planted "
+                             f"faults over it {high}")
+    summary["nccl_cli_s"] = nccl_cli(card)
+    print(f"context_path: {time.perf_counter() - t_phase:.1f} s ({card})")
+    return summary
+
+
 # ----------------------------------------------------------- main
 
 # name in the kernel table: (source, the TPU kernel it replaces, the
@@ -3017,6 +3439,8 @@ def main() -> int:
         small_references(dev)
         encoder_references(dev)
     training_references(dev)
+    free()
+    context_path(dev, (by_name, by_kv))
     cfg = chronoedit_14b_distilled()
     try:
         # loaded outside inference_mode: training saves these weights for backward
@@ -3059,9 +3483,12 @@ def main() -> int:
         for d in (CHECKPOINT_DIR, TRAINER_DIR, CHECKPOINT_DIR.parent / "smoke_train_data"):
             shutil.rmtree(d, ignore_errors=True)
 
-    # K5 is the flash kernel's launches over the 28,800-token reasoning
-    # self-attention; K1 the rest of them; X1 and X2 ran in phase 4 only
-    launches = dict(by_name, flash_fwd_streamed=by_kv[REASONING_TOKENS], **tool_launches)
+    # K5 is the flash kernel's launches over KV past JAX's resident length
+    # (the reasoning self-attention's 28,800 tokens, and the ring's hops at
+    # 14,400 under context parallelism); K1 the rest of them; X1 and X2 ran
+    # in phase 4 only
+    launches = dict(by_name, flash_fwd_streamed=sum(n for kv, n in by_kv.items()
+                                                    if kv > STREAMED_KV), **tool_launches)
     launches["flash_fwd"] -= launches["flash_fwd_streamed"]
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name], **results[name])

@@ -1,6 +1,9 @@
 """Wan-style diffusion transformer (ChronoEdit-14B backbone), PyTorch.
 
-The single-device forward of ``chronoedit_tpu/models/dit.py``:
+The forward of ``chronoedit_tpu/models/dit.py``, on one device or split
+over the context axis of a mesh (``dit_forward(..., mesh=)``: each rank
+its block of the tokens, ring or Ulysses self-attention,
+``parallel/context.py``):
 
 - patch embed as reshape + linear, feature order (c, kt, kh, kw);
 - N blocks of AdaLN-zero 6-way modulation from a per-block
@@ -55,7 +58,9 @@ from chronoedit_tpu_torch.models import lora as lora_lib
 from chronoedit_tpu_torch.ops import layers as L
 from chronoedit_tpu_torch.ops.attention import dot_product_attention
 from chronoedit_tpu_torch.ops.fused_norms import (
-    gated_residual, layer_norm_modulate, rms_norm_fused)
+    frames_map_locally, gated_residual, layer_norm_modulate, local_frame_slice, rms_norm_fused)
+from chronoedit_tpu_torch.parallel import collectives as C
+from chronoedit_tpu_torch.parallel import context
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,6 +90,13 @@ class DiTConfig:
     # int8 q.k scores in self-attention (serving only, forward only; applies
     # past JAX's resident KV length: ops/flash_attention.uses_int8_scores)
     attn_qk_int8: bool = False
+    # context-parallel self-attention, used when dit_forward gets a mesh with
+    # a context axis above 1 (parallel/context.py):
+    # - "auto": Ulysses when the heads divide the context size, else the ring;
+    # - "ring": K/V blocks around the ring, flash hops merged by LSE;
+    # - "ulysses": all-to-all from a sequence split to a head split and back;
+    # - "none": no context split; every rank runs the whole forward.
+    context_parallel: str = "auto"
 
     @property
     def dim(self) -> int:
@@ -182,6 +194,42 @@ def init_dit_params(cfg: DiTConfig, generator: torch.Generator,
 
 # ================================================================= pieces
 
+CONTEXT_MODES = ("auto", "ring", "ulysses", "none")
+
+
+@dataclasses.dataclass(frozen=True)
+class _ContextSplit:
+    """This rank's share of a context-parallel forward: the attention mode,
+    the context group, this rank's token block and the number of blocks."""
+
+    mode: str  # "ring" | "ulysses"
+    group: object
+    index: int
+    size: int
+
+
+def context_split(cfg: DiTConfig, mesh, tokens: int, hw: int) -> _ContextSplit | None:
+    """How a forward over ``tokens`` tokens of ``hw`` a frame splits over
+    ``mesh``'s context axis, or None to run it whole: no mesh, a context
+    axis of 1, ``"none"``, or tokens that do not split into whole frames or
+    whole parts of one frame per rank (JAX's fallbacks: its attention runs
+    unsharded when the sequence does not divide, its fused norms when the
+    frames do not map). ``"auto"`` takes Ulysses when the heads divide the
+    context size, else the ring; the ring refuses ``attn_qk_int8``."""
+    if cfg.context_parallel not in CONTEXT_MODES:
+        raise ValueError(f"context_parallel must be one of {CONTEXT_MODES}, got "
+                         f"{cfg.context_parallel!r}")
+    cp = 1 if mesh is None else mesh.shape.get("context", 1)
+    if cp == 1 or cfg.context_parallel == "none" or not frames_map_locally(tokens, hw, cp):
+        return None
+    mode = cfg.context_parallel
+    if mode == "auto":
+        mode = "ulysses" if cfg.num_heads % cp == 0 else "ring"
+    if mode == "ring":
+        context.check_ring_qk_int8(cfg.attn_qk_int8)
+    return _ContextSplit(mode, mesh.group("context"), mesh.index("context"), cp)
+
+
 def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
     b, s, d = x.shape
     return x.reshape(b, s, num_heads, d // num_heads)
@@ -201,7 +249,10 @@ def _lin(p: L.Linear, x, weights: dict | None):
     return L.linear(p, x, w)
 
 
-def _self_attention(p: SelfAttention, x, rope_cos, rope_sin, cfg: DiTConfig, weights):
+def _self_attention(p: SelfAttention, x, rope_cos, rope_sin, cfg: DiTConfig, weights,
+                    cp: _ContextSplit | None = None):
+    """Self-attention; with ``cp`` over this rank's token block, through the
+    ring or Ulysses over the context group."""
     q = rms_norm_fused(p.q_norm, _lin(p.q, x, weights), cfg.eps)
     k = rms_norm_fused(p.k_norm, _lin(p.k, x, weights), cfg.eps)
     v = _lin(p.v, x, weights)
@@ -209,7 +260,12 @@ def _self_attention(p: SelfAttention, x, rope_cos, rope_sin, cfg: DiTConfig, wei
     cos, sin = rope_cos[:, None, :], rope_sin[:, None, :]
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    out = dot_product_attention(q, k, v, qk_int8=cfg.attn_qk_int8)
+    if cp is None:
+        out = dot_product_attention(q, k, v, qk_int8=cfg.attn_qk_int8)
+    elif cp.mode == "ring":
+        out = context.ring_attention_inner(q, k, v, cp.group)
+    else:
+        out = context.ulysses_attention_inner(q, k, v, cp.group, qk_int8=cfg.attn_qk_int8)
     return _lin(p.o, _merge_heads(out), weights)
 
 
@@ -229,16 +285,19 @@ def _cross_attention(p: CrossAttention, x, text_ctx, img_ctx, cfg: DiTConfig, we
 
 
 def dit_block(p: DiTBlock, x, text_ctx, img_ctx, e, rope_cos, rope_sin, hw: int,
-              cfg: DiTConfig, weights: dict | None = None) -> torch.Tensor:
+              cfg: DiTConfig, weights: dict | None = None,
+              cp: _ContextSplit | None = None) -> torch.Tensor:
     """One transformer block. x (B, S, dim) stream; e (B, T, 6, dim) fp32
     time projection; hw tokens per latent frame; ``weights`` maps a linear
-    layer to the weight that stands in for its own (LoRA-merged)."""
+    layer to the weight that stands in for its own (LoRA-merged); with
+    ``cp`` the stream, e, the RoPE rows and hw are this rank's context
+    shard's."""
     mods = e + p.scale_shift_table.float()[None, None]
     shift_msa, scale_msa, gate_msa, c_shift, c_scale, c_gate = (
         mods[:, :, i].contiguous() for i in range(6))
 
     norm_x = layer_norm_modulate(x, scale_msa, shift_msa, hw, cfg.eps)
-    attn = _self_attention(p.self_attn, norm_x, rope_cos, rope_sin, cfg, weights)
+    attn = _self_attention(p.self_attn, norm_x, rope_cos, rope_sin, cfg, weights, cp)
     x = gated_residual(x, attn, gate_msa, hw)
 
     # cross-attention: affine fp32 LayerNorm, plain residual add
@@ -278,8 +337,8 @@ class _MatmulOnly:
 
 
 def _lora_block(p: DiTBlock, adapters, lora_weights, policy: _MatmulOnly | None, x,
-                text_ctx, img_ctx, e, rope_cos, rope_sin, hw: int, cfg: DiTConfig
-                ) -> torch.Tensor:
+                text_ctx, img_ctx, e, rope_cos, rope_sin, hw: int, cfg: DiTConfig,
+                cp: _ContextSplit | None = None) -> torch.Tensor:
     """A block with its LoRA targets' weights made first by
     ``lora_weights(block, adapters)`` (merged, or side branches), inside
     whatever checkpoint wraps it, so they live one block at a time."""
@@ -287,7 +346,7 @@ def _lora_block(p: DiTBlock, adapters, lora_weights, policy: _MatmulOnly | None,
     if adapters is not None:
         with policy.recomputed() if policy is not None else contextlib.nullcontext():
             weights = lora_weights(p, adapters)
-    return dit_block(p, x, text_ctx, img_ctx, e, rope_cos, rope_sin, hw, cfg, weights)
+    return dit_block(p, x, text_ctx, img_ctx, e, rope_cos, rope_sin, hw, cfg, weights, cp)
 
 
 def _run_block(cfg: DiTConfig, blk, adapters, lora_weights, *args) -> torch.Tensor:
@@ -355,7 +414,7 @@ def dit_forward(model: DiT, x: torch.Tensor, timesteps: torch.Tensor,
                 text_emb: torch.Tensor, image_emb: torch.Tensor | None = None,
                 layer_mask=None, lora: lora_lib.LoRA | None = None,
                 lora_attach: bool = False, cache_blocks: tuple[int, int] | None = None,
-                cache: torch.Tensor | None = None, cache_refresh: bool = True):
+                cache: torch.Tensor | None = None, cache_refresh: bool = True, mesh=None):
     """Velocity prediction.
 
     Args:
@@ -378,6 +437,15 @@ def dit_forward(model: DiT, x: torch.Tensor, timesteps: torch.Tensor,
         (zeros when None) is added once before block a. Returns ``(out,
         new_cache)`` when ``cache_blocks`` is set. Exact when every step
         refreshes.
+      mesh: a ``parallel.mesh.Mesh``; with a context axis above 1 each rank
+        of a context group takes its contiguous block of the tokens after
+        the patch embedding, with its rows of the RoPE tables and its
+        frames of every per-frame modulation (:func:`context_split`), runs
+        the blocks on it with ring or Ulysses self-attention (cross-attention
+        attends its queries to the whole text and image context) and the
+        output head, and all-gathers the head's output, so every rank
+        returns the whole velocity. The cache is then this rank's block.
+        Inputs are the same on every rank of the group.
     Returns:
       (B, C_out, T, H, W) in cfg.dtype (and the cache when active).
     """
@@ -395,16 +463,23 @@ def dit_forward(model: DiT, x: torch.Tensor, timesteps: torch.Tensor,
     gt, gh, gw = grid
     hw = gh * gw
     tokens = L.linear(model.patch_embed, tokens)
-    if cache_blocks is not None and not cache_refresh and cache is None:
-        cache = torch.zeros_like(tokens)
 
     if timesteps.dim() == 1:
         timesteps = timesteps[:, None].expand(b, gt)
     temb, t_proj, text_ctx, img_ctx = _condition_embeddings(
         model, cfg, timesteps, text_emb, image_emb)
 
+    # the tables hold every global position: a shard takes its rows
     tables = temporal_skip_rope_tables if cfg.temporal_skip else rope_3d_tables
     cos, sin = tables(cfg.rope, gt, gh, gw, device=x.device)
+    cp = context_split(cfg, mesh, tokens.shape[1], hw)
+    if cp is not None:
+        s_loc = tokens.shape[1] // cp.size
+        rows = slice(cp.index * s_loc, (cp.index + 1) * s_loc)
+        tokens, cos, sin = tokens[:, rows].contiguous(), cos[rows], sin[rows]
+        (t_proj, temb), hw = local_frame_slice((t_proj, temb), hw, s_loc, cp.index)
+    if cache_blocks is not None and not cache_refresh and cache is None:
+        cache = torch.zeros_like(tokens)
 
     lora_weights = None
     if lora is not None:
@@ -422,7 +497,7 @@ def dit_forward(model: DiT, x: torch.Tensor, timesteps: torch.Tensor,
             continue
         adapters = None if lora is None else lora.blocks[i]
         out = _run_block(cfg, blk, adapters, lora_weights, tokens, text_ctx, img_ctx,
-                         t_proj, cos, sin, hw, cfg)
+                         t_proj, cos, sin, hw, cfg, cp)
         if cached:
             delta = out - tokens if delta is None else delta + (out - tokens)
         tokens = out
@@ -431,7 +506,10 @@ def dit_forward(model: DiT, x: torch.Tensor, timesteps: torch.Tensor,
     mods = head.scale_shift_table.float()[None, None] + temb[:, :, None, :]
     shift, scale = mods[:, :, 0].contiguous(), mods[:, :, 1].contiguous()
     normed = layer_norm_modulate(tokens, scale, shift, hw, cfg.eps)
-    out = _unpatchify(L.linear(head.proj, normed), grid, cfg)
+    out = L.linear(head.proj, normed)
+    if cp is not None:
+        out = C.gather_sequence_autograd(out, cp.group, 1)
+    out = _unpatchify(out, grid, cfg)
     if cache_blocks is None:
         return out
     if not cache_refresh:

@@ -184,3 +184,40 @@ def rms_norm_fused(p: L.RMSNorm, x: torch.Tensor, eps: float = 1e-6) -> torch.Te
     (cast to x's dtype first; its gradient flows back through the cast)."""
     return _Fused.apply(rms_norm_plain, _rms_norm_kernel, 2, p.scale.to(x.dtype), x,
                         eps)
+
+
+# ----------------------------------------------------- context shards
+
+def local_frame_slice(mods, hw: int, s_local: int, index: int):
+    """Slice per-frame modulation tensors to a context shard's frames.
+
+    A (B, T*hw, D) stream split into contiguous blocks of ``s_local``
+    tokens, this rank's block the ``index``-th, maps a (B, T, ...)
+    modulation tensor onto its tokens in one of two regimes:
+
+    - whole frames per shard (``s_local % hw == 0``): the shard holds
+      ``s_local // hw`` consecutive frames;
+    - shard within a frame (``hw % s_local == 0``): every token of the
+      shard belongs to the one frame ``index * s_local // hw``.
+
+    Returns ``(mods_local, hw_local)`` with each mod (B, T_local, ...) and
+    ``hw_local`` the tokens per local frame, the ``hw`` that K2 and K3 take
+    on the shard. Callers check first that one regime holds
+    (:func:`frames_map_locally`).
+    """
+    if s_local % hw == 0:
+        t_local, hw_local = s_local // hw, hw
+        start = index * t_local
+    else:
+        t_local, hw_local = 1, s_local
+        start = index * s_local // hw
+    return tuple(m.narrow(1, start, t_local) for m in mods), hw_local
+
+
+def frames_map_locally(s: int, hw: int, cp: int) -> bool:
+    """Can a (B, T*hw, D) stream split into ``cp`` contiguous token blocks be
+    frame-modulated shard-locally?"""
+    if s % cp:
+        return False
+    s_local = s // cp
+    return s_local % hw == 0 or hw % s_local == 0

@@ -1,0 +1,199 @@
+"""The collectives of context parallelism, over a ``torch.distributed``
+process group: the counterparts of JAX's ``ppermute``, tiled
+``all_to_all``, ``all_gather`` and ``psum`` on a mesh axis.
+
+- :func:`ring_shift_start` / :class:`RingShift`: every rank sends its
+  tensors to the next rank of the group and receives the previous rank's
+  (``batch_isend_irecv``), so that a ring hop's transfer can run while the
+  hop's kernel does;
+- :func:`all_to_all`: split one dimension into the group's ranks and
+  concatenate what comes back along another, in rank order (JAX's
+  ``all_to_all(..., tiled=True)``); :func:`all_to_all_autograd` is the same
+  as an autograd Function whose backward is the transposed all-to-all;
+- :func:`all_gather`: concatenate every rank's tensor along a dimension,
+  in rank order; :func:`gather_sequence_autograd` backs it with the local
+  slice of the gradient;
+- :func:`all_reduce`: the sum over the group.
+
+Under NCCL the tensors stay on their device. Under gloo a CUDA tensor is
+staged: copied into pinned host memory, moved by gloo, copied back. Only a
+caller that asked for gloo on CUDA tensors gets that (the one-card check,
+which runs P ranks as P processes on one GPU, where NCCL refuses two ranks
+on a device); every computation stays on the device and only the transport
+goes through the host. ``STAGED_BYTES`` counts the bytes copied to the
+host, and the first staging prints one line on rank 0.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+STAGED_BYTES = {"bytes": 0}
+_said = False
+# all_gather_into_tensor's newer name
+_all_gather_single = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+
+
+def _staged(group, t: torch.Tensor) -> bool:
+    return t.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    global _said
+    if not _said:
+        _said = True
+        if dist.get_rank() == 0:
+            print("collectives: gloo on CUDA tensors, staged through pinned host memory "
+                  "(a transport for P processes on one card, not a scaling setup)",
+                  flush=True)
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t)
+    STAGED_BYTES["bytes"] += t.numel() * t.element_size()
+    return host
+
+
+def _outgoing(group, tensors: list[torch.Tensor]) -> list[torch.Tensor]:
+    """The tensors as they go on the wire: copied to pinned host memory
+    (the copies landed) when gloo moves CUDA tensors, else contiguous."""
+    if _staged(group, tensors[0]):
+        host = [_to_host(t) for t in tensors]
+        torch.cuda.current_stream().synchronize()
+        return host
+    return [t.contiguous() for t in tensors]
+
+
+def _empty(like: torch.Tensor, shape=None) -> torch.Tensor:
+    """A receive buffer beside ``like``: pinned when ``like`` was staged."""
+    return torch.empty(like.shape if shape is None else shape, dtype=like.dtype,
+                       device=like.device, pin_memory=like.is_pinned())
+
+
+def _peer(group, offset: int) -> int:
+    """The global rank ``offset`` places along the group's ring."""
+    n, i = dist.get_world_size(group), dist.get_rank(group)
+    return dist.get_global_rank(group, (i + offset) % n)
+
+
+class _Pending:
+    """An in-flight ring shift: :meth:`wait` returns the received tensors
+    on the senders' device."""
+
+    def __init__(self, works, recvs, device):
+        self.works, self.recvs, self.device = works, recvs, device
+
+    def wait(self) -> list[torch.Tensor]:
+        for w in self.works:
+            w.wait()
+        return [r.to(self.device, non_blocking=True) for r in self.recvs]
+
+
+def ring_shift_start(tensors: list[torch.Tensor], group, tag: int = 0,
+                     offset: int = 1) -> _Pending:
+    """Start sending each tensor ``offset`` ranks on along ``group``'s ring
+    and receiving the tensor of the same shape sent to this rank;
+    ``wait()`` on the result gives the received tensors. The i-th tensor
+    travels under tag ``tag + i``: shifts in flight at the same time take
+    tags apart."""
+    device = tensors[0].device
+    sends = _outgoing(group, tensors)
+    recvs = [_empty(t) for t in sends]
+    to, frm = _peer(group, offset), _peer(group, -offset)
+    ops = []
+    for i, (s, r) in enumerate(zip(sends, recvs)):
+        ops.append(dist.P2POp(dist.isend, s, to, group, tag + i))
+        ops.append(dist.P2POp(dist.irecv, r, frm, group, tag + i))
+    return _Pending(dist.batch_isend_irecv(ops), recvs, device)
+
+
+def ring_shift(tensors: list[torch.Tensor], group, tag: int = 0,
+               offset: int = 1) -> list[torch.Tensor]:
+    """Each tensor moved ``offset`` ranks along the ring (``ppermute``)."""
+    return ring_shift_start(tensors, group, tag, offset).wait()
+
+
+class RingShift(torch.autograd.Function):
+    """One tensor moved ``offset`` ranks along the ring; the gradient moves
+    back."""
+
+    @staticmethod
+    def forward(ctx, x, group, offset: int):
+        ctx.group, ctx.offset = group, offset
+        return ring_shift([x], group, offset=offset)[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        return ring_shift([g], ctx.group, offset=-ctx.offset)[0], None, None
+
+
+def all_to_all(x: torch.Tensor, group, split_dim: int, concat_dim: int) -> torch.Tensor:
+    """Tiled all-to-all: ``x`` split into the group's n ranks along
+    ``split_dim`` (chunk j goes to rank j), the n chunks received
+    concatenated along ``concat_dim`` in rank order."""
+    n = dist.get_world_size(group)
+    if x.shape[split_dim] % n:
+        raise ValueError(f"all_to_all: dim {split_dim} of {tuple(x.shape)} is not "
+                         f"divisible by {n} ranks")
+    send = _outgoing(group, [torch.stack(x.chunk(n, dim=split_dim))])[0]
+    recv = _empty(send)
+    dist.all_to_all_single(recv, send, group=group)
+    recv = recv.to(x.device, non_blocking=True)
+    return torch.cat(recv.unbind(0), dim=concat_dim)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, split_dim: int, concat_dim: int):
+        ctx.args = group, split_dim, concat_dim
+        return all_to_all(x, group, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, split_dim, concat_dim = ctx.args
+        return all_to_all(g, group, concat_dim, split_dim), None, None, None
+
+
+def all_to_all_autograd(x: torch.Tensor, group, split_dim: int,
+                        concat_dim: int) -> torch.Tensor:
+    """:func:`all_to_all`, differentiable: its backward is the all-to-all
+    back, with the two dimensions swapped."""
+    return _AllToAll.apply(x, group, split_dim, concat_dim)
+
+
+def all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` (all the same shape) concatenated along ``dim``
+    in rank order."""
+    n = dist.get_world_size(group)
+    send = _outgoing(group, [x])[0]
+    out = _empty(send, (n * x.shape[0], *x.shape[1:]))  # the ranks' tensors along dim 0
+    _all_gather_single(out, send, group=group)
+    out = out.to(x.device, non_blocking=True)
+    return torch.cat(out.unflatten(0, (n, -1)).unbind(0), dim=dim)
+
+
+class _GatherSequence(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim: int):
+        ctx.args = dist.get_rank(group), x.shape[dim], dim
+        return all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        i, n, dim = ctx.args
+        return g.narrow(dim, i * n, n), None, None
+
+
+def gather_sequence_autograd(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """:func:`all_gather`, differentiable for a loss that every rank
+    computes alike on the gathered tensor: the gradient of this rank's
+    block is its slice of the gradient."""
+    return _GatherSequence.apply(x, group, dim)
+
+
+def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over the group, in a new tensor on ``x``'s device."""
+    buf = _outgoing(group, [x])[0]
+    if buf is x:
+        buf = x.clone()
+    dist.all_reduce(buf, group=group)
+    return buf.to(x.device, non_blocking=True)

@@ -1,17 +1,22 @@
-"""Replica-consistency checking, one process.
+"""Replica-consistency checking across the ranks of a process world.
 
-The port of ``chronoedit_tpu/parallel/consistency.py``. In a data-parallel
-run every replicated tensor must hold bitwise-identical data on every
-replica; divergence (a nondeterministic collective, host state leaking
-into replicated parameters, a restore race) forks training silently. In
-one process each tensor lives once, on one device, with no replica to
-disagree, so :func:`check_replica_consistency` returns ``[]``; the
-cross-process comparison (the digests of :func:`tree_digest` gathered
-from every rank) is the multi-GPU slice's. :func:`tree_digest` is the
-deterministic digest a rank would contribute.
+The port of ``chronoedit_tpu/parallel/consistency.py``. In a multi-rank run
+every replicated tensor must hold bitwise-identical data on every replica;
+divergence (a nondeterministic collective, host state leaking into
+replicated parameters, a restore race) forks a run silently. JAX compares
+the addressable shards of each array that cover the same index range; in
+the port each rank holds its replica of a tensor, so
+:func:`check_replica_consistency` hashes every tensor on every rank,
+gathers the digests with ``all_gather_object`` and returns the paths of
+the tensors whose digests differ. In one process no replica can disagree
+and it returns ``[]``. :func:`tree_digest` is one deterministic digest of a
+whole tree, to compare across ranks or runs.
 
-A "tree" here is what the trainer holds: tensors, ``nn.Module``s (their
-parameters and buffers), dicts, lists, tuples and dataclasses of them.
+A "tree" here is what the trainer and the pipeline hold: tensors,
+``nn.Module``s (their parameters and buffers), dicts, lists, tuples and
+dataclasses of them. The cost is one device-to-host copy of every tensor:
+run it every few thousand steps (``ReplicaConsistencyCallback``), not every
+step.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import hashlib
 from typing import Any, Iterator
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 
@@ -49,11 +55,21 @@ def _digest(t: torch.Tensor) -> str:
     return hashlib.sha256(data.tobytes()).hexdigest()
 
 
-def check_replica_consistency(tree: Any) -> list[str]:
-    """The paths of tensors whose replicas disagree (empty: healthy). One
-    process holds no replicas, so this is always ``[]``."""
-    del tree
-    return []
+def check_replica_consistency(tree: Any, group=None) -> list[str]:
+    """The paths of tensors whose replicas disagree across the ranks of
+    ``group`` (default the whole world), the same list on every rank;
+    empty when healthy, and always in one process. Every rank of the group
+    must call it with a tree of the same structure."""
+    if not dist.is_initialized() or dist.get_world_size(group) == 1:
+        return []
+    mine = [(path, _digest(t)) for path, t in named_tensors(tree)]
+    everyone: list = [None] * dist.get_world_size(group)
+    dist.all_gather_object(everyone, mine, group=group)
+    bad = []
+    for i, (path, _) in enumerate(mine):
+        if len({theirs[i] for theirs in everyone}) > 1:
+            bad.append(path)
+    return bad
 
 
 def tree_digest(tree: Any) -> str:

@@ -1,37 +1,95 @@
-"""Process-world helpers for the training entry points, one process.
+"""The process world: joining it, and process-aware helpers.
 
-The port of the single-process half of
-``chronoedit_tpu/parallel/distributed.py``: what the trainer, its
-callbacks and the training CLI import. JAX's ``init_distributed`` joins a
-multi-host world from ``JAX_*`` variables; the port's reads a launcher's
-``WORLD_SIZE`` (torchrun's) and, without one or at 1, is a no-op. A world
-of several processes (``torch.distributed`` over NCCL, per-process batch
-shards, cross-process metric means) belongs to the multi-GPU slice, and
-asking for one raises until then.
+The port of ``chronoedit_tpu/parallel/distributed.py``. JAX's
+``init_distributed`` joins a multi-host world from ``JAX_*`` variables;
+the port's joins the world a launcher describes: torchrun's
+``WORLD_SIZE``, ``RANK`` and ``LOCAL_RANK`` with ``MASTER_ADDR`` /
+``MASTER_PORT`` (the ``env://`` rendezvous), or an explicit
+``init_method`` (a ``file://`` path, as the tests and ``chip_smoke.py``
+use).
+
+The backend follows the device: NCCL when each rank drives its own CUDA
+device, gloo for CPU tensors. ``backend=`` names one explicitly, and only
+then does a world run over a backend that the device would not pick: the
+one-card check runs P ranks as P processes on one GPU over gloo (NCCL
+refuses two ranks on one device), and ``parallel/collectives.py`` stages
+their CUDA tensors through host memory. Nothing moves from one backend to
+another on its own.
+
+Not here yet (item 6b of the roadmap): ``host_local_to_global``, the
+per-process batch shards of data-parallel training.
 """
 
 from __future__ import annotations
 
+import datetime
 import os
 
+import torch
+import torch.distributed as dist
 
-def init_distributed() -> bool:
-    """Join the launcher's process world. Returns False for one process
-    (no launcher, or ``WORLD_SIZE=1``); a larger world raises
-    ``NotImplementedError`` (not ported yet)."""
-    world = int(os.environ.get("WORLD_SIZE", "1"))
-    if world <= 1:
-        return False
-    raise NotImplementedError(
-        f"WORLD_SIZE={world}: multi-process training is not ported yet (one process only)")
+from chronoedit_tpu_torch.parallel.collectives import all_reduce
+from chronoedit_tpu_torch.utils.platform import cuda_device
+
+# a rendezvous or collective that waits longer than this fails instead of
+# hanging
+TIMEOUT = datetime.timedelta(seconds=600)
+
+
+def _launched() -> bool:
+    return "WORLD_SIZE" in os.environ and "MASTER_ADDR" in os.environ
+
+
+def init_distributed(backend: str | None = None, device: torch.device | None = None,
+                     init_method: str | None = None, world_size: int | None = None,
+                     rank: int | None = None) -> bool:
+    """Join the launcher's process world. Returns True when a process group
+    was set up (or already was), False for one process without a launcher.
+
+    ``world_size`` / ``rank`` default from ``WORLD_SIZE`` / ``RANK`` and
+    ``init_method`` from torchrun's ``env://``. With no launcher (no
+    ``WORLD_SIZE`` and ``MASTER_ADDR``) and no ``init_method`` this is a
+    no-op at one process and raises for more, rather than wait on a
+    rendezvous that nobody set up. A torchrun world of one process is
+    joined like any other.
+
+    ``device`` is this rank's device: by default ``cuda_device()``
+    (``cuda:LOCAL_RANK``), which raises without a card; a CPU world is
+    asked for by passing ``torch.device("cpu")``. The backend is NCCL for a
+    CUDA device, gloo for the CPU, unless ``backend`` says otherwise; on
+    CUDA the rank's device becomes the current one.
+    """
+    if dist.is_initialized():
+        return True
+    if world_size is None:
+        world_size = int(os.environ.get("WORLD_SIZE", "1"))
+    if rank is None:
+        rank = int(os.environ.get("RANK", "0"))
+    if init_method is None:
+        if not _launched():
+            if world_size <= 1:
+                return False
+            raise ValueError(
+                f"WORLD_SIZE={world_size} without MASTER_ADDR / MASTER_PORT: start the "
+                f"processes under torchrun, or pass init_method")
+        init_method = "env://"
+    device = cuda_device() if device is None else torch.device(device)
+    if backend is None:
+        backend = "nccl" if device.type == "cuda" else "gloo"
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    kw = {"device_id": device} if backend == "nccl" else {}
+    dist.init_process_group(backend, init_method=init_method, world_size=world_size,
+                            rank=rank, timeout=TIMEOUT, **kw)
+    return True
 
 
 def process_count() -> int:
-    return 1
+    return dist.get_world_size() if dist.is_initialized() else 1
 
 
 def process_index() -> int:
-    return 0
+    return dist.get_rank() if dist.is_initialized() else 0
 
 
 def is_primary() -> bool:
@@ -41,8 +99,19 @@ def is_primary() -> bool:
 
 def collate_metrics(metrics: dict) -> dict:
     """The cross-process means of scalar metrics (the reference's
-    ``collate_batches``); one process: each value as a float."""
-    return {k: float(v) for k, v in metrics.items()}
+    distributed-eval ``collate_batches``): each process evaluates its own
+    batches, one ``all_reduce`` in float64 sums them. One process: each
+    value as a float."""
+    values = {k: float(v) for k, v in metrics.items()}
+    n = process_count()
+    if n == 1 or not values:
+        return values
+    # NCCL moves CUDA tensors only; gloo takes them from the host
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if dist.get_backend() == "nccl" else torch.device("cpu"))
+    t = all_reduce(torch.tensor(list(values.values()), dtype=torch.float64, device=device),
+                   None)
+    return {k: float(x) / n for k, x in zip(values, t.tolist())}
 
 
 def local_batch_size(global_batch: int) -> int:

@@ -1,0 +1,181 @@
+"""The process mesh: ranks laid out over named parallelism axes.
+
+The port of ``chronoedit_tpu/parallel/mesh.py``. JAX builds one
+``jax.sharding.Mesh`` over its devices; the port builds the same layout
+over the ranks of the ``torch.distributed`` world (one rank, one device)
+and opens one process group per axis and line of ranks along it, created in
+the same order on every rank, as ``dist.new_group`` requires:
+
+- ``pipe``    pipeline stages (item 6b of the roadmap);
+- ``data``    data parallelism: the ranks of one ``data`` line hold the
+              same model and, in serving, run the same request;
+- ``fsdp``, ``tensor``  parameter and tensor sharding (item 6b);
+- ``context`` context (sequence) parallelism: ring or Ulysses attention
+              over the DiT's token blocks (``parallel/context.py``).
+
+Ranks fill the mesh row-major in ``MESH_AXES`` order, as JAX reshapes its
+device list, so ``context`` is innermost: a context line is consecutive
+ranks. Callers read degrees as JAX's do, ``mesh.shape.get("context", 1)``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.distributed as dist
+
+from chronoedit_tpu_torch.utils.platform import cuda_device
+
+AXIS_PIPE = "pipe"
+AXIS_DATA = "data"
+AXIS_FSDP = "fsdp"
+AXIS_TENSOR = "tensor"
+AXIS_CONTEXT = "context"
+# pipe is outermost; the high-traffic axes (tensor, context) stay innermost
+MESH_AXES = (AXIS_PIPE, AXIS_DATA, AXIS_FSDP, AXIS_TENSOR, AXIS_CONTEXT)
+# the axes whose sharding is item 6b of the roadmap
+LATER_AXES = (AXIS_PIPE, AXIS_FSDP, AXIS_TENSOR)
+
+
+@dataclasses.dataclass(frozen=True)
+class InnerAxes:
+    """Marker passed in place of a mesh to code that already runs on one
+    rank's shard and should use collectives over these groups rather than
+    shard again: the pipeline stages of item 6b run context-parallel
+    attention over ``context`` inside a stage. ``context_size`` 1 is one
+    rank's view."""
+
+    context: object | None = None
+    context_size: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Parallelism degrees. -1 for ``data`` means "all remaining ranks"."""
+
+    data: int = -1
+    fsdp: int = 1
+    tensor: int = 1
+    context: int = 1
+    pipe: int = 1
+
+    def resolve(self, num_devices: int) -> tuple[int, int, int, int, int]:
+        """(pipe, data, fsdp, tensor, context) for ``num_devices`` ranks;
+        raises ValueError when they do not fill the mesh exactly."""
+        fixed = self.fsdp * self.tensor * self.context * self.pipe
+        data = self.data
+        if data == -1:
+            if num_devices % fixed:
+                raise ValueError(f"{num_devices} devices not divisible by "
+                                 f"pipe*fsdp*tensor*context={fixed}")
+            data = num_devices // fixed
+        total = data * fixed
+        if total != num_devices:
+            raise ValueError(f"mesh {self.pipe}x{data}x{self.fsdp}x{self.tensor}x"
+                             f"{self.context} != {num_devices} devices")
+        return self.pipe, data, self.fsdp, self.tensor, self.context
+
+
+def parse_mesh(spec: str) -> MeshConfig:
+    """``"data=2,context=4"`` -> ``MeshConfig(data=2, context=4)`` (the CLI
+    form, as JAX's ``run_inference --mesh``)."""
+    kv = dict(item.split("=") for item in spec.split(",") if item)
+    unknown = set(kv) - set(MESH_AXES)
+    if unknown:
+        raise ValueError(f"unknown mesh axes {sorted(unknown)}; have {MESH_AXES}")
+    return MeshConfig(**{k: int(v) for k, v in kv.items()})
+
+
+def mesh_coords(shape: tuple[int, ...], rank: int) -> dict[str, int]:
+    """A rank's index along each axis of a row-major mesh of ``shape``
+    (``MESH_AXES`` order)."""
+    idx = []
+    for n in reversed(shape):
+        rank, i = divmod(rank, n)
+        idx.append(i)
+    return dict(zip(MESH_AXES, reversed(idx)))
+
+
+def axis_lines(shape: tuple[int, ...], axis: str) -> list[list[int]]:
+    """Every line of ranks along ``axis``, in a fixed order: the groups that
+    axis needs, each listed by rank in axis order."""
+    a = MESH_AXES.index(axis)
+    ranks = torch.arange(math.prod(shape)).reshape(shape)
+    lines = ranks.movedim(a, -1).reshape(-1, shape[a])
+    return [row.tolist() for row in lines]
+
+
+class Mesh:
+    """This rank's place in a mesh of the world's ranks, and the process
+    group of each axis it spans (None for axes of size 1).
+
+    ``shape`` maps every axis to its degree; ``coords`` gives this rank's
+    index along each; ``group(axis)`` is the group of the ranks that differ
+    from this one only along ``axis``; ``device`` is this rank's device."""
+
+    def __init__(self, shape: tuple[int, ...], rank: int, device: torch.device,
+                 groups: dict[str, object] | None = None):
+        self.shape = dict(zip(MESH_AXES, shape))
+        self.rank = rank
+        self.coords = mesh_coords(shape, rank)
+        self.device = torch.device(device)
+        self.groups = groups or {}
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape.values())
+
+    def group(self, axis: str):
+        """The process group along ``axis``; None when the axis has size 1."""
+        if self.shape.get(axis, 1) == 1:
+            return None
+        return self.groups[axis]
+
+    def index(self, axis: str) -> int:
+        return self.coords.get(axis, 0)
+
+    def __repr__(self) -> str:
+        return f"Mesh({self.shape}, rank={self.rank}, device={self.device})"
+
+
+def make_mesh(config: MeshConfig | None = None, device: torch.device | None = None) -> Mesh:
+    """The mesh of ``config`` over the current ``torch.distributed`` world
+    (one process without one), this rank on ``device`` (default
+    ``cuda_device()``, which raises without a card: a CPU mesh is asked
+    for by passing ``torch.device("cpu")``).
+
+    Raises ValueError when the degrees do not fill the world, and
+    NotImplementedError for a ``pipe``, ``fsdp`` or ``tensor`` axis above
+    1: their sharding is item 6b of the roadmap. Every rank must call this
+    with the same config, in the same order as its other group creations.
+    """
+    config = config or MeshConfig()
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    shape = config.resolve(world)
+    later = {a: n for a, n in zip(MESH_AXES, shape) if a in LATER_AXES and n > 1}
+    if later:
+        raise NotImplementedError(
+            f"mesh axes {later}: pipeline, FSDP and tensor parallelism are not ported "
+            f"yet (item 6b of the roadmap); the port shards over data and context")
+    if device is None:
+        device = cuda_device()
+    groups = {}
+    for axis, n in zip(MESH_AXES, shape):
+        if n == 1:
+            continue
+        for line in axis_lines(shape, axis):
+            g = dist.new_group(line)
+            if rank in line:
+                groups[axis] = g
+    return Mesh(shape, rank, device, groups)
+
+
+def single_device_mesh(device: torch.device | None = None) -> Mesh:
+    """A mesh of this one rank (every axis of size 1) on ``device``
+    (default ``cuda_device()``)."""
+    if device is None:
+        device = cuda_device()
+    return Mesh((1,) * len(MESH_AXES), 0, device)

@@ -26,7 +26,17 @@ made by the attached encoders: ``encode_prompt`` (UMT5, from a prompt or
 from token ids) and ``encode_image`` (CLIP ViT-H); ``pipeline/loader.py``
 builds the whole pipeline from a checkpoint directory. Attached
 ``guardrails`` (``aux/guardrails.py``) check the prompt before a run and
-the video after it. Not here yet: multi-device meshes.
+the video after it.
+
+With a ``mesh`` (``parallel/mesh.py``) every rank runs the whole pipeline
+on its replica of the weights and the same inputs: the DiT splits its
+tokens over the context axis (ring or Ulysses attention, ``dit_forward``)
+and gives every rank the whole velocity, so the latents, UniPC, the VAE
+and the encoders stay replicated and every rank ends with the same frame.
+JAX's ``_shard`` lays the latents out over the context axis before the
+DiT; here the DiT's own token split takes its place. In reasoning mode the
+drop from 8 latent frames to 2 changes each rank's block in mid-run (at
+four ranks, from two whole frames to half a frame).
 """
 
 from __future__ import annotations
@@ -110,8 +120,9 @@ class ChronoEditPipeline:
     CLIPImageEncoder``), and exposes the edit API."""
 
     def __init__(self, config: PipelineConfig, dit: dit_lib.DiT, vae: vae_lib.VAE,
-                 text_encoder=None, image_encoder=None, guardrails=None):
+                 text_encoder=None, image_encoder=None, guardrails=None, mesh=None):
         self.config = config
+        self.mesh = mesh
         self.dit = dit
         self.vae = vae
         self.text_encoder = text_encoder
@@ -198,10 +209,11 @@ class ChronoEditPipeline:
 
         def fwd(xin, ts, text, img, mask=None, cache=None, refresh=True):
             if not stateful:
-                return dit_lib.dit_forward(self.dit, xin, ts, text, img, layer_mask=mask)
+                return dit_lib.dit_forward(self.dit, xin, ts, text, img, layer_mask=mask,
+                                           mesh=self.mesh)
             return dit_lib.dit_forward(self.dit, xin, ts, text, img,
                                        cache_blocks=cfg.cache_blocks, cache=cache,
-                                       cache_refresh=refresh)
+                                       cache_refresh=refresh, mesh=self.mesh)
 
         def timesteps(t, n, device):
             return torch.full((n,), t, dtype=torch.float32, device=device)

@@ -45,6 +45,7 @@ def load_pipeline(
     with_image_encoder: bool = True,
     device: torch.device | None = None,
     guardrails=None,
+    mesh=None,
 ) -> ChronoEditPipeline:
     """Load every staged component and fuse any LoRAs, on ``device``
     (default :func:`~utils.platform.cuda_device`: the CPU only when asked
@@ -63,12 +64,18 @@ def load_pipeline(
     Seconds per component (``dit``, ``vae``, ``loras``, ``text_encoder``,
     ``image_encoder``) are kept in the pipeline's ``load_seconds``.
     ``guardrails`` (``aux/guardrails.Guardrails``) are attached to the
-    pipeline. Not here (JAX has it): ``mesh`` (multi-device sharding).
+    pipeline. With a ``mesh`` (``parallel/mesh.py``) every rank loads the
+    whole, replicated weights onto its device (``mesh.device`` unless
+    ``device`` is given) and the pipeline runs its DiT context-parallel
+    over the mesh; JAX's sharding of the DiT's parameters over ``fsdp`` /
+    ``tensor`` is item 6b of the roadmap.
     """
     from chronoedit_tpu_torch.models.clip import CLIPImageEncoder, convert_clip_vision_checkpoint
     from chronoedit_tpu_torch.models.umt5 import UMT5TextEncoder, convert_umt5_checkpoint
 
-    device = cuda_device() if device is None else torch.device(device)
+    if device is None:
+        device = mesh.device if mesh is not None else cuda_device()
+    device = torch.device(device)
     seconds = {}
     shards = (sorted(glob.glob(os.path.join(checkpoint_dir, "transformer", "*.safetensors")))
               or sorted(glob.glob(os.path.join(checkpoint_dir, "*.safetensors"))))
@@ -113,6 +120,6 @@ def load_pipeline(
 
     pipe = ChronoEditPipeline(dataclasses.replace(config, vae=vae_cfg), dit, vae,
                               text_encoder=text_encoder, image_encoder=image_encoder,
-                              guardrails=guardrails)
+                              guardrails=guardrails, mesh=mesh)
     pipe.load_seconds.update(seconds)
     return pipe

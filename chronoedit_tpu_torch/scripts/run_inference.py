@@ -11,6 +11,17 @@ Examples:
   # the whole pipeline on tiny random weights, on the CPU
   python -m chronoedit_tpu_torch.scripts.run_inference --smoke --device cpu
 
+  # context parallelism over 4 GPUs (NCCL), two context groups of 2
+  torchrun --nproc-per-node 4 -m chronoedit_tpu_torch.scripts.run_inference \
+      --mesh data=2,context=2 --checkpoint-dir ./checkpoints/ChronoEdit-14B ...
+  # the same over 2 CPU processes (gloo)
+  torchrun --nproc-per-node 2 -m chronoedit_tpu_torch.scripts.run_inference \
+      --mesh context=2 --smoke --device cpu
+
+Under a mesh every rank loads the weights whole and runs the same edit;
+the DiT splits its tokens over the ``context`` ranks, and only rank 0
+writes the output.
+
 Text prompts (``--prompt``) need the UMT5 tokenizer's vocabulary, which is a
 download; ``--prompt-ids`` takes the token ids as a ``.npy`` instead.
 """
@@ -36,7 +47,10 @@ def add_pipeline_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--lora", type=str, action="append", default=[],
                    help="LoRA safetensors path[:scale], repeatable")
     p.add_argument("--mesh", type=str, default=None,
-                   help="multi-GPU parallelism spec (not ported yet: raises)")
+                   help="parallelism over the torchrun world, e.g. data=2,context=4 "
+                        "(data: ranks that run the same edit; context: ranks that "
+                        "split the DiT's tokens; fsdp, tensor and pipe are not "
+                        "ported yet and raise)")
     p.add_argument("--quantize", nargs="?", const="int8", default=None,
                    choices=("int8", "int4", "int4_a8"),
                    help="quantize the DiT's projections: 'int8' (w8a8; the bare "
@@ -84,15 +98,30 @@ def build_pipeline(args):
     from chronoedit_tpu_torch.pipeline.loader import load_pipeline
     from chronoedit_tpu_torch.utils.platform import cuda_device
 
-    if args.mesh:
-        raise SystemExit("--mesh: multi-GPU meshes are not ported yet")
     device = cuda_device() if args.device is None else torch.device(args.device)
+    mesh = None
+    if args.mesh:
+        from chronoedit_tpu_torch.parallel.distributed import init_distributed
+        from chronoedit_tpu_torch.parallel.mesh import LATER_AXES, make_mesh, parse_mesh
+
+        config = parse_mesh(args.mesh)
+        later = {a: getattr(config, a) for a in LATER_AXES if getattr(config, a) > 1}
+        if later:
+            raise SystemExit(f"--mesh {args.mesh}: {later} are not ported yet (item 6b of "
+                             f"the roadmap); the port shards over data and context")
+        init_distributed(device=device)
+        mesh = make_mesh(config, device=device)
+        if mesh.rank == 0:
+            import torch.distributed as dist
+
+            backend = dist.get_backend() if dist.is_initialized() else "no process group"
+            print(f"mesh {mesh.shape} over {backend}, {mesh.size} ranks", flush=True)
     cfg = get_experiment(args.experiment or ("tiny" if args.smoke else
                                              "chronoedit_14b_distilled"))
     loras = [(path, float(scale or 1.0))
              for path, _, scale in (spec.partition(":") for spec in args.lora)]
     if args.checkpoint_dir:
-        pipe = load_pipeline(cfg, args.checkpoint_dir, loras=loras, device=device)
+        pipe = load_pipeline(cfg, args.checkpoint_dir, loras=loras, device=device, mesh=mesh)
     else:
         if not args.smoke:
             raise SystemExit("--checkpoint-dir required unless --smoke")
@@ -100,7 +129,7 @@ def build_pipeline(args):
             raise SystemExit("--lora needs --checkpoint-dir")
         g = torch.Generator(device=device).manual_seed(0)
         pipe = ChronoEditPipeline(cfg, dit_lib.init_dit_params(cfg.dit, g, device),
-                                  vae_lib.init_vae_params(cfg.vae, g, device))
+                                  vae_lib.init_vae_params(cfg.vae, g, device), mesh=mesh)
     if args.cache_blocks:
         parts = [int(x) for x in args.cache_blocks.split(":")]
         pipe.config = dataclasses.replace(
@@ -170,6 +199,8 @@ def main(argv=None) -> None:
                  enable_temporal_reasoning=args.enable_temporal_reasoning,
                  num_temporal_reasoning_steps=args.num_temporal_reasoning_steps,
                  generator=torch.Generator(device=device).manual_seed(args.seed))
+    if pipe.mesh is not None and pipe.mesh.rank != 0:
+        return  # every rank holds the same frame; rank 0 writes it
     # the edit is the last frame; reasoning mode also writes the trajectory
     video = video.float().cpu().numpy()
     save_image(args.output, video[0, :, -1])

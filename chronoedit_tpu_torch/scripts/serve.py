@@ -150,6 +150,10 @@ def main(argv=None) -> None:
     args = parse_args(argv)
     from chronoedit_tpu_torch.pipeline.server import EditServer, ServerConfig
 
+    if args.mesh:
+        raise SystemExit("--mesh: serving over several ranks (rank 0 takes the requests "
+                         "and broadcasts each batch) is not ported yet, item 6b of the "
+                         "roadmap; run_inference takes --mesh")
     pipe = ri.build_pipeline(args)
     server = EditServer(pipe, ServerConfig(max_batch=args.max_batch,
                                            max_wait_ms=args.max_wait_ms,

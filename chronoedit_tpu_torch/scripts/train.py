@@ -21,8 +21,8 @@ As in JAX: the training clips are encoded by a VAE with random weights
 from a random DiT (seed 0), and the LoRA loop calls the step ``--max-iter``
 times, each call one micro-step of ``--grad-accum``. The DiT is built once:
 with ``--base-checkpoint`` (LoRA mode) its weights come straight from the
-shards, no random model beside it. ``--mesh`` (multi-GPU) is not ported
-yet and raises.
+shards, no random model beside it. ``--mesh`` (data-parallel and FSDP
+training, item 6b of the roadmap) is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -52,7 +52,8 @@ def parse_args(argv=None):
     p.add_argument("--checkpoint-dir", type=str, default=None)
     p.add_argument("--log-file", type=str, default=None)
     p.add_argument("--mesh", type=str, default=None,
-                   help="multi-GPU parallelism spec (not ported yet: raises)")
+                   help="multi-GPU parallelism spec (not ported yet, item 6b of the "
+                        "roadmap: raises)")
     p.add_argument("--remat", type=str, default="none",
                    choices=["none", "full", "matmul_only"])
     p.add_argument("--lora-rank", type=int, default=0,
@@ -80,7 +81,8 @@ def main(argv=None):
         args.max_iter = 2
         args.checkpoint_dir = None
     if args.mesh:
-        raise NotImplementedError("--mesh: multi-GPU training is not ported yet")
+        raise NotImplementedError("--mesh: multi-GPU training is not ported yet "
+                                  "(item 6b of the roadmap)")
 
     from chronoedit_tpu_torch.configs import get_experiment
     from chronoedit_tpu_torch.parallel import init_distributed, is_primary
@@ -92,7 +94,7 @@ def main(argv=None):
     from chronoedit_tpu_torch.utils.config import apply_overrides
     from chronoedit_tpu_torch.utils.platform import cuda_device
 
-    init_distributed()
+    init_distributed(device=None if args.device is None else torch.device(args.device))
     pipe_cfg = apply_overrides(get_experiment(args.experiment), args.overrides)
     dit_cfg = dataclasses.replace(pipe_cfg.dit, remat=args.remat)
     train_cfg = TrainConfig(lr=args.lr, grad_accum=args.grad_accum,

@@ -9,9 +9,11 @@ the metrics dict as device scalars, read by the callbacks that log them.
 
 Port-specific: :class:`DeviceMonitorCallback` reads
 ``torch.cuda.memory_stats``; :class:`ParamStatsCallback` reads the state's
-tensors (by top-level module); :class:`StragglerDetector` and
-:class:`ReplicaConsistencyCallback` work in one process, where they never
-fire (the cross-process gather is the multi-GPU slice's).
+tensors (by top-level module); :class:`ReplicaConsistencyCallback`
+compares every tensor's digest across the ranks of the process world
+(``parallel/consistency.py``) and raises on a divergence;
+:class:`StragglerDetector` works in one process, where it never fires (its
+cross-process gather is item 6b of the roadmap).
 """
 
 from __future__ import annotations
@@ -354,7 +356,8 @@ class StragglerDetector(Callback):
         from chronoedit_tpu_torch.parallel.distributed import process_count
 
         if process_count() != 1:
-            raise NotImplementedError("the cross-process gather is not ported yet")
+            raise NotImplementedError("the cross-process gather is not ported yet "
+                                      "(item 6b of the roadmap)")
         return np.asarray([value])
 
     def on_step_start(self, trainer, step):

@@ -51,6 +51,14 @@ TRAINING_MODULES = ("train.trainer", "train.checkpoint", "train.callbacks", "uti
                     "parallel.consistency", "data.loaders", "scripts.train",
                     "scripts.convert_weights")
 
+# the modules of context parallelism (the process world, the mesh, the
+# collectives, ring and Ulysses attention, the launcher, the cross-rank
+# replica check) and what runs them (the DiT, the pipeline, the CLI)
+PARALLEL_MODULES = ("parallel.mesh", "parallel.collectives", "parallel.context",
+                    "parallel.distributed", "parallel.consistency", "parallel.launch",
+                    "models.dit", "pipeline.edit_pipeline", "scripts.run_inference",
+                    "utils.platform")
+
 _WALK = """
 import pkgutil, sys
 for blocked in ("jax", "jaxlib", "chronoedit_tpu"):
@@ -82,6 +90,11 @@ def test_walk_reaches_serving():
 def test_walk_reaches_training():
     """... and training's."""
     assert {f"chronoedit_tpu_torch.{m}" for m in TRAINING_MODULES} <= _walked()
+
+
+def test_walk_reaches_parallelism():
+    """... and context parallelism's."""
+    assert {f"chronoedit_tpu_torch.{m}" for m in PARALLEL_MODULES} <= _walked()
 
 
 def test_importing_the_scripts_starts_nothing():

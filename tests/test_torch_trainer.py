@@ -702,15 +702,17 @@ def test_debug_numerics_raises_at_the_first_nonfinite_op():
 
 def test_single_process_helpers(monkeypatch):
     """``init_distributed`` is a no-op without a launcher's world (and at
-    WORLD_SIZE=1), raises for more; one process is primary, its metrics
-    come back as floats; no replica disagrees; ``tree_digest`` is
-    deterministic and sees a changed bit."""
+    WORLD_SIZE=1), raises for more without a launcher's rendezvous (the
+    multi-process world itself is ``test_torch_consistency.py``'s); one
+    process is primary, its metrics come back as floats; no replica
+    disagrees; ``tree_digest`` is deterministic and sees a changed bit."""
     monkeypatch.delenv("WORLD_SIZE", raising=False)
+    monkeypatch.delenv("MASTER_ADDR", raising=False)
     assert distributed.init_distributed() is False
     monkeypatch.setenv("WORLD_SIZE", "1")
     assert distributed.init_distributed() is False
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="MASTER_ADDR"):
         distributed.init_distributed()
     assert distributed.is_primary() and distributed.local_batch_size(4) == 4
     assert distributed.collate_metrics({"val_loss": torch.tensor(0.5)}) == {"val_loss": 0.5}
