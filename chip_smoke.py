@@ -8,8 +8,8 @@ fine-tuning of the full-width DiT at the edit's geometry (remat "full" and
 int8-score attention, and the mixed2 recipe), the training CLI from the
 checkpoint directory's files to an exported LoRA that serves an edit, the
 full-parameter Trainer with checkpoints, resume and ``convert_weights``,
-and the two attention experiments (the grouped flash forward X1 and
-backward X2).
+context and pipeline parallelism over processes on the one card, and the
+two attention experiments (the grouped flash forward X1 and backward X2).
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card, ``nvcc`` (sm_90a) and no network; it imports
@@ -91,7 +91,11 @@ non-zero and no result line is printed:
    w4a16 and an int4_a8 base (loss, gradient cosine, grad_norm, then after
    two applied updates Adam's first moment and the update, against the
    CPU), and each QLoRA adapter gradient against the bf16-base one (JAX's
-   gate, cosine above 0.9); then context parallelism (``context_path``):
+   gate, cosine above 0.9); then the Ulysses trace (``ulysses_trace``: each
+   projection shape through cuBLAS, K2 and K3 on half a frame and on a
+   frame, K4 on those rows and K1 on 10 of 40 heads, against those rows or
+   heads of the whole call at 7,200 tokens: the kernels must be bitwise,
+   cuBLAS is reported); then context parallelism (``context_path``):
    the distilled model at full width cut to ``CP_BLOCKS`` blocks, seeded,
    its forwards at 28,800 and 7,200 tokens, a 720p edit and a reasoning
    edit with the drop (k = 2) in this one process, then worlds of 2 and 4
@@ -148,7 +152,17 @@ non-zero and no result line is printed:
    place to w4a16 (Lloyd grid), takes three rank-32 QLoRA steps over it (K8
    under autograd) and serves two 720p edits and a w4a16 + int8-score
    reasoning edit (k = 2); loads the bf16 model again from the same files,
-   quantizes it to mixed2 and serves one edit; runs the training CLI
+   quantizes it to mixed2 and serves one edit; with the card free, runs
+   pipeline parallelism (``pipeline_path``): worlds of pipe = 2 and 4
+   processes on the card over host-staged gloo, each rank loading only its
+   stage's blocks of the directory's DiT and LoRA (the bytes it read held
+   to the files' headers), serving the 720p edit at 40 blocks (against the
+   edit path's, seed 10), at pipe = 2 also batched CFG (against
+   ``guidance_cache_path``'s) and the backward of a CP_BLOCKS-deep DiT
+   (against one process, at K6/K7's bounds), at pipe = 4 then the
+   reasoning drop over pipe 2 x context 2 in both modes at CP_BLOCKS
+   blocks (against the context phase's one-process drop), every rank's
+   launches held to the schedule's; runs the training CLI
    (``scripts/train.main``: rank-32 LoRA, remat "full", ``--grad-accum 2
    --max-iter 4``) from the directory's DiT shards on two 720p PNG pairs
    with UMT5-XXL embeddings written for it, and serves an edit with the
@@ -170,8 +184,8 @@ non-zero and no result line is printed:
    tiled-against-untiled streaming decode of an 8-frame latent trajectory
    (fp32) and an unchanged-base checksum follow;
 7. print the command's seconds, the kernel table as one JSON line (its
-   launches include the context phase's workers', not its planted
-   faults'), the card line again, and last
+   launches include the context and pipeline phases' workers', not the
+   planted faults'), the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds one warm ``torch.profiler`` pass over each stage (DiT
@@ -2065,14 +2079,16 @@ def guidance_cache_path(pipe, dev, launches: tuple[Counter, Counter]) -> dict:
     tokens = [EDIT_TOKENS] * steps
     shape = (1, 3, EDIT_H, EDIT_W)
     neg = torch.randn((1, TEXT_TOKENS, cfg.dit.text_dim),
-                      generator=torch.Generator(device=dev).manual_seed(32), device=dev)
+                      generator=torch.Generator(device=dev).manual_seed(PP_NEG_SEED), device=dev)
     readings, times = {}, []
     try:
-        serve(pipe.edit_image, cfg, dev, "CFG batched, guidance 5", 30, shape, tokens, launches,
-              times=times, neg_prompt_emb=neg, guidance_scale=5.0)
+        # the pipeline phase's reference for its guided edit
+        readings["cfg"] = serve(pipe.edit_image, cfg, dev, "CFG batched, guidance 5",
+                                PP_CFG_SEED, shape, tokens, launches, times=times,
+                                neg_prompt_emb=neg, guidance_scale=5.0)
         pipe.config = dataclasses.replace(cfg, cfg_batched=False)
-        serve(pipe.edit_image, cfg, dev, "CFG sequential + SLG (9,), guidance 5", 30, shape,
-              tokens, launches, times=times, blocks=[[n, n - 1]] * steps, neg_prompt_emb=neg,
+        serve(pipe.edit_image, cfg, dev, "CFG sequential + SLG (9,), guidance 5", PP_CFG_SEED,
+              shape, tokens, launches, times=times, blocks=[[n, n - 1]] * steps, neg_prompt_emb=neg,
               guidance_scale=5.0, slg_layers=(9,))
         readings.update(cfg_batched_s=times[0], cfg_slg_s=times[1])
 
@@ -2951,14 +2967,17 @@ def cp_inputs(cfg, dev, tokens: int, seed: int = 30) -> tuple:
     return x, ts, req["prompt_emb"], req["image_emb"]
 
 
-def cp_launches(cfg, forwards: list[tuple[int, str, int]]):
+def cp_launches(cfg, forwards: list[tuple[int, str, int]], blocks: int | None = None,
+                microbatches: int = 1):
     """The launch counters one rank reads after ``forwards``, each (tokens,
     mode, context size): per block the ring's P hops at KV tokens / P, or
     one attention at KV tokens (Ulysses: the whole sequence, H / P heads;
     or unsharded), the cross-attention at the text's and CLIP's KV (queries
     the rank's tokens), 2 LN-modulates, 2 gated residuals and 5 RMSNorms,
-    and each forward's head LN-modulate; in ``read_launches``' form."""
-    n = cfg.dit.num_layers
+    and each forward's head LN-modulate; in ``read_launches``' form. A
+    pipeline stage runs ``blocks`` of them (default every block), once per
+    microbatch."""
+    n = (blocks if blocks is not None else cfg.dit.num_layers) * microbatches
     calls = []
     for tokens, mode, p in forwards:
         calls += ([("flash_fwd", tokens // p, p * n)] if mode == "ring"
@@ -3275,6 +3294,383 @@ def context_path(dev, launches: tuple[Counter, Counter]) -> dict:
                              f"faults over it {high}")
     summary["nccl_cli_s"] = nccl_cli(card)
     print(f"context_path: {time.perf_counter() - t_phase:.1f} s ({card})")
+    # the one-process drop is the pipeline phase's reference too
+    summary["drop_ref"] = refs["drop"]
+    return summary
+
+
+# ----------------------------------------------------------- the Ulysses trace
+
+# Ulysses at P = 4 and 7,200 tokens reads 88.62 dB against one process in
+# ``context_path``, not bitwise: each rank then projects 1,800 rows (half a
+# frame), at P = 2 3,600 (a frame), which is bitwise. The trace holds parts of those sizes
+# against the whole at the DiT's widths, TRACE_DIMS (model, FFN, the head's
+# output: 16 channels x the 2 x 2 patch).
+TRACE_DIMS = (5120, 13824, 64)
+
+
+def ulysses_trace(dev) -> dict[str, bool]:
+    """Which op of the DiT gives other bits on a part of the 720p edit's
+    7,200 rows than on the whole: each projection shape of a block and the
+    head's (``F.linear``, cuBLAS) on 1,800 and 3,600 rows against those
+    rows of the 7,200-row product; K2 and K3 on half a frame and on a frame
+    (the frame's modulation, ``local_frame_slice``), K4 on those rows, K1
+    on 10 of the 40 heads (a Ulysses rank's self-attention at P = 4) and
+    on those q rows against the text's and CLIP's KV (its cross-attention),
+    each against those rows or heads of the whole call. A kernel that
+    differs is a fault of the port and fails the run; cuBLAS is reported.
+    Returns {case: bitwise}."""
+    import torch.nn.functional as F
+
+    from chronoedit_tpu_torch.ops import fused_norms as fn
+    from chronoedit_tpu_torch.ops import layers as L
+    from chronoedit_tpu_torch.ops.flash_attention import flash_attention
+
+    g = torch.Generator(device=dev).manual_seed(90)
+    (s, (d, f, o)), hw = (EDIT_TOKENS, TRACE_DIMS), EDIT_TOKENS // 2
+    trace_rows = (s // 4, s // 2)  # a Ulysses rank's rows at P = 4 and 2
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device=dev, dtype=dtype)
+
+    def parts(whole, call, rows):
+        return all(torch.equal(call(r, rows), whole[:, r:r + rows]) for r in range(0, s, rows))
+
+    same = {}
+    x, delta = randn(1, s, d), randn(1, s, d)
+    with torch.no_grad():
+        for name, (din, dout) in {f"q/k/v/o {d}x{d}": (d, d), f"fc1 {d}x{f}": (d, f),
+                                  f"fc2 {f}x{d}": (f, d), f"head {d}x{o}": (d, o)}.items():
+            xin = x if din == d else randn(1, s, din)
+            w, b = randn(dout, din) / math.sqrt(din), randn(dout) * 0.1
+            whole = F.linear(xin, w, b)
+            for rows in trace_rows:
+                same[f"cuBLAS {name}, {rows} rows"] = parts(
+                    whole, lambda r, n: F.linear(xin[:, r:r + n], w, b), rows)
+        scale, shift, gate = (randn(1, 2, d, dtype=torch.float32) for _ in range(3))
+        norm = L.RMSNorm(d, device=dev, dtype=torch.bfloat16)
+        norm.scale.normal_(1.0, 0.1, generator=g)
+        k2 = fn.layer_norm_modulate(x, scale, shift, hw)
+        k3 = fn.gated_residual(x, delta, gate, hw)
+        k4 = fn.rms_norm_fused(norm, x)
+
+        def local(r, n):
+            (sc, sh, ga), hw_l = fn.local_frame_slice((scale, shift, gate), hw, n, r // n)
+            return [t.contiguous() for t in (x[:, r:r + n], delta[:, r:r + n], sc, sh, ga)], hw_l
+
+        for rows in trace_rows:
+            def k2_part(r, n):
+                (xs, _, sc, sh, _), hw_l = local(r, n)
+                return fn.layer_norm_modulate(xs, sc, sh, hw_l)
+
+            def k3_part(r, n):
+                (xs, ds, _, _, ga), hw_l = local(r, n)
+                return fn.gated_residual(xs, ds, ga, hw_l)
+
+            same[f"K2, {rows} rows"] = parts(k2, k2_part, rows)
+            same[f"K3, {rows} rows"] = parts(k3, k3_part, rows)
+            same[f"K4, {rows} rows"] = parts(
+                k4, lambda r, n: fn.rms_norm_fused(norm, x[:, r:r + n].contiguous()), rows)
+        q, k, v = (randn(1, s, 40, 128) for _ in range(3))
+        k1 = flash_attention(q, k, v, 128 ** -0.5)
+        same["K1, 10 of 40 heads"] = all(
+            torch.equal(flash_attention(*(t[:, :, h:h + 10].contiguous() for t in (q, k, v)),
+                                        128 ** -0.5), k1[:, :, h:h + 10])
+            for h in range(0, 40, 10))
+        for kv in (TEXT_TOKENS, IMAGE_TOKENS):
+            kc, vc = (randn(1, kv, 40, 128) for _ in range(2))
+            whole = flash_attention(q, kc, vc, 128 ** -0.5)
+            for rows in trace_rows:
+                same[f"K1 at KV {kv}, {rows} q rows"] = parts(
+                    whole, lambda r, n: flash_attention(q[:, r:r + n].contiguous(), kc, vc,
+                                                        128 ** -0.5), rows)
+    print("ulysses_trace: part of the edit's rows (heads) against those of the whole call: "
+          + "; ".join(f"{k} {'bitwise' if v else 'DIFFERS'}" for k, v in same.items()))
+    # on the CPU the wrappers run the twins, whose matmuls may round by shape
+    bad = [k for k, v in same.items() if not v and not k.startswith("cuBLAS")]
+    if bad and dev.type == "cuda":
+        raise AssertionError(f"ulysses_trace: kernels that are not row-independent: {bad}")
+    return same
+
+
+# ----------------------------------------------------------- pipeline parallelism
+
+# The pipeline phase (``pipeline_path``) runs worlds of 2 and 4 processes on
+# the one card over host-staged gloo, as the context phase does: the 720p
+# edit at full width and depth (40 blocks) over pipe = 2 and 4, each rank
+# loading only its stage's blocks from the checkpoint directory that
+# ``loaded_path`` wrote (about 30.5 / n GiB a rank, so the world holds the
+# DiT once); batched CFG (B = 2, two microbatches) over pipe = 2; the
+# backward of a CP_BLOCKS-deep DiT over pipe = 2; and the reasoning drop
+# over pipe = 2 x context = 2 at CP_BLOCKS blocks (``cp_model``): every
+# stage's blocks are held once per context rank, so 40 blocks would need
+# 2 x 30.5 GiB of weights beside four ranks' VAEs, contexts and 28,800-token
+# activations on the 80 GB card; at CP_BLOCKS = 4 it is 2 x 3.0 GiB.
+PP_WORLDS = (2, 4)
+PP_TIMEOUT = 900.0
+PP_DEVICE = "cuda:0"  # every rank's device: the one card
+# the requests the pipeline worlds serve: the edit path's first (request
+# seed 10) and the guided edit of ``guidance_cache_path`` (seed 30, its
+# negative prompt seed 32), whose one-process outputs are the references
+PP_EDIT_SEED = 10
+PP_CFG_SEED, PP_NEG_SEED = 30, 32
+
+
+def stage_bytes(files, num_layers: int, pipe: int, lora: bool = False) -> list[int]:
+    """The bytes each stage of ``pipe`` reads from ``files`` (a
+    ``SafetensorsFiles``), from the headers: its blocks' tensors, and for
+    the DiT's shards the non-block tensors too."""
+    from chronoedit_tpu_torch.models.weights import block_index
+
+    per, out = num_layers // pipe, [0] * pipe
+    for key in files:
+        i = block_index(key.removeprefix("transformer."))
+        for stage in range(pipe):
+            if (i is None and not lora) or (i is not None and i // per == stage):
+                out[stage] += files.nbytes(key)
+    return out
+
+
+def _pp_backward(rank: int, dev, mesh) -> dict:
+    """The backward of the CP_BLOCKS-deep DiT (``build_model``'s seeded
+    weights) at 7,200 tokens under ``mesh`` (pipe = 2), loss the sum of the
+    output's squares: first in this process without a mesh (the reference,
+    outside the counted launches), then with the other stage's blocks
+    dropped under the mesh. The input's gradient and each parameter's the
+    rank holds against the reference, at K6/K7's bounds (``k67_check``),
+    and which are bitwise."""
+    from chronoedit_tpu_torch.models import dit as dit_lib
+    from chronoedit_tpu_torch.parallel.pipeline_parallel import stage_range
+
+    cfg = cp_config()
+    dit = build_model(dev, cfg).dit.requires_grad_(True)  # built frozen
+    x, ts, text, img = cp_inputs(cfg, dev, EDIT_TOKENS)
+    x.requires_grad_()
+    layers = stage_range(cfg.dit.num_layers, mesh)
+
+    def keep(name):
+        i = name.split(".")[1] if name.startswith("blocks.") else None
+        return i is None or int(i) in layers
+
+    def run(m):
+        out = dit_lib.dit_forward(dit, x, ts, text, img, mesh=m)
+        (out.float() ** 2).sum().backward()
+        return out.detach()
+
+    run(None)
+    ref = {"x": x.grad}
+    ref.update({n: p.grad for n, p in dit.named_parameters() if keep(n)})
+    dit.zero_grad(set_to_none=True)
+    x.grad = None
+    dit.keep_layers(layers)
+    free()
+    n = len(layers)
+    want = expected_tool_launches([(name, kv, n) for name in ("flash_fwd", "flash_bwd_dq",
+                                                              "flash_bwd_dkv")
+                                   for kv in (EDIT_TOKENS, TEXT_TOKENS, IMAGE_TOKENS)])
+    want[0].update(ln_modulate=2 * n + 1, gated_residual=2 * n, rms_norm=5 * n)
+    res = _cp_run("backward", functools.partial(run, mesh), want, rank, False)
+    params = dict(dit.named_parameters())
+
+    def local(name):  # a kept parameter's name in the stage-local model
+        if not name.startswith("blocks."):
+            return name
+        _, i, rest = name.split(".", 2)
+        return f"blocks.{int(i) - layers.start}.{rest}"
+
+    checks, bitwise = {}, []
+    for name, want_g in ref.items():
+        g = x.grad if name == "x" else params[local(name)].grad
+        if torch.equal(g, want_g):
+            bitwise.append(name)
+            continue
+        checks[name] = k67_check(g, want_g)
+    res.update(bitwise=len(bitwise), tensors=len(ref), x_bitwise="x" in bitwise,
+               blocks_bitwise=all(n in bitwise for n in ref if n.startswith("blocks.")),
+               checks=checks, ok=all(c["ok"] for c in checks.values()))
+    return res
+
+
+def pp_worker(rank: int, p: int, plan: dict) -> dict:
+    """One rank of a world of ``p`` processes on the one card over gloo
+    (NCCL refuses two ranks on one device), its collectives staged through
+    pinned host memory. Under a mesh of pipe = ``p`` it loads its stage of
+    the distilled model with the distilled LoRA from the checkpoint
+    directory (``load_pipeline(..., mesh=)``: only its stage's blocks are
+    read) and serves the 720p edit and, with ``plan["cfg"]``, the guided
+    edit (B = 2); then frees it and, with ``plan["backward"]``, runs
+    ``_pp_backward``, and with ``plan["drops"]`` the reasoning drop over
+    pipe = 2 x context = 2 on ``cp_model``'s CP_BLOCKS blocks, its other
+    stage's blocks dropped, in each context mode. Every run with its launch
+    counters zeroed just before and held to what the path implies just
+    after (``_cp_run``); rank 0 returns the outputs, every rank the digests,
+    seconds, bytes read and staged and peak memory."""
+    from chronoedit_tpu_torch.configs import chronoedit_14b_distilled
+    from chronoedit_tpu_torch.kernels import build
+    from chronoedit_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from chronoedit_tpu_torch.parallel.pipeline_parallel import stage_range
+    from chronoedit_tpu_torch.pipeline.loader import load_pipeline
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(plan["device"])
+    build.lib()  # the parent's build, loaded: every source hashes the same
+    mesh = make_mesh(MeshConfig(data=-1, pipe=p), device=dev)
+    cfg = chronoedit_14b_distilled()
+    steps, per = cfg.num_steps, cfg.dit.num_layers // p
+    res = {}
+    with torch.inference_mode():
+        torch.cuda.reset_peak_memory_stats()
+        pipe, secs = host_s(lambda: load_pipeline(
+            cfg, str(CHECKPOINT_DIR), loras=[(str(CHECKPOINT_DIR / "distill_lora.safetensors"),
+                                              1.0)],
+            with_text_encoder=False, with_image_encoder=False, device=dev, mesh=mesh))
+        res["load"] = {"secs": secs, "bytes": dict(pipe.load_bytes),
+                       "layers": (pipe.dit.layers.start, pipe.dit.layers.stop),
+                       "blocks": len(pipe.dit.blocks),
+                       "gib": torch.cuda.memory_allocated() / 2 ** 30}
+        req = request(cfg, dev, PP_EDIT_SEED, EDIT_H, EDIT_W, TEXT_TOKENS)
+        gen = torch.Generator(device=dev).manual_seed(100 + PP_EDIT_SEED)
+        res["edit"] = _cp_run("edit", functools.partial(pipe.edit_image, **req, generator=gen),
+                              cp_launches(cfg, [(EDIT_TOKENS, "none", 1)] * steps, per),
+                              rank, rank == 0)
+        if plan.get("cfg"):
+            req = request(cfg, dev, PP_CFG_SEED, EDIT_H, EDIT_W, TEXT_TOKENS)
+            neg = torch.randn((1, TEXT_TOKENS, cfg.dit.text_dim), device=dev,
+                              generator=torch.Generator(device=dev).manual_seed(PP_NEG_SEED))
+            gen = torch.Generator(device=dev).manual_seed(100 + PP_CFG_SEED)
+            res["cfg"] = _cp_run("CFG batched", functools.partial(
+                pipe.edit_image, **req, neg_prompt_emb=neg, guidance_scale=5.0, generator=gen),
+                cp_launches(cfg, [(EDIT_TOKENS, "none", 1)] * steps, per, microbatches=2),
+                rank, rank == 0)
+        res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del pipe
+    free()
+    if plan.get("backward"):
+        res["backward"] = _pp_backward(rank, dev, mesh)
+        free()
+    if plan.get("drops"):
+        mesh = make_mesh(MeshConfig(pipe=2, context=2), device=dev)
+        cfg = cp_config()
+        with torch.inference_mode():
+            pipe = cp_model(dev, cfg)
+            pipe.dit.keep_layers(stage_range(cfg.dit.num_layers, mesh))
+            pipe.mesh = mesh
+            free()
+            per = len(pipe.dit.layers)
+            for mode in ("ring", "ulysses"):
+                pipe.dit.cfg = dataclasses.replace(cfg.dit, context_parallel=mode)
+                req = request(cfg, dev, 41, EDIT_H, EDIT_W, TEXT_TOKENS)
+                gen = torch.Generator(device=dev).manual_seed(141)
+                res[f"drop {mode}"] = _cp_run(
+                    f"reasoning drop {mode}", functools.partial(
+                        pipe, **req, enable_temporal_reasoning=True,
+                        num_temporal_reasoning_steps=2, generator=gen),
+                    cp_launches(cfg, [(REASONING_TOKENS, mode, 2)] * 2
+                                + [(EDIT_TOKENS, mode, 2)] * (steps - 2), per), rank, rank == 0)
+        res["peak_gib"] = max(res["peak_gib"], torch.cuda.max_memory_allocated() / 2 ** 30)
+        del pipe
+        free()
+    return res
+
+
+def pipeline_path(dev, refs: dict, launches: tuple[Counter, Counter]) -> dict:
+    """Pipeline parallelism on the one card: worlds of pipe = 2 and 4
+    processes on ``cuda:0`` over host-staged gloo (correctness and per-rank
+    launches, not a scaling figure), each rank reading only its stage's
+    block tensors from ``CHECKPOINT_DIR`` (checked, per rank, against the
+    files' headers), against the one-process outputs in ``refs``: the 720p
+    edit (``refs[PP_EDIT_SEED]``) at both sizes, the guided edit
+    (``refs["cfg"]``) at pipe = 2, and the reasoning drop over pipe = 2 x
+    context = 2 in both modes (``refs["drop"]``), at the fidelity bar; the
+    backward at pipe = 2 against one process at K6/K7's bounds. Adds the
+    workers' launches to ``launches``. Needs the card free: the
+    one-process runs were freed before."""
+    from chronoedit_tpu_torch.configs import chronoedit_14b_distilled
+    from chronoedit_tpu_torch.models import weights as w
+    from chronoedit_tpu_torch.parallel.launch import run_world
+
+    card = card_line()
+    cfg = chronoedit_14b_distilled()
+    t_phase = time.perf_counter()
+    shards = sorted(str(f) for f in (CHECKPOINT_DIR / "transformer").glob("*.safetensors"))
+    with w.load_safetensors(shards) as sd, \
+            w.load_safetensors(str(CHECKPOINT_DIR / "distill_lora.safetensors")) as lsd:
+        total = sum(sd.nbytes(k) for k in sd)
+        want_bytes = {p: (stage_bytes(sd, cfg.dit.num_layers, p),
+                          stage_bytes(lsd, cfg.dit.num_layers, p, lora=True)) for p in PP_WORLDS}
+    summary = {}
+    for p in PP_WORLDS:
+        plan = {"cfg": p == 2, "backward": p == 2, "drops": p == 4, "device": PP_DEVICE}
+        results, secs = host_s(lambda: run_world(pp_worker, p, (p, plan), backend="gloo",
+                                                 device=plan["device"], timeout=PP_TIMEOUT,
+                                                 threads=2))
+        print(f"pipeline_path pipe = {p}: {p} processes sharing one card over host-staged gloo "
+              f"(not a scaling figure): the world's {secs:.1f} s, peak memory per rank "
+              f"{[round(r['peak_gib'], 2) for r in results]} GiB ({card})")
+        dit_want, lora_want = want_bytes[p]
+        for stage, r in enumerate(results):
+            load = r["load"]
+            per = cfg.dit.num_layers // p
+            ok = (load["layers"] == (stage * per, (stage + 1) * per) and load["blocks"] == per
+                  and load["bytes"]["dit"] == dit_want[stage]
+                  and load["bytes"]["loras"] == lora_want[stage])
+            print(f"   rank {stage}: blocks {load['layers']}, read {load['bytes']['dit'] / 1e9:.3f} "
+                  f"GB of the DiT's {total / 1e9:.3f} GB (expected {dit_want[stage] / 1e9:.3f}) "
+                  f"and {load['bytes']['loras'] / 1e6:.1f} MB of the LoRA (expected "
+                  f"{lora_want[stage] / 1e6:.1f}) in {load['secs']:.2f} s, "
+                  f"{load['gib']:.2f} GiB after the load, peak {r['peak_gib']:.2f} GiB")
+            if not ok:
+                raise AssertionError(f"pipe = {p} rank {stage}: loaded {load}, expected blocks "
+                                     f"of stage {stage} and {dit_want[stage]} / "
+                                     f"{lora_want[stage]} bytes")
+        runs = [("edit", refs[PP_EDIT_SEED], f"720p edit ({cfg.num_steps} steps, "
+                                             f"{cfg.dit.num_layers} blocks)")]
+        if plan["cfg"]:
+            runs.append(("cfg", refs["cfg"], "CFG batched, guidance 5 (B = 2, 2 microbatches)"))
+        if plan["drops"]:
+            runs += [(f"drop {mode}", refs["drop"], f"reasoning drop (k = 2, {CP_BLOCKS} blocks) "
+                      f"over pipe 2 x context 2, {mode}") for mode in ("ring", "ulysses")]
+        for key, want, label in runs:
+            per_rank = [r[key] for r in results]
+            first = per_rank[0]
+            if any(r["digest"] != first["digest"] for r in per_rank) or not first["finite"]:
+                raise AssertionError(f"pipe = {p} {label}: the ranks' outputs differ or are "
+                                     f"not finite")
+            got = torch.from_numpy(first["out"])
+            if got.shape != want.shape:
+                raise AssertionError(f"pipe = {p} {label}: {tuple(got.shape)} against "
+                                     f"{tuple(want.shape)}")
+            db = psnr(got, want)
+            print(f"   {label}: rank 0 {first['secs']:.3f} s, "
+                  f"{first['staged'] / cfg.num_steps / 1e9:.4f} GB staged a forward and rank, every "
+                  f"rank bitwise alike, {'bitwise' if db == math.inf else f'{db:.2f} dB'} "
+                  f"against one process; rank 0's launches {first['launches'][0]}, flash by KV "
+                  f"{first['launches'][1]['flash_fwd']}")
+            if not db >= MIN_PSNR_DB:
+                raise AssertionError(f"pipe = {p} {label}: {db:.2f} dB against one process "
+                                     f"< {MIN_PSNR_DB} dB")
+            summary[f"pipe{p} {key}"] = db
+            for r in per_rank:
+                launches[0].update(r["launches"][0])
+                launches[1].update(r["launches"][1]["flash_fwd"])
+        if plan["backward"]:
+            for stage, r in enumerate(results):
+                bw = r["backward"]
+                worst = max((c["rel"] for c in bw["checks"].values()), default=0.0)
+                print(f"   backward ({CP_BLOCKS} blocks, {EDIT_TOKENS} tokens) rank {stage}: "
+                      f"{bw['secs']:.3f} s, {bw['staged'] / 1e9:.3f} GB staged; "
+                      f"{bw['bitwise']} of {bw['tensors']} gradients bitwise one process's "
+                      f"(input {'bitwise' if bw['x_bitwise'] else 'not bitwise'}, the stage's "
+                      f"blocks {'bitwise' if bw['blocks_bitwise'] else 'not all bitwise'}), "
+                      f"the rest within K6/K7's bounds: worst normwise {worst:.3e}; "
+                      f"launches {bw['launches'][0]}")
+                if not bw["ok"]:
+                    raise AssertionError(f"pipe = {p} rank {stage} backward: "
+                                         f"{ {k: c for k, c in bw['checks'].items() if not c['ok']} }")
+                launches[0].update(bw["launches"][0])
+                launches[1].update(bw["launches"][1]["flash_fwd"])
+    print(f"pipeline_path: {time.perf_counter() - t_phase:.1f} s ({card})")
     return summary
 
 
@@ -3440,7 +3836,9 @@ def main() -> int:
         encoder_references(dev)
     training_references(dev)
     free()
-    context_path(dev, (by_name, by_kv))
+    ulysses_trace(dev)
+    free()
+    drop_ref = context_path(dev, (by_name, by_kv))["drop_ref"]
     cfg = chronoedit_14b_distilled()
     try:
         # loaded outside inference_mode: training saves these weights for backward
@@ -3452,7 +3850,7 @@ def main() -> int:
             torch.cuda.empty_cache()
             server_path(pipe, dev, (by_name, by_kv))
             torch.cuda.empty_cache()
-            guidance_cache_path(pipe, dev, (by_name, by_kv))
+            refs["cfg"] = guidance_cache_path(pipe, dev, (by_name, by_kv))["cfg"]
             guardrail_path(dev)
         torch.cuda.empty_cache()
         batches = train_batches(pipe)
@@ -3473,6 +3871,8 @@ def main() -> int:
             mixed2_path(pipe, dev, (by_name, by_kv), refs, profile_dir)
             del pipe
         free()
+        # pipeline parallelism from the directory's files, the card free
+        pipeline_path(dev, {**refs, "drop": drop_ref}, (by_name, by_kv))
         # training as a user runs it: the CLI from the directory's files, then
         # the Trainer (the directory is removed first: its checkpoints need
         # the disk)

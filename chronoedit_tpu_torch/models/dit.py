@@ -1,9 +1,12 @@
 """Wan-style diffusion transformer (ChronoEdit-14B backbone), PyTorch.
 
-The forward of ``chronoedit_tpu/models/dit.py``, on one device or split
-over the context axis of a mesh (``dit_forward(..., mesh=)``: each rank
+The forward of ``chronoedit_tpu/models/dit.py``, on one device or over a
+mesh (``dit_forward(..., mesh=)``): split over its context axis (each rank
 its block of the tokens, ring or Ulysses self-attention,
-``parallel/context.py``):
+``parallel/context.py``), or run as a pipeline over its pipe axis (each
+rank the blocks of its stage, ``parallel/pipeline_parallel.py``; a
+stage-local model holds only those, ``DiT(..., layers=)``), composed with
+the context axis inside the stages and the data axis on the batch:
 
 - patch embed as reshape + linear, feature order (c, kt, kh, kw);
 - N blocks of AdaLN-zero 6-way modulation from a per-block
@@ -61,6 +64,8 @@ from chronoedit_tpu_torch.ops.fused_norms import (
     frames_map_locally, gated_residual, layer_norm_modulate, local_frame_slice, rms_norm_fused)
 from chronoedit_tpu_torch.parallel import collectives as C
 from chronoedit_tpu_torch.parallel import context
+from chronoedit_tpu_torch.parallel import pipeline_parallel as pp
+from chronoedit_tpu_torch.parallel.mesh import InnerAxes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,12 +154,21 @@ class DiTBlock(nn.Module):
 
 
 class DiT(nn.Module):
-    """Parameters of the DiT, named as in the JAX parameter tree."""
+    """Parameters of the DiT, named as in the JAX parameter tree.
+
+    ``layers`` (default all ``cfg.num_layers``) are the global indices of
+    the blocks the model holds, ``blocks[j]`` being block ``layers[j]``: a
+    pipeline stage's model holds only its stage's (``parallel.
+    pipeline_parallel.stage_range``) and runs only under its pipe mesh. A
+    random init draws the blocks it holds in order, so a stage-local
+    model's random blocks are not the whole model's: drop the others
+    with :meth:`keep_layers` instead."""
 
     def __init__(self, cfg: DiTConfig, *, device=None,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, layers: range | None = None):
         super().__init__()
         self.cfg = cfg
+        self.layers = range(cfg.num_layers) if layers is None else layers
         dim = cfg.dim
         kw = dict(device=device, dtype=cfg.param_dtype, generator=generator)
         self.patch_embed = L.Linear(cfg.patch_dim, dim, **kw)
@@ -180,7 +194,17 @@ class DiT(nn.Module):
                 norm2=L.LayerNorm(dim, **kw)))
         self.blocks = nn.ModuleList(
             DiTBlock(cfg, device=device, dtype=cfg.param_dtype, generator=generator)
-            for _ in range(cfg.num_layers))
+            for _ in self.layers)
+
+    def keep_layers(self, layers: range) -> "DiT":
+        """Keep only the blocks of ``layers`` (global indices among those the
+        model holds) and drop the rest, freeing them: a whole model made a
+        pipeline stage's. Returns self."""
+        if not (self.layers.start <= layers.start and layers.stop <= self.layers.stop):
+            raise ValueError(f"layers {layers} are not among the model's {self.layers}")
+        self.blocks = nn.ModuleList(self.blocks[i - self.layers.start] for i in layers)
+        self.layers = layers
+        return self
 
 
 def init_dit_params(cfg: DiTConfig, generator: torch.Generator,
@@ -210,7 +234,8 @@ class _ContextSplit:
 
 def context_split(cfg: DiTConfig, mesh, tokens: int, hw: int) -> _ContextSplit | None:
     """How a forward over ``tokens`` tokens of ``hw`` a frame splits over
-    ``mesh``'s context axis, or None to run it whole: no mesh, a context
+    ``mesh``'s context axis (a mesh, or a pipeline stage's ``InnerAxes``),
+    or None to run it whole: no mesh, a context
     axis of 1, ``"none"``, or tokens that do not split into whole frames or
     whole parts of one frame per rank (JAX's fallbacks: its attention runs
     unsharded when the sequence does not divide, its fused norms when the
@@ -445,17 +470,28 @@ def dit_forward(model: DiT, x: torch.Tensor, timesteps: torch.Tensor,
         attends its queries to the whole text and image context) and the
         output head, and all-gathers the head's output, so every rank
         returns the whole velocity. The cache is then this rank's block.
-        Inputs are the same on every rank of the group.
+        With a pipe axis above 1 the blocks run as a GPipe pipeline
+        (:func:`_pipeline_blocks`): every rank runs the embeddings and the
+        head, and its stage's blocks, which ``model`` holds and nothing
+        else of the stack (``DiT(..., layers=)``); the context axis then
+        splits the tokens inside the stages, the data axis the batch, and
+        the head's output is gathered over both. Inputs are the same on
+        every rank of the mesh.
     Returns:
       (B, C_out, T, H, W) in cfg.dtype (and the cache when active).
     """
     cfg = model.cfg
     b = x.shape[0]
+    pipe = 1 if mesh is None else mesh.shape.get("pipe", 1)
+    if pipe == 1 and model.layers != range(cfg.num_layers):
+        raise ValueError(f"the DiT holds blocks {model.layers} of {cfg.num_layers}: a "
+                         "stage-local model runs under its pipe mesh only")
     if isinstance(layer_mask, torch.Tensor):
         layer_mask = layer_mask.tolist()
     if cache_blocks is not None:
-        if layer_mask is not None:
-            raise ValueError("cache_blocks is incompatible with SLG layer masks")
+        if layer_mask is not None or pipe > 1:
+            raise ValueError("cache_blocks is incompatible with SLG layer masks and "
+                             "pipeline parallelism")
         lo, hi = cache_blocks
         if not 0 <= lo <= hi <= cfg.num_layers:
             raise ValueError(f"cache_blocks {cache_blocks} out of range")
@@ -472,20 +508,33 @@ def dit_forward(model: DiT, x: torch.Tensor, timesteps: torch.Tensor,
     # the tables hold every global position: a shard takes its rows
     tables = temporal_skip_rope_tables if cfg.temporal_skip else rope_3d_tables
     cos, sin = tables(cfg.rope, gt, gh, gw, device=x.device)
+    lora_weights = None
+    if lora is not None:
+        lora_weights = functools.partial(
+            lora_lib.attached_weights if lora_attach else lora_lib.merged_weights,
+            scaling=lora.cfg.scaling)
+    gathers = []  # (group, dim): the head's output gathered over them, in order
+    if pipe > 1:
+        tokens, cp = _pipeline_blocks(model, mesh, tokens, text_ctx, img_ctx, t_proj, cos,
+                                      sin, hw, layer_mask, lora, lora_weights)
+        if cp is not None:
+            (temb,), hw = local_frame_slice((temb,), hw, tokens.shape[1], cp.index)
+            gathers.append((cp.group, 1))
+        if pp.splits_data(mesh, b):
+            temb = temb.chunk(mesh.shape["data"], dim=0)[mesh.index("data")]
+            gathers.append((mesh.group("data"), 0))
+        return _head(model, tokens, temb, hw, grid, gathers)
+
     cp = context_split(cfg, mesh, tokens.shape[1], hw)
     if cp is not None:
         s_loc = tokens.shape[1] // cp.size
         rows = slice(cp.index * s_loc, (cp.index + 1) * s_loc)
         tokens, cos, sin = tokens[:, rows].contiguous(), cos[rows], sin[rows]
         (t_proj, temb), hw = local_frame_slice((t_proj, temb), hw, s_loc, cp.index)
+        gathers.append((cp.group, 1))
     if cache_blocks is not None and not cache_refresh and cache is None:
         cache = torch.zeros_like(tokens)
 
-    lora_weights = None
-    if lora is not None:
-        lora_weights = functools.partial(
-            lora_lib.attached_weights if lora_attach else lora_lib.merged_weights,
-            scaling=lora.cfg.scaling)
     delta = None
     for i, blk in enumerate(model.blocks):
         if layer_mask is not None and float(layer_mask[i]) <= 0.5:
@@ -502,16 +551,65 @@ def dit_forward(model: DiT, x: torch.Tensor, timesteps: torch.Tensor,
             delta = out - tokens if delta is None else delta + (out - tokens)
         tokens = out
 
-    head = model.head
-    mods = head.scale_shift_table.float()[None, None] + temb[:, :, None, :]
-    shift, scale = mods[:, :, 0].contiguous(), mods[:, :, 1].contiguous()
-    normed = layer_norm_modulate(tokens, scale, shift, hw, cfg.eps)
-    out = L.linear(head.proj, normed)
-    if cp is not None:
-        out = C.gather_sequence_autograd(out, cp.group, 1)
-    out = _unpatchify(out, grid, cfg)
+    out = _head(model, tokens, temb, hw, grid, gathers)
     if cache_blocks is None:
         return out
     if not cache_refresh:
         return out, cache
     return out, torch.zeros_like(tokens) if delta is None else delta
+
+
+def _head(model: DiT, tokens, temb, hw: int, grid, gathers) -> torch.Tensor:
+    """The output head on this rank's tokens, its output gathered over each
+    (group, dim) of ``gathers`` in turn, then unpatchified."""
+    head, cfg = model.head, model.cfg
+    mods = head.scale_shift_table.float()[None, None] + temb[:, :, None, :]
+    shift, scale = mods[:, :, 0].contiguous(), mods[:, :, 1].contiguous()
+    normed = layer_norm_modulate(tokens, scale, shift, hw, cfg.eps)
+    out = L.linear(head.proj, normed)
+    for group, dim in gathers:
+        out = C.gather_sequence_autograd(out, group, dim)
+    return _unpatchify(out, grid, cfg)
+
+
+def _pipeline_blocks(model: DiT, mesh, tokens, text_ctx, img_ctx, t_proj, cos, sin, hw: int,
+                     layer_mask, lora, lora_weights):
+    """The blocks as a GPipe pipeline over ``mesh``'s pipe axis (JAX's
+    pipe branch of ``dit_forward``): this rank's stage runs its blocks
+    (``stage_range``) inside ``gpipe_scan``, the time projection and the
+    text and image context microbatched with the tokens. When the tokens
+    split into whole frames or parts of one frame over the context axis
+    (:func:`context_split` on the rank's context group, an ``InnerAxes``),
+    they split inside the stages: each block takes its rows of the global
+    RoPE tables and its frames of the time projection. A skip-layer mask
+    skips blocks by global index. Returns this rank's share of the output
+    tokens (its batch rows when the batch splits over data, its token
+    block under context parallelism) and the context split or None."""
+    cfg = model.cfg
+    layers = pp.stage_range(cfg.num_layers, mesh)
+    if model.layers != layers:
+        raise ValueError(f"pipe stage {mesh.index('pipe')} runs blocks {layers}; the DiT "
+                         f"holds {model.layers} (build it stage-local, or keep_layers)")
+    inner = InnerAxes(context=mesh.group("context"), context_size=mesh.shape.get("context", 1))
+    cp = context_split(cfg, inner, tokens.shape[1], hw)
+    stage = [(i, j) for j, i in enumerate(layers)]  # (global index, position)
+
+    def block(lp, x_cur, ctx):
+        i, j = lp
+        if layer_mask is not None and float(layer_mask[i]) <= 0.5:
+            return x_cur
+        t_ctx, i_ctx, tp = ctx
+        cos_l, sin_l, hw_l = cos, sin, hw
+        if cp is not None:
+            s_loc = x_cur.shape[1]
+            rows = slice(cp.index * s_loc, (cp.index + 1) * s_loc)
+            cos_l, sin_l = cos[rows], sin[rows]
+            (tp,), hw_l = local_frame_slice((tp,), hw, s_loc, cp.index)
+        adapters = None if lora is None else lora.blocks[j]
+        return _run_block(cfg, model.blocks[j], adapters, lora_weights, x_cur, t_ctx, i_ctx,
+                          tp, cos_l, sin_l, hw_l, cfg, cp)
+
+    out = pp.gpipe_scan(block, stage, tokens, (text_ctx, img_ctx, t_proj), mesh,
+                        context_axis="context" if cp is not None else None,
+                        num_layers=cfg.num_layers)
+    return out, cp

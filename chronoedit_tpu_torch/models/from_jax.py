@@ -117,11 +117,13 @@ def _check_complete(module: nn.Module, seen: set) -> None:
         raise ValueError(f"parameters not set from the JAX tree: {missing[:8]}")
 
 
-def _load_stacked(model: nn.Module, params: dict) -> nn.Module:
-    """A tree whose ``blocks`` leaves carry a leading layer axis."""
+def _load_stacked(model: nn.Module, params: dict, layers: range | None = None) -> nn.Module:
+    """A tree whose ``blocks`` leaves carry a leading layer axis;
+    ``model.blocks[j]`` takes layer ``layers[j]`` (default j)."""
     seen: set = set()
     blocks = params["blocks"]
-    for i, blk in enumerate(model.blocks):
+    for j, blk in enumerate(model.blocks):
+        i = j if layers is None else layers[j]
         layer = _map_tree(lambda a, i=i: np.asarray(a)[i], blocks)
         _load(blk, layer, f"blocks[{i}]", seen)
     _load(model, {k: v for k, v in params.items() if k != "blocks"}, "", seen)
@@ -130,8 +132,10 @@ def _load_stacked(model: nn.Module, params: dict) -> nn.Module:
 
 
 def load_dit(model: DiT, params: dict) -> DiT:
-    """Copy a numpy-converted JAX DiT tree into ``model``; returns it."""
-    return _load_stacked(model, params)
+    """Copy a numpy-converted JAX DiT tree into ``model``; returns it. A
+    stage-local model (``DiT(..., layers=)``) takes its layers' slice of the
+    tree's stacked block axis."""
+    return _load_stacked(model, params, model.layers)
 
 
 def load_umt5(model: UMT5, params: dict) -> UMT5:

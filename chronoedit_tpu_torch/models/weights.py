@@ -22,6 +22,10 @@ Conv3d / Conv2d patch embeddings flatten to (out, in * kernel), the
 (1, n, dim) modulation tables drop their leading 1, a Conv2d gains a unit
 time axis and the VAE's (dim, 1, 1, 1) RMS gains flatten.
 
+A pipeline stage loads only its blocks (``layers=`` of the DiT and LoRA
+converters): the other blocks' tensors are left in their files, unread
+(``SafetensorsFiles.bytes_read`` counts what was).
+
 The name tables are module-level data (``DIFFUSERS_DIT``,
 ``NATIVE_DIT``, ``LORA_NAMES``, ``MUSUBI_NAMES``, ...) expanded per layer
 by :func:`diffusers_dit_names`, :func:`native_dit_names` and
@@ -59,20 +63,30 @@ def load_torch(path: str) -> dict[str, torch.Tensor]:
 class SafetensorsFiles(Mapping):
     """The tensors of one or more safetensors files (bf16 included), in
     file order, each read from its memory-mapped file, in the file's dtype,
-    when it is looked up (a key test reads nothing). The files stay open
-    until :meth:`close` (or the end of a ``with`` block)."""
+    when it is looked up (a key test reads nothing). ``bytes_read`` counts
+    the bytes of the tensors looked up; :meth:`nbytes` gives a tensor's
+    from the file's header, without reading it. The files stay open until
+    :meth:`close` (or the end of a ``with`` block)."""
 
     def __init__(self, paths: Iterable[str]):
         from safetensors import safe_open
 
         self._stack = ExitStack()
         self._where = {}
+        self.bytes_read = 0
         for p in paths:
             f = self._stack.enter_context(safe_open(p, framework="pt"))
             self._where.update(dict.fromkeys(f.keys(), f))
 
     def __getitem__(self, key: str) -> torch.Tensor:
-        return self._where[key].get_tensor(key)
+        t = self._where[key].get_tensor(key)
+        self.bytes_read += t.numel() * t.element_size()
+        return t
+
+    def nbytes(self, key: str) -> int:
+        """The bytes of tensor ``key``, from its file's header."""
+        view = self._where[key].get_slice(key)
+        return math.prod(view.get_shape()) * _SAFETENSORS_BYTES[view.get_dtype()]
 
     def __contains__(self, key) -> bool:  # Mapping's would read the tensor
         return key in self._where
@@ -91,6 +105,28 @@ class SafetensorsFiles(Mapping):
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+
+_SAFETENSORS_BYTES = {"F64": 8, "F32": 4, "F16": 2, "BF16": 2, "I64": 8, "I32": 4, "I16": 2,
+                      "I8": 1, "U8": 1, "BOOL": 1, "F8_E4M3": 1, "F8_E5M2": 1}
+
+
+def block_index(key: str) -> int | None:
+    """The block index of a ``blocks.N....`` name, else None."""
+    if not key.startswith("blocks."):
+        return None
+    return int(key.split(".", 2)[1])
+
+
+def _stage_view(sd: StateDict, num_layers: int, layers: range | None) -> StateDict:
+    """``sd`` without the tensors of the model's blocks outside ``layers``
+    (a pipeline stage's), which are never read; blocks past the model's
+    ``num_layers`` stay, so that a checkpoint deeper than the config still
+    fails as unconsumed."""
+    if layers is None:
+        return sd
+    keep = [k for k in sd if (i := block_index(k)) is None or i in layers or i >= num_layers]
+    return _View(sd, dict(zip(keep, keep)))
 
 
 def load_safetensors(paths: str | Iterable[str]) -> SafetensorsFiles:
@@ -264,20 +300,24 @@ NATIVE_DIT_BLOCK_IMAGE = {
 }
 
 
-def _dit_names(cfg: DiTConfig, top, image, block, block_image) -> dict[str, str]:
+def _dit_names(cfg: DiTConfig, top, image, block, block_image,
+               layers: range | None = None) -> dict[str, str]:
     names = dict(top)
     if cfg.image_dim is not None:
         names.update(image)
     per_block = {**block, **(block_image if cfg.image_dim is not None else {})}
-    for i in range(cfg.num_layers):
-        names.update({r.format(i=i): p.format(i=i) for r, p in per_block.items()})
+    layers = range(cfg.num_layers) if layers is None else layers
+    for i in layers:
+        names.update({r.format(i=i): p.format(i=i - layers.start)
+                      for r, p in per_block.items()})
     return names
 
 
-def diffusers_dit_names(cfg: DiTConfig) -> dict[str, str]:
-    """{diffusers name: DiT parameter name} for ``cfg``'s layers."""
+def diffusers_dit_names(cfg: DiTConfig, layers: range | None = None) -> dict[str, str]:
+    """{diffusers name: DiT parameter name} for ``cfg``'s layers, or for
+    the blocks of ``layers`` only, as a stage-local DiT names them."""
     return _dit_names(cfg, DIFFUSERS_DIT, DIFFUSERS_DIT_IMAGE, DIFFUSERS_DIT_BLOCK,
-                      DIFFUSERS_DIT_BLOCK_IMAGE)
+                      DIFFUSERS_DIT_BLOCK_IMAGE, layers)
 
 
 def native_dit_names(cfg: DiTConfig) -> dict[str, str]:
@@ -286,31 +326,36 @@ def native_dit_names(cfg: DiTConfig) -> dict[str, str]:
                       NATIVE_DIT_BLOCK_IMAGE)
 
 
-def convert_diffusers_dit(sd: StateDict, cfg: DiTConfig, device=None) -> DiT:
+def convert_diffusers_dit(sd: StateDict, cfg: DiTConfig, device=None,
+                          layers: range | None = None) -> DiT:
     """diffusers ChronoEditTransformer3DModel state dict -> a DiT in
     ``cfg.param_dtype`` on ``device``. ``model.diffusion_model.``,
     ``transformer.`` and ``model.`` prefixes are dropped; the unused
-    ``norm_added_q`` weights are ignored."""
-    sd = _renamed(sd, ("model.diffusion_model.", "transformer.", "model."))
-    return fill_module(DiT(cfg, device=device), sd, diffusers_dit_names(cfg),
-                       ignore=("norm_added_q.weight",))
+    ``norm_added_q`` weights are ignored. With ``layers`` (a pipeline
+    stage's, ``parallel.pipeline_parallel.stage_range``) the DiT holds
+    those blocks only, and the other blocks' tensors are not read."""
+    sd = _stage_view(_renamed(sd, ("model.diffusion_model.", "transformer.", "model.")),
+                     cfg.num_layers, layers)
+    return fill_module(DiT(cfg, device=device, layers=layers), sd,
+                       diffusers_dit_names(cfg, layers), ignore=("norm_added_q.weight",))
 
 
 def export_diffusers_dit(model: DiT) -> dict[str, torch.Tensor]:
     """Inverse of :func:`convert_diffusers_dit`: the model's parameters
     under diffusers names (the patch embedding in its flat (out, in * p)
-    form, the modulation tables as (1, n, dim)), on the model's device."""
-    return diffusers_dit_state(dict(model.named_parameters()), model.cfg)
+    form, the modulation tables as (1, n, dim)), on the model's device;
+    a stage-local model's blocks under their global indices."""
+    return diffusers_dit_state(dict(model.named_parameters()), model.cfg, model.layers)
 
 
-def diffusers_dit_state(params: Mapping[str, torch.Tensor], cfg: DiTConfig
-                        ) -> dict[str, torch.Tensor]:
+def diffusers_dit_state(params: Mapping[str, torch.Tensor], cfg: DiTConfig,
+                        layers: range | None = None) -> dict[str, torch.Tensor]:
     """{DiT parameter name: tensor} (a model's, or a checkpoint's) -> the
     diffusers state dict :func:`export_diffusers_dit` writes, for ``cfg``'s
-    layers, without building a model."""
+    layers (or ``layers``), without building a model."""
     return {ref: (params[name].detach().unsqueeze(0) if ref.endswith("scale_shift_table")
                   else params[name].detach())
-            for ref, name in diffusers_dit_names(cfg).items()}
+            for ref, name in diffusers_dit_names(cfg, layers).items()}
 
 
 def convert_native_dit(sd: StateDict, cfg: DiTConfig, device=None) -> DiT:
@@ -342,8 +387,8 @@ MUSUBI_NAMES = {
 }
 
 
-def convert_diffusers_lora(sd: StateDict, cfg: DiTConfig,
-                           device=None) -> tuple[lora_lib.LoRA, float]:
+def convert_diffusers_lora(sd: StateDict, cfg: DiTConfig, device=None,
+                           layers: range | None = None) -> tuple[lora_lib.LoRA, float]:
     """diffusers-style LoRA (``blocks.N.<module>.lora_A.weight`` (r, in),
     ``lora_B.weight`` (out, r), optional ``alpha``) -> (adapters in fp32 on
     ``device`` over ``cfg``'s DiT, alpha / rank or 1.0 without alpha). The
@@ -351,10 +396,13 @@ def convert_diffusers_lora(sd: StateDict, cfg: DiTConfig,
     JAX's loader does. Layers the file leaves out get zero adapters.
     Raises ValueError for an unknown target, and for a state dict with no
     diffusers LoRA key at all (so that a loader can try another dialect;
-    JAX's converter returns an empty adapter there)."""
+    JAX's converter returns an empty adapter there). With ``layers`` (a
+    pipeline stage's) the adapters cover those blocks only, as a
+    stage-local DiT holds them, and the other blocks' tensors are not
+    read."""
     sd = _renamed(sd, ("transformer.", "diffusion_model."))
-    found: dict[tuple[str, int], tuple[torch.Tensor, torch.Tensor]] = {}
-    alpha = None
+    layers = range(cfg.num_layers) if layers is None else layers
+    keys: dict[tuple[str, int], str] = {}
     for key in sd:
         if not key.startswith("blocks.") or "lora_A" not in key:
             continue
@@ -362,20 +410,28 @@ def convert_diffusers_lora(sd: StateDict, cfg: DiTConfig,
         mod = rest[: rest.index(".lora_A")]
         if mod not in LORA_NAMES:
             raise ValueError(f"unknown LoRA target module {mod!r}")
+        keys[(LORA_NAMES[mod], int(idx))] = key
+    if not keys:
+        raise ValueError("no diffusers LoRA keys (blocks.N.<module>.lora_A.weight)")
+    found: dict[tuple[str, int], tuple[torch.Tensor, torch.Tensor]] = {}
+    alpha = None
+    for (target, i), key in keys.items():
+        if i not in layers and i < cfg.num_layers:
+            continue
         alpha_key = key.replace("lora_A.weight", "alpha")
         if alpha_key in sd:
             alpha = float(sd[alpha_key])
-        found[(LORA_NAMES[mod], int(idx))] = (sd[key], sd[key.replace("lora_A", "lora_B")])
-    if not found:
-        raise ValueError("no diffusers LoRA keys (blocks.N.<module>.lora_A.weight)")
-    rank = next(reversed(found.values()))[0].shape[0]
-    present = {target for target, _ in found}
+        found[(target, i)] = (sd[key], sd[key.replace("lora_A", "lora_B")])
+    # a stage whose blocks the file leaves out reads one other block's rank
+    rank = (next(reversed(found.values()))[0] if found
+            else sd[next(reversed(keys.values()))]).shape[0]
+    present = {target for target, _ in keys}
     targets = tuple(t for t in lora_lib.DEFAULT_TARGETS if t in present)
     lcfg = lora_lib.LoRAConfig(rank=rank, alpha=float(rank), targets=targets)
-    lora = lora_lib.LoRA(DiT(cfg, device="meta"), lcfg, device=device)
+    lora = lora_lib.LoRA(DiT(cfg, device="meta", layers=layers), lcfg, device=device)
     for (target, i), (a, b) in found.items():
         module, layer = target.split("/")
-        ad = lora.blocks[i][module][layer]
+        ad = lora.blocks[i - layers.start][module][layer]
         copy_into(ad.a, a.T, f"blocks.{i}.{target} lora_A")
         copy_into(ad.b, b.T, f"blocks.{i}.{target} lora_B")
     scaling = (alpha / rank) if (alpha and rank) else 1.0
@@ -400,11 +456,11 @@ def export_diffusers_lora(lora: lora_lib.LoRA, alpha: float | None = None
     return sd
 
 
-def convert_musubi_lora(sd: StateDict, cfg: DiTConfig,
-                        device=None) -> tuple[lora_lib.LoRA, float]:
+def convert_musubi_lora(sd: StateDict, cfg: DiTConfig, device=None,
+                        layers: range | None = None) -> tuple[lora_lib.LoRA, float]:
     """musubi-tuner dialect: ``lora_unet_blocks_{i}_{module}.lora_down.weight``
     / ``lora_up.weight`` renamed to the diffusers dialect, then
-    :func:`convert_diffusers_lora`."""
+    :func:`convert_diffusers_lora` (``layers`` as there)."""
     inv = {v: k for k, v in LORA_NAMES.items()}
     keep = {}
     for key in sd:
@@ -416,7 +472,7 @@ def convert_musubi_lora(sd: StateDict, cfg: DiTConfig,
             raise ValueError(f"unknown musubi LoRA target {name!r}")
         suffix = suffix.replace("lora_down", "lora_A").replace("lora_up", "lora_B")
         keep[f"blocks.{idx}.{inv[MUSUBI_NAMES[name]]}.{suffix}"] = key
-    return convert_diffusers_lora(_View(sd, keep), cfg, device)
+    return convert_diffusers_lora(_View(sd, keep), cfg, device, layers)
 
 
 # ----------------------------------------------------------------- VAE

@@ -1,8 +1,9 @@
 """Parallelism over ``torch.distributed``: the process world, the mesh of
-``data`` and ``context`` axes, context-parallel (ring and Ulysses)
-attention and its collectives, and cross-rank replica checks. Parameter
-sharding (FSDP, tensor parallelism), pipeline stages and
-``host_local_to_global`` are item 6b of the roadmap."""
+``pipe``, ``data`` and ``context`` axes, context-parallel (ring and
+Ulysses) attention and its collectives, GPipe pipeline stages
+(``gpipe_scan``), and cross-rank replica checks. Parameter sharding (FSDP,
+tensor parallelism) and ``host_local_to_global`` are items 1.1 and 1.3 of
+the roadmap's queue 1."""
 
 from chronoedit_tpu_torch.parallel.context import (
     gather_sequence,
@@ -19,6 +20,7 @@ from chronoedit_tpu_torch.parallel.distributed import (
     process_index,
 )
 from chronoedit_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+from chronoedit_tpu_torch.parallel.pipeline_parallel import gpipe_scan, stage_range
 
 __all__ = [
     "collate_metrics",
@@ -33,4 +35,6 @@ __all__ = [
     "ulysses_attention",
     "split_sequence",
     "gather_sequence",
+    "gpipe_scan",
+    "stage_range",
 ]

@@ -13,7 +13,9 @@ process group: the counterparts of JAX's ``ppermute``, tiled
 - :func:`all_gather`: concatenate every rank's tensor along a dimension,
   in rank order; :func:`gather_sequence_autograd` backs it with the local
   slice of the gradient;
-- :func:`all_reduce`: the sum over the group.
+- :func:`all_reduce`: the sum over the group;
+- :func:`broadcast`: one rank's tensor on every rank of the group (the
+  pipeline's final replication, ``parallel/pipeline_parallel.py``).
 
 Under NCCL the tensors stay on their device. Under gloo a CUDA tensor is
 staged: copied into pinned host memory, moved by gloo, copied back. Only a
@@ -113,17 +115,18 @@ def ring_shift(tensors: list[torch.Tensor], group, tag: int = 0,
 
 
 class RingShift(torch.autograd.Function):
-    """One tensor moved ``offset`` ranks along the ring; the gradient moves
-    back."""
+    """One tensor moved ``offset`` ranks along the ring under ``tag``; the
+    gradient moves back under the same tag."""
 
     @staticmethod
-    def forward(ctx, x, group, offset: int):
-        ctx.group, ctx.offset = group, offset
-        return ring_shift([x], group, offset=offset)[0]
+    def forward(ctx, x, group, offset: int, tag: int = 0):
+        ctx.group, ctx.offset, ctx.tag = group, offset, tag
+        return ring_shift([x], group, tag=tag, offset=offset)[0]
 
     @staticmethod
     def backward(ctx, g):
-        return ring_shift([g], ctx.group, offset=-ctx.offset)[0], None, None
+        return (ring_shift([g.contiguous()], ctx.group, tag=ctx.tag, offset=-ctx.offset)[0],
+                None, None, None)
 
 
 def all_to_all(x: torch.Tensor, group, split_dim: int, concat_dim: int) -> torch.Tensor:
@@ -196,4 +199,15 @@ def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     if buf is x:
         buf = x.clone()
     dist.all_reduce(buf, group=group)
+    return buf.to(x.device, non_blocking=True)
+
+
+def broadcast(x: torch.Tensor, group, src_index: int) -> torch.Tensor:
+    """The tensor of the group's ``src_index``-th rank on every rank of the
+    group, in a new tensor on ``x``'s device (``x`` gives the shape and
+    dtype on the other ranks)."""
+    buf = _outgoing(group, [x])[0]
+    if buf is x:
+        buf = x.clone()
+    dist.broadcast(buf, src=dist.get_global_rank(group, src_index), group=group)
     return buf.to(x.device, non_blocking=True)

@@ -6,16 +6,20 @@ over the ranks of the ``torch.distributed`` world (one rank, one device)
 and opens one process group per axis and line of ranks along it, created in
 the same order on every rank, as ``dist.new_group`` requires:
 
-- ``pipe``    pipeline stages (item 6b of the roadmap);
+- ``pipe``    pipeline stages: each rank of a pipe line holds its stage's
+              blocks of the DiT (``parallel/pipeline_parallel.py``);
 - ``data``    data parallelism: the ranks of one ``data`` line hold the
-              same model and, in serving, run the same request;
-- ``fsdp``, ``tensor``  parameter and tensor sharding (item 6b);
+              same model and, in serving, run the same request (inside a
+              pipeline each takes its share of the batch);
+- ``fsdp``, ``tensor``  parameter and tensor sharding (item 1.1 of the
+              roadmap's queue 1, formerly item 6b);
 - ``context`` context (sequence) parallelism: ring or Ulysses attention
               over the DiT's token blocks (``parallel/context.py``).
 
 Ranks fill the mesh row-major in ``MESH_AXES`` order, as JAX reshapes its
 device list, so ``context`` is innermost: a context line is consecutive
-ranks. Callers read degrees as JAX's do, ``mesh.shape.get("context", 1)``.
+ranks, and a pipe line crosses one rank of every data and context line.
+Callers read degrees as JAX's do, ``mesh.shape.get("context", 1)``.
 """
 
 from __future__ import annotations
@@ -35,20 +39,33 @@ AXIS_TENSOR = "tensor"
 AXIS_CONTEXT = "context"
 # pipe is outermost; the high-traffic axes (tensor, context) stay innermost
 MESH_AXES = (AXIS_PIPE, AXIS_DATA, AXIS_FSDP, AXIS_TENSOR, AXIS_CONTEXT)
-# the axes whose sharding is item 6b of the roadmap
-LATER_AXES = (AXIS_PIPE, AXIS_FSDP, AXIS_TENSOR)
+# the axes whose sharding is not ported yet (item 1.1 of the roadmap's
+# queue 1, formerly item 6b)
+LATER_AXES = (AXIS_FSDP, AXIS_TENSOR)
 
 
 @dataclasses.dataclass(frozen=True)
 class InnerAxes:
-    """Marker passed in place of a mesh to code that already runs on one
-    rank's shard and should use collectives over these groups rather than
-    shard again: the pipeline stages of item 6b run context-parallel
-    attention over ``context`` inside a stage. ``context_size`` 1 is one
-    rank's view."""
+    """Passed in place of a mesh to code that already runs on one rank's
+    shard and should use collectives over these groups rather than shard
+    again: a pipeline stage's blocks run context-parallel attention over
+    ``context`` (the rank's context group, or None) inside the stage. It
+    answers the mesh calls that code makes (``shape``, ``group``,
+    ``index``) for its one axis; ``context_size`` 1 is one rank's view."""
 
     context: object | None = None
     context_size: int = 1
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return {AXIS_CONTEXT: self.context_size}
+
+    def group(self, axis: str):
+        return self.context if axis == AXIS_CONTEXT and self.context_size > 1 else None
+
+    def index(self, axis: str) -> int:
+        group = self.group(axis)
+        return 0 if group is None else dist.get_rank(group)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,9 +164,10 @@ def make_mesh(config: MeshConfig | None = None, device: torch.device | None = No
     for by passing ``torch.device("cpu")``).
 
     Raises ValueError when the degrees do not fill the world, and
-    NotImplementedError for a ``pipe``, ``fsdp`` or ``tensor`` axis above
-    1: their sharding is item 6b of the roadmap. Every rank must call this
-    with the same config, in the same order as its other group creations.
+    NotImplementedError for an ``fsdp`` or ``tensor`` axis above 1: their
+    sharding is item 1.1 of the roadmap's queue 1 (formerly item 6b). Every
+    rank must call this with the same config, in the same order as its
+    other group creations.
     """
     config = config or MeshConfig()
     world = dist.get_world_size() if dist.is_initialized() else 1
@@ -158,8 +176,9 @@ def make_mesh(config: MeshConfig | None = None, device: torch.device | None = No
     later = {a: n for a, n in zip(MESH_AXES, shape) if a in LATER_AXES and n > 1}
     if later:
         raise NotImplementedError(
-            f"mesh axes {later}: pipeline, FSDP and tensor parallelism are not ported "
-            f"yet (item 6b of the roadmap); the port shards over data and context")
+            f"mesh axes {later}: FSDP and tensor parallelism are not ported yet (item "
+            f"1.1 of the roadmap's queue 1, formerly item 6b); the port shards over "
+            f"pipe, data and context")
     if device is None:
         device = cuda_device()
     groups = {}

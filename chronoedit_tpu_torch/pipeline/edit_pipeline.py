@@ -29,10 +29,12 @@ builds the whole pipeline from a checkpoint directory. Attached
 the video after it.
 
 With a ``mesh`` (``parallel/mesh.py``) every rank runs the whole pipeline
-on its replica of the weights and the same inputs: the DiT splits its
-tokens over the context axis (ring or Ulysses attention, ``dit_forward``)
-and gives every rank the whole velocity, so the latents, UniPC, the VAE
-and the encoders stay replicated and every rank ends with the same frame.
+on the same inputs: the DiT splits its tokens over the context axis (ring
+or Ulysses attention, ``dit_forward``), or runs its blocks as a pipeline
+over the pipe axis (each rank holding its stage's blocks, with the context
+axis inside the stages and the data axis on the batch), and gives every
+rank the whole velocity, so the latents, UniPC, the VAE and the encoders
+stay replicated and every rank ends with the same frame.
 JAX's ``_shard`` lays the latents out over the context axis before the
 DiT; here the DiT's own token split takes its place. In reasoning mode the
 drop from 8 latent frames to 2 changes each rank's block in mid-run (at
@@ -128,8 +130,10 @@ class ChronoEditPipeline:
         self.text_encoder = text_encoder
         self.image_encoder = image_encoder
         self.guardrails = guardrails
-        # seconds per component when ``pipeline/loader.py`` built it
+        # seconds per component, and bytes read from the safetensors files,
+        # when ``pipeline/loader.py`` built it
         self.load_seconds: dict[str, float] = {}
+        self.load_bytes: dict[str, int] = {}
 
     @property
     def device(self) -> torch.device:

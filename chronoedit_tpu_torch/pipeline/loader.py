@@ -7,7 +7,8 @@ reference's files: diffusers DiT shards (``transformer/*.safetensors``, or
 ``models_t5_umt5-xxl-enc-bf16.pth`` (UMT5-XXL), ``models_clip_*.pth``
 (open-clip ViT-H; its visual tower) and LoRA files. Every tensor is read
 from its file and copied into its parameter on the target device
-(``models/weights.py``).
+(``models/weights.py``). Under a pipe mesh each rank reads only its
+stage's blocks of the DiT shards and of the LoRA files.
 """
 
 from __future__ import annotations
@@ -62,28 +63,41 @@ def load_pipeline(
     With several ``models_clip_*.pth``, the first in sorted order is taken.
 
     Seconds per component (``dit``, ``vae``, ``loras``, ``text_encoder``,
-    ``image_encoder``) are kept in the pipeline's ``load_seconds``.
-    ``guardrails`` (``aux/guardrails.Guardrails``) are attached to the
-    pipeline. With a ``mesh`` (``parallel/mesh.py``) every rank loads the
-    whole, replicated weights onto its device (``mesh.device`` unless
-    ``device`` is given) and the pipeline runs its DiT context-parallel
-    over the mesh; JAX's sharding of the DiT's parameters over ``fsdp`` /
-    ``tensor`` is item 6b of the roadmap.
+    ``image_encoder``) are kept in the pipeline's ``load_seconds``, and the
+    bytes read from the DiT shards and the safetensors LoRA files in its
+    ``load_bytes`` (``dit``, ``loras``). ``guardrails``
+    (``aux/guardrails.Guardrails``) are attached to the pipeline.
+
+    With a ``mesh`` (``parallel/mesh.py``) every rank loads onto its device
+    (``mesh.device`` unless ``device`` is given) and the pipeline runs its
+    DiT over the mesh. Under a pipe axis above 1 the DiT is stage-local: a
+    rank reads from the shards only its stage's ``blocks.{i}.*`` tensors
+    (``pipeline_parallel.stage_range``) and the non-block ones, about 1 / n
+    of the blocks' bytes, and merges each LoRA into those blocks only; the
+    VAE and the encoders load whole on every rank. Over ``context`` and
+    ``data`` the weights are replicated; JAX's sharding of the DiT's
+    parameters over ``fsdp`` / ``tensor`` is item 1.1 of the roadmap's
+    queue 1.
     """
     from chronoedit_tpu_torch.models.clip import CLIPImageEncoder, convert_clip_vision_checkpoint
     from chronoedit_tpu_torch.models.umt5 import UMT5TextEncoder, convert_umt5_checkpoint
+    from chronoedit_tpu_torch.parallel.pipeline_parallel import stage_range
 
     if device is None:
         device = mesh.device if mesh is not None else cuda_device()
     device = torch.device(device)
-    seconds = {}
+    seconds, nbytes = {}, {"loras": 0}
+    layers = stage_range(config.dit.num_layers, mesh)
+    if layers == range(config.dit.num_layers):
+        layers = None
     shards = (sorted(glob.glob(os.path.join(checkpoint_dir, "transformer", "*.safetensors")))
               or sorted(glob.glob(os.path.join(checkpoint_dir, "*.safetensors"))))
     if not shards:
         raise FileNotFoundError(f"no DiT safetensors under {checkpoint_dir}")
     t0 = time.perf_counter()
     with w.load_safetensors(shards) as sd:
-        dit = w.convert_diffusers_dit(sd, config.dit, device)
+        dit = w.convert_diffusers_dit(sd, config.dit, device, layers)
+        nbytes["dit"] = sd.bytes_read
     seconds["dit"] = _seconds(device, t0)
 
     t0 = time.perf_counter()
@@ -97,9 +111,10 @@ def load_pipeline(
         with (w.load_safetensors(path) if path.endswith(".safetensors")
               else contextlib.nullcontext(w.load_torch(path))) as sd:
             try:
-                adapter, scaling = w.convert_diffusers_lora(sd, config.dit, device)
+                adapter, scaling = w.convert_diffusers_lora(sd, config.dit, device, layers)
             except ValueError:
-                adapter, scaling = w.convert_musubi_lora(sd, config.dit, device)
+                adapter, scaling = w.convert_musubi_lora(sd, config.dit, device, layers)
+            nbytes["loras"] += getattr(sd, "bytes_read", 0)
         lora_lib.merge_lora(dit, adapter, scale * scaling, in_place=True)
         del adapter
     seconds["loras"] = _seconds(device, t0)
@@ -122,4 +137,5 @@ def load_pipeline(
                               text_encoder=text_encoder, image_encoder=image_encoder,
                               guardrails=guardrails, mesh=mesh)
     pipe.load_seconds.update(seconds)
+    pipe.load_bytes.update(nbytes)
     return pipe

@@ -18,9 +18,17 @@ Examples:
   torchrun --nproc-per-node 2 -m chronoedit_tpu_torch.scripts.run_inference \
       --mesh context=2 --smoke --device cpu
 
-Under a mesh every rank loads the weights whole and runs the same edit;
-the DiT splits its tokens over the ``context`` ranks, and only rank 0
-writes the output.
+  # pipeline parallelism: the 40 blocks in 2 stages, each of 2 context ranks
+  torchrun --nproc-per-node 4 -m chronoedit_tpu_torch.scripts.run_inference \
+      --mesh pipe=2,context=2 --checkpoint-dir ./checkpoints/ChronoEdit-14B ...
+  # the same over 2 CPU processes (gloo)
+  torchrun --nproc-per-node 2 -m chronoedit_tpu_torch.scripts.run_inference \
+      --mesh pipe=2 --smoke --device cpu
+
+Under a mesh every rank runs the same edit: the DiT splits its tokens over
+the ``context`` ranks and its blocks over the ``pipe`` stages (each rank
+loads only its stage's blocks; the VAE and the encoders whole), and only
+rank 0 writes the output.
 
 Text prompts (``--prompt``) need the UMT5 tokenizer's vocabulary, which is a
 download; ``--prompt-ids`` takes the token ids as a ``.npy`` instead.
@@ -48,9 +56,11 @@ def add_pipeline_args(p: argparse.ArgumentParser) -> None:
                    help="LoRA safetensors path[:scale], repeatable")
     p.add_argument("--mesh", type=str, default=None,
                    help="parallelism over the torchrun world, e.g. data=2,context=4 "
-                        "(data: ranks that run the same edit; context: ranks that "
-                        "split the DiT's tokens; fsdp, tensor and pipe are not "
-                        "ported yet and raise)")
+                        "or pipe=2,context=2 (data: ranks that run the same edit, or "
+                        "split its batch inside a pipeline; context: ranks that split "
+                        "the DiT's tokens; pipe: stages that each hold and run a "
+                        "share of the DiT's blocks; fsdp and tensor are not ported "
+                        "yet and raise)")
     p.add_argument("--quantize", nargs="?", const="int8", default=None,
                    choices=("int8", "int4", "int4_a8"),
                    help="quantize the DiT's projections: 'int8' (w8a8; the bare "
@@ -107,8 +117,9 @@ def build_pipeline(args):
         config = parse_mesh(args.mesh)
         later = {a: getattr(config, a) for a in LATER_AXES if getattr(config, a) > 1}
         if later:
-            raise SystemExit(f"--mesh {args.mesh}: {later} are not ported yet (item 6b of "
-                             f"the roadmap); the port shards over data and context")
+            raise SystemExit(f"--mesh {args.mesh}: {later} are not ported yet (item 1.1 "
+                             f"of the roadmap's queue 1); the port shards over pipe, data "
+                             f"and context")
         init_distributed(device=device)
         mesh = make_mesh(config, device=device)
         if mesh.rank == 0:
@@ -127,9 +138,14 @@ def build_pipeline(args):
             raise SystemExit("--checkpoint-dir required unless --smoke")
         if loras:
             raise SystemExit("--lora needs --checkpoint-dir")
+        from chronoedit_tpu_torch.parallel.pipeline_parallel import stage_range
+
         g = torch.Generator(device=device).manual_seed(0)
-        pipe = ChronoEditPipeline(cfg, dit_lib.init_dit_params(cfg.dit, g, device),
-                                  vae_lib.init_vae_params(cfg.vae, g, device), mesh=mesh)
+        dit = dit_lib.init_dit_params(cfg.dit, g, device)
+        vae = vae_lib.init_vae_params(cfg.vae, g, device)
+        # a pipeline stage keeps its own blocks of the seeded model
+        dit.keep_layers(stage_range(cfg.dit.num_layers, mesh))
+        pipe = ChronoEditPipeline(cfg, dit, vae, mesh=mesh)
     if args.cache_blocks:
         parts = [int(x) for x in args.cache_blocks.split(":")]
         pipe.config = dataclasses.replace(
