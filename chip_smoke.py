@@ -8,8 +8,9 @@ fine-tuning of the full-width DiT at the edit's geometry (remat "full" and
 int8-score attention, and the mixed2 recipe), the training CLI from the
 checkpoint directory's files to an exported LoRA that serves an edit, the
 full-parameter Trainer with checkpoints, resume and ``convert_weights``,
-context and pipeline parallelism over processes on the one card, and the
-two attention experiments (the grouped flash forward X1 and backward X2).
+context and pipeline parallelism and FSDP over processes on the one card,
+and the two attention experiments (the grouped flash forward X1 and
+backward X2).
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card, ``nvcc`` (sm_90a) and no network; it imports
@@ -162,7 +163,18 @@ non-zero and no result line is printed:
    (against one process, at K6/K7's bounds), at pipe = 4 then the
    reasoning drop over pipe 2 x context 2 in both modes at CP_BLOCKS
    blocks (against the context phase's one-process drop), every rank's
-   launches held to the schedule's; runs the training CLI
+   launches held to the schedule's; then FSDP (``fsdp_path``): a world of
+   fsdp = 2 processes, each rank loading its slice of every tensor of the
+   directory's DiT with the LoRA fused into it (the bytes held to the
+   headers, each shard's checksum to the one-process model's slice), one
+   40-block 720p forward bitwise one process's (the bytes staged held to
+   the shards'; the one-process forward and slices from the model loaded
+   for mixed2), then ``cp_model``'s weights at FSDP_BLOCKS blocks
+   sharded: the 8-step edit, batched CFG (a row a rank, FSDP_SHORT_STEPS
+   steps) and the w4a16 edit quantized under fsdp, each against one
+   process, and the backward with the batch split, at K6/K7's bounds; then
+   a world of fsdp 2 x context 2 serving the FSDP_SHORT_STEPS-step edit in
+   both modes; runs the training CLI
    (``scripts/train.main``: rank-32 LoRA, remat "full", ``--grad-accum 2
    --max-iter 4``) from the directory's DiT shards on two 720p PNG pairs
    with UMT5-XXL embeddings written for it, and serves an edit with the
@@ -184,8 +196,8 @@ non-zero and no result line is printed:
    tiled-against-untiled streaming decode of an 8-frame latent trajectory
    (fp32) and an unchanged-base checksum follow;
 7. print the command's seconds, the kernel table as one JSON line (its
-   launches include the context and pipeline phases' workers', not the
-   planted faults'), the card line again, and last
+   launches include the context, pipeline and FSDP phases' workers', not
+   the planted faults'), the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds one warm ``torch.profiler`` pass over each stage (DiT
@@ -206,6 +218,7 @@ from collections import Counter
 import gc
 import json
 import math
+import os
 import re
 import shutil
 import statistics
@@ -2329,17 +2342,9 @@ def expected_train_launches(cfg, remat: str = "full", lora: bool = True, int4: b
 
 
 def base_checksum(model) -> int:
-    """An exact, position-weighted integer checksum of the bytes of every
-    parameter and buffer (quantized leaves hold buffers), in chunks of 2^26
-    bytes."""
-    total = 0
-    for t in list(model.parameters()) + list(model.buffers()):
-        b = t.detach().reshape(-1).view(torch.uint8)
-        for i in range(0, b.numel(), 1 << 26):
-            c = b[i:i + (1 << 26)].to(torch.int64)
-            w = torch.arange(i, i + c.numel(), device=c.device) % 65521 + 1
-            total += int((c * w).sum())
-    return total
+    """``tensor_checksum`` summed over every parameter and buffer
+    (quantized leaves hold buffers)."""
+    return sum(tensor_checksum(t) for t in list(model.parameters()) + list(model.buffers()))
 
 
 def train_batches(pipe, n: int = 3) -> list[dict]:
@@ -2405,6 +2410,50 @@ def free() -> None:
     cycles) and return the cached blocks to the card."""
     gc.collect()
     torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def compact_workers():
+    """Worker processes started inside take expandable segments
+    (``PYTORCH_CUDA_ALLOC_CONF``, read when a process starts), so that each
+    rank's reserved memory stays near what it holds and P ranks' peaks fit
+    on the card side by side: without it the pipe-4 world of
+    ``pipeline_path`` ran out of memory in its VAE encode in some runs on
+    an H100 80GB HBM3 (78-79 GiB in use, about 13 GiB held by the failing
+    rank), and in others one rank's VAE decode gave other bits than its
+    peers' from the same latents, with 6 GiB of the card free
+    (``--trace-pipe-ranks``): the replicated decode under memory
+    pressure, not the pipeline. One rank to a card, as torchrun runs
+    them, has the card's memory to itself."""
+    old = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = old
+
+
+def wait_for_card(label: str, need_gib: float, timeout: float = 120.0) -> None:
+    """Return once the card has ``need_gib`` GiB free (``mem_get_info``,
+    over every process), printing what it found: a world of worker
+    processes that just ended may not have handed all its memory back
+    yet. Raises after ``timeout`` seconds."""
+    t0 = time.perf_counter()
+    while True:
+        free_b, total = torch.cuda.mem_get_info()
+        waited = time.perf_counter() - t0
+        if free_b >= need_gib * 2 ** 30:
+            print(f"{label}: {free_b / 2 ** 30:.2f} of {total / 2 ** 30:.2f} GiB of the card "
+                  f"free after {waited:.1f} s (this process holds "
+                  f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB)", flush=True)
+            return
+        if waited > timeout:
+            raise AssertionError(f"{label}: {free_b / 2 ** 30:.2f} GiB of the card free after "
+                                 f"{waited:.0f} s, {need_gib} needed")
+        time.sleep(1.0)
 
 
 def check_adapters_moved(label: str, lora) -> None:
@@ -3414,6 +3463,8 @@ PP_DEVICE = "cuda:0"  # every rank's device: the one card
 # negative prompt seed 32), whose one-process outputs are the references
 PP_EDIT_SEED = 10
 PP_CFG_SEED, PP_NEG_SEED = 30, 32
+# the card's free GiB each world needs: its ranks' peaks and CUDA contexts
+PP_CARD_GIB = {2: 50.0, 4: 67.0}
 
 
 def stage_bytes(files, num_layers: int, pipe: int, lora: bool = False) -> list[int]:
@@ -3602,9 +3653,12 @@ def pipeline_path(dev, refs: dict, launches: tuple[Counter, Counter]) -> dict:
     summary = {}
     for p in PP_WORLDS:
         plan = {"cfg": p == 2, "backward": p == 2, "drops": p == 4, "device": PP_DEVICE}
-        results, secs = host_s(lambda: run_world(pp_worker, p, (p, plan), backend="gloo",
-                                                 device=plan["device"], timeout=PP_TIMEOUT,
-                                                 threads=2))
+        # the ranks' peaks on an H100 80GB HBM3: pipe 2 23.34 GiB, pipe 4 15.79
+        wait_for_card(f"pipeline_path pipe = {p}", PP_CARD_GIB[p])
+        with compact_workers():
+            results, secs = host_s(lambda: run_world(pp_worker, p, (p, plan), backend="gloo",
+                                                     device=plan["device"], timeout=PP_TIMEOUT,
+                                                     threads=2))
         print(f"pipeline_path pipe = {p}: {p} processes sharing one card over host-staged gloo "
               f"(not a scaling figure): the world's {secs:.1f} s, peak memory per rank "
               f"{[round(r['peak_gib'], 2) for r in results]} GiB ({card})")
@@ -3671,6 +3725,523 @@ def pipeline_path(dev, refs: dict, launches: tuple[Counter, Counter]) -> dict:
                 launches[0].update(bw["launches"][0])
                 launches[1].update(bw["launches"][1]["flash_fwd"])
     print(f"pipeline_path: {time.perf_counter() - t_phase:.1f} s ({card})")
+    return summary
+
+
+# ------------------------------------- the pipe = 4 world's ranks traced
+
+# ``--trace-pipe-ranks``: why the pipe = 4 world's ranks once returned
+# different edits when its workers ran without expandable segments. Each
+# rank of that world, started without them, records the digest of its VAE
+# encode's output (the condition), of the final latents it decodes and of
+# the decoded frames, with the card's free memory at each; then, in a
+# fresh process for each, the VAE encode and decode of the 720p edit run
+# with the card filled to leave PP_HEADROOM_GIB free (None: nothing
+# filled). PyTorch keeps only the cuDNN plans whose workspace fits in the
+# card's free memory (or the allocator's largest free block), and keeps
+# the plan it picks for a shape for the process's life.
+PP_TRACE_WORLDS = 3
+PP_HEADROOM_GIB = (None, 24.0, 16.0, 12.0, 10.0, 8.0, 7.0, 6.0, 5.0, 4.0)
+TRACE: list = []  # (what, digest, the card's free GiB): this rank's run
+
+
+def _traced(what: str, fn, arg: int | None = None):
+    """``fn`` that appends to TRACE the digest of its output (and of its
+    positional argument ``arg``) and the card's free GiB before the call."""
+    from chronoedit_tpu_torch.parallel.consistency import tree_digest
+
+    def call(*a, **k):
+        free_gib = torch.cuda.mem_get_info()[0] / 2 ** 30
+        if arg is not None:
+            TRACE.append((f"{what} input", tree_digest(a[arg]), free_gib))
+        out = fn(*a, **k)
+        TRACE.append((what, tree_digest(out), free_gib))
+        return out
+
+    return call
+
+
+def pp_trace_worker(rank: int, p: int, plan: dict) -> dict:
+    """``pp_worker``'s load and 720p edit with this rank's condition, final
+    latents and decoded frames digested (TRACE), returned with its
+    result."""
+    from chronoedit_tpu_torch.models import vae as vae_lib
+    from chronoedit_tpu_torch.pipeline import edit_pipeline
+
+    edit_pipeline.prepare_condition = _traced("VAE encode", edit_pipeline.prepare_condition)
+    vae_lib.vae_decode = _traced("VAE decode", vae_lib.vae_decode, arg=1)
+    res = pp_worker(rank, p, plan)
+    res["trace"] = list(TRACE)
+    return res
+
+
+def vae_headroom_worker(rank: int, headroom_gib: float | None) -> dict:
+    """The 720p edit's VAE encode (``prepare_condition``) and a decode of
+    seeded latents, in this fresh process, with the card filled to leave
+    ``headroom_gib`` GiB free just before (None: nothing filled). Their
+    digests and the plans' free memory, or the error."""
+    from chronoedit_tpu_torch.configs import chronoedit_14b_distilled
+    from chronoedit_tpu_torch.models import vae as vae_lib
+    from chronoedit_tpu_torch.parallel.consistency import tree_digest
+    from chronoedit_tpu_torch.pipeline.edit_pipeline import prepare_condition
+
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(PP_DEVICE)
+    cfg = chronoedit_14b_distilled()
+    vae = vae_lib.init_vae_params(cfg.vae, torch.Generator(device=dev).manual_seed(0),
+                                  device=dev)
+    image = request(cfg, dev, PP_EDIT_SEED, EDIT_H, EDIT_W, TEXT_TOKENS)["image"]
+    frames = cfg.resolve_num_frames()
+    z = torch.randn((1, cfg.latent_channels, cfg.vae.latent_frames(frames),
+                     EDIT_H // cfg.vae.spatial_factor, EDIT_W // cfg.vae.spatial_factor),
+                    generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    fill = None
+    if headroom_gib is not None:
+        free_b = torch.cuda.mem_get_info()[0]
+        fill = torch.empty(max(free_b - int(headroom_gib * 2 ** 30), 0), dtype=torch.uint8,
+                           device=dev)
+    res = {"free_gib": torch.cuda.mem_get_info()[0] / 2 ** 30}
+    try:
+        with torch.inference_mode():
+            res["encode"] = tree_digest(prepare_condition(vae, cfg, image, frames,
+                                                          cfg.vae_spatial_tiles))
+            res["decode"] = tree_digest(vae_lib.vae_decode(vae, z,
+                                                           spatial_tiles=cfg.vae_spatial_tiles))
+    except torch.OutOfMemoryError as e:
+        res["error"] = str(e).split(".")[0]
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del fill
+    return res
+
+
+def trace_pipe_ranks(dev) -> None:
+    """``--trace-pipe-ranks``: write the checkpoint directory (the
+    encoders' files at a small width: no rank reads them), run the pipe = 4
+    world's load and 720p edit PP_TRACE_WORLDS times without expandable
+    segments, printing each rank's digests (TRACE) and where the ranks
+    first part; then the VAE at each of PP_HEADROOM_GIB, each in a fresh
+    process. The directory is removed at the end."""
+    from chronoedit_tpu_torch.configs import chronoedit_14b_distilled
+    from chronoedit_tpu_torch.models import clip, umt5
+    from chronoedit_tpu_torch.models import lora as lora_lib
+    from chronoedit_tpu_torch.parallel.launch import run_world
+
+    card = card_line()
+    cfg = chronoedit_14b_distilled()
+    try:
+        with torch.inference_mode():
+            pipe = build_model(dev, cfg)
+            g = torch.Generator(device=dev).manual_seed(40)
+            t5 = umt5.init_umt5_params(umt5.UMT5Config(
+                vocab_size=256, dim=256, dim_attn=256, dim_ffn=512, num_heads=4, num_layers=1),
+                g, dev)
+            tower = clip.init_clip_vision_params(clip.CLIPVisionConfig(
+                dim=256, num_heads=4, num_layers=1), g, dev)
+            lora = lora_lib.init_lora_params(g, pipe.dit, lora_lib.LoRAConfig())
+            write_checkpoint(CHECKPOINT_DIR, pipe, t5, tower, lora)
+            del pipe, t5, tower, lora
+        free()
+        plan = {"device": PP_DEVICE}
+        for i in range(PP_TRACE_WORLDS):
+            wait_for_card(f"trace {i}", PP_CARD_GIB[4])
+            t0 = time.perf_counter()
+            try:
+                results = run_world(pp_trace_worker, 4, (4, plan), backend="gloo",
+                                    device=PP_DEVICE, timeout=PP_TIMEOUT, threads=2)
+            except RuntimeError as e:  # a rank failed: its error's last line
+                print(f"trace {i}: pipe = 4 without expandable segments failed after "
+                      f"{time.perf_counter() - t0:.1f} s: {str(e).strip().splitlines()[-1][:300]}"
+                      f" ({card})")
+                continue
+            print(f"trace {i}: pipe = 4 without expandable segments, "
+                  f"{time.perf_counter() - t0:.1f} s; the ranks' edits "
+                  f"{[r['edit']['digest'][:12] for r in results]} ({card})")
+            for step, entries in enumerate(zip(*(r["trace"] for r in results))):
+                alike = len({e[1] for e in entries}) == 1
+                print(f"   {entries[0][0]}: {'alike' if alike else 'DIFFER'} "
+                      f"{[e[1][:12] for e in entries]}, the card's free GiB before "
+                      f"{[round(e[2], 2) for e in entries]}")
+        for headroom in PP_HEADROOM_GIB:
+            (r,), secs = host_s(lambda: run_world(vae_headroom_worker, 1, (headroom,),
+                                                  backend="gloo", device=PP_DEVICE,
+                                                  timeout=PP_TIMEOUT))
+            print(f"VAE at 720p, {'nothing filled' if headroom is None else f'{headroom} GiB left'}"
+                  f" ({r['free_gib']:.2f} GiB free before the encode, peak {r['peak_gib']:.2f}"
+                  f" GiB): encode {r.get('encode', '-')[:12]}, decode {r.get('decode', '-')[:12]}"
+                  f"{'; ' + r['error'] if 'error' in r else ''} ({card})")
+    finally:
+        shutil.rmtree(CHECKPOINT_DIR, ignore_errors=True)
+
+
+# ----------------------------------------------------------- FSDP
+
+# FSDP on the one card (``fsdp_path``): worlds of processes on ``cuda:0``
+# over host-staged gloo, as the pipeline phase's. The world of 2 loads the
+# 40-block model with the distilled LoRA from the directory, each rank its
+# slice of every tensor (at 14B every leaf splits), and runs one 720p
+# forward; then ``cp_model``'s weights cut to FSDP_BLOCKS blocks, sharded
+# with ``shard_params``, serve the 8-step edit, batched CFG and the w4a16
+# edit, and run the backward. Every forward stages each rank's shards
+# through the host, 16.4 GB at 40 blocks: the first card run of this phase
+# moved them at 0.40 GB/s a rank (41.1 s a forward; H100 80GB HBM3,
+# 700.00 W), so an 8-step path at 40 blocks would take about 5.5 minutes
+# and at CP_BLOCKS about 37 s; at FSDP_BLOCKS = 2 a forward stages 1.05 GB
+# a rank. The world of 4 runs the edit over fsdp 2 x context 2 in both
+# context modes. Batched CFG and the context edits take FSDP_SHORT_STEPS
+# steps: each step stages the shards again, and the checks read the same
+# forward at every step.
+FSDP_WORLDS = (2, 4)
+FSDP_TIMEOUT = 900.0
+FSDP_DEVICE = "cuda:0"  # every rank's device: the one card
+FSDP_FORWARD_SEED = 50
+FSDP_BLOCKS = 2
+FSDP_SHORT_STEPS = 2
+# the card's free GiB each world needs: its ranks' peaks (the first card
+# run: 17.97 GiB a rank over the 40-block forward, 9.54 at 4 ranks) and
+# CUDA contexts
+FSDP_CARD_GIB = {2: 40.0, 4: 42.0}
+# batched CFG with B = 2 split over fsdp 2 projects 7,200 rows a rank where
+# one process projects 14,400: cuBLAS may pick another algorithm for them
+FSDP_CFG_MIN_DB = 50.0
+
+
+def tensor_checksum(t: torch.Tensor) -> int:
+    """An exact, position-weighted integer checksum of ``t``'s bytes, in
+    chunks of 2^26 bytes."""
+    total = 0
+    b = t.detach().contiguous().reshape(-1).view(torch.uint8)
+    for i in range(0, b.numel(), 1 << 26):
+        c = b[i:i + (1 << 26)].to(torch.int64)
+        w = torch.arange(i, i + c.numel(), device=c.device) % 65521 + 1
+        total += int((c * w).sum())
+    return total
+
+
+def fsdp_bytes(files, cfg, shards) -> int:
+    """The bytes an fsdp rank reads from the DiT's shards (``files``, a
+    ``SafetensorsFiles``), from the headers: its block of each split tensor
+    (every tensor at 14B, each cut along a whole axis of the file), the
+    whole of the others."""
+    from chronoedit_tpu_torch.models.weights import diffusers_dit_names
+
+    names = diffusers_dit_names(cfg.dit)
+    total = 0
+    for key in files:
+        name = names.get(key.removeprefix("transformer."))
+        if name is not None:
+            total += files.nbytes(key) // (shards.size if shards.dims[name] is not None else 1)
+    return total
+
+
+def fsdp_config():
+    """The edit model at full width, FSDP_BLOCKS deep."""
+    cfg = cp_config()
+    return dataclasses.replace(cfg, dit=dataclasses.replace(cfg.dit, num_layers=FSDP_BLOCKS))
+
+
+def _fsdp_backward(rank: int, dev, mesh) -> dict:
+    """The backward of the FSDP_BLOCKS-deep DiT (``build_model``'s
+    seeded weights) at 7,200 tokens and B = 2 (split over fsdp: one row a
+    rank), loss the sum of the output's squares: first whole in this
+    process without a mesh (the reference, outside the counted launches),
+    then sharded under ``mesh``. Each shard's gradient against its slice
+    of the reference at K6/K7's bounds (``k67_check``), and which are
+    bitwise."""
+    from chronoedit_tpu_torch.models import dit as dit_lib
+    from chronoedit_tpu_torch.parallel.sharding import shard_params
+
+    cfg = fsdp_config()
+    dit = build_model(dev, cfg).dit.requires_grad_(True)  # built frozen
+    x, ts, text, img = (torch.cat(pair) for pair in zip(
+        cp_inputs(cfg, dev, EDIT_TOKENS, 30), cp_inputs(cfg, dev, EDIT_TOKENS, 31)))
+
+    def run(m):
+        out = dit_lib.dit_forward(dit, x, ts, text, img, mesh=m)
+        (out.float() ** 2).sum().backward()
+        return out.detach()
+
+    run(None)
+    ref = {n: p.grad for n, p in dit.named_parameters()}
+    dit.zero_grad(set_to_none=True)
+    shard_params(dit, mesh)
+    free()
+    n = FSDP_BLOCKS
+    want = expected_tool_launches([(name, kv, n) for name in ("flash_fwd", "flash_bwd_dq",
+                                                              "flash_bwd_dkv")
+                                   for kv in (EDIT_TOKENS, TEXT_TOKENS, IMAGE_TOKENS)])
+    want[0].update(ln_modulate=2 * n + 1, gated_residual=2 * n, rms_norm=5 * n)
+    res = _cp_run("backward", functools.partial(run, mesh), want, rank, False)
+    shards = dit.fsdp
+    checks, bitwise = {}, 0
+    for name, p in dit.named_parameters():
+        want_g = shards.local(ref[name], shards.dims[name])
+        if torch.equal(p.grad, want_g):
+            bitwise += 1
+        else:
+            checks[name] = k67_check(p.grad, want_g)
+    res.update(bitwise=bitwise, tensors=len(ref), checks=checks,
+               ok=all(c["ok"] for c in checks.values()))
+    return res
+
+
+def fsdp_worker(rank: int, p: int, plan: dict) -> dict:
+    """One rank of a world of ``p`` processes on the one card over gloo
+    (NCCL refuses two ranks on one device), its collectives staged through
+    pinned host memory. At ``p`` = 2, under a mesh of fsdp 2: loads the
+    distilled model with the distilled LoRA from the checkpoint directory
+    (``load_pipeline(..., mesh=)``: its slice of each tensor; the shards'
+    checksums returned) and runs one 720p DiT forward at 40 blocks; frees
+    it, shards ``cp_model``'s weights at FSDP_BLOCKS blocks
+    (``shard_params``) and serves the 720p edit, the guided edit with
+    batched CFG (B = 2, a row a rank) and, quantized under the mesh, the
+    w4a16 edit; then ``_fsdp_backward``. At ``p`` = 4, under fsdp 2 x
+    context 2: the 720p edit on the same sharded weights in each context
+    mode. Batched CFG and the context edits take FSDP_SHORT_STEPS steps. Every run with its launch counters zeroed just
+    before and held to what the path implies just after (``_cp_run``);
+    rank 0 returns the outputs, every rank the digests, seconds, bytes read
+    and staged and peak memory."""
+    from chronoedit_tpu_torch.configs import chronoedit_14b_distilled
+    from chronoedit_tpu_torch.kernels import build
+    from chronoedit_tpu_torch.models import dit as dit_lib
+    from chronoedit_tpu_torch.ops import quant
+    from chronoedit_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from chronoedit_tpu_torch.parallel.sharding import shard_params
+    from chronoedit_tpu_torch.pipeline.loader import load_pipeline
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(plan["device"])
+    build.lib()  # the parent's build, loaded: every source hashes the same
+    # the parent's int4 codebook (the same numpy arithmetic from the same
+    # seed gives the same bits): a rank skips the 13-16 s search
+    quant._lloyd_levels = plan["lloyd"].__getitem__
+    fcfg = fsdp_config()
+    steps, short = fcfg.num_steps, FSDP_SHORT_STEPS
+    edit_launches = cp_launches(fcfg, [(EDIT_TOKENS, "none", 1)] * steps)
+    res = {}
+
+    def sharded_model(mesh):
+        pipe = cp_model(dev, fcfg)
+        shard_params(pipe.dit, mesh)
+        pipe.mesh = mesh
+        free()
+        return pipe
+
+    def edit(pipe, label, want, **kw):
+        req = request(fcfg, dev, kw.pop("seed", 40), EDIT_H, EDIT_W, TEXT_TOKENS)
+        gen = torch.Generator(device=dev).manual_seed(kw.pop("gen", 140))
+        return _cp_run(label, functools.partial(pipe.edit_image, **req, **kw, generator=gen),
+                       want, rank, rank == 0)
+
+    if p == 4:
+        mesh = make_mesh(MeshConfig(fsdp=2, context=2), device=dev)
+        with torch.inference_mode():
+            pipe = sharded_model(mesh)
+            for mode in ("ring", "ulysses"):
+                pipe.dit.cfg = dataclasses.replace(fcfg.dit, context_parallel=mode)
+                res[f"edit {mode}"] = edit(pipe, f"edit {mode}", cp_launches(
+                    fcfg, [(EDIT_TOKENS, mode, 2)] * short), num_steps=short)
+            res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        return res
+
+    mesh = make_mesh(MeshConfig(fsdp=p), device=dev)
+    cfg = chronoedit_14b_distilled()
+    with torch.inference_mode():
+        torch.cuda.reset_peak_memory_stats()
+        pipe, secs = host_s(lambda: load_pipeline(
+            cfg, str(CHECKPOINT_DIR), loras=[(str(CHECKPOINT_DIR / "distill_lora.safetensors"),
+                                              1.0)],
+            with_text_encoder=False, with_image_encoder=False, device=dev, mesh=mesh))
+        res["load"] = {"secs": secs, "bytes": dict(pipe.load_bytes),
+                       "gib": torch.cuda.memory_allocated() / 2 ** 30,
+                       "sums": {n: tensor_checksum(t) for n, t in pipe.dit.named_parameters()}}
+        args = cp_inputs(cfg, dev, EDIT_TOKENS, FSDP_FORWARD_SEED)
+        res["forward"] = _cp_run("forward", functools.partial(
+            dit_lib.dit_forward, pipe.dit, *args, mesh=mesh),
+            cp_launches(cfg, [(EDIT_TOKENS, "none", 1)]), rank, rank == 0)
+        res["peak_gib_40"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        del pipe
+        free()
+        torch.cuda.reset_peak_memory_stats()
+        pipe = sharded_model(mesh)
+        res["edit"] = edit(pipe, "edit", edit_launches)
+        neg = torch.randn((1, TEXT_TOKENS, fcfg.dit.text_dim), device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(PP_NEG_SEED))
+        res["cfg"] = edit(pipe, "CFG batched", cp_launches(
+            fcfg, [(EDIT_TOKENS, "none", 1)] * short), seed=PP_CFG_SEED, gen=130,
+            neg_prompt_emb=neg, guidance_scale=5.0, num_steps=short)
+        _, res["quantize_secs"] = host_s(lambda: pipe.quantize(mode="int4"))
+        res["w4a16"] = edit(pipe, "w4a16 edit", expected_launches(
+            fcfg, [EDIT_TOKENS] * steps, int4=True))
+        res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        del pipe
+        free()
+    res["backward"] = _fsdp_backward(rank, dev, mesh)
+    free()
+    return res
+
+
+def fsdp_whole_refs(pipe, dev) -> dict:
+    """What ``fsdp_path`` holds its world of 2 to, from ``pipe``: the
+    distilled model loaded whole from ``CHECKPOINT_DIR`` with its LoRA, as
+    each rank loads its shards. Each leaf's fsdp = 2 dimension, the
+    checksums of each rank's slices, and the 720p forward at 40 blocks
+    (fp32, on the host)."""
+    from chronoedit_tpu_torch.models import dit as dit_lib
+    from chronoedit_tpu_torch.parallel.sharding import Shards, fsdp_dim
+
+    cfg = pipe.config
+    params = dict(pipe.dit.named_parameters())
+    dims = {n: fsdp_dim(n, tuple(t.shape), 2) for n, t in params.items()}
+    sums = [{n: tensor_checksum(Shards(2, i, dims).local(t, dims[n]))
+             for n, t in params.items()} for i in range(2)]
+    fwd = dit_lib.dit_forward(pipe.dit, *cp_inputs(cfg, dev, EDIT_TOKENS, FSDP_FORWARD_SEED))
+    return {"dims": dims, "sums": sums, "forward": fwd.float().cpu()}
+
+
+def fsdp_path(dev, whole: dict, launches: tuple[Counter, Counter]) -> dict:
+    """FSDP on the one card: worlds of 2 (fsdp 2) and 4 (fsdp 2 x context
+    2) processes on ``cuda:0`` over host-staged gloo (correctness, bytes
+    and per-rank launches, not a scaling figure). ``whole`` holds the whole
+    model's references (``fsdp_whole_refs``: each rank's slices'
+    checksums and the 720p forward at 40 blocks); first, in this process,
+    ``cp_model``'s weights at FSDP_BLOCKS blocks give the rest: the edit,
+    batched CFG and the context edit at FSDP_SHORT_STEPS steps and,
+    quantized to w4a16, the edit again. Each rank's bytes read are held
+    to the files' headers, its fused shards to the whole model's slices,
+    the forward and the edits to one process (bitwise, CFG at
+    FSDP_CFG_MIN_DB, the ring at CP_MIN_DB), the backward to one process at
+    K6/K7's bounds, the bytes staged a forward to the shards' bytes. Adds
+    the workers' launches to ``launches``. Needs the card free."""
+    from chronoedit_tpu_torch.configs import chronoedit_14b_distilled
+    from chronoedit_tpu_torch.models import weights as w
+    from chronoedit_tpu_torch.ops import quant
+    from chronoedit_tpu_torch.parallel.launch import run_world
+    from chronoedit_tpu_torch.parallel.sharding import Shards
+
+    card = card_line()
+    cfg, fcfg = chronoedit_14b_distilled(), fsdp_config()
+    dims, sums, short = whole["dims"], whole["sums"], FSDP_SHORT_STEPS
+    t_phase = time.perf_counter()
+    with torch.inference_mode():
+        small = cp_model(dev, fcfg)
+
+        def edit(seed, gen, **kw):
+            req = request(fcfg, dev, seed, EDIT_H, EDIT_W, TEXT_TOKENS)
+            return small.edit_image(**req, **kw, generator=torch.Generator(
+                device=dev).manual_seed(gen)).float().cpu()
+
+        neg = torch.randn((1, TEXT_TOKENS, fcfg.dit.text_dim), device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(PP_NEG_SEED))
+        ref = {"forward": whole["forward"], "edit": edit(40, 140),
+               "cfg": edit(PP_CFG_SEED, 130, neg_prompt_emb=neg, guidance_scale=5.0,
+                           num_steps=short)}
+        ref["edit ring"] = ref["edit ulysses"] = edit(40, 140, num_steps=short)
+        small.quantize(mode="int4")
+        ref["w4a16"] = edit(40, 140)
+        del small
+        free()
+    print(f"fsdp_path: the one-process references at {FSDP_BLOCKS} blocks in "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    shards = sorted(str(f) for f in (CHECKPOINT_DIR / "transformer").glob("*.safetensors"))
+    with w.load_safetensors(shards) as sd, \
+            w.load_safetensors(str(CHECKPOINT_DIR / "distill_lora.safetensors")) as lsd:
+        total = sum(sd.nbytes(k) for k in sd)
+        want_bytes = fsdp_bytes(sd, cfg, Shards(2, 0, dims))
+        lora_bytes = sum(lsd.nbytes(k) for k in lsd)
+    # (key, the bound in dB: inf for bitwise)
+    bounds = {"forward": math.inf, "edit": math.inf, "cfg": FSDP_CFG_MIN_DB,
+              "w4a16": math.inf, "edit ulysses": math.inf, "edit ring": CP_MIN_DB}
+    labels = {"forward": f"720p DiT forward ({cfg.dit.num_layers} blocks)",
+              "edit": f"720p edit ({fcfg.num_steps} steps, {FSDP_BLOCKS} blocks)",
+              "cfg": f"CFG batched, guidance 5 (B = 2, a row a rank; {short} steps, "
+                     f"{FSDP_BLOCKS} blocks)",
+              "w4a16": f"w4a16 edit, quantized under fsdp ({FSDP_BLOCKS} blocks)",
+              "edit ring": f"720p edit over fsdp 2 x context 2, ring ({short} steps, "
+                           f"{FSDP_BLOCKS} blocks)",
+              "edit ulysses": f"720p edit over fsdp 2 x context 2, Ulysses ({short} steps, "
+                              f"{FSDP_BLOCKS} blocks)"}
+    summary = {}
+    # every in-dimension at full width is at least the group of 128 rows
+    lloyd = {quant.INT4_GROUP: quant._lloyd_levels(quant.INT4_GROUP)}
+    for p in FSDP_WORLDS:
+        plan = {"device": FSDP_DEVICE, "lloyd": lloyd}
+        wait_for_card(f"fsdp_path world of {p}", FSDP_CARD_GIB[p])
+        with compact_workers():
+            results, secs = host_s(lambda: run_world(fsdp_worker, p, (p, plan), backend="gloo",
+                                                     device=plan["device"], timeout=FSDP_TIMEOUT,
+                                                     threads=2))
+        print(f"fsdp_path world of {p}: {p} processes sharing one card over host-staged gloo "
+              f"(not a scaling figure): the world's {secs:.1f} s, peak memory per rank "
+              f"{[round(r['peak_gib'], 2) for r in results]} GiB ({card})")
+        summary[f"world{p}_s"] = secs
+        if p == 2:
+            for rank, r in enumerate(results):
+                load = r["load"]
+                bad = [n for n, s in load["sums"].items() if s != sums[rank][n]]
+                print(f"   rank {rank}: read {load['bytes']['dit'] / 1e9:.3f} GB of the DiT's "
+                      f"{total / 1e9:.3f} GB (expected {want_bytes / 1e9:.3f}) and "
+                      f"{load['bytes']['loras'] / 1e6:.1f} MB of the LoRA (expected "
+                      f"{lora_bytes / 1e6:.1f}) in {load['secs']:.2f} s, "
+                      f"{load['gib']:.2f} GiB after the load, peak {r['peak_gib_40']:.2f} GiB "
+                      f"over the 40-block forward; {len(load['sums']) - len(bad)} of "
+                      f"{len(load['sums'])} shards bitwise the one-process model's slices")
+                if (load["bytes"]["dit"] != want_bytes or load["bytes"]["loras"] != lora_bytes
+                        or bad or load["sums"].keys() != sums[rank].keys()):
+                    raise AssertionError(f"fsdp rank {rank}: read {load['bytes']}, expected "
+                                         f"{want_bytes} / {lora_bytes}; shards differing from "
+                                         f"the whole model's slices: {bad[:8]}")
+                summary[f"rank{rank}_dit_bytes"] = load["bytes"]["dit"]
+        for key in [k for k in bounds if k in results[0]]:
+            per_rank = [r[key] for r in results]
+            first = per_rank[0]
+            if any(r["digest"] != first["digest"] for r in per_rank) or not first["finite"]:
+                raise AssertionError(f"fsdp {labels[key]}: the ranks' outputs differ or are "
+                                     f"not finite")
+            got, want = torch.from_numpy(first["out"]), ref[key]
+            if got.shape != want.shape:
+                raise AssertionError(f"fsdp {labels[key]}: {tuple(got.shape)} against "
+                                     f"{tuple(want.shape)}")
+            db = psnr(got, want)
+            forwards = (1 if key == "forward" else
+                        fcfg.num_steps if key in ("edit", "w4a16") else short)
+            print(f"   {labels[key]}: rank 0 {first['secs']:.3f} s (host staging, not a "
+                  f"speed), {first['staged'] / forwards / 1e9:.4f} GB staged a forward and rank, "
+                  f"every rank bitwise alike, {'bitwise' if db == math.inf else f'{db:.2f} dB'} "
+                  f"against one process (bound: "
+                  f"{'bitwise' if bounds[key] == math.inf else f'{bounds[key]} dB'}); rank 0's "
+                  f"launches {first['launches'][0]}, flash by KV "
+                  f"{first['launches'][1]['flash_fwd']}")
+            if not db >= bounds[key]:
+                raise AssertionError(f"fsdp {labels[key]}: {db:.2f} dB against one process, "
+                                     f"bound {bounds[key]} dB")
+            # a CPU rehearsal stages nothing: only CUDA tensors go through the host
+            if key == "forward" and dev.type == "cuda" and any(
+                    r["staged"] != want_bytes for r in per_rank):
+                raise AssertionError(f"fsdp forward: staged {[r['staged'] for r in per_rank]} "
+                                     f"bytes, predicted each rank's shards, {want_bytes}")
+            summary[f"fsdp{p} {key}"] = db
+            for r in per_rank:
+                launches[0].update(r["launches"][0])
+                launches[1].update(r["launches"][1]["flash_fwd"])
+        if p == 2:
+            print(f"   quantized under fsdp (a gathered block at a time) in "
+                  f"{results[0]['quantize_secs']:.1f} s")
+            for rank, r in enumerate(results):
+                bw = r["backward"]
+                worst = max((c["rel"] for c in bw["checks"].values()), default=0.0)
+                print(f"   backward ({FSDP_BLOCKS} blocks, B = 2 split, {EDIT_TOKENS} "
+                      f"tokens) rank {rank}: {bw['secs']:.3f} s, {bw['staged'] / 1e9:.3f} GB "
+                      f"staged; {bw['bitwise']} of {bw['tensors']} shard gradients bitwise the "
+                      f"one-process gradient's slices, the rest within K6/K7's bounds: worst "
+                      f"normwise {worst:.3e}; launches {bw['launches'][0]}")
+                if not bw["ok"]:
+                    raise AssertionError(f"fsdp rank {rank} backward: "
+                                         f"{ {k: c for k, c in bw['checks'].items() if not c['ok']} }")
+                launches[0].update(bw["launches"][0])
+                launches[1].update(bw["launches"][1]["flash_fwd"])
+    summary["secs"] = time.perf_counter() - t_phase
+    print(f"fsdp_path: {summary['secs']:.1f} s ({card})")
     return summary
 
 
@@ -3799,6 +4370,9 @@ def main() -> int:
                         help="profile one DiT forward and the VAE of each serving path, "
                              "one LoRA and one QLoRA train step and one w4a16 and one mixed2 "
                              "DiT forward")
+    parser.add_argument("--trace-pipe-ranks", action="store_true",
+                        help="only trace the pipe = 4 world's ranks without expandable "
+                             "segments and the VAE's bits against the card's free memory")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -3823,6 +4397,9 @@ def main() -> int:
     print(f"kernels built and loaded in {secs:.1f} s: {build.library_path().name}")
     print_ptxas(build.build_log_path())
     check_no_spills(print_sass_registers(build.library_path()))
+    if args.trace_pipe_ranks:
+        trace_pipe_ranks(dev)
+        return 0
 
     profile_dir = Path(__file__).resolve().parent / "chiprun_out" if args.profile else None
     by_name, by_kv = Counter(), Counter()
@@ -3868,11 +4445,17 @@ def main() -> int:
                                                   1.0)],
                 with_text_encoder=False, with_image_encoder=False, device=dev))
             print(f"loaded the DiT and VAE again for mixed2 in {secs:.1f} s")
+            # the whole model as the fsdp ranks load it, before mixed2
+            # quantizes it
+            fsdp_refs, secs = host_s(lambda: fsdp_whole_refs(pipe, dev))
+            print(f"fsdp_path's references from the whole model in {secs:.1f} s")
             mixed2_path(pipe, dev, (by_name, by_kv), refs, profile_dir)
             del pipe
         free()
         # pipeline parallelism from the directory's files, the card free
         pipeline_path(dev, {**refs, "drop": drop_ref}, (by_name, by_kv))
+        # FSDP from the same files, the card free
+        fsdp_path(dev, fsdp_refs, (by_name, by_kv))
         # training as a user runs it: the CLI from the directory's files, then
         # the Trainer (the directory is removed first: its checkpoints need
         # the disk)

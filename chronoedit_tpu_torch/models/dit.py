@@ -3,10 +3,13 @@
 The forward of ``chronoedit_tpu/models/dit.py``, on one device or over a
 mesh (``dit_forward(..., mesh=)``): split over its context axis (each rank
 its block of the tokens, ring or Ulysses self-attention,
-``parallel/context.py``), or run as a pipeline over its pipe axis (each
-rank the blocks of its stage, ``parallel/pipeline_parallel.py``; a
-stage-local model holds only those, ``DiT(..., layers=)``), composed with
-the context axis inside the stages and the data axis on the batch:
+``parallel/context.py``), with its parameters sharded over its fsdp axis
+(each rank its slice of every leaf, ``parallel/sharding.py``; a block's
+leaves gathered just before the block, the embedders' and the head's
+where they are used), or run as a pipeline over its pipe axis (each rank
+the blocks of its stage, ``parallel/pipeline_parallel.py``; a stage-local
+model holds only those, ``DiT(..., layers=)``), composed with the context
+axis inside the stages and the data axis on the batch:
 
 - patch embed as reshape + linear, feature order (c, kt, kh, kw);
 - N blocks of AdaLN-zero 6-way modulation from a per-block
@@ -65,6 +68,7 @@ from chronoedit_tpu_torch.ops.fused_norms import (
 from chronoedit_tpu_torch.parallel import collectives as C
 from chronoedit_tpu_torch.parallel import context
 from chronoedit_tpu_torch.parallel import pipeline_parallel as pp
+from chronoedit_tpu_torch.parallel import sharding
 from chronoedit_tpu_torch.parallel.mesh import InnerAxes
 
 
@@ -162,7 +166,11 @@ class DiT(nn.Module):
     pipeline_parallel.stage_range``) and runs only under its pipe mesh. A
     random init draws the blocks it holds in order, so a stage-local
     model's random blocks are not the whole model's: drop the others
-    with :meth:`keep_layers` instead."""
+    with :meth:`keep_layers` instead.
+
+    ``fsdp`` is None for a whole model; ``parallel.sharding.shard_params``
+    (or a loader given an fsdp mesh) keeps this rank's slice of each leaf
+    and records the plan there (a ``parallel.sharding.Shards``)."""
 
     def __init__(self, cfg: DiTConfig, *, device=None,
                  generator: torch.Generator | None = None, layers: range | None = None):
@@ -195,6 +203,7 @@ class DiT(nn.Module):
         self.blocks = nn.ModuleList(
             DiTBlock(cfg, device=device, dtype=cfg.param_dtype, generator=generator)
             for _ in self.layers)
+        self.fsdp = None
 
     def keep_layers(self, layers: range) -> "DiT":
         """Keep only the blocks of ``layers`` (global indices among those the
@@ -202,6 +211,8 @@ class DiT(nn.Module):
         pipeline stage's. Returns self."""
         if not (self.layers.start <= layers.start and layers.stop <= self.layers.stop):
             raise ValueError(f"layers {layers} are not among the model's {self.layers}")
+        if self.fsdp is not None:
+            raise ValueError("an FSDP-sharded DiT cannot be made a pipeline stage's")
         self.blocks = nn.ModuleList(self.blocks[i - self.layers.start] for i in layers)
         self.layers = layers
         return self
@@ -361,17 +372,25 @@ class _MatmulOnly:
             self.skip = False
 
 
+def _whole(module: nn.Module):
+    """The gather of a module of a whole (unsharded) model: nothing to do."""
+    return contextlib.nullcontext()
+
+
 def _lora_block(p: DiTBlock, adapters, lora_weights, policy: _MatmulOnly | None, x,
                 text_ctx, img_ctx, e, rope_cos, rope_sin, hw: int, cfg: DiTConfig,
-                cp: _ContextSplit | None = None) -> torch.Tensor:
-    """A block with its LoRA targets' weights made first by
-    ``lora_weights(block, adapters)`` (merged, or side branches), inside
-    whatever checkpoint wraps it, so they live one block at a time."""
-    weights = None
-    if adapters is not None:
-        with policy.recomputed() if policy is not None else contextlib.nullcontext():
-            weights = lora_weights(p, adapters)
-    return dit_block(p, x, text_ctx, img_ctx, e, rope_cos, rope_sin, hw, cfg, weights, cp)
+                cp: _ContextSplit | None = None, gather=_whole) -> torch.Tensor:
+    """A block, its FSDP shards gathered for its duration by ``gather(p)``
+    and its LoRA targets' weights made first by ``lora_weights(block,
+    adapters)`` (merged, or side branches), inside whatever checkpoint
+    wraps it, so the gathered and merged weights live one block at a time
+    (a recompute gathers again)."""
+    with gather(p):
+        weights = None
+        if adapters is not None:
+            with policy.recomputed() if policy is not None else contextlib.nullcontext():
+                weights = lora_weights(p, adapters)
+        return dit_block(p, x, text_ctx, img_ctx, e, rope_cos, rope_sin, hw, cfg, weights, cp)
 
 
 def _run_block(cfg: DiTConfig, blk, adapters, lora_weights, *args) -> torch.Tensor:
@@ -412,26 +431,32 @@ def _unpatchify(tokens: torch.Tensor, grid, cfg: DiTConfig) -> torch.Tensor:
     return x.reshape(b, cfg.out_channels, gt * pt, gh * ph, gw * pw)
 
 
-def _condition_embeddings(m: DiT, cfg: DiTConfig, timesteps, text_emb, image_emb):
-    """Returns (temb (B,T,dim) fp32, t_proj (B,T,6,dim) fp32, text_ctx, img_ctx)."""
+def _condition_embeddings(m: DiT, cfg: DiTConfig, timesteps, text_emb, image_emb,
+                          gather=_whole):
+    """Returns (temb (B,T,dim) fp32, t_proj (B,T,6,dim) fp32, text_ctx, img_ctx);
+    each embedder's FSDP shards gathered by ``gather`` while it runs."""
     sin_emb = L.sinusoidal_timestep_embedding(timesteps, cfg.freq_dim)
     te = m.time_embed
-    temb = L.linear(te.fc2, F.silu(L.linear(te.fc1, sin_emb.float())))
+    with gather(te):
+        temb = L.linear(te.fc2, F.silu(L.linear(te.fc1, sin_emb.float())))
     # the reference casts temb to the stream dtype before time_proj and the
     # blocks upcast again: kept for parity
-    t_proj = L.linear(m.time_proj, F.silu(temb.to(cfg.dtype)))
+    with gather(m.time_proj):
+        t_proj = L.linear(m.time_proj, F.silu(temb.to(cfg.dtype)))
     t_proj = t_proj.float().reshape(*temb.shape[:-1], 6, cfg.dim)
 
     tx = m.text_embed
-    text_ctx = L.linear(tx.fc2, L.gelu_tanh(L.linear(tx.fc1, text_emb.to(cfg.dtype))))
+    with gather(tx):
+        text_ctx = L.linear(tx.fc2, L.gelu_tanh(L.linear(tx.fc1, text_emb.to(cfg.dtype))))
 
     img_ctx = None
     if image_emb is not None and cfg.image_dim is not None:
         ie = m.img_embed
-        # fp32 LayerNorm (eps 1e-5) -> linear -> exact GELU -> linear -> norm
-        h = L.layer_norm(ie.norm1, image_emb, eps=1e-5, out_dtype=cfg.dtype)
-        h = L.linear(ie.fc2, F.gelu(L.linear(ie.fc1, h)))
-        img_ctx = L.layer_norm(ie.norm2, h, eps=1e-5, out_dtype=cfg.dtype)
+        with gather(ie):
+            # fp32 LayerNorm (eps 1e-5) -> linear -> exact GELU -> linear -> norm
+            h = L.layer_norm(ie.norm1, image_emb, eps=1e-5, out_dtype=cfg.dtype)
+            h = L.linear(ie.fc2, F.gelu(L.linear(ie.fc1, h)))
+            img_ctx = L.layer_norm(ie.norm2, h, eps=1e-5, out_dtype=cfg.dtype)
     return temb.float(), t_proj, text_ctx, img_ctx
 
 
@@ -470,7 +495,17 @@ def dit_forward(model: DiT, x: torch.Tensor, timesteps: torch.Tensor,
         attends its queries to the whole text and image context) and the
         output head, and all-gathers the head's output, so every rank
         returns the whole velocity. The cache is then this rank's block.
-        With a pipe axis above 1 the blocks run as a GPipe pipeline
+        With an fsdp axis above 1 ``model`` holds this rank's shards
+        (``parallel.sharding.shard_params``): each block's are gathered just
+        before it runs and dropped after it (a block that the mask or the
+        cache skips is gathered by no rank), the embedders' and the head's
+        where they are used; when the fsdp degree divides the batch each
+        rank runs its rows and the head's output is gathered over fsdp
+        too, else every rank runs the whole batch (the gathers' backward
+        then takes this rank's slice of the gradient instead of summing
+        the ranks'); an fsdp line holds the same token block under
+        context parallelism, and a data line runs the same request. With a
+        pipe axis above 1 the blocks run as a GPipe pipeline
         (:func:`_pipeline_blocks`): every rank runs the embeddings and the
         head, and its stage's blocks, which ``model`` holds and nothing
         else of the stack (``DiT(..., layers=)``); the context axis then
@@ -495,15 +530,26 @@ def dit_forward(model: DiT, x: torch.Tensor, timesteps: torch.Tensor,
         lo, hi = cache_blocks
         if not 0 <= lo <= hi <= cfg.num_layers:
             raise ValueError(f"cache_blocks {cache_blocks} out of range")
+    gathers = []  # (group, dim): the head's output gathered over them, in order
+    fsdp = sharding.fsdp_gather(model, mesh, b)
+    gather = _whole if fsdp is None else fsdp
+    if fsdp is not None and fsdp.summed:  # this rank's rows of the batch
+        ranks, rank = mesh.shape["fsdp"], mesh.index("fsdp")
+        x, timesteps, text_emb, image_emb = (
+            t if t is None or t.shape[0] != b else t.chunk(ranks, dim=0)[rank]
+            for t in (x, timesteps, text_emb, image_emb))
+        b //= ranks
+        gathers.append((fsdp.group, 0))
     tokens, grid = _patchify(x.to(cfg.dtype), cfg)
     gt, gh, gw = grid
     hw = gh * gw
-    tokens = L.linear(model.patch_embed, tokens)
+    with gather(model.patch_embed):
+        tokens = L.linear(model.patch_embed, tokens)
 
     if timesteps.dim() == 1:
         timesteps = timesteps[:, None].expand(b, gt)
     temb, t_proj, text_ctx, img_ctx = _condition_embeddings(
-        model, cfg, timesteps, text_emb, image_emb)
+        model, cfg, timesteps, text_emb, image_emb, gather)
 
     # the tables hold every global position: a shard takes its rows
     tables = temporal_skip_rope_tables if cfg.temporal_skip else rope_3d_tables
@@ -513,7 +559,6 @@ def dit_forward(model: DiT, x: torch.Tensor, timesteps: torch.Tensor,
         lora_weights = functools.partial(
             lora_lib.attached_weights if lora_attach else lora_lib.merged_weights,
             scaling=lora.cfg.scaling)
-    gathers = []  # (group, dim): the head's output gathered over them, in order
     if pipe > 1:
         tokens, cp = _pipeline_blocks(model, mesh, tokens, text_ctx, img_ctx, t_proj, cos,
                                       sin, hw, layer_mask, lora, lora_weights)
@@ -546,12 +591,12 @@ def dit_forward(model: DiT, x: torch.Tensor, timesteps: torch.Tensor,
             continue
         adapters = None if lora is None else lora.blocks[i]
         out = _run_block(cfg, blk, adapters, lora_weights, tokens, text_ctx, img_ctx,
-                         t_proj, cos, sin, hw, cfg, cp)
+                         t_proj, cos, sin, hw, cfg, cp, gather)
         if cached:
             delta = out - tokens if delta is None else delta + (out - tokens)
         tokens = out
 
-    out = _head(model, tokens, temb, hw, grid, gathers)
+    out = _head(model, tokens, temb, hw, grid, gathers, gather)
     if cache_blocks is None:
         return out
     if not cache_refresh:
@@ -559,14 +604,16 @@ def dit_forward(model: DiT, x: torch.Tensor, timesteps: torch.Tensor,
     return out, torch.zeros_like(tokens) if delta is None else delta
 
 
-def _head(model: DiT, tokens, temb, hw: int, grid, gathers) -> torch.Tensor:
-    """The output head on this rank's tokens, its output gathered over each
-    (group, dim) of ``gathers`` in turn, then unpatchified."""
+def _head(model: DiT, tokens, temb, hw: int, grid, gathers, gather=_whole) -> torch.Tensor:
+    """The output head on this rank's tokens (its FSDP shards gathered by
+    ``gather``), its output gathered over each (group, dim) of ``gathers``
+    in turn, then unpatchified."""
     head, cfg = model.head, model.cfg
-    mods = head.scale_shift_table.float()[None, None] + temb[:, :, None, :]
-    shift, scale = mods[:, :, 0].contiguous(), mods[:, :, 1].contiguous()
-    normed = layer_norm_modulate(tokens, scale, shift, hw, cfg.eps)
-    out = L.linear(head.proj, normed)
+    with gather(head):
+        mods = head.scale_shift_table.float()[None, None] + temb[:, :, None, :]
+        shift, scale = mods[:, :, 0].contiguous(), mods[:, :, 1].contiguous()
+        normed = layer_norm_modulate(tokens, scale, shift, hw, cfg.eps)
+        out = L.linear(head.proj, normed)
     for group, dim in gathers:
         out = C.gather_sequence_autograd(out, group, dim)
     return _unpatchify(out, grid, cfg)

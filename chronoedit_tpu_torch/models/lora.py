@@ -182,12 +182,23 @@ def merge_lora(model: nn.Module, lora: LoRA, scale: float = 1.0,
     """``model`` with ``W + scale * (alpha / r) * a @ b`` fused into every
     target (the reference's ``fuse_lora``), in fp32 and rounded once to W's
     dtype. A copy, unless ``in_place`` (the loader's, for a 14B model that
-    has no room for a second copy)."""
+    has no room for a second copy). Into a model sharded over fsdp
+    (``model.fsdp``) each target's whole delta is computed as in one
+    process, one target at a time, and this rank's slice of it is added
+    to the shard: the fused shard is bitwise the slice of the one-process
+    fused weight (a product over half the rows could round otherwise)."""
     merged = model if in_place else copy.deepcopy(model)
+    shards = getattr(merged, "fsdp", None)
+    scaling = lora.cfg.scaling * scale
     with torch.no_grad():
-        for blk, adapters in zip(merged.blocks, lora.blocks):
-            for lin, w in merged_weights(blk, adapters, lora.cfg.scaling * scale).items():
-                lin.weight.copy_(w)
+        for j, (blk, adapters) in enumerate(zip(merged.blocks, lora.blocks)):
+            for target, ad in iter_adapters(adapters):
+                lin = _linear(blk, target)
+                delta = ((ad.a.float() @ ad.b.float()) * scaling).T
+                if shards is not None:
+                    delta = shards.local(
+                        delta, shards.dims[f"blocks.{j}.{target.replace('/', '.')}.weight"])
+                lin.weight.copy_((lin.weight.float() + delta).to(lin.weight.dtype))
     return merged
 
 

@@ -24,7 +24,11 @@ time axis and the VAE's (dim, 1, 1, 1) RMS gains flatten.
 
 A pipeline stage loads only its blocks (``layers=`` of the DiT and LoRA
 converters): the other blocks' tensors are left in their files, unread
-(``SafetensorsFiles.bytes_read`` counts what was).
+(``SafetensorsFiles.bytes_read`` counts what was). An FSDP rank
+(``convert_diffusers_dit(..., mesh=)`` with an fsdp axis) builds the DiT
+at its shard shapes and reads from each tensor only its slice
+(``get_slice``; a slice of the in-dimension of an (out, in) tensor is a
+strided read), so the whole model never exists on one rank.
 
 The name tables are module-level data (``DIFFUSERS_DIT``,
 ``NATIVE_DIT``, ``LORA_NAMES``, ``MUSUBI_NAMES``, ...) expanded per layer
@@ -88,6 +92,11 @@ class SafetensorsFiles(Mapping):
         view = self._where[key].get_slice(key)
         return math.prod(view.get_shape()) * _SAFETENSORS_BYTES[view.get_dtype()]
 
+    def get_slice(self, key: str) -> "_CountedSlice":
+        """Tensor ``key`` unread: its ``shape``, and indexing it with
+        slices reads (and counts) only that part of the file."""
+        return _CountedSlice(self, self._where[key].get_slice(key))
+
     def __contains__(self, key) -> bool:  # Mapping's would read the tensor
         return key in self._where
 
@@ -105,6 +114,17 @@ class SafetensorsFiles(Mapping):
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+
+class _CountedSlice:
+    def __init__(self, files: SafetensorsFiles, view):
+        self._files, self._view = files, view
+        self.shape = tuple(view.get_shape())
+
+    def __getitem__(self, index) -> torch.Tensor:
+        t = self._view[index]
+        self._files.bytes_read += t.numel() * t.element_size()
+        return t
 
 
 _SAFETENSORS_BYTES = {"F64": 8, "F32": 4, "F16": 2, "BF16": 2, "I64": 8, "I32": 4, "I16": 2,
@@ -157,13 +177,43 @@ def copy_into(param: torch.Tensor, value: torch.Tensor, name: str) -> None:
         param.copy_(value)
 
 
+def read_shard(sd: StateDict, ref: str, shape: tuple[int, ...], dim: int, index: int,
+               size: int) -> torch.Tensor:
+    """Block ``index`` of ``size`` along ``dim`` of the reference tensor
+    ``ref``, which the port holds whole at ``shape``. Only the block is
+    read, through ``sd.get_slice`` (a mapping without it raises): the
+    file's tensor may carry unit axes that the port drops, or be a conv
+    kernel (out, in, k...) that the port flattens to (out, in * k), whose
+    in-dimension block is read in the whole input channels that hold it."""
+    n = shape[dim] // size
+    start = index * n
+    view = sd.get_slice(ref)
+    src = tuple(view.shape)
+    k = 1
+    if len(shape) == 2 and len(src) > 2 and src[0] == shape[0]:  # a flattened conv kernel
+        fdim = dim
+        if dim == 1:
+            k = math.prod(src[2:])
+    else:  # the same axes but for unit ones
+        fdim = [i for i, d in enumerate(src) if d != 1][
+            [i for i, d in enumerate(shape) if d != 1].index(dim)]
+    lo, hi = start // k, -(-(start + n) // k)
+    index_ = tuple(slice(lo, hi) if i == fdim else slice(None) for i in range(len(src)))
+    block = view[index_]
+    block = block.reshape([(hi - lo) * k if i == dim else d for i, d in enumerate(shape)])
+    return block.narrow(dim, start - lo * k, n)
+
+
 def fill_module(module: nn.Module, sd: StateDict, names: Mapping[str, str],
-                strict: bool = True, ignore: tuple[str, ...] = ()) -> nn.Module:
+                strict: bool = True, ignore: tuple[str, ...] = (),
+                shards=None) -> nn.Module:
     """Write ``module``'s parameters from ``sd`` by ``names`` ({reference
     name: parameter name}), in ``sd``'s order (file by file, front to back);
     every parameter exactly once. With ``strict``, a reference key that no
-    name consumes raises unless it ends with one of ``ignore``. Returns the
-    module."""
+    name consumes raises unless it ends with one of ``ignore``. With
+    ``shards`` (a ``parallel.sharding.Shards``: the module is built at this
+    rank's shard shapes) a split parameter takes its block of the
+    reference tensor (:func:`read_shard`). Returns the module."""
     params = dict(module.named_parameters())
     for ref, name in names.items():
         if name not in params:
@@ -180,8 +230,16 @@ def fill_module(module: nn.Module, sd: StateDict, names: Mapping[str, str],
     if strict and leftovers:
         raise ValueError(f"unconsumed checkpoint keys: {leftovers[:8]}...")
     for ref in sd:
-        if ref in names:
-            copy_into(params[names[ref]], sd[ref], ref)
+        if ref not in names:
+            continue
+        name = names[ref]
+        dim = None if shards is None else shards.dims.get(name)
+        if dim is None:
+            copy_into(params[name], sd[ref], ref)
+            continue
+        shape = tuple(n * shards.size if d == dim else n
+                      for d, n in enumerate(params[name].shape))
+        copy_into(params[name], read_shard(sd, ref, shape, dim, shards.index, shards.size), ref)
     return module
 
 
@@ -197,6 +255,9 @@ class _View(Mapping):
 
     def __contains__(self, key) -> bool:
         return key in self._names
+
+    def get_slice(self, key):
+        return self._sd.get_slice(self._names[key])
 
     def __iter__(self):
         return iter(self._names)
@@ -327,17 +388,27 @@ def native_dit_names(cfg: DiTConfig) -> dict[str, str]:
 
 
 def convert_diffusers_dit(sd: StateDict, cfg: DiTConfig, device=None,
-                          layers: range | None = None) -> DiT:
+                          layers: range | None = None, mesh=None) -> DiT:
     """diffusers ChronoEditTransformer3DModel state dict -> a DiT in
     ``cfg.param_dtype`` on ``device``. ``model.diffusion_model.``,
     ``transformer.`` and ``model.`` prefixes are dropped; the unused
     ``norm_added_q`` weights are ignored. With ``layers`` (a pipeline
     stage's, ``parallel.pipeline_parallel.stage_range``) the DiT holds
-    those blocks only, and the other blocks' tensors are not read."""
+    those blocks only, and the other blocks' tensors are not read. With a
+    ``mesh`` whose fsdp axis is above 1 the DiT is built at this rank's
+    shard shapes (``parallel.sharding.materialize_shards``; placed by
+    ``dit_param_sharding``) and each tensor's slice alone is read."""
+    from chronoedit_tpu_torch.parallel import sharding
+
     sd = _stage_view(_renamed(sd, ("model.diffusion_model.", "transformer.", "model.")),
                      cfg.num_layers, layers)
-    return fill_module(DiT(cfg, device=device, layers=layers), sd,
-                       diffusers_dit_names(cfg, layers), ignore=("norm_added_q.weight",))
+    if mesh is None or mesh.shape.get("fsdp", 1) == 1:
+        model = DiT(cfg, device=device, layers=layers)
+    else:
+        model = sharding.materialize_shards(DiT(cfg, device="meta", layers=layers), mesh,
+                                            device)
+    return fill_module(model, sd, diffusers_dit_names(cfg, layers),
+                       ignore=("norm_added_q.weight",), shards=model.fsdp)
 
 
 def export_diffusers_dit(model: DiT) -> dict[str, torch.Tensor]:

@@ -45,6 +45,7 @@ gradient.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import numpy as np
@@ -294,7 +295,7 @@ def _int4_apply_a8(p: QuantLinear4, x: torch.Tensor) -> torch.Tensor:
 # -------------------------------------------------------------------- model
 
 def quantize_dit(model: nn.Module, skip: tuple = (), mode: str = "int8",
-                 upgrade: tuple = ()) -> nn.Module:
+                 upgrade: tuple = (), mesh=None) -> nn.Module:
     """Replace the block projections of ``model`` (a DiT) in place by
     quantized leaves and return it: w8a8 (``"int8"``) on
     ``_BLOCK_LINEARS``; w4a16 (``"int4"``) or w4a8 (``"int4_a8"``) on
@@ -303,7 +304,16 @@ def quantize_dit(model: nn.Module, skip: tuple = (), mode: str = "int8",
     int4 (each must be a target of the mode). An already-quantized leaf is
     left alone, so a second call changes nothing and int8-then-int4 keeps
     the int8 leaves. Each float layer is dropped as its leaf takes its
-    place, so its weight is freed as the walk goes."""
+    place, so its weight is freed as the walk goes.
+
+    A model sharded over ``mesh``'s fsdp axis (``model.fsdp``) is
+    quantized a block at a time: the block's shards gathered, its
+    projections quantized whole, each new leaf split by the placement rule
+    and this rank's slice kept, the rest of the block freed. A per-output
+    scale over a shard of the in-dimension, or a 128-row int4 group cut at
+    a shard's edge, would differ from the whole model's: the leaves are
+    bitwise those of quantizing the whole model and then sharding it, as
+    JAX's order is."""
     if mode not in MODES:
         raise ValueError(f"unknown quantization mode {mode!r}")
     targets = _BLOCK_LINEARS if mode == "int8" else _BLOCK_LINEARS_INT4
@@ -315,15 +325,24 @@ def quantize_dit(model: nn.Module, skip: tuple = (), mode: str = "int8",
         qfn = quantize_linear_params
     else:
         qfn = functools.partial(quantize_linear_params_int4, act8=mode == "int4_a8")
+    gather = None
+    if getattr(model, "fsdp", None) is not None:
+        from chronoedit_tpu_torch.parallel import sharding
+
+        gather = sharding.fsdp_gather(model, mesh, 0)
     with torch.no_grad():
-        for blk in model.blocks:
-            for mod, name in targets:
-                parent = getattr(blk, mod, None)
-                lin = getattr(parent, name, None) if parent is not None else None
-                if lin is None or (mod, name) in skip or is_quantized(lin):
-                    continue
-                fn = quantize_linear_params if (mod, name) in upgrade else qfn
-                setattr(parent, name, fn(lin))
+        for j, blk in enumerate(model.blocks):
+            old = sharding.leaves(blk) if gather is not None else None
+            with gather(blk) if gather is not None else contextlib.nullcontext():
+                for mod, name in targets:
+                    parent = getattr(blk, mod, None)
+                    lin = getattr(parent, name, None) if parent is not None else None
+                    if lin is None or (mod, name) in skip or is_quantized(lin):
+                        continue
+                    fn = quantize_linear_params if (mod, name) in upgrade else qfn
+                    setattr(parent, name, fn(lin))
+            if gather is not None:
+                sharding.shard_new_leaves(model, blk, f"blocks.{j}", old)
     return model
 
 

@@ -1,9 +1,10 @@
 """Parallelism over ``torch.distributed``: the process world, the mesh of
-``pipe``, ``data`` and ``context`` axes, context-parallel (ring and
-Ulysses) attention and its collectives, GPipe pipeline stages
-(``gpipe_scan``), and cross-rank replica checks. Parameter sharding (FSDP,
-tensor parallelism) and ``host_local_to_global`` are items 1.1 and 1.3 of
-the roadmap's queue 1."""
+``pipe``, ``data``, ``fsdp`` and ``context`` axes, FSDP sharding of the
+DiT's parameters (``dit_param_sharding``, ``shard_params``),
+context-parallel (ring and Ulysses) attention and its collectives, GPipe
+pipeline stages (``gpipe_scan``), and cross-rank replica checks. Tensor
+parallelism and ``host_local_to_global`` are items 1.1 (its second half)
+and 1.3 of the roadmap's queue 1."""
 
 from chronoedit_tpu_torch.parallel.context import (
     gather_sequence,
@@ -21,6 +22,11 @@ from chronoedit_tpu_torch.parallel.distributed import (
 )
 from chronoedit_tpu_torch.parallel.mesh import MeshConfig, make_mesh
 from chronoedit_tpu_torch.parallel.pipeline_parallel import gpipe_scan, stage_range
+from chronoedit_tpu_torch.parallel.sharding import (
+    dit_param_sharding,
+    param_spec_tree,
+    shard_params,
+)
 
 __all__ = [
     "collate_metrics",
@@ -31,6 +37,9 @@ __all__ = [
     "process_index",
     "MeshConfig",
     "make_mesh",
+    "dit_param_sharding",
+    "shard_params",
+    "param_spec_tree",
     "ring_attention",
     "ulysses_attention",
     "split_sequence",

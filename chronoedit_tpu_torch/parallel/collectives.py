@@ -1,6 +1,7 @@
-"""The collectives of context parallelism, over a ``torch.distributed``
-process group: the counterparts of JAX's ``ppermute``, tiled
-``all_to_all``, ``all_gather`` and ``psum`` on a mesh axis.
+"""The collectives of context parallelism and FSDP, over a
+``torch.distributed`` process group: the counterparts of JAX's
+``ppermute``, tiled ``all_to_all``, ``all_gather``, ``psum_scatter`` and
+``psum`` on a mesh axis.
 
 - :func:`ring_shift_start` / :class:`RingShift`: every rank sends its
   tensors to the next rank of the group and receives the previous rank's
@@ -12,8 +13,12 @@ process group: the counterparts of JAX's ``ppermute``, tiled
   as an autograd Function whose backward is the transposed all-to-all;
 - :func:`all_gather`: concatenate every rank's tensor along a dimension,
   in rank order; :func:`gather_sequence_autograd` backs it with the local
-  slice of the gradient;
-- :func:`all_reduce`: the sum over the group;
+  slice of the gradient, :func:`gather_shard_autograd` (FSDP's gather of
+  a parameter shard) with that slice or with :func:`reduce_scatter`;
+- :func:`reduce_scatter`: the sum over the group, each rank keeping its
+  block of one dimension;
+- :func:`all_reduce`: the sum over the group; :func:`sum_grad_autograd`
+  is the identity whose backward sums the gradient over the group;
 - :func:`broadcast`: one rank's tensor on every rank of the group (the
   pipeline's final replication, ``parallel/pipeline_parallel.py``).
 
@@ -174,23 +179,69 @@ def all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     return torch.cat(out.unflatten(0, (n, -1)).unbind(0), dim=dim)
 
 
-class _GatherSequence(torch.autograd.Function):
+class _Gather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group, dim: int):
-        ctx.args = dist.get_rank(group), x.shape[dim], dim
+    def forward(ctx, x, group, dim: int, summed: bool):
+        ctx.args = group, dist.get_rank(group), x.shape[dim], dim, summed
         return all_gather(x, group, dim)
 
     @staticmethod
     def backward(ctx, g):
-        i, n, dim = ctx.args
-        return g.narrow(dim, i * n, n), None, None
+        group, i, n, dim, summed = ctx.args
+        if summed:
+            return reduce_scatter(g, group, dim), None, None, None
+        return g.narrow(dim, i * n, n), None, None, None
 
 
 def gather_sequence_autograd(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     """:func:`all_gather`, differentiable for a loss that every rank
     computes alike on the gathered tensor: the gradient of this rank's
     block is its slice of the gradient."""
-    return _GatherSequence.apply(x, group, dim)
+    return _Gather.apply(x, group, dim, False)
+
+
+def reduce_scatter(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The sum of ``x`` over the group, split into the group's n ranks
+    along ``dim``: this rank's block (JAX's ``psum_scatter(...,
+    tiled=True)``), in a new tensor on ``x``'s device."""
+    n = dist.get_world_size(group)
+    if x.shape[dim] % n:
+        raise ValueError(f"reduce_scatter: dim {dim} of {tuple(x.shape)} is not divisible "
+                         f"by {n} ranks")
+    blocks = x.chunk(n, dim=dim)
+    send = _outgoing(group, [torch.cat(blocks, dim=0)])[0]  # block j for rank j, along dim 0
+    out = _empty(send, blocks[0].shape)
+    dist.reduce_scatter_tensor(out, send, group=group)
+    return out.to(x.device, non_blocking=True)
+
+
+def gather_shard_autograd(x: torch.Tensor, group, dim: int, summed: bool) -> torch.Tensor:
+    """:func:`all_gather` of a parameter shard, differentiable. Its
+    backward depends on what the ranks computed from the gathered tensor:
+    with ``summed`` each rank ran its own part of the batch, so its
+    gradient is a partial one and this rank's shard gets the sum over the
+    group of its block (:func:`reduce_scatter`); without, every rank ran
+    the same computation and holds the same whole gradient, so the shard
+    gets its block of it (a sum would count it n times)."""
+    return _Gather.apply(x, group, dim, summed)
+
+
+class _SumGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous(), ctx.group), None
+
+
+def sum_grad_autograd(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` itself, with a backward that sums the gradient over the
+    group: a replicated parameter read by ranks that each ran their own
+    part of the batch."""
+    return _SumGrad.apply(x, group)
 
 
 def all_reduce(x: torch.Tensor, group) -> torch.Tensor:

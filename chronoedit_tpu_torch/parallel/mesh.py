@@ -11,8 +11,12 @@ the same order on every rank, as ``dist.new_group`` requires:
 - ``data``    data parallelism: the ranks of one ``data`` line hold the
               same model and, in serving, run the same request (inside a
               pipeline each takes its share of the batch);
-- ``fsdp``, ``tensor``  parameter and tensor sharding (item 1.1 of the
-              roadmap's queue 1, formerly item 6b);
+- ``fsdp``    fully sharded data parallelism: each rank of an fsdp line
+              holds its slice of every DiT parameter, gathers a block's
+              just before the block runs, and takes its share of the
+              batch when the degree divides it (``parallel/sharding.py``);
+- ``tensor``  tensor parallelism, not ported yet (item 1.1's second half
+              in the roadmap's queue 1, formerly item 6b);
 - ``context`` context (sequence) parallelism: ring or Ulysses attention
               over the DiT's token blocks (``parallel/context.py``).
 
@@ -39,9 +43,9 @@ AXIS_TENSOR = "tensor"
 AXIS_CONTEXT = "context"
 # pipe is outermost; the high-traffic axes (tensor, context) stay innermost
 MESH_AXES = (AXIS_PIPE, AXIS_DATA, AXIS_FSDP, AXIS_TENSOR, AXIS_CONTEXT)
-# the axes whose sharding is not ported yet (item 1.1 of the roadmap's
-# queue 1, formerly item 6b)
-LATER_AXES = (AXIS_FSDP, AXIS_TENSOR)
+# the axes whose sharding is not ported yet (item 1.1's tensor half in the
+# roadmap's queue 1, formerly item 6b)
+LATER_AXES = (AXIS_TENSOR,)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -163,11 +167,12 @@ def make_mesh(config: MeshConfig | None = None, device: torch.device | None = No
     ``cuda_device()``, which raises without a card: a CPU mesh is asked
     for by passing ``torch.device("cpu")``).
 
-    Raises ValueError when the degrees do not fill the world, and
-    NotImplementedError for an ``fsdp`` or ``tensor`` axis above 1: their
-    sharding is item 1.1 of the roadmap's queue 1 (formerly item 6b). Every
-    rank must call this with the same config, in the same order as its
-    other group creations.
+    Raises ValueError when the degrees do not fill the world or when both
+    ``pipe`` and ``fsdp`` are above 1, and NotImplementedError for a
+    ``tensor`` axis above 1: tensor parallelism is the second half of item
+    1.1 of the roadmap's queue 1 (formerly item 6b). Every rank must call
+    this with the same config, in the same order as its other group
+    creations.
     """
     config = config or MeshConfig()
     world = dist.get_world_size() if dist.is_initialized() else 1
@@ -176,9 +181,14 @@ def make_mesh(config: MeshConfig | None = None, device: torch.device | None = No
     later = {a: n for a, n in zip(MESH_AXES, shape) if a in LATER_AXES and n > 1}
     if later:
         raise NotImplementedError(
-            f"mesh axes {later}: FSDP and tensor parallelism are not ported yet (item "
-            f"1.1 of the roadmap's queue 1, formerly item 6b); the port shards over "
-            f"pipe, data and context")
+            f"mesh axes {later}: tensor parallelism is not ported yet (the second half of "
+            f"item 1.1 of the roadmap's queue 1, formerly item 6b); the port shards over "
+            f"pipe, data, fsdp and context")
+    if config.pipe > 1 and config.fsdp > 1:
+        raise ValueError(
+            f"mesh pipe={config.pipe} x fsdp={config.fsdp}: a pipeline over FSDP shards is not "
+            f"ported; JAX's gpipe_scan gathers each stage's parameters whole over fsdp at its "
+            f"entry (chronoedit_tpu/parallel/pipeline_parallel.py, its in_specs)")
     if device is None:
         device = cuda_device()
     groups = {}

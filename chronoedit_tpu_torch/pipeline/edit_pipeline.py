@@ -30,7 +30,9 @@ the video after it.
 
 With a ``mesh`` (``parallel/mesh.py``) every rank runs the whole pipeline
 on the same inputs: the DiT splits its tokens over the context axis (ring
-or Ulysses attention, ``dit_forward``), or runs its blocks as a pipeline
+or Ulysses attention, ``dit_forward``), holds a slice of its parameters
+over the fsdp axis (gathering each block's as it runs, and splitting the
+batch when the fsdp degree divides it), or runs its blocks as a pipeline
 over the pipe axis (each rank holding its stage's blocks, with the context
 axis inside the stages and the data axis on the batch), and gives every
 rank the whole velocity, so the latents, UniPC, the VAE and the encoders
@@ -147,11 +149,13 @@ class ChronoEditPipeline:
         card) or "int4_a8" (w4a8); ``skip`` keeps (module, name)
         projections in float, ``upgrade`` makes them w8a8 inside an int4
         model (``INT4_MIXED2_UPGRADE`` is the recipe over the 35 dB bar).
-        Attention, the embedders, the head and the VAE keep their dtype.
+        Attention, the embedders, the head and the VAE keep their dtype. A
+        DiT sharded over the mesh's fsdp axis is quantized a gathered block
+        at a time and stays sharded (JAX re-shards after quantizing).
         Returns self."""
         from chronoedit_tpu_torch.ops.quant import quantize_dit
 
-        quantize_dit(self.dit, skip=skip, mode=mode, upgrade=upgrade)
+        quantize_dit(self.dit, skip=skip, mode=mode, upgrade=upgrade, mesh=self.mesh)
         return self
 
     def encode_prompt(self, prompt: str | torch.Tensor,

@@ -8,7 +8,8 @@ reference's files: diffusers DiT shards (``transformer/*.safetensors``, or
 (open-clip ViT-H; its visual tower) and LoRA files. Every tensor is read
 from its file and copied into its parameter on the target device
 (``models/weights.py``). Under a pipe mesh each rank reads only its
-stage's blocks of the DiT shards and of the LoRA files.
+stage's blocks of the DiT shards and of the LoRA files; under an fsdp
+mesh only its slice of each DiT tensor.
 """
 
 from __future__ import annotations
@@ -74,10 +75,14 @@ def load_pipeline(
     rank reads from the shards only its stage's ``blocks.{i}.*`` tensors
     (``pipeline_parallel.stage_range``) and the non-block ones, about 1 / n
     of the blocks' bytes, and merges each LoRA into those blocks only; the
-    VAE and the encoders load whole on every rank. Over ``context`` and
-    ``data`` the weights are replicated; JAX's sharding of the DiT's
-    parameters over ``fsdp`` / ``tensor`` is item 1.1 of the roadmap's
-    queue 1.
+    VAE and the encoders load whole on every rank. Under an fsdp axis
+    above 1 the DiT is sharded as JAX's ``dit_param_sharding`` places it:
+    a rank builds it at its shard shapes and reads from the shards only
+    its slice of each tensor (``load_bytes["dit"]`` counts exactly those
+    bytes), and each LoRA's whole delta is added to its slice
+    (``models/lora.merge_lora``). Over ``context`` and ``data`` the weights
+    are replicated; tensor parallelism is the second half of item 1.1 of
+    the roadmap's queue 1.
     """
     from chronoedit_tpu_torch.models.clip import CLIPImageEncoder, convert_clip_vision_checkpoint
     from chronoedit_tpu_torch.models.umt5 import UMT5TextEncoder, convert_umt5_checkpoint
@@ -96,7 +101,7 @@ def load_pipeline(
         raise FileNotFoundError(f"no DiT safetensors under {checkpoint_dir}")
     t0 = time.perf_counter()
     with w.load_safetensors(shards) as sd:
-        dit = w.convert_diffusers_dit(sd, config.dit, device, layers)
+        dit = w.convert_diffusers_dit(sd, config.dit, device, layers, mesh=mesh)
         nbytes["dit"] = sd.bytes_read
     seconds["dit"] = _seconds(device, t0)
 

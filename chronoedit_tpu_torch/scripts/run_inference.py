@@ -25,10 +25,20 @@ Examples:
   torchrun --nproc-per-node 2 -m chronoedit_tpu_torch.scripts.run_inference \
       --mesh pipe=2 --smoke --device cpu
 
+  # FSDP: each of 2 ranks holds half of every DiT parameter, composed with
+  # context parallelism over 4
+  torchrun --nproc-per-node 4 -m chronoedit_tpu_torch.scripts.run_inference \
+      --mesh fsdp=2,context=2 --checkpoint-dir ./checkpoints/ChronoEdit-14B ...
+  # the same over 2 CPU processes (gloo)
+  torchrun --nproc-per-node 2 -m chronoedit_tpu_torch.scripts.run_inference \
+      --mesh fsdp=2 --smoke --device cpu
+
 Under a mesh every rank runs the same edit: the DiT splits its tokens over
-the ``context`` ranks and its blocks over the ``pipe`` stages (each rank
-loads only its stage's blocks; the VAE and the encoders whole), and only
-rank 0 writes the output.
+the ``context`` ranks, its parameters over the ``fsdp`` ranks (each rank
+reads only its slice of each tensor; ``--smoke`` shards the seeded model)
+and its blocks over the ``pipe`` stages (each rank loads only its stage's
+blocks); the VAE and the encoders load whole, and only rank 0 writes the
+output.
 
 Text prompts (``--prompt``) need the UMT5 tokenizer's vocabulary, which is a
 download; ``--prompt-ids`` takes the token ids as a ``.npy`` instead.
@@ -55,12 +65,13 @@ def add_pipeline_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--lora", type=str, action="append", default=[],
                    help="LoRA safetensors path[:scale], repeatable")
     p.add_argument("--mesh", type=str, default=None,
-                   help="parallelism over the torchrun world, e.g. data=2,context=4 "
-                        "or pipe=2,context=2 (data: ranks that run the same edit, or "
-                        "split its batch inside a pipeline; context: ranks that split "
-                        "the DiT's tokens; pipe: stages that each hold and run a "
-                        "share of the DiT's blocks; fsdp and tensor are not ported "
-                        "yet and raise)")
+                   help="parallelism over the torchrun world, e.g. data=2,context=4, "
+                        "fsdp=2,context=2 or pipe=2,context=2 (data: ranks that run the "
+                        "same edit, or split its batch inside a pipeline; fsdp: ranks "
+                        "that each hold a slice of every DiT parameter; context: ranks "
+                        "that split the DiT's tokens; pipe: stages that each hold and run "
+                        "a share of the DiT's blocks; tensor is not ported yet and "
+                        "raises)")
     p.add_argument("--quantize", nargs="?", const="int8", default=None,
                    choices=("int8", "int4", "int4_a8"),
                    help="quantize the DiT's projections: 'int8' (w8a8; the bare "
@@ -117,9 +128,9 @@ def build_pipeline(args):
         config = parse_mesh(args.mesh)
         later = {a: getattr(config, a) for a in LATER_AXES if getattr(config, a) > 1}
         if later:
-            raise SystemExit(f"--mesh {args.mesh}: {later} are not ported yet (item 1.1 "
-                             f"of the roadmap's queue 1); the port shards over pipe, data "
-                             f"and context")
+            raise SystemExit(f"--mesh {args.mesh}: {later} is not ported yet (the second "
+                             f"half of item 1.1 of the roadmap's queue 1); the port shards "
+                             f"over pipe, data, fsdp and context")
         init_distributed(device=device)
         mesh = make_mesh(config, device=device)
         if mesh.rank == 0:
@@ -139,12 +150,16 @@ def build_pipeline(args):
         if loras:
             raise SystemExit("--lora needs --checkpoint-dir")
         from chronoedit_tpu_torch.parallel.pipeline_parallel import stage_range
+        from chronoedit_tpu_torch.parallel.sharding import shard_params
 
         g = torch.Generator(device=device).manual_seed(0)
         dit = dit_lib.init_dit_params(cfg.dit, g, device)
         vae = vae_lib.init_vae_params(cfg.vae, g, device)
-        # a pipeline stage keeps its own blocks of the seeded model
+        # a pipeline stage keeps its own blocks of the seeded model, an FSDP
+        # rank its slice of each parameter
         dit.keep_layers(stage_range(cfg.dit.num_layers, mesh))
+        if mesh is not None:
+            shard_params(dit, mesh)
         pipe = ChronoEditPipeline(cfg, dit, vae, mesh=mesh)
     if args.cache_blocks:
         parts = [int(x) for x in args.cache_blocks.split(":")]
