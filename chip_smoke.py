@@ -8,8 +8,8 @@ fine-tuning of the full-width DiT at the edit's geometry (remat "full" and
 int8-score attention, and the mixed2 recipe), the training CLI from the
 checkpoint directory's files to an exported LoRA that serves an edit, the
 full-parameter Trainer with checkpoints, resume and ``convert_weights``,
-context and pipeline parallelism and FSDP over processes on the one card,
-and the two attention experiments (the grouped flash forward X1 and
+context, pipeline and tensor parallelism and FSDP over processes on the
+one card, and the two attention experiments (the grouped flash forward X1 and
 backward X2).
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
@@ -55,7 +55,11 @@ non-zero and no result line is printed:
    forward's 28,800 rows and K4 at the text and CLIP keys' 512 and 257
    rows (``NORM_ROWS``; each also bitwise against 20 more calls), K1
    (against KV 7,200, 512 and 257, the twin in q chunks) and K2-K4 at the
-   edit's stream also at the serving phase's B = 2 and 4 (``BATCHES``), and
+   edit's stream also at the serving phase's B = 2 and 4 (``BATCHES``), K4's
+   two tensor-parallel passes (``rms_sumsq``, ``rms_norm_ss``) at a tensor
+   rank's 2,560 and 1,280 columns over 7,200, 512 and 257 rows
+   (``compare_norms_tp``: each against its twin, 20 more calls bitwise, and
+   both over every column block against K4 on the whole row), and
    the flash kernel at the reasoning self-attention's 28,800 tokens as K5 and X1 (against the
    q-chunked twin, computed once); K8 (the int4 matmul) at the
    five projection shapes of a 720p forward and the three at the reasoning
@@ -170,11 +174,26 @@ non-zero and no result line is printed:
    40-block 720p forward bitwise one process's (the bytes staged held to
    the shards'; the one-process forward and slices from the model loaded
    for mixed2), then ``cp_model``'s weights at FSDP_BLOCKS blocks
-   sharded: the 8-step edit, batched CFG (a row a rank, FSDP_SHORT_STEPS
-   steps) and the w4a16 edit quantized under fsdp, each against one
+   sharded: the edit, batched CFG (a row a rank) and the w4a16 edit
+   quantized under fsdp, each at FSDP_SHORT_STEPS steps against one
    process, and the backward with the batch split, at K6/K7's bounds; then
    a world of fsdp 2 x context 2 serving the FSDP_SHORT_STEPS-step edit in
-   both modes; runs the training CLI
+   both modes; then tensor parallelism (``tensor_path``): a world of
+   tensor = 2 processes, each rank loading its columns / rows of every
+   block projection of the directory's DiT with the LoRA fused (bytes held
+   to the headers, each leaf's checksum to the one-process model's slice),
+   one 40-block 720p forward against one process at TP_MIN_DB (the bytes
+   staged held to the row reduces' and K4's statistics'), then
+   ``tp_model``'s weights at TP_BLOCKS blocks split: the 8-step edit, a
+   2-block forward sound and under three planted faults (K4 on local
+   statistics, the row bias on every rank, JAX's packed-axis int4 slice),
+   the w4a16 edit quantized under tensor (its leaves bitwise the whole
+   quantized model's split) and the backward; then a world of 4: the 8-step
+   edit and the w4a16 edit at tensor 4 (fc2 padded to 28 int4 groups),
+   batched CFG over tensor 2 x data 2, the edit over tensor 2 x context 2
+   in both modes and a forward over tensor 2 x fsdp 2, each against one
+   process at TP_MIN_DB; every rank's launches held exactly, K4's two
+   tensor passes among them; runs the training CLI
    (``scripts/train.main``: rank-32 LoRA, remat "full", ``--grad-accum 2
    --max-iter 4``) from the directory's DiT shards on two 720p PNG pairs
    with UMT5-XXL embeddings written for it, and serves an edit with the
@@ -196,8 +215,8 @@ non-zero and no result line is printed:
    tiled-against-untiled streaming decode of an 8-frame latent trajectory
    (fp32) and an unchanged-base checksum follow;
 7. print the command's seconds, the kernel table as one JSON line (its
-   launches include the context, pipeline and FSDP phases' workers', not
-   the planted faults'), the card line again, and last
+   launches include the context, pipeline, FSDP and tensor phases'
+   workers', not the planted faults'), the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds one warm ``torch.profiler`` pass over each stage (DiT
@@ -212,6 +231,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import dataclasses
 import functools
 from collections import Counter
@@ -393,6 +413,8 @@ X1_GROUPS = (2, 3, 4)
 X2_VARIANTS = ((2, 1), (1, 2), (2, 2), (4, 1), (4, 4), (2, 4))
 # the grouped kernels' launch names: none of the main paths launches them
 GROUPED = ("flash_fwd_grouped", "flash_bwd_dq_grouped", "flash_bwd_dkv_grouped")
+# K4's two tensor-parallel passes: launched only under a tensor axis
+TP_NORMS = ("rms_sumsq", "rms_norm_ss")
 
 
 def card_line() -> str:
@@ -510,6 +532,7 @@ def compare_kernels(dev: torch.device) -> dict[str, dict]:
         torch.cuda.empty_cache()
 
     results.update(compare_norms(randn))
+    results.update(compare_norms_tp(randn))
     dim = h * d
 
     # K5: the same kernel over the reasoning self-attention's 28,800 tokens,
@@ -623,6 +646,83 @@ def compare_norms(randn) -> dict[str, dict]:
                       f"{library_ms:.4f} ms"))
             accumulate(results, name, row, f"rows={rows}" if b == 1 else f"B={b} rows={rows}")
             del x
+    return results
+
+
+# K4's tensor-parallel form (``rms_norm_tensor``): a tensor rank's local
+# width of the 5,120-wide q and k at tensor = 2 and 4, over the rows of the
+# self-attention (7,200) and the text and CLIP keys (512, 257)
+TP_NORM_DIMS = (2560, 1280)
+TP_NORM_ROWS = (EDIT_TOKENS, TEXT_TOKENS, IMAGE_TOKENS)
+# pass (a)'s fp32 sums of squares against the twin's, relative to the
+# largest: the two sum the same products in other orders
+SUMSQ_REL = 1e-5
+
+
+def compare_norms_tp(randn) -> dict[str, dict]:
+    """K4's two tensor-parallel passes at each local width of
+    ``TP_NORM_DIMS`` and rows of ``TP_NORM_ROWS``, a rank's block of a
+    5,120-wide row: pass (a) (``rms_sumsq``) against its twin within
+    ``SUMSQ_REL`` and bitwise over ``NORM_REPEATS`` more calls; pass (b)
+    (``rms_norm_ss``, given the whole row's sums) against its twin as
+    ``check_norm`` holds K4; and the two passes over every block of the
+    row, the sums added in fp32 as the all-reduce adds them, against K4 on
+    the whole row within one bf16 step. Device times of both passes and
+    their twins; no PyTorch call computes either pass."""
+    from chronoedit_tpu_torch.ops import fused_norms as fn
+
+    results = {}
+    full = 40 * 128
+    for d in TP_NORM_DIMS:
+        tp = full // d
+        for rows in TP_NORM_ROWS:
+            x = randn(1, rows, full) * 2.0 + 0.5
+            w = (1.0 + 0.1 * randn(full)).contiguous()
+            blocks = [x[..., i * d:(i + 1) * d].contiguous() for i in range(tp)]
+            local, w_local = blocks[0], w[:d]
+            with torch.no_grad():
+                got, ref = fn._rms_sumsq_kernel(local), fn.rms_sumsq_plain(local)
+                err = max_err(got, ref)
+                same = sum(torch.equal(got, fn._rms_sumsq_kernel(local))
+                           for _ in range(NORM_REPEATS))
+                print(f"rms_sumsq x {tuple(local.shape)}: max|ss-ref| {err:.3e} (tol "
+                      f"{SUMSQ_REL * float(ref.abs().max()):.3e}); {same} of {NORM_REPEATS} more "
+                      f"calls bitwise the first")
+                if not err <= SUMSQ_REL * float(ref.abs().max()) or same != NORM_REPEATS:
+                    raise AssertionError(f"rms_sumsq at D={d}, {rows} rows disagrees with its "
+                                         f"twin or with itself")
+                ss = sum(fn._rms_sumsq_kernel(b) for b in blocks)
+                kernel = functools.partial(fn._rms_norm_ss_kernel, w_local, local, ss, full,
+                                           1e-6)
+                plain = functools.partial(fn.rms_norm_ss_plain, w_local, local, ss, full, 1e-6)
+                err_b = check_norm(f"rms_norm_ss x {tuple(local.shape)} of D={full}", kernel,
+                                   plain)
+                chained = torch.cat([fn._rms_norm_ss_kernel(w[i * d:(i + 1) * d], b, ss, full,
+                                                            1e-6)
+                                     for i, b in enumerate(blocks)], dim=-1)
+                whole = fn._rms_norm_kernel(w, x, 1e-6)
+                err_w, tol_w = max_err(chained, whole), ULP_BF16 * float(whole.float().abs().max())
+                print(f"   both passes over the {tp} blocks against K4 on the whole row: "
+                      f"{err_w:.3e} (tol {tol_w:.3e})")
+                if not err_w <= tol_w:
+                    raise AssertionError(f"K4's two passes at D={d}, {rows} rows disagree with "
+                                         f"K4 on the whole row")
+                for name, k_fn, p_fn, nbytes in (
+                        ("rms_sumsq", lambda: fn._rms_sumsq_kernel(local),
+                         lambda: fn.rms_sumsq_plain(local), local.numel() * 2 + rows * 4),
+                        ("rms_norm_ss", kernel, plain,
+                         2 * local.numel() * 2 + d * 2 + rows * 4)):
+                    ms, call, plain_ms = cuda_ms(k_fn), call_ms(k_fn), cuda_ms(p_fn)
+                    row = {"max_abs_err": err if name == "rms_sumsq" else err_b, "ms": ms,
+                           "call_ms": call, "plain_ms": plain_ms,
+                           **bound((2 if name == "rms_sumsq" else 10) * local.numel(), nbytes),
+                           "library_ms": None}
+                    print(f"   {name} {ms:.4f} ms on the device ({call:.4f} ms a call), plain "
+                          f"{plain_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
+                          f"({row['bound_by']}): {row['bound_ms'] / ms:.1%} of the bound; no "
+                          f"single PyTorch call computes it")
+                    accumulate(results, name, row, f"D={d} rows={rows}")
+            del x, blocks
     return results
 
 
@@ -1526,7 +1626,7 @@ def expected_launches(cfg, tokens: list[int], int4: bool = False, qk8: bool = Fa
                "gated_residual": 2 * n_blocks, "rms_norm": 5 * n_blocks,
                "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
                "int4_matmul": sum(rows.values()), "flash_fwd_qk8": sum(qk8_kv.values()),
-               **dict.fromkeys(GROUPED, 0)}
+               **dict.fromkeys(GROUPED + TP_NORMS, 0)}
     return by_name, {"flash_fwd": by_kv, "flash_bwd_dq": {}, "flash_bwd_dkv": {},
                      "int4_matmul": rows, "flash_fwd_qk8": qk8_kv,
                      **{name: {} for name in GROUPED}}
@@ -1900,7 +2000,9 @@ def reasoning_path(pipe, dev, launches: tuple[Counter, Counter],
         print(f"dual decode ({label}) of {z.shape[2]} latent frames to "
               f"{tuple(video.shape)}: {secs:.3f} s")
     del video
-    tiled_decode_check(pipe.vae, x)
+    # the tiling check on the trajectory's first 4 latent frames (13 video
+    # frames): all 8 took 11 s more of the command's time limit
+    tiled_decode_check(pipe.vae, x[:, :, :4].contiguous())
     if profile_dir is not None:
         profile_stages(fns, profile_dir)
     return outs
@@ -2333,7 +2435,7 @@ def expected_train_launches(cfg, remat: str = "full", lora: bool = True, int4: b
                "gated_residual": 2 * n * fwd, "rms_norm": (len(kvs) + 2) * n * fwd,
                "flash_bwd_dq": len(kvs) * n * steps, "flash_bwd_dkv": len(dkv) * n * steps,
                "int4_matmul": sum(rows.values()), "flash_fwd_qk8": 0,
-               **dict.fromkeys(GROUPED, 0)}
+               **dict.fromkeys(GROUPED + TP_NORMS, 0)}
     by_kv = {"flash_fwd": {kv: n * fwd for kv in kvs},
              "flash_bwd_dq": {kv: n * steps for kv in kvs},
              "flash_bwd_dkv": {kv: n * steps for kv in dkv},
@@ -3463,6 +3565,10 @@ PP_DEVICE = "cuda:0"  # every rank's device: the one card
 # negative prompt seed 32), whose one-process outputs are the references
 PP_EDIT_SEED = 10
 PP_CFG_SEED, PP_NEG_SEED = 30, 32
+# the steps of the pipe = 4 world's edit and the pipe = 2 world's guided
+# edit (8 steps took 15-20 s more of the command's time limit); the pipe =
+# 2 world's edit keeps 8, against the edit path's
+PP_SHORT_STEPS = 2
 # the card's free GiB each world needs: its ranks' peaks and CUDA contexts
 PP_CARD_GIB = {2: 50.0, 4: 67.0}
 
@@ -3542,14 +3648,40 @@ def _pp_backward(rank: int, dev, mesh) -> dict:
     return res
 
 
+def pp_request(cfg, dev, kind: str) -> dict:
+    """The keyword arguments of the pipeline worlds' edit (``"edit"``: the
+    edit path's request PP_EDIT_SEED) or guided edit (``"cfg"``: request
+    PP_CFG_SEED with its negative prompt, guidance 5), generator
+    included."""
+    seed = PP_EDIT_SEED if kind == "edit" else PP_CFG_SEED
+    kw = dict(request(cfg, dev, seed, EDIT_H, EDIT_W, TEXT_TOKENS),
+              generator=torch.Generator(device=dev).manual_seed(100 + seed))
+    if kind == "cfg":
+        kw.update(neg_prompt_emb=torch.randn(
+            (1, TEXT_TOKENS, cfg.dit.text_dim), device=dev,
+            generator=torch.Generator(device=dev).manual_seed(PP_NEG_SEED)), guidance_scale=5.0)
+    return kw
+
+
+def pipeline_whole_refs(pipe, dev) -> dict:
+    """The one-process edit and guided edit at PP_SHORT_STEPS steps from
+    ``pipe`` (the model loaded whole from ``CHECKPOINT_DIR`` with its LoRA,
+    as the stages load theirs): what the pipe = 4 world's edit and the pipe
+    = 2 world's guided edit are held to (fp32, on the host)."""
+    return {kind: pipe.edit_image(**pp_request(pipe.config, dev, kind),
+                                  num_steps=PP_SHORT_STEPS).float().cpu()
+            for kind in ("edit", "cfg")}
+
+
 def pp_worker(rank: int, p: int, plan: dict) -> dict:
     """One rank of a world of ``p`` processes on the one card over gloo
     (NCCL refuses two ranks on one device), its collectives staged through
     pinned host memory. Under a mesh of pipe = ``p`` it loads its stage of
     the distilled model with the distilled LoRA from the checkpoint
     directory (``load_pipeline(..., mesh=)``: only its stage's blocks are
-    read) and serves the 720p edit and, with ``plan["cfg"]``, the guided
-    edit (B = 2); then frees it and, with ``plan["backward"]``, runs
+    read) and serves the 720p edit (``plan["edit_steps"]`` steps) and, with
+    ``plan["cfg"]``, the guided edit (B = 2, PP_SHORT_STEPS steps); then
+    frees it and, with ``plan["backward"]``, runs
     ``_pp_backward``, and with ``plan["drops"]`` the reasoning drop over
     pipe = 2 x context = 2 on ``cp_model``'s CP_BLOCKS blocks, its other
     stage's blocks dropped, in each context mode. Every run with its launch
@@ -3580,20 +3712,15 @@ def pp_worker(rank: int, p: int, plan: dict) -> dict:
                        "layers": (pipe.dit.layers.start, pipe.dit.layers.stop),
                        "blocks": len(pipe.dit.blocks),
                        "gib": torch.cuda.memory_allocated() / 2 ** 30}
-        req = request(cfg, dev, PP_EDIT_SEED, EDIT_H, EDIT_W, TEXT_TOKENS)
-        gen = torch.Generator(device=dev).manual_seed(100 + PP_EDIT_SEED)
-        res["edit"] = _cp_run("edit", functools.partial(pipe.edit_image, **req, generator=gen),
-                              cp_launches(cfg, [(EDIT_TOKENS, "none", 1)] * steps, per),
-                              rank, rank == 0)
+        edit_steps = plan["edit_steps"]
+        res["edit"] = _cp_run("edit", functools.partial(
+            pipe.edit_image, **pp_request(cfg, dev, "edit"), num_steps=edit_steps),
+            cp_launches(cfg, [(EDIT_TOKENS, "none", 1)] * edit_steps, per), rank, rank == 0)
         if plan.get("cfg"):
-            req = request(cfg, dev, PP_CFG_SEED, EDIT_H, EDIT_W, TEXT_TOKENS)
-            neg = torch.randn((1, TEXT_TOKENS, cfg.dit.text_dim), device=dev,
-                              generator=torch.Generator(device=dev).manual_seed(PP_NEG_SEED))
-            gen = torch.Generator(device=dev).manual_seed(100 + PP_CFG_SEED)
             res["cfg"] = _cp_run("CFG batched", functools.partial(
-                pipe.edit_image, **req, neg_prompt_emb=neg, guidance_scale=5.0, generator=gen),
-                cp_launches(cfg, [(EDIT_TOKENS, "none", 1)] * steps, per, microbatches=2),
-                rank, rank == 0)
+                pipe.edit_image, **pp_request(cfg, dev, "cfg"), num_steps=PP_SHORT_STEPS),
+                cp_launches(cfg, [(EDIT_TOKENS, "none", 1)] * PP_SHORT_STEPS, per,
+                            microbatches=2), rank, rank == 0)
         res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     del pipe
     free()
@@ -3630,10 +3757,12 @@ def pipeline_path(dev, refs: dict, launches: tuple[Counter, Counter]) -> dict:
     processes on ``cuda:0`` over host-staged gloo (correctness and per-rank
     launches, not a scaling figure), each rank reading only its stage's
     block tensors from ``CHECKPOINT_DIR`` (checked, per rank, against the
-    files' headers), against the one-process outputs in ``refs``: the 720p
-    edit (``refs[PP_EDIT_SEED]``) at both sizes, the guided edit
-    (``refs["cfg"]``) at pipe = 2, and the reasoning drop over pipe = 2 x
-    context = 2 in both modes (``refs["drop"]``), at the fidelity bar; the
+    files' headers), against the one-process outputs in ``refs``: the 8-step
+    720p edit (``refs[PP_EDIT_SEED]``) at pipe = 2 and its PP_SHORT_STEPS-step
+    one (``refs["edit short"]``) at pipe = 4, the guided edit at
+    PP_SHORT_STEPS steps (``refs["cfg short"]``) at pipe = 2, and the
+    reasoning drop over pipe = 2 x context = 2 in both modes
+    (``refs["drop"]``), at the fidelity bar; the
     backward at pipe = 2 against one process at K6/K7's bounds. Adds the
     workers' launches to ``launches``. Needs the card free: the
     one-process runs were freed before."""
@@ -3652,7 +3781,8 @@ def pipeline_path(dev, refs: dict, launches: tuple[Counter, Counter]) -> dict:
                           stage_bytes(lsd, cfg.dit.num_layers, p, lora=True)) for p in PP_WORLDS}
     summary = {}
     for p in PP_WORLDS:
-        plan = {"cfg": p == 2, "backward": p == 2, "drops": p == 4, "device": PP_DEVICE}
+        plan = {"cfg": p == 2, "backward": p == 2, "drops": p == 4, "device": PP_DEVICE,
+                "edit_steps": cfg.num_steps if p == 2 else PP_SHORT_STEPS}
         # the ranks' peaks on an H100 80GB HBM3: pipe 2 23.34 GiB, pipe 4 15.79
         wait_for_card(f"pipeline_path pipe = {p}", PP_CARD_GIB[p])
         with compact_workers():
@@ -3678,14 +3808,18 @@ def pipeline_path(dev, refs: dict, launches: tuple[Counter, Counter]) -> dict:
                 raise AssertionError(f"pipe = {p} rank {stage}: loaded {load}, expected blocks "
                                      f"of stage {stage} and {dit_want[stage]} / "
                                      f"{lora_want[stage]} bytes")
-        runs = [("edit", refs[PP_EDIT_SEED], f"720p edit ({cfg.num_steps} steps, "
-                                             f"{cfg.dit.num_layers} blocks)")]
+        steps = plan["edit_steps"]
+        runs = [("edit", refs[PP_EDIT_SEED] if p == 2 else refs["edit short"], steps,
+                 f"720p edit ({steps} steps, {cfg.dit.num_layers} blocks)")]
         if plan["cfg"]:
-            runs.append(("cfg", refs["cfg"], "CFG batched, guidance 5 (B = 2, 2 microbatches)"))
+            runs.append(("cfg", refs["cfg short"], PP_SHORT_STEPS,
+                         f"CFG batched, guidance 5 (B = 2, 2 microbatches, {PP_SHORT_STEPS} "
+                         f"steps)"))
         if plan["drops"]:
-            runs += [(f"drop {mode}", refs["drop"], f"reasoning drop (k = 2, {CP_BLOCKS} blocks) "
-                      f"over pipe 2 x context 2, {mode}") for mode in ("ring", "ulysses")]
-        for key, want, label in runs:
+            runs += [(f"drop {mode}", refs["drop"], cfg.num_steps,
+                      f"reasoning drop (k = 2, {CP_BLOCKS} blocks) over pipe 2 x context 2, "
+                      f"{mode}") for mode in ("ring", "ulysses")]
+        for key, want, steps, label in runs:
             per_rank = [r[key] for r in results]
             first = per_rank[0]
             if any(r["digest"] != first["digest"] for r in per_rank) or not first["finite"]:
@@ -3697,7 +3831,7 @@ def pipeline_path(dev, refs: dict, launches: tuple[Counter, Counter]) -> dict:
                                      f"{tuple(want.shape)}")
             db = psnr(got, want)
             print(f"   {label}: rank 0 {first['secs']:.3f} s, "
-                  f"{first['staged'] / cfg.num_steps / 1e9:.4f} GB staged a forward and rank, every "
+                  f"{first['staged'] / steps / 1e9:.4f} GB staged a forward and rank, every "
                   f"rank bitwise alike, {'bitwise' if db == math.inf else f'{db:.2f} dB'} "
                   f"against one process; rank 0's launches {first['launches'][0]}, flash by KV "
                   f"{first['launches'][1]['flash_fwd']}")
@@ -3879,21 +4013,27 @@ def trace_pipe_ranks(dev) -> None:
 # over host-staged gloo, as the pipeline phase's. The world of 2 loads the
 # 40-block model with the distilled LoRA from the directory, each rank its
 # slice of every tensor (at 14B every leaf splits), and runs one 720p
-# forward; then ``cp_model``'s weights cut to FSDP_BLOCKS blocks, sharded
-# with ``shard_params``, serve the 8-step edit, batched CFG and the w4a16
-# edit, and run the backward. Every forward stages each rank's shards
-# through the host, 16.4 GB at 40 blocks: the first card run of this phase
-# moved them at 0.40 GB/s a rank (41.1 s a forward; H100 80GB HBM3,
-# 700.00 W), so an 8-step path at 40 blocks would take about 5.5 minutes
-# and at CP_BLOCKS about 37 s; at FSDP_BLOCKS = 2 a forward stages 1.05 GB
-# a rank. The world of 4 runs the edit over fsdp 2 x context 2 in both
-# context modes. Batched CFG and the context edits take FSDP_SHORT_STEPS
-# steps: each step stages the shards again, and the checks read the same
-# forward at every step.
+# forward of its first FSDP_FORWARD_BLOCKS blocks; then ``cp_model``'s
+# weights cut to FSDP_BLOCKS blocks, sharded with ``shard_params``, serve
+# the edit, batched CFG and the w4a16 edit, and run the backward. Every
+# forward stages each rank's shards through the host, 16.4 GB at 40 blocks:
+# the first card run of this phase moved them at 0.40 GB/s a rank (41.1 s a
+# forward; H100 80GB HBM3, 700.00 W), so an 8-step path at 40 blocks would
+# take about 5.5 minutes and at CP_BLOCKS about 37 s; at FSDP_BLOCKS = 2 a
+# forward stages 1.05 GB a rank. The world of 4 runs the edit over fsdp 2 x
+# context 2 in both context modes. Every edit takes FSDP_SHORT_STEPS steps
+# (8 steps of the world of 2's edit and w4a16 edit took 20-30 s more of the
+# command's time limit): each step stages the shards again, and the checks
+# read the same forward at every step.
 FSDP_WORLDS = (2, 4)
 FSDP_TIMEOUT = 900.0
 FSDP_DEVICE = "cuda:0"  # every rank's device: the one card
 FSDP_FORWARD_SEED = 50
+# the blocks the fsdp world's forward of the 40-block model runs (a layer
+# mask skips the rest, which no rank then gathers): all 40 took 20-25 s more
+# of the command's time limit
+FSDP_FORWARD_BLOCKS = 20
+TP_FORWARD_SEED = 51
 FSDP_BLOCKS = 2
 FSDP_SHORT_STEPS = 2
 # the card's free GiB each world needs: its ranks' peaks (the first card
@@ -3917,20 +4057,33 @@ def tensor_checksum(t: torch.Tensor) -> int:
     return total
 
 
-def fsdp_bytes(files, cfg, shards) -> int:
+def fsdp_bytes(files, cfg, shards, blocks: int | None = None) -> int:
     """The bytes an fsdp rank reads from the DiT's shards (``files``, a
     ``SafetensorsFiles``), from the headers: its block of each split tensor
     (every tensor at 14B, each cut along a whole axis of the file), the
-    whole of the others."""
-    from chronoedit_tpu_torch.models.weights import diffusers_dit_names
+    whole of the others; with ``blocks``, only the first ``blocks`` blocks'
+    (and every non-block tensor): what a forward that runs those gathers."""
+    from chronoedit_tpu_torch.models.weights import block_index, diffusers_dit_names
 
     names = diffusers_dit_names(cfg.dit)
     total = 0
     for key in files:
         name = names.get(key.removeprefix("transformer."))
-        if name is not None:
-            total += files.nbytes(key) // (shards.size if shards.dims[name] is not None else 1)
+        if name is None or (blocks is not None and (block_index(name) or 0) >= blocks):
+            continue
+        total += files.nbytes(key) // (shards.size if shards.dims[name] is not None else 1)
     return total
+
+
+def fsdp_forward_blocks(cfg) -> int:
+    """The blocks the fsdp world's forward of the loaded model runs."""
+    return min(FSDP_FORWARD_BLOCKS, cfg.dit.num_layers)
+
+
+def fsdp_mask(cfg) -> list[float]:
+    """The fsdp world's forward's layer mask: its first
+    ``fsdp_forward_blocks`` blocks run."""
+    return [1.0 if i < fsdp_forward_blocks(cfg) else 0.0 for i in range(cfg.dit.num_layers)]
 
 
 def fsdp_config():
@@ -3990,16 +4143,16 @@ def fsdp_worker(rank: int, p: int, plan: dict) -> dict:
     pinned host memory. At ``p`` = 2, under a mesh of fsdp 2: loads the
     distilled model with the distilled LoRA from the checkpoint directory
     (``load_pipeline(..., mesh=)``: its slice of each tensor; the shards'
-    checksums returned) and runs one 720p DiT forward at 40 blocks; frees
-    it, shards ``cp_model``'s weights at FSDP_BLOCKS blocks
-    (``shard_params``) and serves the 720p edit, the guided edit with
-    batched CFG (B = 2, a row a rank) and, quantized under the mesh, the
-    w4a16 edit; then ``_fsdp_backward``. At ``p`` = 4, under fsdp 2 x
-    context 2: the 720p edit on the same sharded weights in each context
-    mode. Batched CFG and the context edits take FSDP_SHORT_STEPS steps. Every run with its launch counters zeroed just
-    before and held to what the path implies just after (``_cp_run``);
-    rank 0 returns the outputs, every rank the digests, seconds, bytes read
-    and staged and peak memory."""
+    checksums returned) and runs one 720p DiT forward of its first
+    ``fsdp_forward_blocks`` blocks; frees it, shards ``cp_model``'s weights
+    at FSDP_BLOCKS blocks (``shard_params``) and serves the 720p edit, the
+    guided edit with batched CFG (B = 2, a row a rank) and, quantized under
+    the mesh, the w4a16 edit; then ``_fsdp_backward``. At ``p`` = 4, under
+    fsdp 2 x context 2: the 720p edit on the same sharded weights in each
+    context mode. Every edit takes FSDP_SHORT_STEPS steps. Every run with
+    its launch counters zeroed just before and held to what the path
+    implies just after (``_cp_run``); rank 0 returns the outputs, every
+    rank the digests, seconds, bytes read and staged and peak memory."""
     from chronoedit_tpu_torch.configs import chronoedit_14b_distilled
     from chronoedit_tpu_torch.kernels import build
     from chronoedit_tpu_torch.models import dit as dit_lib
@@ -4016,8 +4169,8 @@ def fsdp_worker(rank: int, p: int, plan: dict) -> dict:
     # seed gives the same bits): a rank skips the 13-16 s search
     quant._lloyd_levels = plan["lloyd"].__getitem__
     fcfg = fsdp_config()
-    steps, short = fcfg.num_steps, FSDP_SHORT_STEPS
-    edit_launches = cp_launches(fcfg, [(EDIT_TOKENS, "none", 1)] * steps)
+    short = FSDP_SHORT_STEPS
+    edit_launches = cp_launches(fcfg, [(EDIT_TOKENS, "none", 1)] * short)
     res = {}
 
     def sharded_model(mesh):
@@ -4057,14 +4210,15 @@ def fsdp_worker(rank: int, p: int, plan: dict) -> dict:
                        "sums": {n: tensor_checksum(t) for n, t in pipe.dit.named_parameters()}}
         args = cp_inputs(cfg, dev, EDIT_TOKENS, FSDP_FORWARD_SEED)
         res["forward"] = _cp_run("forward", functools.partial(
-            dit_lib.dit_forward, pipe.dit, *args, mesh=mesh),
-            cp_launches(cfg, [(EDIT_TOKENS, "none", 1)]), rank, rank == 0)
+            dit_lib.dit_forward, pipe.dit, *args, mesh=mesh, layer_mask=fsdp_mask(cfg)),
+            cp_launches(cfg, [(EDIT_TOKENS, "none", 1)], fsdp_forward_blocks(cfg)), rank,
+            rank == 0)
         res["peak_gib_40"] = torch.cuda.max_memory_allocated() / 2 ** 30
         del pipe
         free()
         torch.cuda.reset_peak_memory_stats()
         pipe = sharded_model(mesh)
-        res["edit"] = edit(pipe, "edit", edit_launches)
+        res["edit"] = edit(pipe, "edit", edit_launches, num_steps=short)
         neg = torch.randn((1, TEXT_TOKENS, fcfg.dit.text_dim), device=dev,
                           generator=torch.Generator(device=dev).manual_seed(PP_NEG_SEED))
         res["cfg"] = edit(pipe, "CFG batched", cp_launches(
@@ -4072,7 +4226,7 @@ def fsdp_worker(rank: int, p: int, plan: dict) -> dict:
             neg_prompt_emb=neg, guidance_scale=5.0, num_steps=short)
         _, res["quantize_secs"] = host_s(lambda: pipe.quantize(mode="int4"))
         res["w4a16"] = edit(pipe, "w4a16 edit", expected_launches(
-            fcfg, [EDIT_TOKENS] * steps, int4=True))
+            fcfg, [EDIT_TOKENS] * short, int4=True), num_steps=short)
         res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
         del pipe
         free()
@@ -4085,8 +4239,8 @@ def fsdp_whole_refs(pipe, dev) -> dict:
     """What ``fsdp_path`` holds its world of 2 to, from ``pipe``: the
     distilled model loaded whole from ``CHECKPOINT_DIR`` with its LoRA, as
     each rank loads its shards. Each leaf's fsdp = 2 dimension, the
-    checksums of each rank's slices, and the 720p forward at 40 blocks
-    (fp32, on the host)."""
+    checksums of each rank's slices, and the 720p forward of its first
+    ``fsdp_forward_blocks`` blocks (``fsdp_mask``; fp32, on the host)."""
     from chronoedit_tpu_torch.models import dit as dit_lib
     from chronoedit_tpu_torch.parallel.sharding import Shards, fsdp_dim
 
@@ -4095,7 +4249,8 @@ def fsdp_whole_refs(pipe, dev) -> dict:
     dims = {n: fsdp_dim(n, tuple(t.shape), 2) for n, t in params.items()}
     sums = [{n: tensor_checksum(Shards(2, i, dims).local(t, dims[n]))
              for n, t in params.items()} for i in range(2)]
-    fwd = dit_lib.dit_forward(pipe.dit, *cp_inputs(cfg, dev, EDIT_TOKENS, FSDP_FORWARD_SEED))
+    fwd = dit_lib.dit_forward(pipe.dit, *cp_inputs(cfg, dev, EDIT_TOKENS, FSDP_FORWARD_SEED),
+                              layer_mask=fsdp_mask(cfg))
     return {"dims": dims, "sums": sums, "forward": fwd.float().cpu()}
 
 
@@ -4105,9 +4260,9 @@ def fsdp_path(dev, whole: dict, launches: tuple[Counter, Counter]) -> dict:
     and per-rank launches, not a scaling figure). ``whole`` holds the whole
     model's references (``fsdp_whole_refs``: each rank's slices'
     checksums and the 720p forward at 40 blocks); first, in this process,
-    ``cp_model``'s weights at FSDP_BLOCKS blocks give the rest: the edit,
-    batched CFG and the context edit at FSDP_SHORT_STEPS steps and,
-    quantized to w4a16, the edit again. Each rank's bytes read are held
+    ``cp_model``'s weights at FSDP_BLOCKS blocks give the rest at
+    FSDP_SHORT_STEPS steps: the edit, batched CFG and, quantized to w4a16,
+    the edit again. Each rank's bytes read are held
     to the files' headers, its fused shards to the whole model's slices,
     the forward and the edits to one process (bitwise, CFG at
     FSDP_CFG_MIN_DB, the ring at CP_MIN_DB), the backward to one process at
@@ -4133,12 +4288,12 @@ def fsdp_path(dev, whole: dict, launches: tuple[Counter, Counter]) -> dict:
 
         neg = torch.randn((1, TEXT_TOKENS, fcfg.dit.text_dim), device=dev,
                           generator=torch.Generator(device=dev).manual_seed(PP_NEG_SEED))
-        ref = {"forward": whole["forward"], "edit": edit(40, 140),
+        ref = {"forward": whole["forward"],
                "cfg": edit(PP_CFG_SEED, 130, neg_prompt_emb=neg, guidance_scale=5.0,
                            num_steps=short)}
-        ref["edit ring"] = ref["edit ulysses"] = edit(40, 140, num_steps=short)
+        ref["edit"] = ref["edit ring"] = ref["edit ulysses"] = edit(40, 140, num_steps=short)
         small.quantize(mode="int4")
-        ref["w4a16"] = edit(40, 140)
+        ref["w4a16"] = edit(40, 140, num_steps=short)
         del small
         free()
     print(f"fsdp_path: the one-process references at {FSDP_BLOCKS} blocks in "
@@ -4148,15 +4303,18 @@ def fsdp_path(dev, whole: dict, launches: tuple[Counter, Counter]) -> dict:
             w.load_safetensors(str(CHECKPOINT_DIR / "distill_lora.safetensors")) as lsd:
         total = sum(sd.nbytes(k) for k in sd)
         want_bytes = fsdp_bytes(sd, cfg, Shards(2, 0, dims))
+        want_staged = fsdp_bytes(sd, cfg, Shards(2, 0, dims), fsdp_forward_blocks(cfg))
         lora_bytes = sum(lsd.nbytes(k) for k in lsd)
     # (key, the bound in dB: inf for bitwise)
     bounds = {"forward": math.inf, "edit": math.inf, "cfg": FSDP_CFG_MIN_DB,
               "w4a16": math.inf, "edit ulysses": math.inf, "edit ring": CP_MIN_DB}
-    labels = {"forward": f"720p DiT forward ({cfg.dit.num_layers} blocks)",
-              "edit": f"720p edit ({fcfg.num_steps} steps, {FSDP_BLOCKS} blocks)",
+    labels = {"forward": f"720p DiT forward ({cfg.dit.num_layers} blocks, the first "
+                         f"{fsdp_forward_blocks(cfg)} run)",
+              "edit": f"720p edit ({short} steps, {FSDP_BLOCKS} blocks)",
               "cfg": f"CFG batched, guidance 5 (B = 2, a row a rank; {short} steps, "
                      f"{FSDP_BLOCKS} blocks)",
-              "w4a16": f"w4a16 edit, quantized under fsdp ({FSDP_BLOCKS} blocks)",
+              "w4a16": f"w4a16 edit, quantized under fsdp ({short} steps, {FSDP_BLOCKS} "
+                       f"blocks)",
               "edit ring": f"720p edit over fsdp 2 x context 2, ring ({short} steps, "
                            f"{FSDP_BLOCKS} blocks)",
               "edit ulysses": f"720p edit over fsdp 2 x context 2, Ulysses ({short} steps, "
@@ -4203,8 +4361,7 @@ def fsdp_path(dev, whole: dict, launches: tuple[Counter, Counter]) -> dict:
                 raise AssertionError(f"fsdp {labels[key]}: {tuple(got.shape)} against "
                                      f"{tuple(want.shape)}")
             db = psnr(got, want)
-            forwards = (1 if key == "forward" else
-                        fcfg.num_steps if key in ("edit", "w4a16") else short)
+            forwards = 1 if key == "forward" else short
             print(f"   {labels[key]}: rank 0 {first['secs']:.3f} s (host staging, not a "
                   f"speed), {first['staged'] / forwards / 1e9:.4f} GB staged a forward and rank, "
                   f"every rank bitwise alike, {'bitwise' if db == math.inf else f'{db:.2f} dB'} "
@@ -4217,9 +4374,10 @@ def fsdp_path(dev, whole: dict, launches: tuple[Counter, Counter]) -> dict:
                                      f"bound {bounds[key]} dB")
             # a CPU rehearsal stages nothing: only CUDA tensors go through the host
             if key == "forward" and dev.type == "cuda" and any(
-                    r["staged"] != want_bytes for r in per_rank):
+                    r["staged"] != want_staged for r in per_rank):
                 raise AssertionError(f"fsdp forward: staged {[r['staged'] for r in per_rank]} "
-                                     f"bytes, predicted each rank's shards, {want_bytes}")
+                                     f"bytes, predicted the run blocks' shards and the rest, "
+                                     f"{want_staged}")
             summary[f"fsdp{p} {key}"] = db
             for r in per_rank:
                 launches[0].update(r["launches"][0])
@@ -4245,6 +4403,540 @@ def fsdp_path(dev, whole: dict, launches: tuple[Counter, Counter]) -> dict:
     return summary
 
 
+# ----------------------------------------------------------- tensor parallelism
+
+# Tensor parallelism on the one card: worlds of 2 and 4 processes on the
+# one card over host-staged gloo, each rank holding its columns of the
+# blocks' q / k / v / k_img / v_img / fc1 and its rows of o / fc2 and
+# running its heads. The world of 2 loads the 40-block model with the
+# distilled LoRA from the directory (each rank its slice of every block
+# projection, the rest whole) and runs one 720p forward; then ``tp_model``'s
+# weights at TP_BLOCKS blocks serve the 8-step edit, the three planted
+# faults' 2-block forwards, the w4a16 edit quantized under tensor and the
+# backward. The world of 4 serves the edit and the w4a16 edit at tensor = 4
+# (fc2's 3,456 local rows: 27 groups, padded to 28 for K8), batched CFG over
+# tensor 2 x data 2, the edit over tensor 2 x context 2 in both modes and a
+# forward over tensor 2 x fsdp 2. Every row product is summed over the
+# tensor group in bf16: three (1, 7,200, 5,120) reduces a block, 8.85 GB a
+# 40-block forward and rank staged through the host.
+TP_WORLDS = (2, 4)
+TP_TIMEOUT = 900.0
+TP_DEVICE = "cuda:0"  # every rank's device: the one card
+TP_BLOCKS = 2
+TP_SHORT_STEPS = 2
+# the card's free GiB each world needs: its ranks' peaks and CUDA contexts
+TP_CARD_GIB = {2: 44.0, 4: 40.0}
+# a tensor-parallel reading against one process: partial products and K4's
+# statistics are summed across ranks (bf16 partials, each rounded once more
+# than one process rounds its product), so not bitwise
+TP_MIN_DB = 35.0
+TP_FAULTS = ("k4_local_stats", "bias_on_every_rank", "int4_packed_slice")
+
+
+def tp_model(dev, cfg):
+    """``cp_model``'s pipeline with, from a seeded generator, the bias of
+    every block projection redrawn N(0, 0.1) (the init zeroes them, so a
+    row-parallel bias added on every rank would not show) and the q / k /
+    k_img projections' first half of output channels doubled: the heads of
+    a first tensor rank then carry twice the magnitude of the rest, as
+    heads of a trained model differ, so a rank's own statistics differ from
+    the row's (on the init's iid columns they agree to 1 / sqrt(2,560))."""
+    pipe = cp_model(dev, cfg)
+    g = torch.Generator(device=dev).manual_seed(6)
+    half = cfg.dit.dim // 2
+    with torch.no_grad():
+        for blk in pipe.dit.blocks:
+            for mod in (blk.self_attn, blk.cross_attn, blk.ffn):
+                for lin in mod.children():
+                    if getattr(lin, "bias", None) is not None:
+                        lin.bias.normal_(0.0, 0.1, generator=g)
+            for lin in (blk.self_attn.q, blk.self_attn.k, blk.cross_attn.q, blk.cross_attn.k,
+                        blk.cross_attn.k_img):
+                lin.weight[:half].mul_(2.0)
+                lin.bias[:half].mul_(2.0)
+    return pipe
+
+
+def tp_config():
+    """The edit model at full width, TP_BLOCKS deep."""
+    cfg = cp_config()
+    return dataclasses.replace(cfg, dit=dataclasses.replace(cfg.dit, num_layers=TP_BLOCKS))
+
+
+def tp_want(want):
+    """A one-process path's launch counters as a tensor rank reads them:
+    every K4 call (``rms_norm``) becomes K4's two tensor-parallel passes."""
+    by_name, by_kv = want
+    by_name = dict(by_name)
+    n = by_name.pop("rms_norm")
+    by_name.update(rms_norm=0, rms_sumsq=n, rms_norm_ss=n)
+    return by_name, by_kv
+
+
+def tensor_bytes(files, cfg, dims: dict) -> int:
+    """The bytes a tensor = 2 rank reads from the DiT's shards (``files``,
+    a ``SafetensorsFiles``), from the headers: half of each tensor the
+    plan (``dims``) splits, the whole of the others."""
+    from chronoedit_tpu_torch.models.weights import diffusers_dit_names
+
+    names = diffusers_dit_names(cfg.dit)
+    total = 0
+    for key in files:
+        name = names.get(key.removeprefix("transformer."))
+        if name is not None:
+            total += files.nbytes(key) // (2 if dims[name] is not None else 1)
+    return total
+
+
+def tp_staged_bytes(blocks: int, tokens: int, batch: int = 1) -> int:
+    """Bytes a tensor rank stages a forward: per block three bf16 row
+    reduces of the (B, tokens, 5,120) stream and K4's five fp32 (B, rows)
+    statistics (self q and k, cross q, over the tokens; the text and CLIP
+    keys)."""
+    rows = 3 * tokens + TEXT_TOKENS + IMAGE_TOKENS
+    return blocks * batch * (3 * tokens * 40 * 128 * 2 + rows * 4)
+
+
+@contextlib.contextmanager
+def tp_fault(fault: str | None, p: int = 2):
+    """Plant ``fault`` for the duration: "k4_local_stats" (each rank's q / k
+    norm from its own columns' statistics, no sum over the ranks),
+    "bias_on_every_rank" (a row-parallel product's bias added to every
+    rank's partial sum before the reduce) or "int4_packed_slice" (a
+    row-split int4 leaf taken as JAX's packed-axis slice: the rank's
+    block of the packed bytes and of the groups, used as if it held the
+    rank's contiguous rows)."""
+    from chronoedit_tpu_torch.models import dit as dit_lib
+    from chronoedit_tpu_torch.ops import fused_norms as fn
+    from chronoedit_tpu_torch.ops import quant
+    from chronoedit_tpu_torch.parallel import collectives as C
+
+    saved = (dit_lib.rms_norm_tensor, dit_lib._row, quant.int4_rows)
+    if fault == "k4_local_stats":
+        def local(p_norm, x, group, index, size, eps):
+            d = x.shape[-1]
+            w = p_norm.scale.narrow(0, index * d, d).to(x.dtype)
+            return fn._Fused.apply(fn.rms_norm_plain, fn._rms_norm_kernel, 2, w, x, eps)
+        dit_lib.rms_norm_tensor = local
+    elif fault == "bias_on_every_rank":
+        def row(p_lin, x, weights, tp):
+            if tp is None:
+                return saved[1](p_lin, x, weights, tp)
+            return C.reduce_from_tensor(dit_lib._lin(p_lin, x, weights, group=tp.group),
+                                        tp.group)
+        dit_lib._row = row
+    elif fault == "int4_packed_slice":
+        def packed_slice(leaf, index, size):
+            half = leaf.packed.shape[1] // size
+            g = leaf.scales.shape[0] // size
+            return quant.QuantLinear4(
+                leaf.packed[:, index * half:(index + 1) * half].contiguous(),
+                leaf.scales[index * g:(index + 1) * g].contiguous(), leaf.table, leaf.bias,
+                leaf.scale8, in_features=leaf.in_features // size)
+        quant.int4_rows = packed_slice
+    try:
+        yield
+    finally:
+        dit_lib.rms_norm_tensor, dit_lib._row, quant.int4_rows = saved
+
+
+def _tp_backward(rank: int, dev, mesh) -> dict:
+    """The backward of the TP_BLOCKS-deep DiT (``tp_model``'s weights) at
+    7,200 tokens and B = 1, loss the sum of the output's squares: first
+    whole in this process without a mesh (the reference, outside the
+    counted launches), then split over ``mesh``'s tensor axis. Each
+    rank's gradient against its slice of the reference at K6/K7's bounds
+    (``k67_check``)."""
+    from chronoedit_tpu_torch.models import dit as dit_lib
+    from chronoedit_tpu_torch.parallel.sharding import local_of, shard_params
+
+    cfg = tp_config()
+    dit = tp_model(dev, cfg).dit.requires_grad_(True)  # built frozen
+    x, ts, text, img = cp_inputs(cfg, dev, EDIT_TOKENS, 30)
+
+    def run(m):
+        out = dit_lib.dit_forward(dit, x, ts, text, img, mesh=m)
+        (out.float() ** 2).sum().backward()
+        return out.detach()
+
+    run(None)
+    ref = {n: p.grad for n, p in dit.named_parameters()}
+    dit.zero_grad(set_to_none=True)
+    shard_params(dit, mesh)
+    free()
+    n = TP_BLOCKS
+    want = expected_tool_launches([(name, kv, n) for name in ("flash_fwd", "flash_bwd_dq",
+                                                              "flash_bwd_dkv")
+                                   for kv in (EDIT_TOKENS, TEXT_TOKENS, IMAGE_TOKENS)])
+    want[0].update(ln_modulate=2 * n + 1, gated_residual=2 * n, rms_sumsq=5 * n,
+                   rms_norm_ss=5 * n)
+    res = _cp_run("backward", functools.partial(run, mesh), want, rank, False)
+    checks, bitwise, dot, sq_got, sq_want = {}, 0, 0.0, 0.0, 0.0
+    for name, p in dit.named_parameters():
+        want_g = local_of(dit, name, ref[name])
+        got, want_f = p.grad.float(), want_g.float()
+        dot += float((got * want_f).sum())
+        sq_got, sq_want = sq_got + float(got.square().sum()), sq_want + float(want_f.square().sum())
+        if torch.equal(p.grad, want_g):
+            bitwise += 1
+        else:
+            checks[name] = k67_check(p.grad, want_g)
+    cos = dot / math.sqrt(sq_got * sq_want)
+    norm_rel = abs(math.sqrt(sq_got) - math.sqrt(sq_want)) / math.sqrt(sq_want)
+    res.update(bitwise=bitwise, tensors=len(ref), checks=checks, cos=cos, norm_rel=norm_rel,
+               ok=cos >= TRAIN_GRAD_COS and norm_rel <= TRAIN_NORM_REL and all(
+                   bool(torch.isfinite(p.grad).all()) for p in dit.parameters()))
+    return res
+
+
+def _leaves_bitwise(model, whole) -> tuple[int, int]:
+    """(leaves of ``model`` bitwise ``whole``'s after ``whole`` is split
+    by ``shard_params``, leaves): a model quantized under tensor against
+    the whole model quantized, then split (int4 rows repacked)."""
+    got, want = model.state_dict(), whole.state_dict()
+    same = sum(k in got and torch.equal(got[k], want[k]) for k in want)
+    return same, len(want)
+
+
+def tp_worker(rank: int, p: int, plan: dict) -> dict:
+    """One rank of a world of ``p`` processes on the one card over gloo,
+    its collectives staged through pinned host memory. At ``p`` = 2, under
+    tensor 2: loads the distilled model with the distilled LoRA from the
+    checkpoint directory (``load_pipeline(..., mesh=)``: its slice of each
+    block projection; the leaves' checksums returned) and runs one 720p
+    DiT forward at 40 blocks; frees it, splits ``tp_model``'s weights at
+    TP_BLOCKS blocks (``shard_params``) and serves the 720p edit, runs a
+    2-block forward sound and under each planted fault of the bf16 model,
+    quantizes under the mesh and serves the w4a16 edit (the leaves held
+    bitwise against the whole quantized model's split; a forward under the
+    packed-slice fault), then ``_tp_backward``. At ``p`` = 4: the edit and
+    the w4a16 edit under tensor 4; batched CFG (B = 2) over tensor 2 x data
+    2; the edit over tensor 2 x context 2 in each mode; a 2-block forward
+    over tensor 2 x fsdp 2. CFG and the context edits take TP_SHORT_STEPS
+    steps. Every sound run with its launch counters zeroed just before and
+    held to what the path implies just after (``_cp_run``); rank 0 returns
+    the outputs, every rank the digests, seconds, bytes read and staged and
+    peak memory."""
+    from chronoedit_tpu_torch.configs import chronoedit_14b_distilled
+    from chronoedit_tpu_torch.kernels import build
+    from chronoedit_tpu_torch.models import dit as dit_lib
+    from chronoedit_tpu_torch.ops import quant
+    from chronoedit_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from chronoedit_tpu_torch.parallel.sharding import shard_params
+    from chronoedit_tpu_torch.pipeline.loader import load_pipeline
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(plan["device"])
+    build.lib()  # the parent's build, loaded: every source hashes the same
+    quant._lloyd_levels = plan["lloyd"].__getitem__  # the parent's codebook
+    tcfg = tp_config()
+    steps, short = tcfg.num_steps, TP_SHORT_STEPS
+    edit_want = tp_want(cp_launches(tcfg, [(EDIT_TOKENS, "none", 1)] * steps))
+    fwd_want = tp_want(cp_launches(tcfg, [(EDIT_TOKENS, "none", 1)]))
+    w4_want = tp_want(expected_launches(tcfg, [EDIT_TOKENS] * short, int4=True))
+    res = {}
+    with torch.inference_mode():
+        base = tp_model(dev, tcfg)  # every split below is a copy of it
+
+    def sharded_model(mesh, quantized: bool = False):
+        pipe = copy.deepcopy(base)
+        if quantized:
+            pipe.quantize(mode="int4")
+        shard_params(pipe.dit, mesh)
+        pipe.mesh = mesh
+        free()
+        return pipe
+
+    def edit(pipe, label, want, **kw):
+        req = request(tcfg, dev, kw.pop("seed", 40), EDIT_H, EDIT_W, TEXT_TOKENS)
+        gen = torch.Generator(device=dev).manual_seed(kw.pop("gen", 140))
+        return _cp_run(label, functools.partial(pipe.edit_image, **req, **kw, generator=gen),
+                       want, rank, rank == 0)
+
+    def forward(pipe, label, want, mesh):
+        args = cp_inputs(tcfg, dev, EDIT_TOKENS, TP_FORWARD_SEED)
+        return _cp_run(label, functools.partial(dit_lib.dit_forward, pipe.dit, *args,
+                                                mesh=mesh), want, rank, rank == 0)
+
+    def quantized(pipe, mesh, key):
+        """Quantize ``pipe`` under ``mesh``; its leaves against the whole
+        quantized model's split; then the w4a16 edit."""
+        _, secs = host_s(lambda: pipe.quantize(mode="int4"))
+        whole = sharded_model(mesh, quantized=True)
+        res[f"{key} leaves"] = _leaves_bitwise(pipe.dit, whole.dit) + (secs,)
+        del whole
+        free()
+        res[key] = edit(pipe, key, w4_want, num_steps=short)
+
+    with torch.inference_mode():
+        if p == 4:
+            torch.cuda.reset_peak_memory_stats()
+            mesh = make_mesh(MeshConfig(tensor=4), device=dev)
+            pipe = sharded_model(mesh)
+            res["edit tp4"] = edit(pipe, "edit tp4", edit_want)
+            quantized(pipe, mesh, "w4a16 tp4")
+            del pipe
+            free()
+            mesh = make_mesh(MeshConfig(data=2, tensor=2), device=dev)
+            pipe = sharded_model(mesh)
+            neg = torch.randn((1, TEXT_TOKENS, tcfg.dit.text_dim), device=dev,
+                              generator=torch.Generator(device=dev).manual_seed(PP_NEG_SEED))
+            res["cfg"] = edit(pipe, "CFG batched", tp_want(cp_launches(
+                tcfg, [(EDIT_TOKENS, "none", 1)] * short)), seed=PP_CFG_SEED, gen=130,
+                neg_prompt_emb=neg, guidance_scale=5.0, num_steps=short)
+            del pipe
+            free()
+            mesh = make_mesh(MeshConfig(tensor=2, context=2), device=dev)
+            pipe = sharded_model(mesh)
+            for mode in ("ring", "ulysses"):
+                pipe.dit.cfg = dataclasses.replace(tcfg.dit, context_parallel=mode)
+                res[f"edit {mode}"] = edit(pipe, f"edit {mode}", tp_want(cp_launches(
+                    tcfg, [(EDIT_TOKENS, mode, 2)] * short)), num_steps=short)
+            del pipe
+            free()
+            mesh = make_mesh(MeshConfig(fsdp=2, tensor=2), device=dev)
+            pipe = sharded_model(mesh)
+            del base
+            res["forward fsdp"] = forward(pipe, "forward fsdp", fwd_want, mesh)
+            res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            return res
+
+        mesh = make_mesh(MeshConfig(tensor=p), device=dev)
+        cfg = chronoedit_14b_distilled()
+        torch.cuda.reset_peak_memory_stats()
+        pipe, secs = host_s(lambda: load_pipeline(
+            cfg, str(CHECKPOINT_DIR), loras=[(str(CHECKPOINT_DIR / "distill_lora.safetensors"),
+                                              1.0)],
+            with_text_encoder=False, with_image_encoder=False, device=dev, mesh=mesh))
+        res["load"] = {"secs": secs, "bytes": dict(pipe.load_bytes),
+                       "gib": torch.cuda.memory_allocated() / 2 ** 30,
+                       "sums": {n: tensor_checksum(t) for n, t in pipe.dit.named_parameters()}}
+        args = cp_inputs(cfg, dev, EDIT_TOKENS, FSDP_FORWARD_SEED)
+        res["forward 40"] = _cp_run("forward 40", functools.partial(
+            dit_lib.dit_forward, pipe.dit, *args, mesh=mesh),
+            tp_want(cp_launches(cfg, [(EDIT_TOKENS, "none", 1)])), rank, rank == 0)
+        res["peak_gib_40"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        del pipe
+        free()
+        torch.cuda.reset_peak_memory_stats()
+        pipe = sharded_model(mesh)
+        res["edit"] = edit(pipe, "edit", edit_want)
+        res["forward"] = forward(pipe, "forward", fwd_want, mesh)
+        for fault in TP_FAULTS[:2]:
+            with tp_fault(fault):
+                res[fault] = forward(pipe, fault, None, mesh)
+        quantized(pipe, mesh, "w4a16")
+        del pipe
+        free()
+        whole = copy.deepcopy(base).quantize(mode="int4")
+        del base
+        with tp_fault("int4_packed_slice"):
+            shard_params(whole.dit, mesh)
+        res["int4_packed_slice"] = forward(whole, "int4_packed_slice", None, mesh)
+        res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        del whole
+        free()
+    res["backward"] = _tp_backward(rank, dev, mesh)
+    free()
+    return res
+
+
+def tensor_whole_refs(pipe, dev) -> dict:
+    """What ``tensor_path`` holds its world of 2 to, from ``pipe``: the
+    distilled model loaded whole from ``CHECKPOINT_DIR`` with its LoRA, as
+    each rank loads its slice. Each leaf's tensor = 2 dimension, the
+    checksums of each rank's slices, and the 720p forward at 40 blocks
+    (fp32, on the host)."""
+    from chronoedit_tpu_torch.models import dit as dit_lib
+    from chronoedit_tpu_torch.parallel.sharding import Shards, tensor_dim
+
+    params = dict(pipe.dit.named_parameters())
+    dims = {n: tensor_dim(n, tuple(t.shape), 2) for n, t in params.items()}
+    sums = [{n: tensor_checksum(Shards(2, i, dims).local(t, dims[n]))
+             for n, t in params.items()} for i in range(2)]
+    fwd = dit_lib.dit_forward(pipe.dit, *cp_inputs(pipe.config, dev, EDIT_TOKENS,
+                                                   FSDP_FORWARD_SEED))
+    return {"dims": dims, "sums": sums, "forward": fwd.float().cpu()}
+
+
+def tensor_path(dev, whole: dict, launches: tuple[Counter, Counter]) -> dict:
+    """Tensor parallelism on the one card: worlds of 2 and 4 processes on
+    ``cuda:0`` over host-staged gloo (correctness, bytes and per-rank
+    launches, not a scaling figure). ``whole`` holds the whole model's
+    references (``tensor_whole_refs``); first, in this process,
+    ``tp_model``'s weights at TP_BLOCKS blocks give the rest: the 8-step
+    edit, batched CFG and the context edit at TP_SHORT_STEPS steps, a
+    2-block forward and, quantized to w4a16, the edit at TP_SHORT_STEPS
+    steps and the forward again. Each rank's bytes read are held to the
+    files' headers, its fused slices to the whole model's, every reading to
+    one process at TP_MIN_DB and the planted faults below it, the backward's
+    whole gradient to one process's at the training bars (TRAIN_GRAD_COS,
+    TRAIN_NORM_REL), the bytes staged by the 40-block forward to
+    ``tp_staged_bytes``. Adds the workers' launches to ``launches``. Needs
+    the card free."""
+    from chronoedit_tpu_torch.configs import chronoedit_14b_distilled
+    from chronoedit_tpu_torch.models import dit as dit_lib
+    from chronoedit_tpu_torch.models import weights as w
+    from chronoedit_tpu_torch.ops import quant
+    from chronoedit_tpu_torch.parallel.launch import run_world
+
+    card = card_line()
+    cfg, tcfg = chronoedit_14b_distilled(), tp_config()
+    dims, sums, short = whole["dims"], whole["sums"], TP_SHORT_STEPS
+    t_phase = time.perf_counter()
+    with torch.inference_mode():
+        small = tp_model(dev, tcfg)
+
+        def edit(seed, gen, **kw):
+            req = request(tcfg, dev, seed, EDIT_H, EDIT_W, TEXT_TOKENS)
+            return small.edit_image(**req, **kw, generator=torch.Generator(
+                device=dev).manual_seed(gen)).float().cpu()
+
+        def forward():
+            args = cp_inputs(tcfg, dev, EDIT_TOKENS, TP_FORWARD_SEED)
+            return dit_lib.dit_forward(small.dit, *args).float().cpu()
+
+        neg = torch.randn((1, TEXT_TOKENS, tcfg.dit.text_dim), device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(PP_NEG_SEED))
+        ref = {"forward 40": whole["forward"], "edit": edit(40, 140), "forward": forward(),
+               "cfg": edit(PP_CFG_SEED, 130, neg_prompt_emb=neg, guidance_scale=5.0,
+                           num_steps=short)}
+        ref["edit tp4"] = ref["edit"]
+        ref["forward fsdp"] = ref["k4_local_stats"] = ref["bias_on_every_rank"] = ref["forward"]
+        ref["edit ring"] = ref["edit ulysses"] = edit(40, 140, num_steps=short)
+        small.quantize(mode="int4")
+        ref["w4a16"] = ref["w4a16 tp4"] = edit(40, 140, num_steps=short)
+        ref["int4_packed_slice"] = forward()
+        del small
+        free()
+    print(f"tensor_path: the one-process references at {TP_BLOCKS} blocks in "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    shards = sorted(str(f) for f in (CHECKPOINT_DIR / "transformer").glob("*.safetensors"))
+    with w.load_safetensors(shards) as sd, \
+            w.load_safetensors(str(CHECKPOINT_DIR / "distill_lora.safetensors")) as lsd:
+        total = sum(sd.nbytes(k) for k in sd)
+        want_bytes = tensor_bytes(sd, cfg, dims)
+        lora_bytes = sum(lsd.nbytes(k) for k in lsd)
+    want_staged = tp_staged_bytes(cfg.dit.num_layers, EDIT_TOKENS)
+    peak = {"forward 40": True, "forward": True, "forward fsdp": True,
+            **{f: True for f in TP_FAULTS}}
+    labels = {"forward 40": f"720p DiT forward ({cfg.dit.num_layers} blocks), tensor 2",
+              "edit": f"720p edit ({tcfg.num_steps} steps, {TP_BLOCKS} blocks), tensor 2",
+              "forward": f"720p DiT forward ({TP_BLOCKS} blocks), tensor 2",
+              "k4_local_stats": "planted: K4 on each rank's local statistics",
+              "bias_on_every_rank": "planted: the row products' bias added on every rank",
+              "w4a16": f"w4a16 edit, quantized under tensor 2 ({short} steps, {TP_BLOCKS} "
+                        f"blocks)",
+              "int4_packed_slice": "planted: w4a16 forward, int4 rows as JAX's packed-axis "
+                                   "slice",
+              "edit tp4": f"720p edit ({tcfg.num_steps} steps, {TP_BLOCKS} blocks), tensor 4",
+              "w4a16 tp4": f"w4a16 edit, quantized under tensor 4 (fc2 padded to 28 groups; "
+                           f"{short} steps, {TP_BLOCKS} blocks)",
+              "cfg": f"CFG batched, guidance 5, over tensor 2 x data 2 ({short} steps, "
+                     f"{TP_BLOCKS} blocks)",
+              "edit ring": f"720p edit over tensor 2 x context 2, ring ({short} steps, "
+                           f"{TP_BLOCKS} blocks)",
+              "edit ulysses": f"720p edit over tensor 2 x context 2, Ulysses ({short} steps, "
+                              f"{TP_BLOCKS} blocks)",
+              "forward fsdp": f"720p DiT forward over tensor 2 x fsdp 2 ({TP_BLOCKS} blocks)"}
+    summary, sound, faults = {}, {}, {}
+    # every in-dimension at full width is at least the group of 128 rows
+    lloyd = {quant.INT4_GROUP: quant._lloyd_levels(quant.INT4_GROUP)}
+    for p in TP_WORLDS:
+        plan = {"device": TP_DEVICE, "lloyd": lloyd}
+        wait_for_card(f"tensor_path world of {p}", TP_CARD_GIB[p])
+        with compact_workers():
+            results, secs = host_s(lambda: run_world(tp_worker, p, (p, plan), backend="gloo",
+                                                     device=plan["device"], timeout=TP_TIMEOUT,
+                                                     threads=2))
+        print(f"tensor_path world of {p}: {p} processes sharing one card over host-staged gloo "
+              f"(not a scaling figure): the world's {secs:.1f} s, peak memory per rank "
+              f"{[round(r['peak_gib'], 2) for r in results]} GiB ({card})")
+        summary[f"world{p}_s"] = secs
+        if p == 2:
+            for rank, r in enumerate(results):
+                load = r["load"]
+                bad = [n for n, s in load["sums"].items() if s != sums[rank][n]]
+                print(f"   rank {rank}: read {load['bytes']['dit'] / 1e9:.3f} GB of the DiT's "
+                      f"{total / 1e9:.3f} GB (expected {want_bytes / 1e9:.3f}) and "
+                      f"{load['bytes']['loras'] / 1e6:.1f} MB of the LoRA (expected "
+                      f"{lora_bytes / 1e6:.1f}) in {load['secs']:.2f} s, "
+                      f"{load['gib']:.2f} GiB after the load, peak {r['peak_gib_40']:.2f} GiB "
+                      f"over the 40-block forward; {len(load['sums']) - len(bad)} of "
+                      f"{len(load['sums'])} leaves bitwise the one-process model's slices")
+                if (load["bytes"]["dit"] != want_bytes or load["bytes"]["loras"] != lora_bytes
+                        or bad or load["sums"].keys() != sums[rank].keys()):
+                    raise AssertionError(f"tensor rank {rank}: read {load['bytes']}, expected "
+                                         f"{want_bytes} / {lora_bytes}; leaves differing from "
+                                         f"the whole model's slices: {bad[:8]}")
+                summary[f"rank{rank}_dit_bytes"] = load["bytes"]["dit"]
+        for key in [k for k in labels if k in results[0]]:
+            per_rank = [r[key] for r in results]
+            first = per_rank[0]
+            if any(r["digest"] != first["digest"] for r in per_rank) or not first["finite"]:
+                raise AssertionError(f"tensor {labels[key]}: the ranks' outputs differ or are "
+                                     f"not finite")
+            got, want = torch.from_numpy(first["out"]), ref[key]
+            if got.shape != want.shape:
+                raise AssertionError(f"tensor {labels[key]}: {tuple(got.shape)} against "
+                                     f"{tuple(want.shape)}")
+            db = peak_db(got, want) if key in peak else psnr(got, want)
+            forwards = (1 if key in peak else tcfg.num_steps if key in ("edit", "edit tp4")
+                        else short)
+            print(f"   {labels[key]}: rank 0 {first['secs']:.3f} s (host staging, not a "
+                  f"speed), {first['staged'] / forwards / 1e9:.4f} GB staged a forward and rank, "
+                  f"every rank bitwise alike, {db:.2f} dB against one process"
+                  f"{' over its peak' if key in peak else ''}; rank 0's launches "
+                  f"{first['launches'][0]}, flash by KV {first['launches'][1]['flash_fwd']}, "
+                  f"int4 by rows {first['launches'][1]['int4_matmul']}")
+            (faults if key in TP_FAULTS else sound)[key] = db
+            if key == "forward 40" and dev.type == "cuda" and any(
+                    r["staged"] != want_staged for r in per_rank):
+                raise AssertionError(f"tensor forward: staged {[r['staged'] for r in per_rank]} "
+                                     f"bytes, predicted {want_staged}")
+            summary[f"tp{p} {key}"] = db
+            if key not in TP_FAULTS:
+                for r in per_rank:
+                    launches[0].update(r["launches"][0])
+                    launches[1].update(r["launches"][1]["flash_fwd"])
+        for rank, r in enumerate(results):
+            for key in ("w4a16 leaves", "w4a16 tp4 leaves"):
+                if key in r:
+                    same, n, qsecs = r[key]
+                    print(f"   rank {rank} {key}: {same} of {n} quantized under tensor bitwise "
+                          f"the whole quantized model's split (quantizing {qsecs:.1f} s)")
+                    if same != n:
+                        raise AssertionError(f"tensor rank {rank} {key}: {n - same} leaves "
+                                             f"differ from the whole quantized model's split")
+        if p == 2:
+            for rank, r in enumerate(results):
+                bw = r["backward"]
+                worst = max(bw["checks"].items(), key=lambda kv: kv[1]["rel"],
+                            default=("none", {"rel": 0.0}))
+                within = sum(c["ok"] for c in bw["checks"].values())
+                print(f"   backward ({TP_BLOCKS} blocks, B = 1, {EDIT_TOKENS} tokens) rank "
+                      f"{rank}: {bw['secs']:.3f} s, {bw['staged'] / 1e9:.3f} GB staged; "
+                      f"against the one-process gradient's slices: cosine {bw['cos']:.6f}, "
+                      f"norm {bw['norm_rel']:.3e} relative; {bw['bitwise']} of {bw['tensors']} "
+                      f"leaves bitwise, {within} more within K6/K7's bounds, worst normwise "
+                      f"{worst[1]['rel']:.3e} ({worst[0]}); launches {bw['launches'][0]}")
+                if not bw["ok"]:
+                    raise AssertionError(f"tensor rank {rank} backward: cosine {bw['cos']}, "
+                                         f"norm {bw['norm_rel']} relative")
+                launches[0].update(bw["launches"][0])
+                launches[1].update(bw["launches"][1]["flash_fwd"])
+    print(f"tensor_path: sound readings {min(sound.values()):.2f}-{max(sound.values()):.2f} dB, "
+          f"planted faults {min(faults.values()):.2f}-{max(faults.values()):.2f} dB (TP_MIN_DB "
+          f"{TP_MIN_DB}) ({card})")
+    if not min(sound.values()) >= TP_MIN_DB > max(faults.values()):
+        raise AssertionError(f"tensor: sound {sound}, faults {faults}: TP_MIN_DB {TP_MIN_DB} "
+                             f"must lie between them")
+    summary["secs"] = time.perf_counter() - t_phase
+    print(f"tensor_path: {summary['secs']:.1f} s ({card})")
+    return summary
+
+
 # ----------------------------------------------------------- main
 
 # name in the kernel table: (source, the TPU kernel it replaces, the
@@ -4258,6 +4950,13 @@ SOURCES = {
                        "chronoedit_tpu/ops/fused_norms.py:177", ("gated_residual_kernel",)),
     "rms_norm": ("chronoedit_tpu_torch/csrc/rms_norm.cu",
                  "chronoedit_tpu/ops/fused_norms.py:251", ("rms_norm_ring_kernel",)),
+    # K4's tensor-parallel form, in two passes: where JAX's shard_map branch
+    # of rms_norm_fused computes the local sums of squares, psums them and
+    # normalises in XLA instead of the Pallas kernel
+    "rms_sumsq": ("chronoedit_tpu_torch/csrc/rms_norm.cu",
+                  "chronoedit_tpu/ops/fused_norms.py:251", ("rms_sumsq_ring_kernel",)),
+    "rms_norm_ss": ("chronoedit_tpu_torch/csrc/rms_norm.cu",
+                    "chronoedit_tpu/ops/fused_norms.py:251", ("rms_norm_ring_kernel",)),
     "flash_fwd_streamed": ("chronoedit_tpu_torch/csrc/flash_fwd.cu",
                            "chronoedit_tpu/ops/flash_attention.py:227",
                            ("flash_fwd_wgmma_kernel",)),
@@ -4445,10 +5144,14 @@ def main() -> int:
                                                   1.0)],
                 with_text_encoder=False, with_image_encoder=False, device=dev))
             print(f"loaded the DiT and VAE again for mixed2 in {secs:.1f} s")
-            # the whole model as the fsdp ranks load it, before mixed2
-            # quantizes it
+            # the whole model as the fsdp and tensor ranks load it, before
+            # mixed2 quantizes it
             fsdp_refs, secs = host_s(lambda: fsdp_whole_refs(pipe, dev))
-            print(f"fsdp_path's references from the whole model in {secs:.1f} s")
+            tensor_refs, secs_t = host_s(lambda: tensor_whole_refs(pipe, dev))
+            pp_refs, secs_p = host_s(lambda: pipeline_whole_refs(pipe, dev))
+            refs.update({f"{k} short": v for k, v in pp_refs.items()})
+            print(f"fsdp_path's, tensor_path's and pipeline_path's references from the whole "
+                  f"model in {secs:.1f} + {secs_t:.1f} + {secs_p:.1f} s")
             mixed2_path(pipe, dev, (by_name, by_kv), refs, profile_dir)
             del pipe
         free()
@@ -4456,6 +5159,8 @@ def main() -> int:
         pipeline_path(dev, {**refs, "drop": drop_ref}, (by_name, by_kv))
         # FSDP from the same files, the card free
         fsdp_path(dev, fsdp_refs, (by_name, by_kv))
+        # tensor parallelism from the same files, the card free
+        tensor_path(dev, tensor_refs, (by_name, by_kv))
         # training as a user runs it: the CLI from the directory's files, then
         # the Trainer (the directory is removed first: its checkpoints need
         # the disk)

@@ -15,7 +15,8 @@ raises. Nothing here runs at import time.
 
 ``LAUNCHES`` counts kernel launches by kernel name (the grouped attention
 kernels apart: ``flash_fwd_grouped``, ``flash_bwd_dq_grouped``,
-``flash_bwd_dkv_grouped``); ``SHAPE_LAUNCHES`` counts them again by kernel
+``flash_bwd_dkv_grouped``; K4's tensor-parallel passes apart:
+``rms_sumsq``, ``rms_norm_ss``); ``SHAPE_LAUNCHES`` counts them again by kernel
 name and shape: each attention kernel's by its KV length, the int4
 matmul's by its flattened row count M. Each wrapper
 adds one right after a launch that returned success, and nowhere else.
@@ -37,7 +38,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas=-v")
 
 LAUNCHES: dict[str, int] = {
-    "flash_fwd": 0, "ln_modulate": 0, "gated_residual": 0, "rms_norm": 0,
+    "flash_fwd": 0, "ln_modulate": 0, "gated_residual": 0, "rms_norm": 0, "rms_sumsq": 0,
+    "rms_norm_ss": 0,
     "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "int4_matmul": 0, "flash_fwd_qk8": 0,
     "flash_fwd_grouped": 0, "flash_bwd_dq_grouped": 0, "flash_bwd_dkv_grouped": 0}
 SHAPE_LAUNCHES: dict[str, dict[int, int]] = {
@@ -65,8 +67,10 @@ _SIGNATURES = {
     "ln_modulate_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     # x, delta, gate, out, rows, T, hw, D, stream
     "gated_residual_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # x, weight, out, rows, D, eps, stream
-    "rms_norm_bf16": [_P, _P, _P, _I, _I, _F, _P],
+    # x, weight, ss (or null), out, rows, D, d_stat, eps, stream
+    "rms_norm_bf16": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
+    # x, ss, rows, D, stream
+    "rms_sumsq_bf16": [_P, _P, _I, _I, _P],
     # x, packed, scales, table, y, M, N, K, stream
     "int4_matmul_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     # q8, k8, v, qs, ks, o, B, Sq, Skv, H, D, scale, stream

@@ -3,13 +3,16 @@
 The forward of ``chronoedit_tpu/models/dit.py``, on one device or over a
 mesh (``dit_forward(..., mesh=)``): split over its context axis (each rank
 its block of the tokens, ring or Ulysses self-attention,
-``parallel/context.py``), with its parameters sharded over its fsdp axis
-(each rank its slice of every leaf, ``parallel/sharding.py``; a block's
-leaves gathered just before the block, the embedders' and the head's
-where they are used), or run as a pipeline over its pipe axis (each rank
-the blocks of its stage, ``parallel/pipeline_parallel.py``; a stage-local
-model holds only those, ``DiT(..., layers=)``), composed with the context
-axis inside the stages and the data axis on the batch:
+``parallel/context.py``), over its tensor axis (Megatron's column / row
+blocks: each rank its heads, its columns of q / k / v / fc1 and its rows
+of o / fc2, the row products summed over the tensor group before their
+bias), with its parameters sharded over its fsdp axis (each rank its slice
+of every leaf, ``parallel/sharding.py``; a block's leaves gathered just
+before the block, the embedders' and the head's where they are used), or
+run as a pipeline over its pipe axis (each rank the blocks of its stage,
+``parallel/pipeline_parallel.py``; a stage-local model holds only those,
+``DiT(..., layers=)``), composed with the context axis inside the stages
+and the data axis on the batch:
 
 - patch embed as reshape + linear, feature order (c, kt, kh, kw);
 - N blocks of AdaLN-zero 6-way modulation from a per-block
@@ -64,7 +67,8 @@ from chronoedit_tpu_torch.models import lora as lora_lib
 from chronoedit_tpu_torch.ops import layers as L
 from chronoedit_tpu_torch.ops.attention import dot_product_attention
 from chronoedit_tpu_torch.ops.fused_norms import (
-    frames_map_locally, gated_residual, layer_norm_modulate, local_frame_slice, rms_norm_fused)
+    frames_map_locally, gated_residual, layer_norm_modulate, local_frame_slice, rms_norm_fused,
+    rms_norm_tensor)
 from chronoedit_tpu_torch.parallel import collectives as C
 from chronoedit_tpu_torch.parallel import context
 from chronoedit_tpu_torch.parallel import pipeline_parallel as pp
@@ -168,9 +172,10 @@ class DiT(nn.Module):
     model's random blocks are not the whole model's: drop the others
     with :meth:`keep_layers` instead.
 
-    ``fsdp`` is None for a whole model; ``parallel.sharding.shard_params``
-    (or a loader given an fsdp mesh) keeps this rank's slice of each leaf
-    and records the plan there (a ``parallel.sharding.Shards``)."""
+    ``tensor`` and ``fsdp`` are None for a whole model;
+    ``parallel.sharding.shard_params`` (or a loader given a tensor or fsdp
+    mesh) keeps this rank's slice of each leaf and records the plan of
+    each axis there (a ``parallel.sharding.Shards``)."""
 
     def __init__(self, cfg: DiTConfig, *, device=None,
                  generator: torch.Generator | None = None, layers: range | None = None):
@@ -203,6 +208,7 @@ class DiT(nn.Module):
         self.blocks = nn.ModuleList(
             DiTBlock(cfg, device=device, dtype=cfg.param_dtype, generator=generator)
             for _ in self.layers)
+        self.tensor = None
         self.fsdp = None
 
     def keep_layers(self, layers: range) -> "DiT":
@@ -211,8 +217,8 @@ class DiT(nn.Module):
         pipeline stage's. Returns self."""
         if not (self.layers.start <= layers.start and layers.stop <= self.layers.stop):
             raise ValueError(f"layers {layers} are not among the model's {self.layers}")
-        if self.fsdp is not None:
-            raise ValueError("an FSDP-sharded DiT cannot be made a pipeline stage's")
+        if self.fsdp is not None or self.tensor is not None:
+            raise ValueError("a sharded DiT cannot be made a pipeline stage's")
         self.blocks = nn.ModuleList(self.blocks[i - self.layers.start] for i in layers)
         self.layers = layers
         return self
@@ -251,7 +257,9 @@ def context_split(cfg: DiTConfig, mesh, tokens: int, hw: int) -> _ContextSplit |
     whole parts of one frame per rank (JAX's fallbacks: its attention runs
     unsharded when the sequence does not divide, its fused norms when the
     frames do not map). ``"auto"`` takes Ulysses when the heads divide the
-    context size, else the ring; the ring refuses ``attn_qk_int8``."""
+    context size, else the ring: the heads of a tensor rank (JAX's rule,
+    its heads staying tensor-split inside its context shard_map); the ring
+    refuses ``attn_qk_int8``."""
     if cfg.context_parallel not in CONTEXT_MODES:
         raise ValueError(f"context_parallel must be one of {CONTEXT_MODES}, got "
                          f"{cfg.context_parallel!r}")
@@ -260,7 +268,9 @@ def context_split(cfg: DiTConfig, mesh, tokens: int, hw: int) -> _ContextSplit |
         return None
     mode = cfg.context_parallel
     if mode == "auto":
-        mode = "ulysses" if cfg.num_heads % cp == 0 else "ring"
+        tp = mesh.shape.get("tensor", 1) if mesh.shape.get("pipe", 1) == 1 else 1
+        heads = cfg.num_heads // tp if cfg.num_heads % tp == 0 else cfg.num_heads
+        mode = "ulysses" if heads % cp == 0 else "ring"
     if mode == "ring":
         context.check_ring_qk_int8(cfg.attn_qk_int8)
     return _ContextSplit(mode, mesh.group("context"), mesh.index("context"), cp)
@@ -276,23 +286,55 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(b, s, h * d)
 
 
-def _lin(p: L.Linear, x, weights: dict | None):
+def _lin(p: L.Linear, x, weights: dict | None, **kw):
     """``p``'s product, with its LoRA-merged weight or side branch (a
-    tuple, ``lora.attached_weights``) when ``weights`` holds one."""
+    tuple, ``lora.attached_weights``) when ``weights`` holds one; ``kw``
+    goes to ``layers.linear``."""
     w = None if weights is None else weights.get(p)
     if isinstance(w, tuple):
-        return L.linear(p, x, side=w)
-    return L.linear(p, x, w)
+        return L.linear(p, x, side=w, **kw)
+    return L.linear(p, x, w, **kw)
+
+
+def _row(p: L.Linear, x, weights: dict | None, tp: sharding.TensorSplit | None):
+    """A row-parallel product: under ``tp`` this rank's rows of ``p`` on
+    its columns of ``x`` (LoRA branch included), summed over the tensor
+    group in x's dtype, then the bias added once; the whole product
+    without ``tp``."""
+    if tp is None:
+        return _lin(p, x, weights)
+    y = C.reduce_from_tensor(_lin(p, x, weights, bias=False, group=tp.group), tp.group)
+    return y + p.bias.to(y.dtype)
+
+
+def _columns(x, tp: sharding.TensorSplit | None):
+    """The input of a column-parallel group: ``x`` itself, its gradient
+    summed over the tensor group under ``tp``."""
+    return x if tp is None else C.copy_to_tensor(x, tp.group)
+
+
+def _qk_norm(p: L.RMSNorm, x, cfg: DiTConfig, tp: sharding.TensorSplit | None):
+    """K4 on q or k; under ``tp`` on this rank's columns, its statistics
+    summed over the tensor group (``rms_norm_tensor``)."""
+    if tp is None:
+        return rms_norm_fused(p, x, cfg.eps)
+    return rms_norm_tensor(p, x, tp.group, tp.index, tp.size, cfg.eps)
+
+
+def _heads(cfg: DiTConfig, tp: sharding.TensorSplit | None) -> int:
+    return cfg.num_heads if tp is None else cfg.num_heads // tp.size
 
 
 def _self_attention(p: SelfAttention, x, rope_cos, rope_sin, cfg: DiTConfig, weights,
-                    cp: _ContextSplit | None = None):
+                    cp: _ContextSplit | None = None, tp: sharding.TensorSplit | None = None):
     """Self-attention; with ``cp`` over this rank's token block, through the
-    ring or Ulysses over the context group."""
-    q = rms_norm_fused(p.q_norm, _lin(p.q, x, weights), cfg.eps)
-    k = rms_norm_fused(p.k_norm, _lin(p.k, x, weights), cfg.eps)
+    ring or Ulysses over the context group; with ``tp`` on this rank's
+    heads."""
+    x = _columns(x, tp)
+    q = _qk_norm(p.q_norm, _lin(p.q, x, weights), cfg, tp)
+    k = _qk_norm(p.k_norm, _lin(p.k, x, weights), cfg, tp)
     v = _lin(p.v, x, weights)
-    q, k, v = (_split_heads(t, cfg.num_heads) for t in (q, k, v))
+    q, k, v = (_split_heads(t, _heads(cfg, tp)) for t in (q, k, v))
     cos, sin = rope_cos[:, None, :], rope_sin[:, None, :]
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
@@ -302,47 +344,54 @@ def _self_attention(p: SelfAttention, x, rope_cos, rope_sin, cfg: DiTConfig, wei
         out = context.ring_attention_inner(q, k, v, cp.group)
     else:
         out = context.ulysses_attention_inner(q, k, v, cp.group, qk_int8=cfg.attn_qk_int8)
-    return _lin(p.o, _merge_heads(out), weights)
+    return _row(p.o, _merge_heads(out), weights, tp)
 
 
-def _cross_attention(p: CrossAttention, x, text_ctx, img_ctx, cfg: DiTConfig, weights):
-    """Text branch + image branch, summed."""
-    h = cfg.num_heads
-    q = _split_heads(rms_norm_fused(p.q_norm, _lin(p.q, x, weights), cfg.eps), h)
-    k = rms_norm_fused(p.k_norm, _lin(p.k, text_ctx, weights), cfg.eps)
+def _cross_attention(p: CrossAttention, x, text_ctx, img_ctx, cfg: DiTConfig, weights,
+                     tp: sharding.TensorSplit | None = None):
+    """Text branch + image branch, summed; with ``tp`` on this rank's
+    heads."""
+    h = _heads(cfg, tp)
+    q = _split_heads(_qk_norm(p.q_norm, _lin(p.q, _columns(x, tp), weights), cfg, tp), h)
+    text_ctx = _columns(text_ctx, tp)
+    k = _qk_norm(p.k_norm, _lin(p.k, text_ctx, weights), cfg, tp)
     v = _lin(p.v, text_ctx, weights)
     out = dot_product_attention(q, _split_heads(k, h), _split_heads(v, h))
     if img_ctx is not None:
-        k_img = rms_norm_fused(p.k_img_norm, _lin(p.k_img, img_ctx, weights), cfg.eps)
+        img_ctx = _columns(img_ctx, tp)
+        k_img = _qk_norm(p.k_img_norm, _lin(p.k_img, img_ctx, weights), cfg, tp)
         v_img = _lin(p.v_img, img_ctx, weights)
         out = out + dot_product_attention(q, _split_heads(k_img, h),
                                           _split_heads(v_img, h))
-    return _lin(p.o, _merge_heads(out), weights)
+    return _row(p.o, _merge_heads(out), weights, tp)
 
 
 def dit_block(p: DiTBlock, x, text_ctx, img_ctx, e, rope_cos, rope_sin, hw: int,
               cfg: DiTConfig, weights: dict | None = None,
-              cp: _ContextSplit | None = None) -> torch.Tensor:
+              cp: _ContextSplit | None = None,
+              tp: sharding.TensorSplit | None = None) -> torch.Tensor:
     """One transformer block. x (B, S, dim) stream; e (B, T, 6, dim) fp32
     time projection; hw tokens per latent frame; ``weights`` maps a linear
     layer to the weight that stands in for its own (LoRA-merged); with
     ``cp`` the stream, e, the RoPE rows and hw are this rank's context
-    shard's."""
+    shard's; with ``tp`` the block's projections hold this rank's columns
+    or rows (Megatron's layout) and the stream, the norms, the modulation
+    and the residuals stay whole on every rank."""
     mods = e + p.scale_shift_table.float()[None, None]
     shift_msa, scale_msa, gate_msa, c_shift, c_scale, c_gate = (
         mods[:, :, i].contiguous() for i in range(6))
 
     norm_x = layer_norm_modulate(x, scale_msa, shift_msa, hw, cfg.eps)
-    attn = _self_attention(p.self_attn, norm_x, rope_cos, rope_sin, cfg, weights, cp)
+    attn = _self_attention(p.self_attn, norm_x, rope_cos, rope_sin, cfg, weights, cp, tp)
     x = gated_residual(x, attn, gate_msa, hw)
 
     # cross-attention: affine fp32 LayerNorm, plain residual add
     norm2 = getattr(p, "norm2", None)
     norm_x = L.layer_norm(norm2, x, cfg.eps, out_dtype=x.dtype)
-    x = x + _cross_attention(p.cross_attn, norm_x, text_ctx, img_ctx, cfg, weights)
+    x = x + _cross_attention(p.cross_attn, norm_x, text_ctx, img_ctx, cfg, weights, tp)
 
-    norm_x = layer_norm_modulate(x, c_scale, c_shift, hw, cfg.eps)
-    ff = _lin(p.ffn.fc2, L.gelu_tanh(_lin(p.ffn.fc1, norm_x, weights)), weights)
+    norm_x = _columns(layer_norm_modulate(x, c_scale, c_shift, hw, cfg.eps), tp)
+    ff = _row(p.ffn.fc2, L.gelu_tanh(_lin(p.ffn.fc1, norm_x, weights)), weights, tp)
     return gated_residual(x, ff, c_gate, hw)
 
 
@@ -379,18 +428,20 @@ def _whole(module: nn.Module):
 
 def _lora_block(p: DiTBlock, adapters, lora_weights, policy: _MatmulOnly | None, x,
                 text_ctx, img_ctx, e, rope_cos, rope_sin, hw: int, cfg: DiTConfig,
-                cp: _ContextSplit | None = None, gather=_whole) -> torch.Tensor:
+                cp: _ContextSplit | None = None, gather=_whole,
+                tp: sharding.TensorSplit | None = None) -> torch.Tensor:
     """A block, its FSDP shards gathered for its duration by ``gather(p)``
     and its LoRA targets' weights made first by ``lora_weights(block,
-    adapters)`` (merged, or side branches), inside whatever checkpoint
-    wraps it, so the gathered and merged weights live one block at a time
-    (a recompute gathers again)."""
+    adapters, tp)`` (merged, or side branches; this tensor rank's share),
+    inside whatever checkpoint wraps it, so the gathered and merged
+    weights live one block at a time (a recompute gathers again)."""
     with gather(p):
         weights = None
         if adapters is not None:
             with policy.recomputed() if policy is not None else contextlib.nullcontext():
-                weights = lora_weights(p, adapters)
-        return dit_block(p, x, text_ctx, img_ctx, e, rope_cos, rope_sin, hw, cfg, weights, cp)
+                weights = lora_weights(p, adapters, tp=tp)
+        return dit_block(p, x, text_ctx, img_ctx, e, rope_cos, rope_sin, hw, cfg, weights, cp,
+                         tp)
 
 
 def _run_block(cfg: DiTConfig, blk, adapters, lora_weights, *args) -> torch.Tensor:
@@ -505,6 +556,14 @@ def dit_forward(model: DiT, x: torch.Tensor, timesteps: torch.Tensor,
         then takes this rank's slice of the gradient instead of summing
         the ranks'); an fsdp line holds the same token block under
         context parallelism, and a data line runs the same request. With a
+        tensor axis above 1 ``model`` holds this rank's columns / rows of
+        the block projections (``shard_params``; the heads must divide the
+        degree): each block runs on this rank's heads, the row products and
+        K4's statistics are summed over the tensor group, and every rank
+        holds the whole stream and returns the whole velocity; it composes
+        with the fsdp axis (the gathers run inside the rank's tensor slice),
+        the context axis (Ulysses when the rank's heads divide the context
+        degree, under "auto") and the data axis. With a
         pipe axis above 1 the blocks run as a GPipe pipeline
         (:func:`_pipeline_blocks`): every rank runs the embeddings and the
         head, and its stage's blocks, which ``model`` holds and nothing
@@ -531,6 +590,7 @@ def dit_forward(model: DiT, x: torch.Tensor, timesteps: torch.Tensor,
         if not 0 <= lo <= hi <= cfg.num_layers:
             raise ValueError(f"cache_blocks {cache_blocks} out of range")
     gathers = []  # (group, dim): the head's output gathered over them, in order
+    tp = sharding.tensor_plan(model, mesh)
     fsdp = sharding.fsdp_gather(model, mesh, b)
     gather = _whole if fsdp is None else fsdp
     if fsdp is not None and fsdp.summed:  # this rank's rows of the batch
@@ -591,7 +651,7 @@ def dit_forward(model: DiT, x: torch.Tensor, timesteps: torch.Tensor,
             continue
         adapters = None if lora is None else lora.blocks[i]
         out = _run_block(cfg, blk, adapters, lora_weights, tokens, text_ctx, img_ctx,
-                         t_proj, cos, sin, hw, cfg, cp, gather)
+                         t_proj, cos, sin, hw, cfg, cp, gather, tp)
         if cached:
             delta = out - tokens if delta is None else delta + (out - tokens)
         tokens = out

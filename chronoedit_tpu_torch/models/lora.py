@@ -155,26 +155,54 @@ def init_lora_params(generator: torch.Generator, model: nn.Module, cfg: LoRAConf
     return lora
 
 
-def merged_weights(block: nn.Module, adapters: nn.ModuleDict,
-                   scaling: float) -> dict[nn.Module, torch.Tensor]:
+def _local(target: str, ad: Adapter, tp) -> tuple[torch.Tensor, torch.Tensor]:
+    """(a, b) of ``ad`` as a tensor rank applies them (``tp``, a
+    ``sharding.TensorSplit``; None: whole): a column-split target takes its
+    columns of b, a row-split one its rows of a. Both are replicated and
+    each rank uses its share, so their gradients are summed over the
+    group."""
+    if tp is None:
+        return ad.a, ad.b
+    from chronoedit_tpu_torch.parallel import collectives as C
+    from chronoedit_tpu_torch.parallel.sharding import TP_ROW
+
+    a, b = C.sum_grad_autograd(ad.a, tp.group), C.sum_grad_autograd(ad.b, tp.group)
+    if tuple(target.split("/")) in TP_ROW:
+        n = a.shape[0] // tp.size
+        return a.narrow(0, tp.index * n, n), b
+    n = b.shape[1] // tp.size
+    return a, b.narrow(1, tp.index * n, n)
+
+
+def merged_weights(block: nn.Module, adapters: nn.ModuleDict, scaling: float,
+                   tp=None) -> dict[nn.Module, torch.Tensor]:
     """{linear layer: its merged weight} for one block's targets:
     ``(W.float() + scaling * (a @ b).T).to(W.dtype)``; differentiable in
-    the adapters (and in W, when W requires a gradient)."""
+    the adapters (and in W, when W requires a gradient). Under tensor
+    parallelism (``tp``) W is this rank's block of the whole weight and
+    the delta this rank's block of the whole delta (:func:`_local`)."""
     out = {}
     for target, ad in iter_adapters(adapters):
         lin = _linear(block, target)
-        delta = (ad.a.float() @ ad.b.float()) * scaling
+        a, b = _local(target, ad, tp)
+        delta = (a.float() @ b.float()) * scaling
         out[lin] = (lin.weight.float() + delta.T).to(lin.weight.dtype)
     return out
 
 
-def attached_weights(block: nn.Module, adapters: nn.ModuleDict, scaling: float
+def attached_weights(block: nn.Module, adapters: nn.ModuleDict, scaling: float, tp=None
                      ) -> dict[nn.Module, tuple[torch.Tensor, torch.Tensor]]:
     """{linear layer: (a, b * scaling)} for one block's targets, the side
     branches ``ops/layers.linear`` adds after the layer's own (float or
-    quantized) product; b scaled in fp32, differentiable in the adapters."""
-    return {block.get_submodule(target.replace("/", ".")): (ad.a, ad.b.float() * scaling)
-            for target, ad in iter_adapters(adapters)}
+    quantized) product; b scaled in fp32, differentiable in the adapters.
+    Under tensor parallelism (``tp``) each rank's share (:func:`_local`):
+    a row-split layer's branch is then a partial sum, added to its partial
+    product before the sum over the group."""
+    out = {}
+    for target, ad in iter_adapters(adapters):
+        a, b = _local(target, ad, tp)
+        out[block.get_submodule(target.replace("/", "."))] = (a, b.float() * scaling)
+    return out
 
 
 def merge_lora(model: nn.Module, lora: LoRA, scale: float = 1.0,
@@ -186,18 +214,19 @@ def merge_lora(model: nn.Module, lora: LoRA, scale: float = 1.0,
     (``model.fsdp``) each target's whole delta is computed as in one
     process, one target at a time, and this rank's slice of it is added
     to the shard: the fused shard is bitwise the slice of the one-process
-    fused weight (a product over half the rows could round otherwise)."""
+    fused weight (a product over half the rows could round otherwise). The
+    same holds for a model split over tensor (``model.tensor``): its
+    tensor block of the delta, then its fsdp block of that."""
+    from chronoedit_tpu_torch.parallel.sharding import local_of
+
     merged = model if in_place else copy.deepcopy(model)
-    shards = getattr(merged, "fsdp", None)
     scaling = lora.cfg.scaling * scale
     with torch.no_grad():
         for j, (blk, adapters) in enumerate(zip(merged.blocks, lora.blocks)):
             for target, ad in iter_adapters(adapters):
                 lin = _linear(blk, target)
                 delta = ((ad.a.float() @ ad.b.float()) * scaling).T
-                if shards is not None:
-                    delta = shards.local(
-                        delta, shards.dims[f"blocks.{j}.{target.replace('/', '.')}.weight"])
+                delta = local_of(merged, f"blocks.{j}.{target.replace('/', '.')}.weight", delta)
                 lin.weight.copy_((lin.weight.float() + delta).to(lin.weight.dtype))
     return merged
 

@@ -25,10 +25,11 @@ time axis and the VAE's (dim, 1, 1, 1) RMS gains flatten.
 A pipeline stage loads only its blocks (``layers=`` of the DiT and LoRA
 converters): the other blocks' tensors are left in their files, unread
 (``SafetensorsFiles.bytes_read`` counts what was). An FSDP rank
-(``convert_diffusers_dit(..., mesh=)`` with an fsdp axis) builds the DiT
-at its shard shapes and reads from each tensor only its slice
-(``get_slice``; a slice of the in-dimension of an (out, in) tensor is a
-strided read), so the whole model never exists on one rank.
+(``convert_diffusers_dit(..., mesh=)`` with an fsdp axis), and a tensor
+rank (a tensor axis: its columns or rows of each block projection),
+builds the DiT at its shard shapes and reads from each tensor only its
+slice (``get_slice``; a slice of the in-dimension of an (out, in) tensor
+is a strided read), so the whole model never exists on one rank.
 
 The name tables are module-level data (``DIFFUSERS_DIT``,
 ``NATIVE_DIT``, ``LORA_NAMES``, ``MUSUBI_NAMES``, ...) expanded per layer
@@ -177,43 +178,51 @@ def copy_into(param: torch.Tensor, value: torch.Tensor, name: str) -> None:
         param.copy_(value)
 
 
-def read_shard(sd: StateDict, ref: str, shape: tuple[int, ...], dim: int, index: int,
-               size: int) -> torch.Tensor:
-    """Block ``index`` of ``size`` along ``dim`` of the reference tensor
-    ``ref``, which the port holds whole at ``shape``. Only the block is
-    read, through ``sd.get_slice`` (a mapping without it raises): the
-    file's tensor may carry unit axes that the port drops, or be a conv
-    kernel (out, in, k...) that the port flattens to (out, in * k), whose
-    in-dimension block is read in the whole input channels that hold it."""
-    n = shape[dim] // size
-    start = index * n
+def read_shard(sd: StateDict, ref: str, shape: tuple[int, ...],
+               splits: Iterable[tuple[int, int, int]]) -> torch.Tensor:
+    """This rank's block of the reference tensor ``ref``, which the port
+    holds whole at ``shape``: ``splits`` lists (dim, index, size), each
+    taking block ``index`` of ``size`` along ``dim`` of what the ones
+    before it left (a tensor rank's slice, then its fsdp slice of that).
+    Only the block is read, through ``sd.get_slice`` (a mapping without it
+    raises): the file's tensor may carry unit axes that the port drops, or
+    be a conv kernel (out, in, k...) that the port flattens to (out, in *
+    k), whose in-dimension block is read in the whole input channels that
+    hold it."""
+    start, size = [0] * len(shape), list(shape)
+    for dim, index, n in splits:
+        size[dim] //= n
+        start[dim] += index * size[dim]
     view = sd.get_slice(ref)
     src = tuple(view.shape)
-    k = 1
     if len(shape) == 2 and len(src) > 2 and src[0] == shape[0]:  # a flattened conv kernel
-        fdim = dim
-        if dim == 1:
-            k = math.prod(src[2:])
-    else:  # the same axes but for unit ones
-        fdim = [i for i, d in enumerate(src) if d != 1][
-            [i for i, d in enumerate(shape) if d != 1].index(dim)]
-    lo, hi = start // k, -(-(start + n) // k)
-    index_ = tuple(slice(lo, hi) if i == fdim else slice(None) for i in range(len(src)))
-    block = view[index_]
-    block = block.reshape([(hi - lo) * k if i == dim else d for i, d in enumerate(shape)])
-    return block.narrow(dim, start - lo * k, n)
+        k = math.prod(src[2:])
+        lo, hi = start[1] // k, -(-(start[1] + size[1]) // k)
+        block = view[(slice(start[0], start[0] + size[0]), slice(lo, hi),
+                      *[slice(None)] * (len(src) - 2))]
+        return block.reshape(size[0], (hi - lo) * k).narrow(1, start[1] - lo * k, size[1])
+    # the same axes but for unit ones
+    fdims = [i for i, d in enumerate(src) if d != 1]
+    pdims = [i for i, d in enumerate(shape) if d != 1]
+    index = [slice(None)] * len(src)
+    for d in range(len(shape)):
+        if size[d] != shape[d]:
+            index[fdims[pdims.index(d)]] = slice(start[d], start[d] + size[d])
+    return view[tuple(index)].reshape(size)
 
 
 def fill_module(module: nn.Module, sd: StateDict, names: Mapping[str, str],
                 strict: bool = True, ignore: tuple[str, ...] = (),
-                shards=None) -> nn.Module:
+                shards: Iterable = ()) -> nn.Module:
     """Write ``module``'s parameters from ``sd`` by ``names`` ({reference
     name: parameter name}), in ``sd``'s order (file by file, front to back);
     every parameter exactly once. With ``strict``, a reference key that no
     name consumes raises unless it ends with one of ``ignore``. With
-    ``shards`` (a ``parallel.sharding.Shards``: the module is built at this
-    rank's shard shapes) a split parameter takes its block of the
-    reference tensor (:func:`read_shard`). Returns the module."""
+    ``shards`` (``parallel.sharding.Shards`` or None, outer axis first: the
+    module is built at this rank's shard shapes) a split parameter takes
+    its block of the reference tensor (:func:`read_shard`). Returns the
+    module."""
+    shards = [s for s in shards if s is not None]
     params = dict(module.named_parameters())
     for ref, name in names.items():
         if name not in params:
@@ -233,13 +242,15 @@ def fill_module(module: nn.Module, sd: StateDict, names: Mapping[str, str],
         if ref not in names:
             continue
         name = names[ref]
-        dim = None if shards is None else shards.dims.get(name)
-        if dim is None:
+        splits = [(s.dims[name], s.index, s.size) for s in shards
+                  if s.dims.get(name) is not None]
+        if not splits:
             copy_into(params[name], sd[ref], ref)
             continue
-        shape = tuple(n * shards.size if d == dim else n
-                      for d, n in enumerate(params[name].shape))
-        copy_into(params[name], read_shard(sd, ref, shape, dim, shards.index, shards.size), ref)
+        shape = list(params[name].shape)
+        for dim, _, n in splits:
+            shape[dim] *= n
+        copy_into(params[name], read_shard(sd, ref, tuple(shape), splits), ref)
     return module
 
 
@@ -395,20 +406,22 @@ def convert_diffusers_dit(sd: StateDict, cfg: DiTConfig, device=None,
     ``norm_added_q`` weights are ignored. With ``layers`` (a pipeline
     stage's, ``parallel.pipeline_parallel.stage_range``) the DiT holds
     those blocks only, and the other blocks' tensors are not read. With a
-    ``mesh`` whose fsdp axis is above 1 the DiT is built at this rank's
-    shard shapes (``parallel.sharding.materialize_shards``; placed by
-    ``dit_param_sharding``) and each tensor's slice alone is read."""
+    ``mesh`` whose tensor or fsdp axis is above 1 the DiT is built at this
+    rank's shard shapes (``parallel.sharding.materialize_shards``; placed
+    by ``dit_param_sharding``: a tensor rank's columns or rows of each
+    block projection, then its fsdp slice of that) and each tensor's slice
+    alone is read."""
     from chronoedit_tpu_torch.parallel import sharding
 
     sd = _stage_view(_renamed(sd, ("model.diffusion_model.", "transformer.", "model.")),
                      cfg.num_layers, layers)
-    if mesh is None or mesh.shape.get("fsdp", 1) == 1:
+    if mesh is None or (sharding.tensor_degree(mesh) == 1 and mesh.shape.get("fsdp", 1) == 1):
         model = DiT(cfg, device=device, layers=layers)
     else:
         model = sharding.materialize_shards(DiT(cfg, device="meta", layers=layers), mesh,
                                             device)
     return fill_module(model, sd, diffusers_dit_names(cfg, layers),
-                       ignore=("norm_added_q.weight",), shards=model.fsdp)
+                       ignore=("norm_added_q.weight",), shards=(model.tensor, model.fsdp))
 
 
 def export_diffusers_dit(model: DiT) -> dict[str, torch.Tensor]:

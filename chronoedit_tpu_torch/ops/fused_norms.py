@@ -5,7 +5,12 @@
 - :func:`gated_residual` (K3) — ``x + delta * gate`` in fp32 with a
   per-frame gate, output in x's dtype.
 - :func:`rms_norm_fused` (K4) — the qk "rms_norm_across_heads": fp32
-  statistics, cast, then the weight.
+  statistics, cast, then the weight; :func:`rms_norm_tensor` — its
+  tensor-parallel form, on a rank's columns of each row: each row's sum of
+  squares over the local columns (pass (a), ``rms_sumsq``), summed over the
+  tensor ranks, then the local columns normalised by the whole row's
+  statistics (pass (b), ``rms_norm_ss``), the rank's slice of the weight
+  applied (JAX's shard_map branch of ``rms_norm_fused``).
 
 Each wrapper is a ``torch.autograd.Function``. Its forward launches the
 CUDA kernel (``csrc/``) for CUDA tensors and raises on what the kernel does
@@ -47,11 +52,28 @@ def gated_residual_plain(x: torch.Tensor, delta: torch.Tensor, gate: torch.Tenso
     return out.reshape(b, s, d).to(x.dtype)
 
 
-def rms_norm_plain(weight: torch.Tensor, x: torch.Tensor,
-                   eps: float = 1e-6) -> torch.Tensor:
+def rms_norm_plain(weight: torch.Tensor, x: torch.Tensor, eps: float = 1e-6,
+                   ss: torch.Tensor | None = None, d: int | None = None) -> torch.Tensor:
+    """K4's twin; with ``ss`` the rows' sums of squares over a width of
+    ``d`` columns (the whole row's, of which ``x`` holds a rank's share),
+    taken as the statistics in place of ``x``'s own."""
     xf = x.float()
-    var = xf.square().mean(dim=-1, keepdim=True)
+    if ss is None:
+        var = xf.square().mean(dim=-1, keepdim=True)
+    else:
+        var = ss.unsqueeze(-1) / d
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * weight.to(x.dtype)
+
+
+def rms_sumsq_plain(x: torch.Tensor) -> torch.Tensor:
+    """Pass (a)'s twin: each row's fp32 sum of squares, (B, S)."""
+    return x.float().square().sum(dim=-1)
+
+
+def rms_norm_ss_plain(weight: torch.Tensor, x: torch.Tensor, ss: torch.Tensor, d: int,
+                      eps: float) -> torch.Tensor:
+    """Pass (b)'s twin: :func:`rms_norm_plain` with external statistics."""
+    return rms_norm_plain(weight, x, eps, ss, d)
 
 
 # ----------------------------------------------------------- checks
@@ -128,8 +150,33 @@ def _rms_norm_kernel(w, x, eps: float) -> torch.Tensor:
     _check_like("rms_norm", x, w, (d,), torch.bfloat16)
     out = torch.empty_like(x)
     build.check(build.lib().rms_norm_bf16(
-        x.data_ptr(), w.data_ptr(), out.data_ptr(), b * s, d, eps, _stream()),
+        x.data_ptr(), w.data_ptr(), None, out.data_ptr(), b * s, d, d, eps, _stream()),
         "rms_norm")
+    return out
+
+
+def _rms_sumsq_kernel(x) -> torch.Tensor:
+    from chronoedit_tpu_torch.kernels import build
+
+    _check_stream("rms_sumsq", x)
+    b, s, d = x.shape
+    ss = torch.empty((b, s), device=x.device, dtype=torch.float32)
+    build.check(build.lib().rms_sumsq_bf16(x.data_ptr(), ss.data_ptr(), b * s, d, _stream()),
+                "rms_sumsq")
+    return ss
+
+
+def _rms_norm_ss_kernel(w, x, ss, d_stat: int, eps: float) -> torch.Tensor:
+    from chronoedit_tpu_torch.kernels import build
+
+    _check_stream("rms_norm_ss", x)
+    b, s, d = x.shape
+    _check_like("rms_norm_ss", x, w, (d,), torch.bfloat16)
+    _check_like("rms_norm_ss", x, ss, (b, s), torch.float32)
+    out = torch.empty_like(x)
+    build.check(build.lib().rms_norm_bf16(
+        x.data_ptr(), w.data_ptr(), ss.data_ptr(), out.data_ptr(), b * s, d, d_stat, eps,
+        _stream()), "rms_norm_ss")
     return out
 
 
@@ -184,6 +231,26 @@ def rms_norm_fused(p: L.RMSNorm, x: torch.Tensor, eps: float = 1e-6) -> torch.Te
     (cast to x's dtype first; its gradient flows back through the cast)."""
     return _Fused.apply(rms_norm_plain, _rms_norm_kernel, 2, p.scale.to(x.dtype), x,
                         eps)
+
+
+def rms_norm_tensor(p: L.RMSNorm, x: torch.Tensor, group, index: int, size: int,
+                    eps: float = 1e-6) -> torch.Tensor:
+    """K4 under tensor parallelism: ``x`` (B, S, D / size) holds this rank's
+    ``index``-th block of each row's columns; ``p.scale`` is the whole
+    (D,) weight, replicated. Pass (a) sums each row's squares over the
+    local columns; one (B, S) fp32 all-reduce over ``group`` completes
+    them; pass (b) normalises the local columns by ``sum / D`` and applies
+    this rank's slice of the weight. Backward: each pass's twin's VJP, the
+    statistic's cotangent summed over the group (every rank used the sum
+    on its own columns), and the weight's gradient summed too (each rank
+    used its own slice of the replicated weight)."""
+    from chronoedit_tpu_torch.parallel import collectives as C
+
+    d_local = x.shape[-1]
+    w = C.sum_grad_autograd(p.scale, group).narrow(0, index * d_local, d_local).to(x.dtype)
+    ss = C.psum_autograd(_Fused.apply(rms_sumsq_plain, _rms_sumsq_kernel, 1, x), group)
+    return _Fused.apply(rms_norm_ss_plain, _rms_norm_ss_kernel, 3, w, x, ss,
+                        d_local * size, eps)
 
 
 # ----------------------------------------------------- context shards

@@ -50,25 +50,31 @@ class Linear(nn.Module):
 
 
 def linear(p: nn.Module, x: torch.Tensor, weight: torch.Tensor | None = None,
-           side: tuple[torch.Tensor, torch.Tensor] | None = None) -> torch.Tensor:
+           side: tuple[torch.Tensor, torch.Tensor] | None = None, bias: bool = True,
+           group=None) -> torch.Tensor:
     """``x @ W.T + b`` in x's dtype; ``weight`` stands in for ``p.weight``
     (a LoRA-merged copy). A quantized leaf (``ops/quant.py``) runs its own
     product, as JAX dispatches on the leaf's keys. ``side = (a, b)`` adds
     the unmerged LoRA branch ``((x @ a) @ b)`` in fp32, cast to the
     output's dtype, after any product (QLoRA's composition over a
-    quantized leaf; the adapter scaling is folded into b)."""
+    quantized leaf; the adapter scaling is folded into b).
+    ``bias=False`` leaves the bias out, and ``group`` takes a quantized
+    leaf's per-token activation scale over that tensor group: a row-split
+    layer's partial product, which the caller sums over the group before
+    it adds the bias once."""
     if not isinstance(p, Linear):
         from chronoedit_tpu_torch.ops import quant
 
         if weight is not None:
             raise ValueError("a merged weight cannot stand in for a quantized layer")
         if isinstance(p, quant.QuantLinear8):
-            y = quant.quantized_linear(p, x)
+            y = quant.quantized_linear(p, x, bias, group)
         else:
-            y = quant.quantized_linear_int4(p, x)
+            y = quant.quantized_linear_int4(p, x, bias, group)
     else:
         w = p.weight if weight is None else weight
-        y = F.linear(x, w.to(x.dtype), None if p.bias is None else p.bias.to(x.dtype))
+        b = p.bias.to(x.dtype) if bias and p.bias is not None else None
+        y = F.linear(x, w.to(x.dtype), b)
     if side is not None:
         a, b = side
         y = y + ((x.float() @ a.float()) @ b.float()).to(y.dtype)

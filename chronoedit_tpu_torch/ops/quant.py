@@ -33,6 +33,30 @@ in its high nibble; ``scales`` (g, out) fp32 is ``kernel_scale4`` as it
 is, the first half's groups first. ``in_pad`` rounds the in-dim up to an
 even number of 128-row groups.
 
+Under tensor parallelism (``parallel/sharding.py``) a column-split leaf
+holds its output channels: its slices of ``weight_q``, ``weight_scale``,
+``packed``, ``scales``, ``scale8`` and ``bias``. A row-split leaf holds
+its rows of the in-dimension and applies to the rank's columns of the
+activations; its per-output leaves stay whole. Three things keep it the
+whole model's function:
+
+- the per-token int8 scale of w8a8 and w4a8 is the whole row's: the
+  ranks' amaxes are reduced by a maximum over the tensor group before
+  they quantize (``group=``), as GSPMD's global amax is;
+- a row-split int4 leaf holds its rank's contiguous rows repacked into a
+  split half of its own (:func:`int4_rows`; JAX's packed-axis slice
+  would hold two non-contiguous row ranges). Its rows must be whole
+  128-row groups, so the scales and codes are the whole leaf's; an odd
+  group count is padded with one zero group, as the quantizer pads the
+  in-dimension, and the activations are zero-padded to match;
+- the row products are partial sums: the caller sums them over the group
+  and adds the bias once (``bias=False`` here).
+
+Quantizing a tensor-split model quantizes each rank's local layers; a
+row-split layer's per-output scales (``weight_scale``, ``scale8``) take
+the maximum over the group, so every leaf is bitwise the whole model's
+quantized leaf's slice (the int4 rows repacked).
+
 Training through a quantized leaf (QLoRA: side adapters over a frozen
 quantized base, ``models/lora.py``): the w8a8 and w4a8 products are the
 straight-through int8 product of JAX's ``_int8_dot_ste``
@@ -127,11 +151,22 @@ def is_quantized(m: nn.Module) -> bool:
 
 # --------------------------------------------------------------- quantizers
 
-def quantize_linear_params(lin: L.Linear) -> QuantLinear8:
+def _global_max(t: torch.Tensor, group) -> torch.Tensor:
+    """``t``'s elementwise maximum over ``group`` (itself without one)."""
+    if group is None:
+        return t
+    from chronoedit_tpu_torch.parallel import collectives as C
+
+    return C.all_reduce_max(t, group)
+
+
+def quantize_linear_params(lin: L.Linear, group=None) -> QuantLinear8:
     """Per-output-channel symmetric int8: ``scale = max(absmax, 1e-8) /
-    127``, ``q = clip(round(w / scale), -127, 127)``."""
+    127``, ``q = clip(round(w / scale), -127, 127)``. With ``group`` the
+    layer holds a tensor rank's rows of the in-dimension and absmax is the
+    maximum over the group's."""
     w = lin.weight.detach().float()
-    scale = w.abs().amax(dim=1).clamp_min(_EPS) / 127.0
+    scale = _global_max(w.abs().amax(dim=1), group).clamp_min(_EPS) / 127.0
     q = torch.round(w / scale[:, None]).clamp(-127, 127).to(torch.int8)
     return QuantLinear8(q, scale, lin.bias.detach().clone())
 
@@ -171,22 +206,28 @@ def int4_levels(grid: str, eff_group: int, device=None) -> torch.Tensor:
 
 
 def quantize_linear_params_int4(lin: L.Linear, act8: bool = False,
-                                grid: str | None = None) -> QuantLinear4:
+                                grid: str | None = None, group=None) -> QuantLinear4:
     """Grouped int4 with per-(128-row group, output channel) scales, packed
     split half; zero-padded rows quantize to 0. ``act8`` adds ``scale8 =
     max_g(absmax) / 127`` (w4a8). Bit for bit JAX's
     ``quantize_linear_params_int4`` (at its default group) on the
-    transposed weight."""
+    transposed weight. With ``group`` (a tensor group) the layer holds a
+    rank's rows of the in-dimension, which must be whole 128-row groups;
+    ``scale8`` is the maximum over the group's."""
+    size = INT4_GROUP
     grid = INT4_GRID if grid is None else grid
-    group = INT4_GROUP
     w = lin.weight.detach().float()
     dout, din = w.shape
-    g = -(-din // group)
+    if group is not None and din % size:
+        raise ValueError(f"int4 under tensor parallelism: a rank's {din} rows of the "
+                         f"in-dimension are not whole {size}-row groups, so its groups "
+                         f"would not be the whole model's")
+    g = -(-din // size)
     g += g % 2  # even group count: the half split lands on a group edge
-    k = F.pad(w.T, (0, 0, 0, g * group - din))  # (in_pad, out), as JAX's kernel
-    kg = k.reshape(g, group, dout)
+    k = F.pad(w.T, (0, 0, 0, g * size - din))  # (in_pad, out), as JAX's kernel
+    kg = k.reshape(g, size, dout)
     absmax = kg.abs().amax(dim=1).clamp_min(_EPS)  # (g, out)
-    table = int4_levels(grid, min(group, din), device=w.device)
+    table = int4_levels(grid, min(size, din), device=w.device)
     if grid == "uniform":  # w ~ q * scale, q in [-7, 7]
         scale = absmax / 7.0
         q = torch.round(kg / scale[:, None, :]).clamp(-7, 7)
@@ -194,14 +235,52 @@ def quantize_linear_params_int4(lin: L.Linear, act8: bool = False,
         scale = absmax
         edges = (table[1:] + table[:-1]) / 2.0
         q = torch.searchsorted(edges, (kg / scale[:, None, :]).contiguous()) - 7
-    q = q.to(torch.int8).reshape(g * group, dout)
-    half = g * group // 2
+    q = q.to(torch.int8).reshape(g * size, dout)
+    scale8 = _global_max(absmax.amax(dim=0), group) / 127.0 if act8 else None
+    return QuantLinear4(_pack(q), scale, table, lin.bias.detach().clone(), scale8,
+                        in_features=din)
+
+
+def _pack(q: torch.Tensor) -> torch.Tensor:
+    """(in_pad, out) int8 codes -> the (out, in_pad / 2) split-half bytes:
+    row j in the low nibble, row j + in_pad / 2 in the high one."""
+    half = q.shape[0] // 2
     # through uint8: a left shift of a negative int8 is not defined
     lo, hi = q[:half].view(torch.uint8), q[half:].view(torch.uint8)
-    packed = ((lo & 0x0F) | (hi << 4)).view(torch.int8)
-    scale8 = absmax.amax(dim=0) / 127.0 if act8 else None
-    return QuantLinear4(packed.T.contiguous(), scale, table, lin.bias.detach().clone(),
-                        scale8, in_features=din)
+    return ((lo & 0x0F) | (hi << 4)).view(torch.int8).T.contiguous()
+
+
+def _zero_group_scale(table: torch.Tensor) -> torch.Tensor:
+    """The scale the quantizer gives a group of zero rows: ``1e-8 / 7`` on
+    the uniform grid (whose table tops at 7), ``1e-8`` on a codebook."""
+    eps = torch.tensor(_EPS, dtype=torch.float32, device=table.device)
+    return eps / 7.0 if float(table[-1]) == 7.0 else eps
+
+
+def int4_rows(p: QuantLinear4, index: int, size: int) -> QuantLinear4:
+    """Tensor rank ``index`` of ``size``'s rows of the whole int4 leaf
+    ``p``'s in-dimension, ``[index * n, (index + 1) * n)`` for ``n =
+    in_features / size``, as a leaf of their own: the codes repacked into a
+    split half of the local in-dimension, padded to an even number of
+    groups with a zero group (the scale the quantizer would give it), the
+    groups' scales sliced; ``bias``, ``scale8`` and ``table`` whole. Bitwise
+    what quantizing the rank's rows alone gives. Raises ValueError unless
+    the rows are whole 128-row groups."""
+    din = p.in_features
+    if din is None or din % size or (din // size) % INT4_GROUP:
+        raise ValueError(f"int4 under tensor parallelism: {din} rows of the in-dimension over "
+                         f"{size} ranks are not whole {INT4_GROUP}-row groups a rank")
+    n = din // size
+    g = n // INT4_GROUP
+    lo, hi = _unpack_int4(p.packed)
+    codes = torch.cat([lo, hi], dim=1)[:, index * n:(index + 1) * n]  # (out, n)
+    scales = p.scales[index * g:(index + 1) * g]
+    if g % 2:
+        codes = F.pad(codes, (0, INT4_GROUP))
+        pad = _zero_group_scale(p.table).expand(1, scales.shape[1])
+        scales = torch.cat([scales, pad])
+    return QuantLinear4(_pack(codes.T), scales.contiguous(), p.table, p.bias, p.scale8,
+                        in_features=n)
 
 
 # ------------------------------------------------------------------ applies
@@ -240,34 +319,45 @@ class _Int8DotSTE(torch.autograd.Function):
         return torch.matmul(g, w8.float()), None
 
 
-def _token_scale(xf: torch.Tensor) -> torch.Tensor:
-    """Per-token int8 scale of fp32 x, (..., 1): ``max(amax, 1e-8) / 127``."""
-    return xf.abs().amax(dim=-1, keepdim=True).clamp_min(_EPS) / 127.0
+def _token_scale(xf: torch.Tensor, group=None) -> torch.Tensor:
+    """Per-token int8 scale of fp32 x, (..., 1): ``max(amax, 1e-8) / 127``;
+    with ``group`` (a tensor group, x holding a rank's columns) the amax is
+    the whole row's, the maximum over the group (it then carries no
+    gradient)."""
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    return _global_max(amax, group).clamp_min(_EPS) / 127.0
 
 
-def quantized_linear(p: QuantLinear8, x: torch.Tensor) -> torch.Tensor:
+def quantized_linear(p: QuantLinear8, x: torch.Tensor, bias: bool = True,
+                     group=None) -> torch.Tensor:
     """w8a8: per-token int8 activations, int32 sums, ``acc * xs * w_scale
     + bias`` in fp32; out in x's dtype. Differentiable in x (the
-    straight-through int8 product)."""
+    straight-through int8 product). ``bias=False`` leaves the bias out and
+    ``group`` takes the token scale over a tensor group (a row-split
+    leaf's partial product)."""
     xf = x.float()
-    xs = _token_scale(xf)
+    xs = _token_scale(xf, group)
     y = _Int8DotSTE.apply(xf / xs, p.weight_q) * xs * p.weight_scale
-    return (y + p.bias.float()).to(x.dtype)
+    return (y + p.bias.float() if bias else y).to(x.dtype)
 
 
-def quantized_linear_int4(p: QuantLinear4, x: torch.Tensor) -> torch.Tensor:
+def quantized_linear_int4(p: QuantLinear4, x: torch.Tensor, bias: bool = True,
+                          group=None) -> torch.Tensor:
     """int4 leaf: w4a8 when ``p.scale8`` is set, else w4a16 through K8
     (the bias added afterwards in x's dtype, as JAX does). x's last dim
-    is zero-padded to in_pad."""
+    is zero-padded to in_pad. ``bias`` and ``group`` as
+    :func:`quantized_linear`'s."""
     pad = 2 * p.packed.shape[1] - x.shape[-1]
     if pad:
         x = F.pad(x, (0, pad))
     if p.scale8 is not None:
-        return _int4_apply_a8(p, x)
-    return int4_matmul(x, p.packed, p.scales, p.table) + p.bias.to(x.dtype)
+        return _int4_apply_a8(p, x, bias, group)
+    y = int4_matmul(x, p.packed, p.scales, p.table)
+    return y + p.bias.to(x.dtype) if bias else y
 
 
-def _int4_apply_a8(p: QuantLinear4, x: torch.Tensor) -> torch.Tensor:
+def _int4_apply_a8(p: QuantLinear4, x: torch.Tensor, bias: bool = True,
+                   group=None) -> torch.Tensor:
     """w4a8: the int4 weight requantized per call to per-column int8
     (``rint(table[q + 7] * scale / scale8)``, clipped to +-127), per-token
     int8 activations, the two halves' int32 products converted to fp32
@@ -284,12 +374,12 @@ def _int4_apply_a8(p: QuantLinear4, x: torch.Tensor) -> torch.Tensor:
     lo, hi = _unpack_int4(p.packed)
     w8_lo, w8_hi = rq(lo, f[:, : g // 2]), rq(hi, f[:, g // 2:])
     xf = x.float()
-    xs = _token_scale(xf)
+    xs = _token_scale(xf, group)
     xq_f = xf / xs
     acc = (_Int8DotSTE.apply(xq_f[..., :half], w8_lo)
            + _Int8DotSTE.apply(xq_f[..., half:], w8_hi))
     y = acc * xs * p.scale8
-    return (y + p.bias.float()).to(x.dtype)
+    return (y + p.bias.float() if bias else y).to(x.dtype)
 
 
 # -------------------------------------------------------------------- model
@@ -313,7 +403,15 @@ def quantize_dit(model: nn.Module, skip: tuple = (), mode: str = "int8",
     scale over a shard of the in-dimension, or a 128-row int4 group cut at
     a shard's edge, would differ from the whole model's: the leaves are
     bitwise those of quantizing the whole model and then sharding it, as
-    JAX's order is."""
+    JAX's order is.
+
+    A model split over ``mesh``'s tensor axis (``model.tensor``) quantizes
+    each rank's local layers (inside the fsdp gather when both split): a
+    row-split layer's per-output scales take the maximum over the tensor
+    group and its int4 rows must be whole 128-row groups (ValueError
+    otherwise), so the leaves are bitwise the whole model's quantized
+    leaves' slices (``sharding.shard_params`` of the whole quantized
+    model)."""
     if mode not in MODES:
         raise ValueError(f"unknown quantization mode {mode!r}")
     targets = _BLOCK_LINEARS if mode == "int8" else _BLOCK_LINEARS_INT4
@@ -325,14 +423,17 @@ def quantize_dit(model: nn.Module, skip: tuple = (), mode: str = "int8",
         qfn = quantize_linear_params
     else:
         qfn = functools.partial(quantize_linear_params_int4, act8=mode == "int4_a8")
-    gather = None
-    if getattr(model, "fsdp", None) is not None:
-        from chronoedit_tpu_torch.parallel import sharding
+    from chronoedit_tpu_torch.parallel import sharding
 
+    gather = tp = None
+    if getattr(model, "fsdp", None) is not None:
         gather = sharding.fsdp_gather(model, mesh, 0)
+    if getattr(model, "tensor", None) is not None:
+        tp = sharding.tensor_plan(model, mesh)
+    sharded = gather is not None or tp is not None
     with torch.no_grad():
         for j, blk in enumerate(model.blocks):
-            old = sharding.leaves(blk) if gather is not None else None
+            old = sharding.leaves(blk) if sharded else None
             with gather(blk) if gather is not None else contextlib.nullcontext():
                 for mod, name in targets:
                     parent = getattr(blk, mod, None)
@@ -340,8 +441,9 @@ def quantize_dit(model: nn.Module, skip: tuple = (), mode: str = "int8",
                     if lin is None or (mod, name) in skip or is_quantized(lin):
                         continue
                     fn = quantize_linear_params if (mod, name) in upgrade else qfn
-                    setattr(parent, name, fn(lin))
-            if gather is not None:
+                    row = tp is not None and (mod, name) in sharding.TP_ROW
+                    setattr(parent, name, fn(lin, group=tp.group if row else None))
+            if sharded:
                 sharding.shard_new_leaves(model, blk, f"blocks.{j}", old)
     return model
 

@@ -1,10 +1,10 @@
 """Parallelism over ``torch.distributed``: the process world, the mesh of
-``pipe``, ``data``, ``fsdp`` and ``context`` axes, FSDP sharding of the
-DiT's parameters (``dit_param_sharding``, ``shard_params``),
-context-parallel (ring and Ulysses) attention and its collectives, GPipe
-pipeline stages (``gpipe_scan``), and cross-rank replica checks. Tensor
-parallelism and ``host_local_to_global`` are items 1.1 (its second half)
-and 1.3 of the roadmap's queue 1."""
+``pipe``, ``data``, ``fsdp``, ``tensor`` and ``context`` axes, tensor
+(Megatron) and FSDP sharding of the DiT's parameters
+(``dit_param_sharding``, ``shard_params``), context-parallel (ring and
+Ulysses) attention and the collectives, GPipe pipeline stages
+(``gpipe_scan``), and cross-rank replica checks. ``host_local_to_global``
+is item 1.3 of the roadmap's queue 1."""
 
 from chronoedit_tpu_torch.parallel.context import (
     gather_sequence,

@@ -1,7 +1,7 @@
-"""The collectives of context parallelism and FSDP, over a
+"""The collectives of context, FSDP and tensor parallelism, over a
 ``torch.distributed`` process group: the counterparts of JAX's
-``ppermute``, tiled ``all_to_all``, ``all_gather``, ``psum_scatter`` and
-``psum`` on a mesh axis.
+``ppermute``, tiled ``all_to_all``, ``all_gather``, ``psum_scatter``,
+``psum`` and ``pmax`` on a mesh axis.
 
 - :func:`ring_shift_start` / :class:`RingShift`: every rank sends its
   tensors to the next rank of the group and receives the previous rank's
@@ -17,8 +17,17 @@
   a parameter shard) with that slice or with :func:`reduce_scatter`;
 - :func:`reduce_scatter`: the sum over the group, each rank keeping its
   block of one dimension;
-- :func:`all_reduce`: the sum over the group; :func:`sum_grad_autograd`
-  is the identity whose backward sums the gradient over the group;
+- :func:`all_reduce`: the sum (or the maximum) over the group;
+  :func:`sum_grad_autograd` is the identity whose backward sums the
+  gradient over the group;
+- Megatron's conjugate pair for tensor parallelism:
+  :func:`copy_to_tensor` (the identity, its backward the sum: at the entry
+  of a column-parallel group, whose ranks each take the replicated input
+  to their own columns) and :func:`reduce_from_tensor` (the sum, its
+  backward the identity: after a row-parallel product, whose partial sums
+  every rank then uses alike); :func:`psum_autograd` (the sum, its
+  backward the sum: a statistic that each rank uses on its own columns,
+  RMSNorm's across the heads);
 - :func:`broadcast`: one rank's tensor on every rank of the group (the
   pipeline's final replication, ``parallel/pipeline_parallel.py``).
 
@@ -244,13 +253,51 @@ def sum_grad_autograd(x: torch.Tensor, group) -> torch.Tensor:
     return _SumGrad.apply(x, group)
 
 
-def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
-    """The sum of ``x`` over the group, in a new tensor on ``x``'s device."""
+def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """The sum (or ``op``) of ``x`` over the group, in a new tensor on
+    ``x``'s device, in ``x``'s dtype: bf16 partials are summed in bf16, as
+    GSPMD reduces a bf16 product's partial sums."""
     buf = _outgoing(group, [x])[0]
     if buf is x:
         buf = x.clone()
-    dist.all_reduce(buf, group=group)
+    dist.all_reduce(buf, op=op, group=group)
     return buf.to(x.device, non_blocking=True)
+
+
+def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise maximum of ``x`` over the group (JAX's ``pmax``), no
+    gradient: the global per-token amax of an int8 activation scale."""
+    return all_reduce(x.detach().contiguous(), group, dist.ReduceOp.MAX)
+
+
+# Megatron's ``f``, at the entry of a column-parallel group: ``x`` itself,
+# its gradient summed over the tensor group (each rank's columns gave it a
+# partial one)
+copy_to_tensor = sum_grad_autograd
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, grad_sum: bool):
+        ctx.group, ctx.grad_sum = group, grad_sum
+        return all_reduce(x.contiguous(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (all_reduce(g.contiguous(), ctx.group) if ctx.grad_sum else g), None, None
+
+
+def reduce_from_tensor(x: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's ``g``: the sum of the ranks' partial products over the
+    tensor group, in ``x``'s dtype; its backward passes the gradient on
+    as it is (every rank computed alike from the sum)."""
+    return _Reduce.apply(x, group, False)
+
+
+def psum_autograd(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over the group whose backward sums the gradient
+    too: each rank uses the sum on its own share of the work."""
+    return _Reduce.apply(x, group, True)
 
 
 def broadcast(x: torch.Tensor, group, src_index: int) -> torch.Tensor:

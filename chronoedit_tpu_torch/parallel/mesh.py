@@ -15,8 +15,12 @@ the same order on every rank, as ``dist.new_group`` requires:
               holds its slice of every DiT parameter, gathers a block's
               just before the block runs, and takes its share of the
               batch when the degree divides it (``parallel/sharding.py``);
-- ``tensor``  tensor parallelism, not ported yet (item 1.1's second half
-              in the roadmap's queue 1, formerly item 6b);
+- ``tensor``  tensor (Megatron) parallelism: each rank of a tensor line
+              holds its columns of the DiT blocks' q / k / v / fc1
+              projections and its rows of o / fc2, runs its share of the
+              heads, and sums the row products over the line
+              (``parallel/sharding.py``, ``models/dit.py``); inside
+              pipeline stages it is replicated, as in JAX;
 - ``context`` context (sequence) parallelism: ring or Ulysses attention
               over the DiT's token blocks (``parallel/context.py``).
 
@@ -43,9 +47,6 @@ AXIS_TENSOR = "tensor"
 AXIS_CONTEXT = "context"
 # pipe is outermost; the high-traffic axes (tensor, context) stay innermost
 MESH_AXES = (AXIS_PIPE, AXIS_DATA, AXIS_FSDP, AXIS_TENSOR, AXIS_CONTEXT)
-# the axes whose sharding is not ported yet (item 1.1's tensor half in the
-# roadmap's queue 1, formerly item 6b)
-LATER_AXES = (AXIS_TENSOR,)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -168,22 +169,15 @@ def make_mesh(config: MeshConfig | None = None, device: torch.device | None = No
     for by passing ``torch.device("cpu")``).
 
     Raises ValueError when the degrees do not fill the world or when both
-    ``pipe`` and ``fsdp`` are above 1, and NotImplementedError for a
-    ``tensor`` axis above 1: tensor parallelism is the second half of item
-    1.1 of the roadmap's queue 1 (formerly item 6b). Every rank must call
-    this with the same config, in the same order as its other group
-    creations.
+    ``pipe`` and ``fsdp`` are above 1. A ``tensor`` axis beside a ``pipe``
+    axis is replicated inside the stages, as JAX's ``gpipe_scan`` does (it
+    warns). Every rank must call this with the same config, in the same
+    order as its other group creations.
     """
     config = config or MeshConfig()
     world = dist.get_world_size() if dist.is_initialized() else 1
     rank = dist.get_rank() if dist.is_initialized() else 0
     shape = config.resolve(world)
-    later = {a: n for a, n in zip(MESH_AXES, shape) if a in LATER_AXES and n > 1}
-    if later:
-        raise NotImplementedError(
-            f"mesh axes {later}: tensor parallelism is not ported yet (the second half of "
-            f"item 1.1 of the roadmap's queue 1, formerly item 6b); the port shards over "
-            f"pipe, data, fsdp and context")
     if config.pipe > 1 and config.fsdp > 1:
         raise ValueError(
             f"mesh pipe={config.pipe} x fsdp={config.fsdp}: a pipeline over FSDP shards is not "

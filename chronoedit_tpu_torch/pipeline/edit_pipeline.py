@@ -30,8 +30,9 @@ the video after it.
 
 With a ``mesh`` (``parallel/mesh.py``) every rank runs the whole pipeline
 on the same inputs: the DiT splits its tokens over the context axis (ring
-or Ulysses attention, ``dit_forward``), holds a slice of its parameters
-over the fsdp axis (gathering each block's as it runs, and splitting the
+or Ulysses attention, ``dit_forward``), its heads and block projections
+over the tensor axis (Megatron's column / row blocks), holds a slice of
+its parameters over the fsdp axis (gathering each block's as it runs, and splitting the
 batch when the fsdp degree divides it), or runs its blocks as a pipeline
 over the pipe axis (each rank holding its stage's blocks, with the context
 axis inside the stages and the data axis on the batch), and gives every
@@ -151,8 +152,9 @@ class ChronoEditPipeline:
         model (``INT4_MIXED2_UPGRADE`` is the recipe over the 35 dB bar).
         Attention, the embedders, the head and the VAE keep their dtype. A
         DiT sharded over the mesh's fsdp axis is quantized a gathered block
-        at a time and stays sharded (JAX re-shards after quantizing).
-        Returns self."""
+        at a time and stays sharded (JAX re-shards after quantizing); one
+        split over its tensor axis quantizes each rank's layers, the row
+        layers' scales taken over the tensor group. Returns self."""
         from chronoedit_tpu_torch.ops.quant import quantize_dit
 
         quantize_dit(self.dit, skip=skip, mode=mode, upgrade=upgrade, mesh=self.mesh)

@@ -8,8 +8,8 @@ reference's files: diffusers DiT shards (``transformer/*.safetensors``, or
 (open-clip ViT-H; its visual tower) and LoRA files. Every tensor is read
 from its file and copied into its parameter on the target device
 (``models/weights.py``). Under a pipe mesh each rank reads only its
-stage's blocks of the DiT shards and of the LoRA files; under an fsdp
-mesh only its slice of each DiT tensor.
+stage's blocks of the DiT shards and of the LoRA files; under a tensor or
+fsdp mesh only its slice of each DiT tensor.
 """
 
 from __future__ import annotations
@@ -80,9 +80,12 @@ def load_pipeline(
     a rank builds it at its shard shapes and reads from the shards only
     its slice of each tensor (``load_bytes["dit"]`` counts exactly those
     bytes), and each LoRA's whole delta is added to its slice
-    (``models/lora.merge_lora``). Over ``context`` and ``data`` the weights
-    are replicated; tensor parallelism is the second half of item 1.1 of
-    the roadmap's queue 1.
+    (``models/lora.merge_lora``). Under a tensor axis above 1 (and no pipe
+    axis) a rank reads its columns of each block's q / k / v / k_img /
+    v_img / fc1 tensors and its rows of o / fc2, and the rest whole; under
+    tensor x fsdp its fsdp slice of its tensor slice; each LoRA's whole
+    delta is added to its slice in the same way. Over ``context`` and
+    ``data`` the weights are replicated.
     """
     from chronoedit_tpu_torch.models.clip import CLIPImageEncoder, convert_clip_vision_checkpoint
     from chronoedit_tpu_torch.models.umt5 import UMT5TextEncoder, convert_umt5_checkpoint

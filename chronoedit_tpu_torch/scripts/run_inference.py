@@ -33,8 +33,17 @@ Examples:
   torchrun --nproc-per-node 2 -m chronoedit_tpu_torch.scripts.run_inference \
       --mesh fsdp=2 --smoke --device cpu
 
+  # tensor parallelism: each of 2 ranks holds 20 of the 40 heads (Megatron
+  # column / row blocks), composed with context parallelism over 4
+  torchrun --nproc-per-node 4 -m chronoedit_tpu_torch.scripts.run_inference \
+      --mesh tensor=2,context=2 --checkpoint-dir ./checkpoints/ChronoEdit-14B ...
+  # the same over 2 CPU processes (gloo)
+  torchrun --nproc-per-node 2 -m chronoedit_tpu_torch.scripts.run_inference \
+      --mesh tensor=2 --smoke --device cpu
+
 Under a mesh every rank runs the same edit: the DiT splits its tokens over
-the ``context`` ranks, its parameters over the ``fsdp`` ranks (each rank
+the ``context`` ranks, its heads and block projections over the ``tensor``
+ranks, its parameters over the ``fsdp`` ranks (each tensor or fsdp rank
 reads only its slice of each tensor; ``--smoke`` shards the seeded model)
 and its blocks over the ``pipe`` stages (each rank loads only its stage's
 blocks); the VAE and the encoders load whole, and only rank 0 writes the
@@ -66,12 +75,12 @@ def add_pipeline_args(p: argparse.ArgumentParser) -> None:
                    help="LoRA safetensors path[:scale], repeatable")
     p.add_argument("--mesh", type=str, default=None,
                    help="parallelism over the torchrun world, e.g. data=2,context=4, "
-                        "fsdp=2,context=2 or pipe=2,context=2 (data: ranks that run the "
-                        "same edit, or split its batch inside a pipeline; fsdp: ranks "
-                        "that each hold a slice of every DiT parameter; context: ranks "
-                        "that split the DiT's tokens; pipe: stages that each hold and run "
-                        "a share of the DiT's blocks; tensor is not ported yet and "
-                        "raises)")
+                        "tensor=2,context=2, fsdp=2,context=2 or pipe=2,context=2 (data: "
+                        "ranks that run the same edit, or split its batch inside a "
+                        "pipeline; tensor: ranks that each hold a share of the DiT's heads "
+                        "and block projections; fsdp: ranks that each hold a slice of "
+                        "every DiT parameter; context: ranks that split the DiT's tokens; "
+                        "pipe: stages that each hold and run a share of the DiT's blocks)")
     p.add_argument("--quantize", nargs="?", const="int8", default=None,
                    choices=("int8", "int4", "int4_a8"),
                    help="quantize the DiT's projections: 'int8' (w8a8; the bare "
@@ -123,16 +132,14 @@ def build_pipeline(args):
     mesh = None
     if args.mesh:
         from chronoedit_tpu_torch.parallel.distributed import init_distributed
-        from chronoedit_tpu_torch.parallel.mesh import LATER_AXES, make_mesh, parse_mesh
+        from chronoedit_tpu_torch.parallel.mesh import make_mesh, parse_mesh
 
-        config = parse_mesh(args.mesh)
-        later = {a: getattr(config, a) for a in LATER_AXES if getattr(config, a) > 1}
-        if later:
-            raise SystemExit(f"--mesh {args.mesh}: {later} is not ported yet (the second "
-                             f"half of item 1.1 of the roadmap's queue 1); the port shards "
-                             f"over pipe, data, fsdp and context")
-        init_distributed(device=device)
-        mesh = make_mesh(config, device=device)
+        try:
+            config = parse_mesh(args.mesh)
+            init_distributed(device=device)
+            mesh = make_mesh(config, device=device)
+        except ValueError as e:
+            raise SystemExit(f"--mesh {args.mesh}: {e}") from e
         if mesh.rank == 0:
             import torch.distributed as dist
 
@@ -155,8 +162,8 @@ def build_pipeline(args):
         g = torch.Generator(device=device).manual_seed(0)
         dit = dit_lib.init_dit_params(cfg.dit, g, device)
         vae = vae_lib.init_vae_params(cfg.vae, g, device)
-        # a pipeline stage keeps its own blocks of the seeded model, an FSDP
-        # rank its slice of each parameter
+        # a pipeline stage keeps its own blocks of the seeded model, a tensor
+        # or FSDP rank its slice of each parameter
         dit.keep_layers(stage_range(cfg.dit.num_layers, mesh))
         if mesh is not None:
             shard_params(dit, mesh)

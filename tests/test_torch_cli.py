@@ -45,7 +45,7 @@ def test_run_inference_smoke(tmp_path, extra):
 def test_run_inference_refusals(tmp_path):
     base = ["--smoke", "--device", "cpu", "--output", str(tmp_path / "x.png")]
     with pytest.raises(SystemExit, match="mesh"):
-        run_inference.main([*base, "--mesh", "tensor=2"])
+        run_inference.main([*base, "--mesh", "pipe=2,fsdp=2"])
     with pytest.raises(SystemExit, match="cache-blocks"):
         run_inference.main([*base, "--cache-thresh", "0.1"])
     with pytest.raises(SystemExit, match="checkpoint-dir"):

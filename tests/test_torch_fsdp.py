@@ -123,7 +123,7 @@ def jax_plan(tree, f: int) -> dict:
 
 def port_plan(model, f: int) -> dict:
     mesh = mesh_t.Mesh((1, 8 // f, f, 1, 1), 0, torch.device("cpu"))
-    return sharding_t.param_spec_tree(model, mesh)
+    return {n: spec.fsdp for n, spec in sharding_t.param_spec_tree(model, mesh).items()}
 
 
 @pytest.fixture
@@ -424,12 +424,12 @@ def test_loader_reads_only_its_shards(two_ranks, checkpoint):
 
 def test_mesh_errors(four_ranks):
     """``pipe`` x ``fsdp`` raises ValueError naming JAX's gather at the
-    pipeline's entry; ``tensor`` still raises NotImplementedError naming
-    item 6b."""
+    pipeline's entry; ``fsdp`` x ``tensor`` makes a mesh (tensor
+    parallelism composes with fsdp)."""
     for r in four_ranks["errors"]:
         pipe, tensor = r
         assert pipe.startswith("ValueError") and "gpipe_scan" in pipe
-        assert tensor.startswith("NotImplementedError") and "6b" in tensor
+        assert tensor == ""
 
 
 def test_whole_model_under_fsdp_mesh_raises():

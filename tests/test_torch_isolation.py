@@ -51,15 +51,16 @@ TRAINING_MODULES = ("train.trainer", "train.checkpoint", "train.callbacks", "uti
                     "parallel.consistency", "data.loaders", "scripts.train",
                     "scripts.convert_weights")
 
-# the modules of context and pipeline parallelism and FSDP (the process
-# world, the mesh, the collectives, ring and Ulysses attention, the GPipe
-# schedule, the parameter sharding, the launcher, the cross-rank replica
-# check) and what runs them (the DiT, the pipeline, the loader, the CLI)
+# the modules of context, pipeline and tensor parallelism and FSDP (the
+# process world, the mesh, the collectives, ring and Ulysses attention, the
+# GPipe schedule, the parameter sharding, the launcher, the cross-rank
+# replica check) and what runs them (the DiT, K4's tensor form and the
+# tensor-split quantized leaves, the pipeline, the loader, the CLI)
 PARALLEL_MODULES = ("parallel.mesh", "parallel.collectives", "parallel.context",
                     "parallel.pipeline_parallel", "parallel.sharding", "pipeline.loader",
                     "parallel.distributed", "parallel.consistency", "parallel.launch",
-                    "models.dit", "pipeline.edit_pipeline", "scripts.run_inference",
-                    "utils.platform")
+                    "models.dit", "ops.fused_norms", "ops.quant", "pipeline.edit_pipeline",
+                    "scripts.run_inference", "utils.platform")
 
 _WALK = """
 import pkgutil, sys

@@ -90,12 +90,13 @@ def test_mesh_layout_matches_jax(tmp_path, config):
 
 
 def test_make_mesh_refuses_later_axes_and_bad_degrees(tmp_path):
-    """An fsdp / tensor / pipe axis above 1 raises NotImplementedError naming
-    item 6b; degrees that do not fill the world raise ValueError."""
-    tensor, wrong = (world(tmp_path, W.mesh_layout, 2, c)[0]
+    """A tensor axis above 1 now makes its groups (the ranks of a tensor
+    line, in order); degrees that do not fill the world raise ValueError."""
+    tensor, wrong = (world(tmp_path, W.mesh_layout, 2, c)
                      for c in (dict(tensor=2), dict(data=3)))
-    assert tensor["error"].startswith("NotImplementedError") and "6b" in tensor["error"]
-    assert wrong["error"].startswith("ValueError")
+    assert [r["groups"] for r in tensor] == [{"tensor": [0, 1]}] * 2
+    assert [r["coords"]["tensor"] for r in tensor] == [0, 1]
+    assert wrong[0]["error"].startswith("ValueError")
 
 
 @pytest.mark.parametrize("make", ["make_mesh", "single_device_mesh", "init_distributed"])
