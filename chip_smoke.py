@@ -120,9 +120,13 @@ non-zero and no result line is printed:
    Ulysses' one call at S); each world's seconds, peak memory per rank
    and bytes staged printed; then ``run_inference --mesh context=1`` under
    ``torch.distributed.run``: NCCL as a world of one, rank 0 writing the
-   edit;
-6. the main paths: ``chronoedit_14b_distilled`` at full width and depth
-   (40 blocks x 5120, bf16, random weights from a seeded generator, built
+   edit, and beside it ``train --mesh fsdp=1`` (the Trainer, and the LoRA
+   loop exporting its adapters), each an NCCL world of one;
+6. the main paths: ``chronoedit_14b_distilled`` at full width, cut to
+   MAIN_BLOCKS = 20 blocks (x 5120, bf16; the H100 machines this runs on
+   end a command that writes more than 45 GiB to their disk, and at 40
+   blocks, the directory 46.2 GB, the script overran its time limit),
+   random weights from a seeded generator, built
    outside ``inference_mode`` so that it can train), the full-width VAE, a
    seeded UMT5-XXL and CLIP ViT-H and a rank-32 LoRA are written as a
    checkpoint directory in the reference's layout under the git-ignored
@@ -147,7 +151,7 @@ non-zero and no result line is printed:
    between the sound readings and planted faults this phase also reads);
    guidance 5 with a negative prompt, batched CFG (B = 2) and sequential
    CFG with block 9 skipped in the unconditional forward; the block cache
-   over blocks [8, 32) every second step and adaptively
+   over blocks CACHE_BLOCKS = [4, 16) every second step and adaptively
    (``guidance_cache_path``); the video guardrails at full size (SigLIP
    so400m + MLP, RetinaFace R50, seeded weights) on a 5-frame 720p clip,
    and their fp32 outputs on the card against the CPU (``GUARD_MIN_DB``;
@@ -161,7 +165,7 @@ non-zero and no result line is printed:
    pipeline parallelism (``pipeline_path``): worlds of pipe = 2 and 4
    processes on the card over host-staged gloo, each rank loading only its
    stage's blocks of the directory's DiT and LoRA (the bytes it read held
-   to the files' headers), serving the 720p edit at 40 blocks (against the
+   to the files' headers), serving the 720p edit at MAIN_BLOCKS blocks (against the
    edit path's, seed 10), at pipe = 2 also batched CFG (against
    ``guidance_cache_path``'s) and the backward of a CP_BLOCKS-deep DiT
    (against one process, at K6/K7's bounds), at pipe = 4 then the
@@ -171,39 +175,52 @@ non-zero and no result line is printed:
    fsdp = 2 processes, each rank loading its slice of every tensor of the
    directory's DiT with the LoRA fused into it (the bytes held to the
    headers, each shard's checksum to the one-process model's slice), one
-   40-block 720p forward bitwise one process's (the bytes staged held to
-   the shards'; the one-process forward and slices from the model loaded
-   for mixed2), then ``cp_model``'s weights at FSDP_BLOCKS blocks
-   sharded: the edit, batched CFG (a row a rank) and the w4a16 edit
-   quantized under fsdp, each at FSDP_SHORT_STEPS steps against one
-   process, and the backward with the batch split, at K6/K7's bounds; then
-   a world of fsdp 2 x context 2 serving the FSDP_SHORT_STEPS-step edit in
-   both modes; then tensor parallelism (``tensor_path``): a world of
+   720p forward of its first FSDP_FORWARD_BLOCKS blocks bitwise one
+   process's (the bytes staged held to the shards'; the one-process
+   forward and slices from the model loaded for mixed2), then
+   ``cp_model``'s weights at FSDP_BLOCKS blocks sharded: the edit, batched
+   CFG (a row a rank) and the w4a16 edit quantized under fsdp, each at
+   FSDP_SHORT_STEPS steps against one process, and the training checks
+   (``mesh_train``, below); then a world of fsdp 2 x context 2 serving the
+   FSDP_SHORT_STEPS-step edit in both modes, and the training checks
+   under data 2 x fsdp 2; then tensor parallelism (``tensor_path``): a world of
    tensor = 2 processes, each rank loading its columns / rows of every
    block projection of the directory's DiT with the LoRA fused (bytes held
    to the headers, each leaf's checksum to the one-process model's slice),
-   one 40-block 720p forward against one process at TP_MIN_DB (the bytes
-   staged held to the row reduces' and K4's statistics'), then
-   ``tp_model``'s weights at TP_BLOCKS blocks split: the 8-step edit, a
-   2-block forward sound and under three planted faults (K4 on local
-   statistics, the row bias on every rank, JAX's packed-axis int4 slice),
-   the w4a16 edit quantized under tensor (its leaves bitwise the whole
-   quantized model's split) and the backward; then a world of 4: the 8-step
-   edit and the w4a16 edit at tensor 4 (fc2 padded to 28 int4 groups),
-   batched CFG over tensor 2 x data 2, the edit over tensor 2 x context 2
-   in both modes and a forward over tensor 2 x fsdp 2, each against one
-   process at TP_MIN_DB; every rank's launches held exactly, K4's two
-   tensor passes among them; runs the training CLI
+   one 720p forward of its first TP_FORWARD_BLOCKS blocks against one
+   process at TP_MIN_DB (the bytes staged held to the row reduces' and
+   K4's statistics'), then ``tp_model``'s weights at TP_BLOCKS blocks
+   split: the edit (TP_SHORT_STEPS steps), a 2-block forward sound and under three planted
+   faults (K4 on local statistics, the row bias on every rank, JAX's
+   packed-axis int4 slice), the w4a16 edit quantized under tensor (its
+   leaves bitwise the whole quantized model's split) and the training
+   checks with the sharded checkpoint; then a world of 4: the edit
+   and the w4a16 edit at tensor 4 (fc2 padded to 28 int4 groups), batched
+   CFG over tensor 2 x data 2, the edit over tensor 2 x context 2 in both
+   modes and a forward over tensor 2 x fsdp 2, each against one process at
+   TP_MIN_DB, the training checks under data 2 x tensor 2 and the
+   checkpoint restored under data 2 x fsdp 2 for a step; every rank's
+   launches held exactly, K4's two tensor passes among them. The training
+   checks under a mesh (``mesh_train``, against ``mesh_train_refs``' one
+   process on the same weights, batch and draws, written under ``build/``):
+   one rank-32 LoRA step and two full-parameter Trainer steps (AdamW, the
+   clip, EMA) at TP_BLOCKS blocks on two 720p pairs, at the training bars,
+   beside planted faults read from the run's own tensors (the norm over
+   local shards, the gradients left as each data line computed them, the
+   replicated q / k norm weights unreduced over tensor; the gradients
+   summed over data are planted in the CPU test). Then it runs the
+   training CLI
    (``scripts/train.main``: rank-32 LoRA, remat "full", ``--grad-accum 2
    --max-iter 4``) from the directory's DiT shards on two 720p PNG pairs
    with UMT5-XXL embeddings written for it, and serves an edit with the
    exported LoRA through ``load_pipeline``; removes the directory and runs
    the ``Trainer`` (full-parameter, ``TRAINER_BLOCKS`` blocks at full
    width, ``grad_accum = 2``, validation, ``guard_host_sync``, whose
-   guard must first raise on a device read) 4 iterations straight and 2 +
-   a resume + 2, which must end bitwise equal, then times a save and a
-   restore of its checkpoint and round-trips it through
-   ``convert_weights``; every directory is removed at the end, whatever
+   guard must first raise on a device read; its checkpoints in the
+   machine's memory, ``scratch_dir``) 4 iterations straight and 2 + a
+   resume + 2 (the last save synchronous and timed), which must end
+   bitwise equal, then times a restore of its checkpoint and round-trips
+   it through ``convert_weights``; every directory is removed at the end, whatever
    happened. The launch counters are zeroed just before each
    edit and each step and must then show exactly the launches the path
    implies, by kernel, by attention KV length and by the int4 matmul's
@@ -216,7 +233,8 @@ non-zero and no result line is printed:
    (fp32) and an unchanged-base checksum follow;
 7. print the command's seconds, the kernel table as one JSON line (its
    launches include the context, pipeline, FSDP and tensor phases'
-   workers', not the planted faults'), the card line again, and last
+   workers' and the mesh training's, not the planted faults'), the card
+   line again, and last
    ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds one warm ``torch.profiler`` pass over each stage (DiT
@@ -244,6 +262,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -361,7 +380,7 @@ SERVE_MIN_DB = 35.0
 # the block cache's middle blocks at full depth, and the adaptive
 # threshold: on the loaded model's 720p edit it refreshes on 7 of 8 steps
 # (H100 80GB HBM3, 700 W); the run checks that its schedule mixes
-CACHE_BLOCKS = (8, 32)
+CACHE_BLOCKS = (4, 16)
 CACHE_THRESH = 0.05
 # The guardrail models in fp32 on the card (TF32 off) against fp32 on the
 # CPU, where only the summation order differs, over the CPU's peak. The
@@ -373,9 +392,40 @@ CACHE_THRESH = 0.05
 # `nearest-exact` 37.41 dB, a ResNet v1 bottleneck 30.07 dB, SigLIP's
 # resize without antialiasing 15.32 dB. Each of them must read under it.
 GUARD_MIN_DB = 95.0
-# the checkpoint directory the main path writes and loads, under the
-# repository's git-ignored build/; removed when the run ends
-CHECKPOINT_DIR = Path(__file__).resolve().parent / "build" / "smoke_checkpoint"
+BUILD_DIR = Path(__file__).resolve().parent / "build"  # git-ignored
+# The H100 machines this runs on end a command that writes more than 45 GiB
+# to their disk in all, deletions included; the machine's memory (/dev/shm)
+# reads and writes at about 0.55 GB/s, a seventh of the disk's reads
+# (H100 80GB HBM3 machine, 700.00 W). So the files read many times stay on
+# the disk (the checkpoint directory: its DiT at MAIN_BLOCKS blocks, about
+# 30 GB with the encoders; the mesh training's reference and checkpoint,
+# 14.7 GB), and the Trainer's checkpoints, written and read once, go to a
+# directory of this run's own in the memory (``scratch_dir``).
+
+
+def scratch_dir() -> Path:
+    """A new directory of this run's own under /dev/shm (raises when it
+    cannot be made); the caller removes it."""
+    return Path(tempfile.mkdtemp(prefix="chronoedit_smoke-", dir="/dev/shm"))
+
+
+# the checkpoint directory the main path writes and loads; removed when the
+# run ends
+CHECKPOINT_DIR = BUILD_DIR / "smoke_checkpoint"
+# the main path's model: the distilled 14B at full width, cut in depth. At
+# 40 blocks the directory (46.23 GB) fits the disk's 45 GiB only with
+# MESH_DIR in /dev/shm, and the script then took 1,369 s (H100 80GB HBM3,
+# 700.00 W), past its 1,200 s limit
+MAIN_BLOCKS = 20
+
+
+def main_config(**kw):
+    """``chronoedit_14b_distilled`` at MAIN_BLOCKS blocks: the model the
+    checkpoint directory holds and every phase that loads it runs."""
+    from chronoedit_tpu_torch.configs import chronoedit_14b_distilled
+
+    cfg = chronoedit_14b_distilled(**kw)
+    return dataclasses.replace(cfg, dit=dataclasses.replace(cfg.dit, num_layers=MAIN_BLOCKS))
 # the rank-32 LoRA file's alpha: alpha / rank = 0.5 scales every delta
 LORA_ALPHA = 16.0
 
@@ -2182,10 +2232,10 @@ def record_refreshes(log: list):
 def guidance_cache_path(pipe, dev, launches: tuple[Counter, Counter]) -> dict:
     """Guidance 5 with a negative prompt, batched CFG (one forward of B = 2
     a step) and sequential CFG with block 9 skipped in the unconditional
-    forward (40 + 39 blocks a step); then the block cache over blocks
-    [8, 32) on the 8-step edit, every second step (40 and 16 blocks on
-    alternate steps) and adaptive (``CACHE_THRESH``; its schedule must mix
-    refresh and reuse). Each edit with exact launches; seconds and the
+    forward (n + n - 1 blocks a step); then the block cache over blocks
+    CACHE_BLOCKS on the 8-step edit, every second step (all and the rest
+    of the blocks on alternate steps) and adaptive (``CACHE_THRESH``; its
+    schedule must mix refresh and reuse). Each edit with exact launches; seconds and the
     cached edits' PSNR against the uncached edit of the same request
     (reported, no bar)."""
     cfg = pipe.config
@@ -2774,7 +2824,8 @@ def cli_path(dev: torch.device, cfg, launches: tuple[Counter, Counter]) -> dict:
 
     data_dir, out_dir = CHECKPOINT_DIR.parent / "smoke_train_data", CHECKPOINT_DIR / "trained"
     meta = write_train_data(data_dir, dev, cfg.dit.text_dim)
-    argv = ["--experiment", "chronoedit_14b", "--lora-rank", "32", "--remat", "full",
+    argv = ["--experiment", "chronoedit_14b", "--set", f"dit.num_layers={MAIN_BLOCKS}",
+            "--lora-rank", "32", "--remat", "full",
             "--grad-accum", "2", "--max-iter", "4", "--base-checkpoint",
             str(CHECKPOINT_DIR / "transformer" / "*.safetensors"), "--data", str(meta),
             "--base-path", str(data_dir), "--checkpoint-dir", str(out_dir)]
@@ -2784,7 +2835,7 @@ def cli_path(dev: torch.device, cfg, launches: tuple[Counter, Counter]) -> dict:
     got = read_launches()
     want = expected_train_launches(cfg, image=False, steps=4)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"training CLI ({' '.join(argv[:10])} ...): {secs:.1f} s from the call to the "
+    print(f"training CLI ({' '.join(argv[:12])} ...): {secs:.1f} s from the call to the "
           f"exported file (DiT load, VAE encodes and 4 micro-steps), peak {peak:.2f} GiB; "
           f"{state.step} step calls, {state.optimizer.gradient_step} applied updates; launches "
           f"{got[0]}, by KV length {got[1]}")
@@ -2827,11 +2878,10 @@ def cli_path(dev: torch.device, cfg, launches: tuple[Counter, Counter]) -> dict:
 # training of all 40 blocks needs about 197 GB: 16.39 B parameters x 12
 # bytes of bf16 parameters, gradients, two AdamW moments, EMA and
 # accumulator)
-TRAINER_BLOCKS = 2
-TRAINER_DIR = CHECKPOINT_DIR.parent / "smoke_trainer"
+TRAINER_BLOCKS = 1
 
 
-def trainer_path(dev: torch.device, launches: tuple[Counter, Counter]) -> dict:
+def trainer_path(dev: torch.device, launches: tuple[Counter, Counter], root: Path) -> dict:
     """The ``Trainer`` (full-parameter, the only mode JAX's runs) on the 14B
     DiT's width at ``TRAINER_BLOCKS`` blocks, remat "none", 720p mock pairs
     from a seeded full-width VAE: ``grad_accum = 2``, a checkpoint every 2
@@ -2845,7 +2895,7 @@ def trainer_path(dev: torch.device, launches: tuple[Counter, Counter]) -> dict:
     counters) must be bitwise equal (K6/K7 are deterministic). Then a timed
     synchronous save and restore of the state (GB/s), and the checkpoint
     through ``convert_weights`` to diffusers safetensors and back, bitwise.
-    Returns the readings."""
+    Its files go under ``root``, which it removes. Returns the readings."""
     from chronoedit_tpu_torch.configs import chronoedit_14b
     from chronoedit_tpu_torch.data.mock import MockEditDataset, mock_batch_iterator
     from chronoedit_tpu_torch.kernels import build
@@ -2902,16 +2952,30 @@ def trainer_path(dev: torch.device, launches: tuple[Counter, Counter]) -> dict:
                        generator=torch.Generator(device=dev).manual_seed(63))
         return dit
 
-    def run(directory, max_iter, skip, checkpoints=True):
+    class SaveTime(cb.Callback):
+        """The seconds of each save: from the last step-end hook (the save
+        follows it) to the save's own hook."""
+
+        def on_step_end(self, trainer, step, metrics):
+            self.t0 = time.perf_counter()
+
+        def on_checkpoint_save(self, trainer, step):
+            save_s.append(time.perf_counter() - self.t0)
+
+    save_s = []
+
+    def run(directory, max_iter, skip, checkpoints=True, async_save=True):
         lines = []
         callbacks = [Launches(), cb.IterSpeedCallback(log_every=1, log_fn=lines.append),
                      cb.HeartbeatCallback(path=str(directory / "heartbeat.txt"), every_s=0.0),
                      cb.DeviceMonitorCallback(every_n=1, log_fn=lines.append),
-                     cb.LossLoggerCallback(str(directory / "loss.jsonl"), log_every=1)]
+                     cb.LossLoggerCallback(str(directory / "loss.jsonl"), log_every=1),
+                     SaveTime()]
         trainer = Trainer(cfg, tcfg, TrainerConfig(max_iter=max_iter, save_every=2,
                                                    validate_every=2, validate_batches=1,
                                                    guard_host_sync=True),
-                          ck.CheckpointConfig(directory=str(directory), max_to_keep=1)
+                          ck.CheckpointConfig(directory=str(directory), max_to_keep=1,
+                                              async_save=async_save)
                           if checkpoints else None, callbacks)
         state = trainer.init_state(model())
         state = trainer.train(state, iter(batches[2 * skip:]), val_data=iter(val[skip // 2:]))
@@ -2930,7 +2994,7 @@ def trainer_path(dev: torch.device, launches: tuple[Counter, Counter]) -> dict:
     print(f"Trainer: the 14B DiT's width at {TRAINER_BLOCKS} blocks, full-parameter, "
           f"grad_accum 2, remat 'none', 720p mock pairs, guard_host_sync on")
     torch.cuda.reset_peak_memory_stats()
-    straight, secs = host_s(lambda: run(TRAINER_DIR / "a", 4, 0, checkpoints=False))
+    straight, secs = host_s(lambda: run(root / "a", 4, 0, checkpoints=False))
     peak = torch.cuda.max_memory_allocated() / 2**30
     want = ck.state_tensors(straight), ck.state_counters(straight)
     n_params = sum(p.numel() for p in straight.params)
@@ -2938,25 +3002,27 @@ def trainer_path(dev: torch.device, launches: tuple[Counter, Counter]) -> dict:
           f"checkpoints): {secs:.1f} s, "
           f"iterations {[round(t, 3) for t in iter_s]} s, peak {peak:.2f} GiB, counters "
           f"{want[1]}")
-    shutil.rmtree(TRAINER_DIR / "a", ignore_errors=True)
+    shutil.rmtree(root / "a", ignore_errors=True)
     del iter_s[:]
-    first = run(TRAINER_DIR / "b", 2, 0)
+    first = run(root / "b", 2, 0)
     del first
     free()
-    resumed, secs = host_s(lambda: run(TRAINER_DIR / "b", 4, 2))
+    del save_s[:]
+    resumed, secs = host_s(lambda: run(root / "b", 4, 2, async_save=False))
     got = ck.state_tensors(resumed), ck.state_counters(resumed)
     differ = [k for k in want[0] if not torch.equal(want[0][k], got[0][k])]
     print(f"Trainer, 2 iterations (an async save at 2) then a resume from that checkpoint "
-          f"and 2 more (an async save at 4): {secs:.1f} s for the resumed part, iterations {[round(t, 3) for t in iter_s]} s; "
-          f"against the straight run {len(want[0]) - len(differ)} of {len(want[0])} tensors "
-          f"bitwise, counters {got[1]} vs {want[1]}")
+          f"and 2 more (a synchronous save at 4): {secs:.1f} s for the resumed part, "
+          f"iterations {[round(t, 3) for t in iter_s]} s; against the straight run "
+          f"{len(want[0]) - len(differ)} of {len(want[0])} tensors bitwise, counters {got[1]} "
+          f"vs {want[1]}")
     if differ or got[1] != want[1]:
         raise AssertionError(f"the resumed run differs from the straight one: {differ[:4]}")
 
     nbytes = sum(t.numel() * t.element_size() for t in got[0].values())
-    mgr = ck.CheckpointManager(ck.CheckpointConfig(directory=str(TRAINER_DIR / "c"),
+    mgr = ck.CheckpointManager(ck.CheckpointConfig(directory=str(root / "b"),
                                                    async_save=False))
-    _, save_s = host_s(lambda: mgr.save(4, resumed))
+    save_s = save_s[-1]  # the resumed run's save at 4
     _, restore_s = host_s(lambda: mgr.restore(straight))
     again = [k for k, t in ck.state_tensors(straight).items() if not torch.equal(t, got[0][k])]
     print(f"checkpoint of the state: {nbytes / 1e9:.2f} GB; synchronous save {save_s:.2f} s "
@@ -2967,12 +3033,12 @@ def trainer_path(dev: torch.device, launches: tuple[Counter, Counter]) -> dict:
         raise AssertionError(f"the restored state differs: {again[:4]}")
 
     flags = ["--experiment", "chronoedit_14b", "--num-layers", str(TRAINER_BLOCKS)]
-    dst = TRAINER_DIR / "dit.safetensors"
+    dst = root / "dit.safetensors"
     _, to_s = host_s(lambda: convert_weights.main(
-        ["checkpoint-to-diffusers", str(TRAINER_DIR / "c"), str(dst)] + flags))
+        ["checkpoint-to-diffusers", str(root / "b"), str(dst)] + flags))
     _, from_s = host_s(lambda: convert_weights.main(
-        ["diffusers-to-checkpoint", str(dst), str(TRAINER_DIR / "params")] + flags))
-    back = ck.load_params(str(TRAINER_DIR / "params"))
+        ["diffusers-to-checkpoint", str(dst), str(root / "params")] + flags))
+    back = ck.load_params(str(root / "params"))
     params = dict(zip((n for n, _ in resumed.model.named_parameters()), resumed.params))
     differ = [n for n, p in params.items() if not torch.equal(back[n].to(dev), p)]
     print(f"convert_weights: checkpoint-to-diffusers {to_s:.1f} s, diffusers-to-checkpoint "
@@ -2980,7 +3046,7 @@ def trainer_path(dev: torch.device, launches: tuple[Counter, Counter]) -> dict:
           f"bitwise")
     if differ or back.keys() != params.keys():
         raise AssertionError(f"convert_weights round trip differs: {differ[:4]}")
-    shutil.rmtree(TRAINER_DIR, ignore_errors=True)
+    shutil.rmtree(root, ignore_errors=True)
     del straight, resumed, want, got, params, back
     free()
     return {"peak_gib": peak, "save_gbps": nbytes / save_s / 1e9,
@@ -3320,27 +3386,50 @@ def cp_plan(p: int) -> dict:
 
 
 def nccl_cli(card: str) -> float:
-    """``run_inference --mesh context=1`` under ``torch.distributed.run
-    --nproc-per-node 1``: a world of one over NCCL (``init_distributed``'s
-    choice for a CUDA rank), the distilled model at full width and depth on
-    random weights (``--smoke``), rank 0 writing the edit. Returns its
+    """The CLIs under ``torch.distributed.run --nproc-per-node 1``, each a
+    world of one over NCCL (``init_distributed``'s choice for a CUDA rank),
+    started together: ``run_inference --mesh context=1`` on the distilled
+    model at full width and depth on random weights (``--smoke``), rank 0
+    writing the edit; ``train --mesh fsdp=1`` full-parameter (the Trainer,
+    ``--smoke``: 2 iterations) and with ``--lora-rank 32`` (2 micro-steps,
+    rank 0 exporting the adapters), the 14B model's width at
+    MESH_CLI_BLOCKS blocks on the CLI's mock pairs. Returns their
     seconds."""
     out = CHECKPOINT_DIR.parent / "cp_nccl_edit.png"
+    lora_dir = CHECKPOINT_DIR.parent / "nccl_train_lora"
+    out.parent.mkdir(parents=True, exist_ok=True)
     out.unlink(missing_ok=True)
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
-           "1", "-m", "chronoedit_tpu_torch.scripts.run_inference", "--smoke", "--experiment",
-           "chronoedit_14b_distilled", "--mesh", "context=1", "--output", str(out)]
+    shutil.rmtree(lora_dir, ignore_errors=True)
+    run = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           "1", "-m"]
+    train = [*run, "chronoedit_tpu_torch.scripts.train", "--experiment", "chronoedit_14b",
+             "--set", f"dit.num_layers={MESH_CLI_BLOCKS}", "--data", "mock", "--mesh", "fsdp=1"]
+    cmds = {"run_inference --mesh context=1": [
+                *run, "chronoedit_tpu_torch.scripts.run_inference", "--smoke", "--experiment",
+                "chronoedit_14b_distilled", "--mesh", "context=1", "--output", str(out)],
+            "train --mesh fsdp=1": [*train, "--smoke"],
+            "train --mesh fsdp=1 --lora-rank 32": [
+                *train, "--lora-rank", "32", "--max-iter", "2", "--checkpoint-dir",
+                str(lora_dir)]}
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=Path(__file__).resolve().parent, capture_output=True,
-                          text=True, timeout=600)
+    procs = {name: subprocess.Popen(cmd, cwd=Path(__file__).resolve().parent,
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for name, cmd in cmds.items()}
+    outs = {name: p.communicate(timeout=600) for name, p in procs.items()}
     secs = time.perf_counter() - t0
-    print(proc.stdout[-2000:], end="")
-    if proc.returncode != 0 or not out.exists() or "over nccl" not in proc.stdout:
-        raise AssertionError(f"run_inference --mesh context=1 under torchrun: rc "
-                             f"{proc.returncode}\n{proc.stderr[-4000:]}")
+    done = {"run_inference --mesh context=1": out.exists(),
+            "train --mesh fsdp=1": "done at step 2" in outs["train --mesh fsdp=1"][0],
+            "train --mesh fsdp=1 --lora-rank 32": (lora_dir / "lora.safetensors").exists()}
+    for name, (stdout, stderr) in outs.items():
+        print(stdout[-1500:], end="")
+        if procs[name].returncode != 0 or not done[name] or "over nccl" not in stdout:
+            raise AssertionError(f"{name} under torchrun: rc {procs[name].returncode}\n"
+                                 f"{stderr[-4000:]}")
     out.unlink()
-    print(f"NCCL, a world of 1 through the CLI under torchrun: {secs:.1f} s, rank 0 wrote "
-          f"the edit ({card})")
+    shutil.rmtree(lora_dir, ignore_errors=True)
+    print(f"NCCL, worlds of 1 through the CLIs under torchrun, started together: {secs:.1f} s; "
+          f"rank 0 wrote the edit, the Trainer ran 2 iterations, the LoRA loop exported its "
+          f"adapters ({card})")
     return secs
 
 
@@ -3688,7 +3777,6 @@ def pp_worker(rank: int, p: int, plan: dict) -> dict:
     counters zeroed just before and held to what the path implies just
     after (``_cp_run``); rank 0 returns the outputs, every rank the digests,
     seconds, bytes read and staged and peak memory."""
-    from chronoedit_tpu_torch.configs import chronoedit_14b_distilled
     from chronoedit_tpu_torch.kernels import build
     from chronoedit_tpu_torch.parallel.mesh import MeshConfig, make_mesh
     from chronoedit_tpu_torch.parallel.pipeline_parallel import stage_range
@@ -3699,7 +3787,7 @@ def pp_worker(rank: int, p: int, plan: dict) -> dict:
     dev = torch.device(plan["device"])
     build.lib()  # the parent's build, loaded: every source hashes the same
     mesh = make_mesh(MeshConfig(data=-1, pipe=p), device=dev)
-    cfg = chronoedit_14b_distilled()
+    cfg = main_config()
     steps, per = cfg.num_steps, cfg.dit.num_layers // p
     res = {}
     with torch.inference_mode():
@@ -3766,12 +3854,11 @@ def pipeline_path(dev, refs: dict, launches: tuple[Counter, Counter]) -> dict:
     backward at pipe = 2 against one process at K6/K7's bounds. Adds the
     workers' launches to ``launches``. Needs the card free: the
     one-process runs were freed before."""
-    from chronoedit_tpu_torch.configs import chronoedit_14b_distilled
     from chronoedit_tpu_torch.models import weights as w
     from chronoedit_tpu_torch.parallel.launch import run_world
 
     card = card_line()
-    cfg = chronoedit_14b_distilled()
+    cfg = main_config()
     t_phase = time.perf_counter()
     shards = sorted(str(f) for f in (CHECKPOINT_DIR / "transformer").glob("*.safetensors"))
     with w.load_safetensors(shards) as sd, \
@@ -3914,14 +4001,13 @@ def vae_headroom_worker(rank: int, headroom_gib: float | None) -> dict:
     seeded latents, in this fresh process, with the card filled to leave
     ``headroom_gib`` GiB free just before (None: nothing filled). Their
     digests and the plans' free memory, or the error."""
-    from chronoedit_tpu_torch.configs import chronoedit_14b_distilled
     from chronoedit_tpu_torch.models import vae as vae_lib
     from chronoedit_tpu_torch.parallel.consistency import tree_digest
     from chronoedit_tpu_torch.pipeline.edit_pipeline import prepare_condition
 
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device(PP_DEVICE)
-    cfg = chronoedit_14b_distilled()
+    cfg = main_config()
     vae = vae_lib.init_vae_params(cfg.vae, torch.Generator(device=dev).manual_seed(0),
                                   device=dev)
     image = request(cfg, dev, PP_EDIT_SEED, EDIT_H, EDIT_W, TEXT_TOKENS)["image"]
@@ -3955,13 +4041,12 @@ def trace_pipe_ranks(dev) -> None:
     segments, printing each rank's digests (TRACE) and where the ranks
     first part; then the VAE at each of PP_HEADROOM_GIB, each in a fresh
     process. The directory is removed at the end."""
-    from chronoedit_tpu_torch.configs import chronoedit_14b_distilled
     from chronoedit_tpu_torch.models import clip, umt5
     from chronoedit_tpu_torch.models import lora as lora_lib
     from chronoedit_tpu_torch.parallel.launch import run_world
 
     card = card_line()
-    cfg = chronoedit_14b_distilled()
+    cfg = main_config()
     try:
         with torch.inference_mode():
             pipe = build_model(dev, cfg)
@@ -4029,10 +4114,11 @@ FSDP_WORLDS = (2, 4)
 FSDP_TIMEOUT = 900.0
 FSDP_DEVICE = "cuda:0"  # every rank's device: the one card
 FSDP_FORWARD_SEED = 50
-# the blocks the fsdp world's forward of the 40-block model runs (a layer
-# mask skips the rest, which no rank then gathers): all 40 took 20-25 s more
-# of the command's time limit
-FSDP_FORWARD_BLOCKS = 20
+# the blocks the fsdp and the tensor world's forwards of the 40-block model
+# run (a layer mask skips the rest, which no rank then gathers or reduces):
+# all 40 took 20-25 s (fsdp) and 14 s (tensor) of the command's time limit
+FSDP_FORWARD_BLOCKS = 5
+TP_FORWARD_BLOCKS = 10
 TP_FORWARD_SEED = 51
 FSDP_BLOCKS = 2
 FSDP_SHORT_STEPS = 2
@@ -4086,55 +4172,21 @@ def fsdp_mask(cfg) -> list[float]:
     return [1.0 if i < fsdp_forward_blocks(cfg) else 0.0 for i in range(cfg.dit.num_layers)]
 
 
+def tp_forward_blocks(cfg) -> int:
+    """The blocks the tensor world's forward of the loaded model runs."""
+    return min(TP_FORWARD_BLOCKS, cfg.dit.num_layers)
+
+
+def tp_mask(cfg) -> list[float]:
+    """The tensor world's forward's layer mask: its first
+    ``tp_forward_blocks`` blocks run."""
+    return [1.0 if i < tp_forward_blocks(cfg) else 0.0 for i in range(cfg.dit.num_layers)]
+
+
 def fsdp_config():
     """The edit model at full width, FSDP_BLOCKS deep."""
     cfg = cp_config()
     return dataclasses.replace(cfg, dit=dataclasses.replace(cfg.dit, num_layers=FSDP_BLOCKS))
-
-
-def _fsdp_backward(rank: int, dev, mesh) -> dict:
-    """The backward of the FSDP_BLOCKS-deep DiT (``build_model``'s
-    seeded weights) at 7,200 tokens and B = 2 (split over fsdp: one row a
-    rank), loss the sum of the output's squares: first whole in this
-    process without a mesh (the reference, outside the counted launches),
-    then sharded under ``mesh``. Each shard's gradient against its slice
-    of the reference at K6/K7's bounds (``k67_check``), and which are
-    bitwise."""
-    from chronoedit_tpu_torch.models import dit as dit_lib
-    from chronoedit_tpu_torch.parallel.sharding import shard_params
-
-    cfg = fsdp_config()
-    dit = build_model(dev, cfg).dit.requires_grad_(True)  # built frozen
-    x, ts, text, img = (torch.cat(pair) for pair in zip(
-        cp_inputs(cfg, dev, EDIT_TOKENS, 30), cp_inputs(cfg, dev, EDIT_TOKENS, 31)))
-
-    def run(m):
-        out = dit_lib.dit_forward(dit, x, ts, text, img, mesh=m)
-        (out.float() ** 2).sum().backward()
-        return out.detach()
-
-    run(None)
-    ref = {n: p.grad for n, p in dit.named_parameters()}
-    dit.zero_grad(set_to_none=True)
-    shard_params(dit, mesh)
-    free()
-    n = FSDP_BLOCKS
-    want = expected_tool_launches([(name, kv, n) for name in ("flash_fwd", "flash_bwd_dq",
-                                                              "flash_bwd_dkv")
-                                   for kv in (EDIT_TOKENS, TEXT_TOKENS, IMAGE_TOKENS)])
-    want[0].update(ln_modulate=2 * n + 1, gated_residual=2 * n, rms_norm=5 * n)
-    res = _cp_run("backward", functools.partial(run, mesh), want, rank, False)
-    shards = dit.fsdp
-    checks, bitwise = {}, 0
-    for name, p in dit.named_parameters():
-        want_g = shards.local(ref[name], shards.dims[name])
-        if torch.equal(p.grad, want_g):
-            bitwise += 1
-        else:
-            checks[name] = k67_check(p.grad, want_g)
-    res.update(bitwise=bitwise, tensors=len(ref), checks=checks,
-               ok=all(c["ok"] for c in checks.values()))
-    return res
 
 
 def fsdp_worker(rank: int, p: int, plan: dict) -> dict:
@@ -4147,13 +4199,14 @@ def fsdp_worker(rank: int, p: int, plan: dict) -> dict:
     ``fsdp_forward_blocks`` blocks; frees it, shards ``cp_model``'s weights
     at FSDP_BLOCKS blocks (``shard_params``) and serves the 720p edit, the
     guided edit with batched CFG (B = 2, a row a rank) and, quantized under
-    the mesh, the w4a16 edit; then ``_fsdp_backward``. At ``p`` = 4, under
+    the mesh, the w4a16 edit; then the training checks (``mesh_train``:
+    each process's row gathered into the line's two). At ``p`` = 4, under
     fsdp 2 x context 2: the 720p edit on the same sharded weights in each
-    context mode. Every edit takes FSDP_SHORT_STEPS steps. Every run with
+    context mode; then the training checks under data 2 x fsdp 2 (a row a
+    data line). Every edit takes FSDP_SHORT_STEPS steps. Every run with
     its launch counters zeroed just before and held to what the path
     implies just after (``_cp_run``); rank 0 returns the outputs, every
     rank the digests, seconds, bytes read and staged and peak memory."""
-    from chronoedit_tpu_torch.configs import chronoedit_14b_distilled
     from chronoedit_tpu_torch.kernels import build
     from chronoedit_tpu_torch.models import dit as dit_lib
     from chronoedit_tpu_torch.ops import quant
@@ -4195,10 +4248,14 @@ def fsdp_worker(rank: int, p: int, plan: dict) -> dict:
                 res[f"edit {mode}"] = edit(pipe, f"edit {mode}", cp_launches(
                     fcfg, [(EDIT_TOKENS, mode, 2)] * short), num_steps=short)
             res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            del pipe
+        free()
+        res["train"] = mesh_train(rank, dev, make_mesh(MeshConfig(data=2, fsdp=2), device=dev),
+                                  plan, gathered=False)
         return res
 
     mesh = make_mesh(MeshConfig(fsdp=p), device=dev)
-    cfg = chronoedit_14b_distilled()
+    cfg = main_config()
     with torch.inference_mode():
         torch.cuda.reset_peak_memory_stats()
         pipe, secs = host_s(lambda: load_pipeline(
@@ -4230,7 +4287,7 @@ def fsdp_worker(rank: int, p: int, plan: dict) -> dict:
         res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
         del pipe
         free()
-    res["backward"] = _fsdp_backward(rank, dev, mesh)
+    res["train"] = mesh_train(rank, dev, mesh, plan, gathered=True)
     free()
     return res
 
@@ -4265,17 +4322,19 @@ def fsdp_path(dev, whole: dict, launches: tuple[Counter, Counter]) -> dict:
     the edit again. Each rank's bytes read are held
     to the files' headers, its fused shards to the whole model's slices,
     the forward and the edits to one process (bitwise, CFG at
-    FSDP_CFG_MIN_DB, the ring at CP_MIN_DB), the backward to one process at
-    K6/K7's bounds, the bytes staged a forward to the shards' bytes. Adds
-    the workers' launches to ``launches``. Needs the card free."""
-    from chronoedit_tpu_torch.configs import chronoedit_14b_distilled
+    FSDP_CFG_MIN_DB, the ring at CP_MIN_DB), the training checks under fsdp
+    2 and data 2 x fsdp 2 to ``whole["train"]`` (``mesh_train_refs``) at
+    the training bars (fsdp 2's step-1 gradients also leaf by leaf at
+    K6/K7's bounds, as the backward it replaces), the bytes staged a
+    forward to the shards' bytes. Adds the workers' launches to
+    ``launches``. Needs the card free."""
     from chronoedit_tpu_torch.models import weights as w
     from chronoedit_tpu_torch.ops import quant
     from chronoedit_tpu_torch.parallel.launch import run_world
     from chronoedit_tpu_torch.parallel.sharding import Shards
 
     card = card_line()
-    cfg, fcfg = chronoedit_14b_distilled(), fsdp_config()
+    cfg, fcfg = main_config(), fsdp_config()
     dims, sums, short = whole["dims"], whole["sums"], FSDP_SHORT_STEPS
     t_phase = time.perf_counter()
     with torch.inference_mode():
@@ -4323,7 +4382,7 @@ def fsdp_path(dev, whole: dict, launches: tuple[Counter, Counter]) -> dict:
     # every in-dimension at full width is at least the group of 128 rows
     lloyd = {quant.INT4_GROUP: quant._lloyd_levels(quant.INT4_GROUP)}
     for p in FSDP_WORLDS:
-        plan = {"device": FSDP_DEVICE, "lloyd": lloyd}
+        plan = {"device": FSDP_DEVICE, "lloyd": lloyd, "train": whole["train"]}
         wait_for_card(f"fsdp_path world of {p}", FSDP_CARD_GIB[p])
         with compact_workers():
             results, secs = host_s(lambda: run_world(fsdp_worker, p, (p, plan), backend="gloo",
@@ -4342,7 +4401,7 @@ def fsdp_path(dev, whole: dict, launches: tuple[Counter, Counter]) -> dict:
                       f"{load['bytes']['loras'] / 1e6:.1f} MB of the LoRA (expected "
                       f"{lora_bytes / 1e6:.1f}) in {load['secs']:.2f} s, "
                       f"{load['gib']:.2f} GiB after the load, peak {r['peak_gib_40']:.2f} GiB "
-                      f"over the 40-block forward; {len(load['sums']) - len(bad)} of "
+                      f"over the forward; {len(load['sums']) - len(bad)} of "
                       f"{len(load['sums'])} shards bitwise the one-process model's slices")
                 if (load["bytes"]["dit"] != want_bytes or load["bytes"]["loras"] != lora_bytes
                         or bad or load["sums"].keys() != sums[rank].keys()):
@@ -4385,19 +4444,10 @@ def fsdp_path(dev, whole: dict, launches: tuple[Counter, Counter]) -> dict:
         if p == 2:
             print(f"   quantized under fsdp (a gathered block at a time) in "
                   f"{results[0]['quantize_secs']:.1f} s")
-            for rank, r in enumerate(results):
-                bw = r["backward"]
-                worst = max((c["rel"] for c in bw["checks"].values()), default=0.0)
-                print(f"   backward ({FSDP_BLOCKS} blocks, B = 2 split, {EDIT_TOKENS} "
-                      f"tokens) rank {rank}: {bw['secs']:.3f} s, {bw['staged'] / 1e9:.3f} GB "
-                      f"staged; {bw['bitwise']} of {bw['tensors']} shard gradients bitwise the "
-                      f"one-process gradient's slices, the rest within K6/K7's bounds: worst "
-                      f"normwise {worst:.3e}; launches {bw['launches'][0]}")
-                if not bw["ok"]:
-                    raise AssertionError(f"fsdp rank {rank} backward: "
-                                         f"{ {k: c for k, c in bw['checks'].items() if not c['ok']} }")
-                launches[0].update(bw["launches"][0])
-                launches[1].update(bw["launches"][1]["flash_fwd"])
+        train = [r["train"] for r in results]
+        summary[f"train fsdp{p}"] = check_mesh_train(
+            "fsdp 2" if p == 2 else "data 2 x fsdp 2", train, whole["train"], card)
+        add_train_launches(train, launches)
     summary["secs"] = time.perf_counter() - t_phase
     print(f"fsdp_path: {summary['secs']:.1f} s ({card})")
     return summary
@@ -4411,7 +4461,8 @@ def fsdp_path(dev, whole: dict, launches: tuple[Counter, Counter]) -> dict:
 # running its heads. The world of 2 loads the 40-block model with the
 # distilled LoRA from the directory (each rank its slice of every block
 # projection, the rest whole) and runs one 720p forward; then ``tp_model``'s
-# weights at TP_BLOCKS blocks serve the 8-step edit, the three planted
+# weights at TP_BLOCKS blocks serve the edit (TP_SHORT_STEPS steps), the
+# three planted
 # faults' 2-block forwards, the w4a16 edit quantized under tensor and the
 # backward. The world of 4 serves the edit and the w4a16 edit at tensor = 4
 # (fc2's 3,456 local rows: 27 groups, padded to 28 for K8), batched CFG over
@@ -4540,55 +4591,6 @@ def tp_fault(fault: str | None, p: int = 2):
         dit_lib.rms_norm_tensor, dit_lib._row, quant.int4_rows = saved
 
 
-def _tp_backward(rank: int, dev, mesh) -> dict:
-    """The backward of the TP_BLOCKS-deep DiT (``tp_model``'s weights) at
-    7,200 tokens and B = 1, loss the sum of the output's squares: first
-    whole in this process without a mesh (the reference, outside the
-    counted launches), then split over ``mesh``'s tensor axis. Each
-    rank's gradient against its slice of the reference at K6/K7's bounds
-    (``k67_check``)."""
-    from chronoedit_tpu_torch.models import dit as dit_lib
-    from chronoedit_tpu_torch.parallel.sharding import local_of, shard_params
-
-    cfg = tp_config()
-    dit = tp_model(dev, cfg).dit.requires_grad_(True)  # built frozen
-    x, ts, text, img = cp_inputs(cfg, dev, EDIT_TOKENS, 30)
-
-    def run(m):
-        out = dit_lib.dit_forward(dit, x, ts, text, img, mesh=m)
-        (out.float() ** 2).sum().backward()
-        return out.detach()
-
-    run(None)
-    ref = {n: p.grad for n, p in dit.named_parameters()}
-    dit.zero_grad(set_to_none=True)
-    shard_params(dit, mesh)
-    free()
-    n = TP_BLOCKS
-    want = expected_tool_launches([(name, kv, n) for name in ("flash_fwd", "flash_bwd_dq",
-                                                              "flash_bwd_dkv")
-                                   for kv in (EDIT_TOKENS, TEXT_TOKENS, IMAGE_TOKENS)])
-    want[0].update(ln_modulate=2 * n + 1, gated_residual=2 * n, rms_sumsq=5 * n,
-                   rms_norm_ss=5 * n)
-    res = _cp_run("backward", functools.partial(run, mesh), want, rank, False)
-    checks, bitwise, dot, sq_got, sq_want = {}, 0, 0.0, 0.0, 0.0
-    for name, p in dit.named_parameters():
-        want_g = local_of(dit, name, ref[name])
-        got, want_f = p.grad.float(), want_g.float()
-        dot += float((got * want_f).sum())
-        sq_got, sq_want = sq_got + float(got.square().sum()), sq_want + float(want_f.square().sum())
-        if torch.equal(p.grad, want_g):
-            bitwise += 1
-        else:
-            checks[name] = k67_check(p.grad, want_g)
-    cos = dot / math.sqrt(sq_got * sq_want)
-    norm_rel = abs(math.sqrt(sq_got) - math.sqrt(sq_want)) / math.sqrt(sq_want)
-    res.update(bitwise=bitwise, tensors=len(ref), checks=checks, cos=cos, norm_rel=norm_rel,
-               ok=cos >= TRAIN_GRAD_COS and norm_rel <= TRAIN_NORM_REL and all(
-                   bool(torch.isfinite(p.grad).all()) for p in dit.parameters()))
-    return res
-
-
 def _leaves_bitwise(model, whole) -> tuple[int, int]:
     """(leaves of ``model`` bitwise ``whole``'s after ``whole`` is split
     by ``shard_params``, leaves): a model quantized under tensor against
@@ -4604,20 +4606,24 @@ def tp_worker(rank: int, p: int, plan: dict) -> dict:
     tensor 2: loads the distilled model with the distilled LoRA from the
     checkpoint directory (``load_pipeline(..., mesh=)``: its slice of each
     block projection; the leaves' checksums returned) and runs one 720p
-    DiT forward at 40 blocks; frees it, splits ``tp_model``'s weights at
-    TP_BLOCKS blocks (``shard_params``) and serves the 720p edit, runs a
+    DiT forward of its first ``tp_forward_blocks`` blocks; frees it,
+    splits ``tp_model``'s weights at TP_BLOCKS blocks (``shard_params``)
+    and serves the 720p edit, runs a
     2-block forward sound and under each planted fault of the bf16 model,
     quantizes under the mesh and serves the w4a16 edit (the leaves held
     bitwise against the whole quantized model's split; a forward under the
-    packed-slice fault), then ``_tp_backward``. At ``p`` = 4: the edit and
-    the w4a16 edit under tensor 4; batched CFG (B = 2) over tensor 2 x data
-    2; the edit over tensor 2 x context 2 in each mode; a 2-block forward
-    over tensor 2 x fsdp 2. CFG and the context edits take TP_SHORT_STEPS
-    steps. Every sound run with its launch counters zeroed just before and
+    packed-slice fault), then the training checks (``mesh_train``: each
+    process's row gathered into the line's two; the state after step 1
+    saved, sharded, and restored for step 2 again). At ``p`` = 4: the edit
+    and the w4a16 edit under tensor 4; batched CFG (B = 2) over tensor 2 x
+    data 2; the edit over tensor 2 x context 2 in each mode; a 2-block
+    forward over tensor 2 x fsdp 2; the training checks under data 2 x
+    tensor 2 (a row a data line), then the tensor 2 checkpoint restored
+    under RESTORE_MESH for step 2 (``mesh_restore``). Every edit takes
+    TP_SHORT_STEPS steps. Every sound run with its launch counters zeroed just before and
     held to what the path implies just after (``_cp_run``); rank 0 returns
     the outputs, every rank the digests, seconds, bytes read and staged and
     peak memory."""
-    from chronoedit_tpu_torch.configs import chronoedit_14b_distilled
     from chronoedit_tpu_torch.kernels import build
     from chronoedit_tpu_torch.models import dit as dit_lib
     from chronoedit_tpu_torch.ops import quant
@@ -4631,8 +4637,8 @@ def tp_worker(rank: int, p: int, plan: dict) -> dict:
     build.lib()  # the parent's build, loaded: every source hashes the same
     quant._lloyd_levels = plan["lloyd"].__getitem__  # the parent's codebook
     tcfg = tp_config()
-    steps, short = tcfg.num_steps, TP_SHORT_STEPS
-    edit_want = tp_want(cp_launches(tcfg, [(EDIT_TOKENS, "none", 1)] * steps))
+    short = TP_SHORT_STEPS
+    edit_want = tp_want(cp_launches(tcfg, [(EDIT_TOKENS, "none", 1)] * short))
     fwd_want = tp_want(cp_launches(tcfg, [(EDIT_TOKENS, "none", 1)]))
     w4_want = tp_want(expected_launches(tcfg, [EDIT_TOKENS] * short, int4=True))
     res = {}
@@ -4674,7 +4680,7 @@ def tp_worker(rank: int, p: int, plan: dict) -> dict:
             torch.cuda.reset_peak_memory_stats()
             mesh = make_mesh(MeshConfig(tensor=4), device=dev)
             pipe = sharded_model(mesh)
-            res["edit tp4"] = edit(pipe, "edit tp4", edit_want)
+            res["edit tp4"] = edit(pipe, "edit tp4", edit_want, num_steps=short)
             quantized(pipe, mesh, "w4a16 tp4")
             del pipe
             free()
@@ -4700,44 +4706,52 @@ def tp_worker(rank: int, p: int, plan: dict) -> dict:
             del base
             res["forward fsdp"] = forward(pipe, "forward fsdp", fwd_want, mesh)
             res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
-            return res
-
-        mesh = make_mesh(MeshConfig(tensor=p), device=dev)
-        cfg = chronoedit_14b_distilled()
-        torch.cuda.reset_peak_memory_stats()
-        pipe, secs = host_s(lambda: load_pipeline(
-            cfg, str(CHECKPOINT_DIR), loras=[(str(CHECKPOINT_DIR / "distill_lora.safetensors"),
-                                              1.0)],
-            with_text_encoder=False, with_image_encoder=False, device=dev, mesh=mesh))
-        res["load"] = {"secs": secs, "bytes": dict(pipe.load_bytes),
-                       "gib": torch.cuda.memory_allocated() / 2 ** 30,
-                       "sums": {n: tensor_checksum(t) for n, t in pipe.dit.named_parameters()}}
-        args = cp_inputs(cfg, dev, EDIT_TOKENS, FSDP_FORWARD_SEED)
-        res["forward 40"] = _cp_run("forward 40", functools.partial(
-            dit_lib.dit_forward, pipe.dit, *args, mesh=mesh),
-            tp_want(cp_launches(cfg, [(EDIT_TOKENS, "none", 1)])), rank, rank == 0)
-        res["peak_gib_40"] = torch.cuda.max_memory_allocated() / 2 ** 30
-        del pipe
+            del pipe
+        else:
+            mesh = make_mesh(MeshConfig(tensor=p), device=dev)
+            cfg = main_config()
+            torch.cuda.reset_peak_memory_stats()
+            pipe, secs = host_s(lambda: load_pipeline(
+                cfg, str(CHECKPOINT_DIR), loras=[(str(CHECKPOINT_DIR / "distill_lora.safetensors"),
+                                                  1.0)],
+                with_text_encoder=False, with_image_encoder=False, device=dev, mesh=mesh))
+            res["load"] = {"secs": secs, "bytes": dict(pipe.load_bytes),
+                           "gib": torch.cuda.memory_allocated() / 2 ** 30,
+                           "sums": {n: tensor_checksum(t) for n, t in pipe.dit.named_parameters()}}
+            args = cp_inputs(cfg, dev, EDIT_TOKENS, FSDP_FORWARD_SEED)
+            res["forward 40"] = _cp_run("forward 40", functools.partial(
+                dit_lib.dit_forward, pipe.dit, *args, mesh=mesh, layer_mask=tp_mask(cfg)),
+                tp_want(cp_launches(cfg, [(EDIT_TOKENS, "none", 1)], tp_forward_blocks(cfg))),
+                rank, rank == 0)
+            res["peak_gib_40"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            del pipe
+            free()
+            torch.cuda.reset_peak_memory_stats()
+            pipe = sharded_model(mesh)
+            res["edit"] = edit(pipe, "edit", edit_want, num_steps=short)
+            res["forward"] = forward(pipe, "forward", fwd_want, mesh)
+            for fault in TP_FAULTS[:2]:
+                with tp_fault(fault):
+                    res[fault] = forward(pipe, fault, None, mesh)
+            quantized(pipe, mesh, "w4a16")
+            del pipe
+            free()
+            whole = copy.deepcopy(base).quantize(mode="int4")
+            del base
+            with tp_fault("int4_packed_slice"):
+                shard_params(whole.dit, mesh)
+            res["int4_packed_slice"] = forward(whole, "int4_packed_slice", None, mesh)
+            res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            del whole
+            free()
+    if p == 4:
         free()
-        torch.cuda.reset_peak_memory_stats()
-        pipe = sharded_model(mesh)
-        res["edit"] = edit(pipe, "edit", edit_want)
-        res["forward"] = forward(pipe, "forward", fwd_want, mesh)
-        for fault in TP_FAULTS[:2]:
-            with tp_fault(fault):
-                res[fault] = forward(pipe, fault, None, mesh)
-        quantized(pipe, mesh, "w4a16")
-        del pipe
-        free()
-        whole = copy.deepcopy(base).quantize(mode="int4")
-        del base
-        with tp_fault("int4_packed_slice"):
-            shard_params(whole.dit, mesh)
-        res["int4_packed_slice"] = forward(whole, "int4_packed_slice", None, mesh)
-        res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
-        del whole
-        free()
-    res["backward"] = _tp_backward(rank, dev, mesh)
+        res["train"] = mesh_train(rank, dev, make_mesh(MeshConfig(data=2, tensor=2), device=dev),
+                                  plan, gathered=False)
+        res["restore"] = mesh_restore(rank, dev, make_mesh(MeshConfig(**RESTORE_MESH),
+                                                           device=dev), plan)
+        return res
+    res["train"] = mesh_train(rank, dev, mesh, plan, gathered=True, save=True)
     free()
     return res
 
@@ -4746,8 +4760,8 @@ def tensor_whole_refs(pipe, dev) -> dict:
     """What ``tensor_path`` holds its world of 2 to, from ``pipe``: the
     distilled model loaded whole from ``CHECKPOINT_DIR`` with its LoRA, as
     each rank loads its slice. Each leaf's tensor = 2 dimension, the
-    checksums of each rank's slices, and the 720p forward at 40 blocks
-    (fp32, on the host)."""
+    checksums of each rank's slices, and the 720p forward of its first
+    ``tp_forward_blocks`` blocks (``tp_mask``; fp32, on the host)."""
     from chronoedit_tpu_torch.models import dit as dit_lib
     from chronoedit_tpu_torch.parallel.sharding import Shards, tensor_dim
 
@@ -4756,7 +4770,8 @@ def tensor_whole_refs(pipe, dev) -> dict:
     sums = [{n: tensor_checksum(Shards(2, i, dims).local(t, dims[n]))
              for n, t in params.items()} for i in range(2)]
     fwd = dit_lib.dit_forward(pipe.dit, *cp_inputs(pipe.config, dev, EDIT_TOKENS,
-                                                   FSDP_FORWARD_SEED))
+                                                   FSDP_FORWARD_SEED),
+                              layer_mask=tp_mask(pipe.config))
     return {"dims": dims, "sums": sums, "forward": fwd.float().cpu()}
 
 
@@ -4765,24 +4780,26 @@ def tensor_path(dev, whole: dict, launches: tuple[Counter, Counter]) -> dict:
     ``cuda:0`` over host-staged gloo (correctness, bytes and per-rank
     launches, not a scaling figure). ``whole`` holds the whole model's
     references (``tensor_whole_refs``); first, in this process,
-    ``tp_model``'s weights at TP_BLOCKS blocks give the rest: the 8-step
-    edit, batched CFG and the context edit at TP_SHORT_STEPS steps, a
+    ``tp_model``'s weights at TP_BLOCKS blocks give the rest: the edit,
+    batched CFG and the context edit at TP_SHORT_STEPS steps, a
     2-block forward and, quantized to w4a16, the edit at TP_SHORT_STEPS
     steps and the forward again. Each rank's bytes read are held to the
     files' headers, its fused slices to the whole model's, every reading to
-    one process at TP_MIN_DB and the planted faults below it, the backward's
-    whole gradient to one process's at the training bars (TRAIN_GRAD_COS,
-    TRAIN_NORM_REL), the bytes staged by the 40-block forward to
-    ``tp_staged_bytes``. Adds the workers' launches to ``launches``. Needs
-    the card free."""
-    from chronoedit_tpu_torch.configs import chronoedit_14b_distilled
+    one process at TP_MIN_DB and the planted faults below it, the training
+    checks under tensor 2 and data 2 x tensor 2 to ``whole["train"]``
+    (``mesh_train_refs``) at the training bars, the sharded checkpoint of
+    the world of 2 restored in this process between the worlds
+    (``check_checkpoint``) and under data 2 x tensor 2 (``check_restored``,
+    then step 2 at the training bars), the bytes staged by the 40-block
+    model's forward to ``tp_staged_bytes``. Adds the workers' launches to
+    ``launches``. Needs the card free."""
     from chronoedit_tpu_torch.models import dit as dit_lib
     from chronoedit_tpu_torch.models import weights as w
     from chronoedit_tpu_torch.ops import quant
     from chronoedit_tpu_torch.parallel.launch import run_world
 
     card = card_line()
-    cfg, tcfg = chronoedit_14b_distilled(), tp_config()
+    cfg, tcfg = main_config(), tp_config()
     dims, sums, short = whole["dims"], whole["sums"], TP_SHORT_STEPS
     t_phase = time.perf_counter()
     with torch.inference_mode():
@@ -4799,12 +4816,13 @@ def tensor_path(dev, whole: dict, launches: tuple[Counter, Counter]) -> dict:
 
         neg = torch.randn((1, TEXT_TOKENS, tcfg.dit.text_dim), device=dev,
                           generator=torch.Generator(device=dev).manual_seed(PP_NEG_SEED))
-        ref = {"forward 40": whole["forward"], "edit": edit(40, 140), "forward": forward(),
+        ref = {"forward 40": whole["forward"], "edit": edit(40, 140, num_steps=short),
+               "forward": forward(),
                "cfg": edit(PP_CFG_SEED, 130, neg_prompt_emb=neg, guidance_scale=5.0,
                            num_steps=short)}
         ref["edit tp4"] = ref["edit"]
         ref["forward fsdp"] = ref["k4_local_stats"] = ref["bias_on_every_rank"] = ref["forward"]
-        ref["edit ring"] = ref["edit ulysses"] = edit(40, 140, num_steps=short)
+        ref["edit ring"] = ref["edit ulysses"] = ref["edit"]
         small.quantize(mode="int4")
         ref["w4a16"] = ref["w4a16 tp4"] = edit(40, 140, num_steps=short)
         ref["int4_packed_slice"] = forward()
@@ -4818,11 +4836,12 @@ def tensor_path(dev, whole: dict, launches: tuple[Counter, Counter]) -> dict:
         total = sum(sd.nbytes(k) for k in sd)
         want_bytes = tensor_bytes(sd, cfg, dims)
         lora_bytes = sum(lsd.nbytes(k) for k in lsd)
-    want_staged = tp_staged_bytes(cfg.dit.num_layers, EDIT_TOKENS)
+    want_staged = tp_staged_bytes(tp_forward_blocks(cfg), EDIT_TOKENS)
     peak = {"forward 40": True, "forward": True, "forward fsdp": True,
             **{f: True for f in TP_FAULTS}}
-    labels = {"forward 40": f"720p DiT forward ({cfg.dit.num_layers} blocks), tensor 2",
-              "edit": f"720p edit ({tcfg.num_steps} steps, {TP_BLOCKS} blocks), tensor 2",
+    labels = {"forward 40": f"720p DiT forward ({cfg.dit.num_layers} blocks, the first "
+                            f"{tp_forward_blocks(cfg)} run), tensor 2",
+              "edit": f"720p edit ({short} steps, {TP_BLOCKS} blocks), tensor 2",
               "forward": f"720p DiT forward ({TP_BLOCKS} blocks), tensor 2",
               "k4_local_stats": "planted: K4 on each rank's local statistics",
               "bias_on_every_rank": "planted: the row products' bias added on every rank",
@@ -4830,7 +4849,7 @@ def tensor_path(dev, whole: dict, launches: tuple[Counter, Counter]) -> dict:
                         f"blocks)",
               "int4_packed_slice": "planted: w4a16 forward, int4 rows as JAX's packed-axis "
                                    "slice",
-              "edit tp4": f"720p edit ({tcfg.num_steps} steps, {TP_BLOCKS} blocks), tensor 4",
+              "edit tp4": f"720p edit ({short} steps, {TP_BLOCKS} blocks), tensor 4",
               "w4a16 tp4": f"w4a16 edit, quantized under tensor 4 (fc2 padded to 28 groups; "
                            f"{short} steps, {TP_BLOCKS} blocks)",
               "cfg": f"CFG batched, guidance 5, over tensor 2 x data 2 ({short} steps, "
@@ -4844,7 +4863,7 @@ def tensor_path(dev, whole: dict, launches: tuple[Counter, Counter]) -> dict:
     # every in-dimension at full width is at least the group of 128 rows
     lloyd = {quant.INT4_GROUP: quant._lloyd_levels(quant.INT4_GROUP)}
     for p in TP_WORLDS:
-        plan = {"device": TP_DEVICE, "lloyd": lloyd}
+        plan = {"device": TP_DEVICE, "lloyd": lloyd, "train": whole["train"]}
         wait_for_card(f"tensor_path world of {p}", TP_CARD_GIB[p])
         with compact_workers():
             results, secs = host_s(lambda: run_world(tp_worker, p, (p, plan), backend="gloo",
@@ -4863,7 +4882,7 @@ def tensor_path(dev, whole: dict, launches: tuple[Counter, Counter]) -> dict:
                       f"{load['bytes']['loras'] / 1e6:.1f} MB of the LoRA (expected "
                       f"{lora_bytes / 1e6:.1f}) in {load['secs']:.2f} s, "
                       f"{load['gib']:.2f} GiB after the load, peak {r['peak_gib_40']:.2f} GiB "
-                      f"over the 40-block forward; {len(load['sums']) - len(bad)} of "
+                      f"over the forward; {len(load['sums']) - len(bad)} of "
                       f"{len(load['sums'])} leaves bitwise the one-process model's slices")
                 if (load["bytes"]["dit"] != want_bytes or load["bytes"]["loras"] != lora_bytes
                         or bad or load["sums"].keys() != sums[rank].keys()):
@@ -4882,8 +4901,7 @@ def tensor_path(dev, whole: dict, launches: tuple[Counter, Counter]) -> dict:
                 raise AssertionError(f"tensor {labels[key]}: {tuple(got.shape)} against "
                                      f"{tuple(want.shape)}")
             db = peak_db(got, want) if key in peak else psnr(got, want)
-            forwards = (1 if key in peak else tcfg.num_steps if key in ("edit", "edit tp4")
-                        else short)
+            forwards = 1 if key in peak else short
             print(f"   {labels[key]}: rank 0 {first['secs']:.3f} s (host staging, not a "
                   f"speed), {first['staged'] / forwards / 1e9:.4f} GB staged a forward and rank, "
                   f"every rank bitwise alike, {db:.2f} dB against one process"
@@ -4909,23 +4927,31 @@ def tensor_path(dev, whole: dict, launches: tuple[Counter, Counter]) -> dict:
                     if same != n:
                         raise AssertionError(f"tensor rank {rank} {key}: {n - same} leaves "
                                              f"differ from the whole quantized model's split")
-        if p == 2:
-            for rank, r in enumerate(results):
-                bw = r["backward"]
-                worst = max(bw["checks"].items(), key=lambda kv: kv[1]["rel"],
-                            default=("none", {"rel": 0.0}))
-                within = sum(c["ok"] for c in bw["checks"].values())
-                print(f"   backward ({TP_BLOCKS} blocks, B = 1, {EDIT_TOKENS} tokens) rank "
-                      f"{rank}: {bw['secs']:.3f} s, {bw['staged'] / 1e9:.3f} GB staged; "
-                      f"against the one-process gradient's slices: cosine {bw['cos']:.6f}, "
-                      f"norm {bw['norm_rel']:.3e} relative; {bw['bitwise']} of {bw['tensors']} "
-                      f"leaves bitwise, {within} more within K6/K7's bounds, worst normwise "
-                      f"{worst[1]['rel']:.3e} ({worst[0]}); launches {bw['launches'][0]}")
-                if not bw["ok"]:
-                    raise AssertionError(f"tensor rank {rank} backward: cosine {bw['cos']}, "
-                                         f"norm {bw['norm_rel']} relative")
-                launches[0].update(bw["launches"][0])
-                launches[1].update(bw["launches"][1]["flash_fwd"])
+        train = [r["train"] for r in results]
+        summary[f"train tp{p}"] = check_mesh_train(
+            "tensor 2" if p == 2 else "data 2 x tensor 2", train, whole["train"], card)
+        add_train_launches(train, launches)
+        if p == 2:  # the checkpoint in one process, while the card is free
+            checkpoint = check_checkpoint(dev, train, card)
+        else:
+            restored = [r["restore"] for r in results]
+            label = " x ".join(f"{a} {n}" for a, n in RESTORE_MESH.items())
+            check_restored(checkpoint, restored, label)
+            update = sum_stats([r["resumed"]["update"] for r in restored])
+            moment = sum_stats([r["resumed"]["moment"] for r in restored])
+            metrics = restored[0]["resumed"]["metrics"]
+            loss_rel = abs(metrics["loss"] - whole["train"]["metrics"][1]["loss"]) / abs(
+                whole["train"]["metrics"][1]["loss"])
+            print(f"   step 2 under {label} from the tensor 2 checkpoint of step "
+                  f"{restored[0]['restored_step']}: loss {loss_rel:.2e} relative, the update "
+                  f"{update['rel']:.3e}, Adam's first moment {moment['rel']:.3e} normwise "
+                  f"against one process's; restored in {restored[0]['restore_secs']:.2f} s, "
+                  f"the step {restored[0]['resumed']['secs']:.2f} s")
+            if not (loss_rel <= TRAIN_LOSS_REL and update["rel"] <= TRAIN_UPDATE_REL
+                    and moment["rel"] <= TRAIN_MOMENT_REL):
+                raise AssertionError(f"step 2 from the tensor 2 checkpoint under {label} misses "
+                                     f"the training bars")
+            add_train_launches(restored, launches)
     print(f"tensor_path: sound readings {min(sound.values()):.2f}-{max(sound.values()):.2f} dB, "
           f"planted faults {min(faults.values()):.2f}-{max(faults.values()):.2f} dB (TP_MIN_DB "
           f"{TP_MIN_DB}) ({card})")
@@ -4935,6 +4961,610 @@ def tensor_path(dev, whole: dict, launches: tuple[Counter, Counter]) -> dict:
     summary["secs"] = time.perf_counter() - t_phase
     print(f"tensor_path: {summary['secs']:.1f} s ({card})")
     return summary
+
+
+# ----------------------------------------------------------- training under a mesh
+
+# Training under a mesh on the one card, inside the FSDP and tensor worlds:
+# one rank-32 LoRA step and two full-parameter ``Trainer`` steps (AdamW, the
+# clip at half the first gradient's norm, EMA) of ``tp_model``'s weights at
+# TP_BLOCKS blocks on one global batch of MESH_BATCH 720p pairs (7,200
+# tokens each) with the Trainer's draws, under fsdp 2, tensor 2 (the worlds
+# of 2; each process holds its row and ``host_local_to_global`` gathers the
+# line's two) and data 2 x fsdp 2, data 2 x tensor 2 (the worlds of 4: a
+# row a data line). Each against one process on the same weights, batch and
+# draws (``mesh_train_refs``: its step-1 gradients, its parameters and
+# Adam's first moment after step 2 and its adapter gradient, written under
+# MESH_DIR, of which a rank reads only its blocks) at the training bars.
+# The planted faults are read from the sound run's own tensors: the norm
+# over a rank's own shards, the gradients left as each line computed them
+# (captured before the mean over data), and the replicated q / k norm
+# weights' gradients left unreduced over tensor (captured before their
+# sum). Gradients summed over data, not averaged, are planted in the world
+# by the CPU test (``tests/test_torch_train_mesh.py``), not here. A sharded
+# checkpoint of the tensor 2 state after step 1: restored into the same
+# state, step 2 again bitwise; in one process (the parent), bitwise the
+# gathered whole; under data 2 x fsdp 2 (RESTORE_MESH, in the tensor world
+# of 4), bitwise the whole's blocks, and step 2 at the training bars.
+MESH_BATCH = 2
+MESH_SEED = 70
+MESH_DIR = BUILD_DIR / "smoke_mesh_train"  # on the disk: 14.7 GB
+MESH_LORA_RANK = 32
+# the layout the tensor 2 checkpoint is restored into, in the tensor world of 4
+RESTORE_MESH = {"data": 2, "fsdp": 2}
+# the reference's tensors a rank compares with, each a file under MESH_DIR
+MESH_REFS = ("grads", "params", "exp_avg", "lora_grads")
+# the train CLI as a world of one over NCCL: the 14B model's width at this depth
+MESH_CLI_BLOCKS = 2
+
+
+def mesh_train_config():
+    """``tp_config``'s model (TP_BLOCKS blocks of full width), remat "none"."""
+    cfg = tp_config()
+    return dataclasses.replace(cfg, dit=dataclasses.replace(cfg.dit, remat="none"))
+
+
+def mesh_train_batch(cfg, dev) -> dict:
+    """The global batch: MESH_BATCH 720p edit pairs' latents and conditions
+    (2 latent frames, 7,200 tokens) and prompt / CLIP embeddings, seeded on
+    the device (the same bits in every process on the card)."""
+    g = torch.Generator(device=dev).manual_seed(MESH_SEED)
+    d, b, h, w = cfg.dit, MESH_BATCH, EDIT_H // 8, EDIT_W // 8
+    return {"latents": torch.randn((b, d.out_channels, 2, h, w), generator=g, device=dev),
+            "condition": torch.randn((b, d.in_channels - d.out_channels, 2, h, w), generator=g,
+                                     device=dev),
+            "text_emb": torch.randn((b, TEXT_TOKENS, d.text_dim), generator=g, device=dev),
+            "image_emb": torch.randn((b, d.image_tokens, d.image_dim), generator=g,
+                                     device=dev)}
+
+
+def mesh_lora(dit, dev):
+    """Seeded rank-32 adapters of the whole model's shapes over ``dit``
+    (whole or sharded), b drawn N(0, 0.02) so that every a has a
+    gradient."""
+    from chronoedit_tpu_torch.models import lora as lora_lib
+
+    g = torch.Generator(device=dev).manual_seed(MESH_SEED + 1)
+    lora = lora_lib.init_lora_params(g, dit, lora_lib.LoRAConfig(rank=MESH_LORA_RANK))
+    with torch.no_grad():
+        for blk in lora.blocks:
+            for _, ad in lora_lib.iter_adapters(blk):
+                ad.b.normal_(0.0, 0.02, generator=g)
+    return lora
+
+
+def mesh_tcfg(clip: float):
+    from chronoedit_tpu_torch.train.train_step import TrainConfig
+
+    return TrainConfig(lr=TRAIN_LR, warmup_steps=1, grad_clip=clip)
+
+
+@contextlib.contextmanager
+def capture_step(state, owner):
+    """For the next micro-step of ``state`` (parameters named as
+    ``owner``'s): ``grads``, what its optimizer applies (this rank's
+    shards, averaged over data); ``line``, the gradients before the mean
+    over data; ``partial``, the rank's own gradient of each leaf that
+    ``sum_grad_autograd`` sums over a group, before the sum (over tensor:
+    the q / k norm weights, each used in slices)."""
+    from chronoedit_tpu_torch.parallel import collectives as C
+    from chronoedit_tpu_torch.train import train_step
+
+    got = {"grads": None, "line": None, "partial": {}}
+    names = {id(p): n for n, p in owner.named_parameters()}
+    update, mean, sum_grad = state.optimizer.update, train_step.data_mean, C.sum_grad_autograd
+
+    def update_(grads):
+        if got["grads"] is None:
+            got["grads"] = [g.detach().clone() for g in grads]
+        return update(grads)
+
+    def mean_(tensors, mesh):
+        tensors = list(tensors)
+        if (got["line"] is None and len(tensors) == len(names) and mesh is not None
+                and mesh.group("data") is not None):
+            got["line"] = [t.detach().clone() for t in tensors]
+        return mean(tensors, mesh)
+
+    def sum_grad_(x, group):
+        y = sum_grad(x, group)
+        name = names.get(id(x))
+        if name is not None and y.requires_grad:
+            y.register_hook(lambda g: got["partial"].setdefault(name, g.detach().clone()))
+        return y
+
+    state.optimizer.update = update_
+    train_step.data_mean, C.sum_grad_autograd = mean_, sum_grad_
+    try:
+        yield got
+    finally:
+        del state.optimizer.update
+        train_step.data_mean, C.sum_grad_autograd = mean, sum_grad
+
+
+def ref_file(kind: str) -> Path:
+    return MESH_DIR / "refs" / kind / "params.safetensors"
+
+
+def block_stats(tensors: dict, owner, kind: str, minus: dict | None = None,
+                k67: bool = False) -> dict:
+    """Each of this rank's ``tensors`` (by parameter name of ``owner``)
+    against its block of the one-process reference ``kind`` (both less
+    ``minus``'s tensor, this rank's weights before: an update): {name:
+    [block start, got . want,
+    |got|^2, |want|^2, |got - want|^2, K6/K7's normwise error and verdict
+    (with ``k67``)]}, for the parent to sum over the distinct blocks."""
+    from safetensors import safe_open
+
+    from chronoedit_tpu_torch.parallel.sharding import local_box
+
+    out = {}
+    with safe_open(str(ref_file(kind)), framework="pt") as f:
+        for name, t in tensors.items():
+            _, start = local_box(owner, name, tuple(t.shape))
+            want = f.get_slice(name)[tuple(slice(s, s + n) for s, n in zip(start, t.shape))]
+            got, w = t.detach().float(), want.to(t.device).float()
+            if minus is not None:
+                got, w = got - minus[name].float(), w - minus[name].float()
+            check = (k67_check(t.detach(), want.to(t.device)) if k67
+                     else {"rel": 0.0, "ok": True})
+            out[name] = [list(start), float((got * w).sum()), float(got.square().sum()),
+                         float(w.square().sum()), float((got - w).square().sum()),
+                         check["rel"], check["ok"]]
+    return out
+
+
+def sum_stats(per_rank: list[dict]) -> dict:
+    """Cosine, normwise error and norm error of the whole vector from the
+    ranks' ``block_stats``, each distinct block once (the first rank
+    holding it); the leaves within K6/K7's bounds and the worst."""
+    seen, dot, sg, sw, sd = set(), 0.0, 0.0, 0.0, 0.0
+    within, worst = 0, ("none", 0.0)
+    for stats in per_rank:
+        for name, (start, d, g, w, diff, rel, ok) in stats.items():
+            if (name, tuple(start)) in seen:
+                continue
+            seen.add((name, tuple(start)))
+            dot, sg, sw, sd = dot + d, sg + g, sw + w, sd + diff
+            within += bool(ok)
+            worst = max(worst, (name, rel), key=lambda kv: kv[1])
+    return {"cos": dot / math.sqrt(sg * sw), "norm_rel": abs(math.sqrt(sg) - math.sqrt(sw))
+            / math.sqrt(sw), "rel": math.sqrt(max(sd, 0.0) / sw), "blocks": len(seen),
+            "within": within, "worst": worst}
+
+
+def _counted(label: str, fn, want, rank: int):
+    """``fn()`` with the launch counters zeroed just before and held to
+    ``want`` just after; (its result, seconds, launches, bytes staged)."""
+    from chronoedit_tpu_torch.kernels import build
+    from chronoedit_tpu_torch.parallel import collectives
+
+    staged = collectives.STAGED_BYTES["bytes"]
+    build.reset_launches()
+    out, secs = host_s(fn)
+    got = read_launches()
+    if got != want:
+        raise AssertionError(f"rank {rank} {label}: launches {got}, the path implies {want}")
+    return out, secs, got, collectives.STAGED_BYTES["bytes"] - staged
+
+
+def _train_launches(cfg, steps: int, lora: bool, tensor: bool):
+    want = expected_train_launches(cfg, remat="none", lora=lora, steps=steps)
+    return tp_want(want) if tensor else want
+
+
+def metrics_callback():
+    """A Trainer callback keeping each iteration's loss and grad_norm in
+    its ``rows``."""
+    from chronoedit_tpu_torch.train.callbacks import Callback
+
+    class Metrics(Callback):
+        def __init__(self):
+            self.rows = []
+
+        def on_step_end(self, trainer, step, metrics):
+            self.rows.append({k: float(metrics[k]) for k in ("loss", "grad_norm")})
+
+    return Metrics()
+
+
+def mesh_trainer(cfg, mesh, clip: float, max_iter: int, metrics=None):
+    from chronoedit_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    return Trainer(cfg.dit, mesh_tcfg(clip), TrainerConfig(max_iter=max_iter, save_every=10 ** 9),
+                   callbacks=[metrics] if metrics is not None else None, mesh=mesh)
+
+
+def state_sums(state) -> dict:
+    """{checkpoint name: [box start, shape, ``tensor_checksum``]} of this
+    rank's tensors of a train state."""
+    from chronoedit_tpu_torch.train import checkpoint as ck
+
+    boxes = ck.state_boxes(state)
+    return {k: [list(boxes[k][1]), list(t.shape), tensor_checksum(t)]
+            for k, t in ck.state_tensors(state).items()}
+
+
+def mesh_train_refs(dev) -> dict:
+    """The one-process reference of the mesh training checks, written under
+    MESH_DIR: ``mesh_train_config``'s ``tp_model`` weights; one LoRA step
+    (its adapter gradients, ``lora_grads``); a Trainer step with no clip to
+    read the first gradient's norm, then from the same weights (which a
+    warm-up step leaves as they were) two Trainer steps with the clip at
+    half of it: the first step's gradients (``grads``), the parameters and
+    Adam's first moment after the second (``params``, ``exp_avg``).
+    Returns the clip and each step's loss and grad_norm."""
+    from chronoedit_tpu_torch.train import checkpoint as ck
+    from chronoedit_tpu_torch.train import lora_train
+
+    t0 = time.perf_counter()
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    cfg = mesh_train_config()
+    dit = tp_model(dev, cfg).dit
+    batch = mesh_train_batch(cfg, dev)
+    lora = mesh_lora(dit, dev)
+    lstate = lora_train.make_lora_train_state(lora, mesh_tcfg(1e9))
+    with capture_step(lstate, lora) as cap:
+        lm = lora_train.make_lora_train_step(cfg.dit, mesh_tcfg(1e9))(
+            lstate, dit, batch, torch.Generator(device=dev).manual_seed(MESH_SEED + 2))
+    ck.save_params(str(MESH_DIR / "refs" / "lora_grads"),
+                   {n: g for (n, _), g in zip(lora.named_parameters(), cap["grads"])})
+    del lora, lstate, cap
+    free()
+    probe = metrics_callback()
+    trainer = mesh_trainer(cfg, None, 1e9, 1, probe)
+    trainer.train(trainer.init_state(dit), iter([batch]))
+    clip = 0.5 * probe.rows[0]["grad_norm"]
+    free()
+    metrics = metrics_callback()
+    trainer = mesh_trainer(cfg, None, clip, 2, metrics)
+    state = trainer.init_state(dit)
+    names = [n for n, _ in dit.named_parameters()]
+    with capture_step(state, dit) as cap:
+        trainer.train(state, iter([batch] * 2))
+    adamw = state.optimizer.adamw.state
+    for kind, tensors in (("grads", cap["grads"]), ("params", state.params),
+                          ("exp_avg", [adamw[p]["exp_avg"] for p in state.params])):
+        ck.save_params(str(MESH_DIR / "refs" / kind), dict(zip(names, tensors)))
+    nbytes = sum(ref_file(k).stat().st_size for k in MESH_REFS)
+    del dit, state, cap, trainer
+    free()
+    secs = time.perf_counter() - t0
+    print(f"mesh training's one-process reference ({TP_BLOCKS} blocks x 5120, B = {MESH_BATCH} "
+          f"at {EDIT_TOKENS} tokens): clip {clip:.4e}, losses "
+          f"{[round(m['loss'], 6) for m in metrics.rows]}, grad_norms "
+          f"{[round(m['grad_norm'], 4) for m in metrics.rows]}, LoRA loss {float(lm['loss']):.6f}; "
+          f"{nbytes / 1e9:.3f} GB written in {secs:.1f} s ({card_line()})")
+    return {"clip": clip, "metrics": metrics.rows, "lora_loss": float(lm["loss"]),
+            "secs": secs}
+
+
+def _line(batch: dict, mesh, gathered: bool) -> dict:
+    """This rank's data line's rows of the global ``batch``: gathered from
+    each process's own rows by ``host_local_to_global`` (``gathered``), or
+    taken as the line's rows (a world of more processes than rows)."""
+    from chronoedit_tpu_torch.parallel.distributed import host_local_to_global, process_index
+
+    if gathered:
+        n = MESH_BATCH // mesh.size
+        mine = slice(process_index() * n, (process_index() + 1) * n)
+        return host_local_to_global({k: v[mine] for k, v in batch.items()}, mesh)
+    b = MESH_BATCH // mesh.shape["data"]
+    rows = slice(mesh.index("data") * b, (mesh.index("data") + 1) * b)
+    return {k: v[rows] for k, v in batch.items()}
+
+
+def mesh_train(rank: int, dev, mesh, plan: dict, gathered: bool, save: bool = False) -> dict:
+    """The training checks of one rank under ``mesh``: ``tp_model``'s
+    weights sharded by ``shard_params``; one LoRA step (adapter gradients
+    against the reference's); two Trainer steps (step 1's loss, grad_norm,
+    gradients: the whole vector's cosine and norm and K6/K7's per-leaf
+    bounds, each from its blocks; step 2's loss, grad_norm, update and
+    Adam's first moment), each run with its launches held exact; the fault
+    readings from the captured tensors. With ``save`` the state after step
+    1 is saved under ``checkpoint_dir()`` (sharded, async: step 2 runs
+    while it is written) and after step 2 it is restored into the same
+    state for step 2 again (checksums against the straight run's)."""
+    from chronoedit_tpu_torch.parallel.consistency import check_replica_consistency
+    from chronoedit_tpu_torch.parallel.sharding import shard_params
+    from chronoedit_tpu_torch.train import checkpoint as ck
+    from chronoedit_tpu_torch.train import lora_train
+
+    cfg, clip = mesh_train_config(), plan["train"]["clip"]
+    tensor = mesh.shape["tensor"] > 1
+    res = {"mesh": dict(mesh.shape)}
+    dit = shard_params(tp_model(dev, cfg).dit, mesh)
+    line = _line(mesh_train_batch(cfg, dev), mesh, gathered)
+    free()
+    # one LoRA step over the frozen sharded base
+    lora = mesh_lora(dit, dev)
+    lstate = lora_train.make_lora_train_state(lora, mesh_tcfg(1e9), mesh)
+    step = lora_train.make_lora_train_step(cfg.dit, mesh_tcfg(1e9), mesh)
+    gen = torch.Generator(device=dev).manual_seed(MESH_SEED + 2)
+    with capture_step(lstate, lora) as cap:
+        lm, secs, got, staged = _counted("LoRA step", lambda: step(lstate, dit, line, gen),
+                                         _train_launches(cfg, 1, True, tensor), rank)
+    names = [n for n, _ in lora.named_parameters()]
+    res["lora"] = {"loss": float(lm["loss"]), "secs": secs, "launches": got, "staged": staged,
+                   "stats": block_stats(dict(zip(names, cap["grads"])), lora, "lora_grads")}
+    del lora, lstate, cap
+    free()
+
+    def run(state, max_iter, label, capture=False):
+        metrics = metrics_callback()
+        trainer = mesh_trainer(cfg, mesh, clip, max_iter, metrics)
+        steps = max_iter - state.step
+        with capture_step(state, dit) if capture else contextlib.nullcontext() as cap:
+            _, secs, got, staged = _counted(
+                label, lambda: trainer.train(state, iter([line] * steps)),
+                _train_launches(cfg, steps, False, tensor), rank)
+        return metrics.rows, {"secs": secs, "launches": got, "staged": staged}, cap
+
+    state = mesh_trainer(cfg, mesh, clip, 2).init_state(dit)
+    names = [n for n, _ in dit.named_parameters()]
+    before = {n: p.detach().clone() for n, p in zip(names, state.params)}
+    torch.cuda.reset_peak_memory_stats()
+    rows, res["step1"], cap = run(state, 1, "Trainer step 1", capture=True)
+    grads = dict(zip(names, cap["grads"]))
+    res["step1"].update(metrics=rows[0], stats=block_stats(grads, dit, "grads", k67=True),
+                        local_norm=math.sqrt(sum(float(g.float().square().sum())
+                                                 for g in cap["grads"])))
+    if cap["line"] is not None:
+        res["step1"]["line_stats"] = block_stats(dict(zip(names, cap["line"])), dit, "grads")
+    if tensor:
+        whole = {n: g for n, g in grads.items() if dit.tensor.dims.get(n) is None}
+        res["step1"]["replicas"] = check_replica_consistency(whole, mesh.group("tensor"))
+        partial = {n: cap["partial"][n] for n in sorted(cap["partial"])}
+        res["step1"]["partial_replicas"] = check_replica_consistency(partial,
+                                                                     mesh.group("tensor"))
+        res["step1"]["partial_stats"] = block_stats(partial, dit, "grads")
+    del cap, grads
+    free()
+    if save:
+        mgr = ck.CheckpointManager(ck.CheckpointConfig(directory=checkpoint_dir()))
+        _, res["save_secs"] = host_s(lambda: mgr.save(1, state))  # the host copy, then async
+        res["saved"] = state_sums(state)
+    rows, res["step2"], _ = run(state, 2, "Trainer step 2")
+    if save:
+        _, res["wait_secs"] = host_s(mgr.wait_until_finished)
+        file = checkpoint_dir() / "1" / ck.RANK_FILE.format(rank)
+        res["file_bytes"] = file.stat().st_size if file.exists() else 0
+    adamw = state.optimizer.adamw.state
+    res["step2"].update(
+        metrics=rows[0], peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        update=block_stats(dict(zip(names, state.params)), dit, "params", minus=before),
+        moment=block_stats({n: adamw[p]["exp_avg"] for n, p in zip(names, state.params)}, dit,
+                           "exp_avg"))
+    if save:  # the same layout: step 2 again from the restored step 1
+        straight = [s[2] for s in state_sums(state).values()]
+        _, res["restore_secs"] = host_s(lambda: ck.CheckpointManager(
+            ck.CheckpointConfig(directory=checkpoint_dir())).restore(state))
+        res["restored_step"] = state.step
+        _, res["resumed"], _ = run(state, 2, "Trainer step 2 after the restore")
+        res["resumed"]["bitwise"] = [s[2] for s in state_sums(state).values()] == straight
+    del state, dit
+    free()
+    return res
+
+
+def checkpoint_dir() -> Path:
+    return MESH_DIR / "checkpoint"
+
+
+def mesh_restore(rank: int, dev, mesh, plan: dict) -> dict:
+    """The tensor 2 world's checkpoint of step 1 restored into a fresh
+    state of ``tp_model``'s weights sharded for ``mesh`` (another layout:
+    each rank reads its blocks from the files' tensor blocks), the
+    restored tensors' checksums returned; then step 2 (its launches held
+    exact), its update and Adam's first moment against the reference's."""
+    from chronoedit_tpu_torch.parallel.sharding import shard_params
+    from chronoedit_tpu_torch.train import checkpoint as ck
+
+    cfg, clip = mesh_train_config(), plan["train"]["clip"]
+    dit = shard_params(tp_model(dev, cfg).dit, mesh)
+    line = _line(mesh_train_batch(cfg, dev), mesh, gathered=False)
+    state = mesh_trainer(cfg, mesh, clip, 2).init_state(dit)
+    names = [n for n, _ in dit.named_parameters()]
+    free()
+    res = {"mesh": dict(mesh.shape)}
+    _, res["restore_secs"] = host_s(lambda: ck.CheckpointManager(
+        ck.CheckpointConfig(directory=str(checkpoint_dir()))).restore(state))
+    res["restored"] = state_sums(state)
+    res["restored_step"] = state.step
+    before = {n: p.detach().clone() for n, p in zip(names, state.params)}
+    metrics = metrics_callback()
+    trainer = mesh_trainer(cfg, mesh, clip, 2, metrics)
+    _, secs, got, staged = _counted(
+        "Trainer step 2 after the restore", lambda: trainer.train(state, iter([line])),
+        _train_launches(cfg, 1, False, mesh.shape["tensor"] > 1), rank)
+    adamw = state.optimizer.adamw.state
+    res["resumed"] = {
+        "secs": secs, "launches": got, "staged": staged, "metrics": metrics.rows[0],
+        "update": block_stats(dict(zip(names, state.params)), dit, "params", minus=before),
+        "moment": block_stats({n: adamw[p]["exp_avg"] for n, p in zip(names, state.params)},
+                              dit, "exp_avg")}
+    del state, dit, before
+    free()
+    return res
+
+
+def layout_sums(whole: dict, cfg, config: dict, world: int) -> list[dict]:
+    """For each rank of a mesh of ``config`` over ``world`` processes, the
+    ``tensor_checksum`` of its block of each of the ``whole`` state's
+    tensors (the blocks ``shard_params`` gives that rank, found on a
+    ``meta`` model)."""
+    from chronoedit_tpu_torch.models import dit as dit_lib
+    from chronoedit_tpu_torch.parallel.mesh import Mesh, MeshConfig
+    from chronoedit_tpu_torch.parallel.sharding import local_box, shard_params
+
+    shape, out = MeshConfig(**config).resolve(world), []
+    for rank in range(world):
+        model = shard_params(dit_lib.DiT(cfg.dit, device="meta"),
+                             Mesh(shape, rank, torch.device("meta")))
+        boxes = {n: (local_box(model, n, tuple(p.shape))[1], tuple(p.shape))
+                 for n, p in model.named_parameters()}
+        sums = {}
+        for k, t in whole.items():
+            start, size = boxes[k.rsplit("/", 1)[1]]
+            block = t[tuple(slice(a, a + n) for a, n in zip(start, size))]
+            sums[k] = tensor_checksum(block.contiguous())
+        out.append(sums)
+    return out
+
+
+def check_mesh_train(label: str, results: list[dict], refs: dict, card: str) -> dict:
+    """The parent's verdict on one mesh's training checks (``mesh_train``'s
+    per-rank results against the reference's readings): every bar, every
+    planted fault outside its bar, printed with its reading. Returns the
+    readings."""
+    ref = refs["metrics"]
+    r0 = results[0]
+    rd = {}
+
+    def rel(got, want):
+        return abs(got - want) / abs(want)
+
+    lora = sum_stats([results[0]["lora"]["stats"]])
+    steps = [r0["step1"]["metrics"], r0["step2"]["metrics"]]
+    rd["loss_rel"] = max(rel(s["loss"], w["loss"]) for s, w in zip(steps, ref))
+    rd["norm_rel"] = max(rel(s["grad_norm"], w["grad_norm"]) for s, w in zip(steps, ref))
+    grads = sum_stats([r["step1"]["stats"] for r in results])
+    update = sum_stats([r["step2"]["update"] for r in results])
+    moment = sum_stats([r["step2"]["moment"] for r in results])
+    rd.update(lora_cos=lora["cos"], lora_norm_rel=lora["norm_rel"], grad_cos=grads["cos"],
+              grad_norm_rel=grads["norm_rel"], update_rel=update["rel"],
+              moment_rel=moment["rel"])
+    same = all(r["step1"]["metrics"] == r0["step1"]["metrics"]
+               and r["step2"]["metrics"] == r0["step2"]["metrics"] for r in results)
+    print(f"   {label}: LoRA step (rank {MESH_LORA_RANK}) loss {r0['lora']['loss']:.6f} vs "
+          f"{refs['lora_loss']:.6f}, adapter gradient cosine {lora['cos']:.6f}, norm "
+          f"{lora['norm_rel']:.2e}; Trainer steps 1, 2: losses "
+          f"{[round(s['loss'], 6) for s in steps]} vs {[round(w['loss'], 6) for w in ref]} "
+          f"(worst {rd['loss_rel']:.2e}, bound {TRAIN_LOSS_REL}), grad_norms "
+          f"{[round(s['grad_norm'], 4) for s in steps]} (worst {rd['norm_rel']:.2e}, bound "
+          f"{TRAIN_NORM_REL}); step 1's gradient over {grads['blocks']} blocks cosine "
+          f"{grads['cos']:.6f} (bound {TRAIN_GRAD_COS}), norm {grads['norm_rel']:.2e}, "
+          f"{grads['within']} within K6/K7's bounds (worst {grads['worst'][1]:.3e}, "
+          f"{grads['worst'][0]}); after step 2 the update {update['rel']:.3e} (bound "
+          f"{TRAIN_UPDATE_REL}), Adam's first moment {moment['rel']:.3e} (bound "
+          f"{TRAIN_MOMENT_REL}) normwise; every rank's metrics alike: {same}")
+    for rank, r in enumerate(results):
+        print(f"      rank {rank}: LoRA {r['lora']['secs']:.2f} s, "
+              f"{r['lora']['staged'] / 1e9:.3f} GB staged; step 1 {r['step1']['secs']:.2f} s, "
+              f"{r['step1']['staged'] / 1e9:.3f} GB; step 2 {r['step2']['secs']:.2f} s, "
+              f"{r['step2']['staged'] / 1e9:.3f} GB; peak {r['step2']['peak_gib']:.2f} GiB; "
+              f"launches a step {r['step2']['launches'][0]} ({card})")
+    ok = (rd["loss_rel"] <= TRAIN_LOSS_REL and rd["norm_rel"] <= TRAIN_NORM_REL
+          and lora["cos"] >= TRAIN_GRAD_COS and lora["norm_rel"] <= TRAIN_NORM_REL
+          and grads["cos"] >= TRAIN_GRAD_COS and grads["norm_rel"] <= TRAIN_NORM_REL
+          and update["rel"] <= TRAIN_UPDATE_REL and moment["rel"] <= TRAIN_MOMENT_REL and same)
+    if label == "fsdp 2":  # the folded backward's per-leaf bar
+        ok = ok and grads["within"] == grads["blocks"]
+    # planted faults, read from the sound run's tensors
+    faults = {"local_norm": max(rel(r["step1"]["local_norm"], ref[0]["grad_norm"])
+                                for r in results)}
+    sound = {"norm": rd["norm_rel"]}
+    fault_ok = faults["local_norm"] > TRAIN_NORM_REL
+    if "line_stats" in r0["step1"]:
+        alone = sum_stats([r["step1"]["line_stats"] for r in results])
+        faults.update(data_alone_cos=alone["cos"], data_alone_norm_rel=alone["norm_rel"])
+        fault_ok = fault_ok and (alone["cos"] < TRAIN_GRAD_COS
+                                 or alone["norm_rel"] > TRAIN_NORM_REL)
+    if "replicas" in r0["step1"]:
+        faults["tensor_unreduced_leaves"] = len(r0["step1"]["partial_replicas"])
+        faults["tensor_unreduced_rel"] = sum_stats([r["step1"]["partial_stats"]
+                                                    for r in results])["rel"]
+        sound["replicas_differing"] = len(r0["step1"]["replicas"])
+        ok = ok and not any(r["step1"]["replicas"] for r in results)
+        fault_ok = fault_ok and faults["tensor_unreduced_leaves"] > 0
+    print(f"   {label} planted faults (read from this run's tensors): {faults}; sound: {sound} "
+          f"(bars: norm {TRAIN_NORM_REL}, cosine {TRAIN_GRAD_COS}, replicas bitwise alike)")
+    if not ok:
+        raise AssertionError(f"mesh training {label}: {rd}, metrics alike {same}, K6/K7 "
+                             f"{grads['within']} of {grads['blocks']}")
+    if not fault_ok:
+        raise AssertionError(f"mesh training {label}: a planted fault within its bar: {faults}")
+    rd["faults"] = faults
+    return rd
+
+
+def check_checkpoint(dev, results: list[dict], card: str) -> list[dict]:
+    """The sharded checkpoint that the tensor 2 world saved after step 1
+    (``results``: its ranks' ``mesh_train`` readings): each rank's file
+    holds the blocks no lower rank holds, its bytes on disk 8 + its header
+    + those blocks' bytes; restored in this process into a whole state,
+    every tensor bitwise the ranks' saved blocks (checksums). Returns the
+    checksums of the whole's blocks under RESTORE_MESH, rank by rank
+    (``layout_sums``), for that layout's restore."""
+    from chronoedit_tpu_torch.train import checkpoint as ck
+    from chronoedit_tpu_torch.train.train_step import make_train_state
+
+    cfg = mesh_train_config()
+    state = make_train_state(tp_model(dev, cfg).dit, mesh_tcfg(1.0))
+    _, secs = host_s(lambda: ck.CheckpointManager(
+        ck.CheckpointConfig(directory=str(checkpoint_dir()))).restore(state))
+    whole = ck.state_tensors(state)
+    seen, bad, want = set(), [], []
+    for rank, r in enumerate(results):
+        mine = 0
+        for k, (start, shape, checksum) in r["saved"].items():
+            block = whole[k][tuple(slice(a, a + n) for a, n in zip(start, shape))]
+            if tensor_checksum(block.contiguous()) != checksum:
+                bad.append((rank, k))
+            if (k, tuple(start)) not in seen:
+                seen.add((k, tuple(start)))
+                mine += math.prod(shape) * block.element_size()
+        want.append(mine)
+    files = []
+    for rank, r in enumerate(results):
+        file = checkpoint_dir() / "1" / ck.RANK_FILE.format(rank)
+        header = 0
+        if file.exists():
+            with open(file, "rb") as f:
+                header = int.from_bytes(f.read(8), "little")
+        files.append((r["file_bytes"], 8 + header + want[rank] if want[rank] else 0))
+    nbytes = sum(n for n, _ in files)
+    print(f"   sharded checkpoint of the tensor 2 state after step 1: rank files "
+          f"{[n for n, _ in files]} B (predicted {[w for _, w in files]}: each block once, the "
+          f"lowest rank holding it writes it), {nbytes / 1e9:.3f} GB; saved in "
+          f"{results[0]['save_secs']:.2f} s to the host copy, "
+          f"{results[0]['wait_secs']:.2f} s more to the rename; restored in one process in "
+          f"{secs:.2f} s, {len(whole) * len(results) - len(bad)} of {len(whole) * len(results)} "
+          f"rank blocks bitwise the whole's; the same layout's step 2 after a restore of step "
+          f"{results[0]['restored_step']} bitwise the straight step 2 on every rank: "
+          f"{all(r['resumed']['bitwise'] for r in results)} ({card})")
+    if bad or any(n != w for n, w in files) or not all(r["resumed"]["bitwise"] for r in results):
+        raise AssertionError(f"sharded checkpoint: blocks differing {bad[:6]}, bytes {files}, "
+                             f"resumed bitwise {[r['resumed']['bitwise'] for r in results]}")
+    expected = layout_sums(whole, cfg, RESTORE_MESH, 4)
+    del state, whole
+    free()
+    return expected
+
+
+def check_restored(expected: list[dict], results: list[dict], label: str) -> None:
+    """Each rank's tensors restored under another layout (``results``'
+    "restored" checksums) bitwise the whole's blocks for that rank
+    (``expected``, from ``layout_sums``)."""
+    bad, n = [], 0
+    for rank, r in enumerate(results):
+        for k, (_, _, checksum) in r["restored"].items():
+            n += 1
+            if expected[rank][k] != checksum:
+                bad.append((rank, k))
+    print(f"   {label}: {n - len(bad)} of {n} tensors restored from the tensor 2 checkpoint "
+          f"bitwise the whole's blocks")
+    if bad:
+        raise AssertionError(f"{label}: restored tensors differ from the whole's blocks: "
+                             f"{bad[:6]}")
+
+
+def add_train_launches(results: list[dict], launches: tuple[Counter, Counter]) -> None:
+    for r in results:
+        for key in ("lora", "step1", "step2", "resumed"):
+            if key in r:
+                launches[0].update(r[key]["launches"][0])
+                launches[1].update(r[key]["launches"][1]["flash_fwd"])
 
 
 # ----------------------------------------------------------- main
@@ -5076,7 +5706,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
         return 1
-    from chronoedit_tpu_torch.configs import chronoedit_14b_distilled
     from chronoedit_tpu_torch.kernels import build
     from chronoedit_tpu_torch.pipeline.loader import load_pipeline
     from chronoedit_tpu_torch.utils.platform import cuda_device
@@ -5115,7 +5744,9 @@ def main() -> int:
     ulysses_trace(dev)
     free()
     drop_ref = context_path(dev, (by_name, by_kv))["drop_ref"]
-    cfg = chronoedit_14b_distilled()
+    cfg = main_config()
+    scratch = scratch_dir()
+    print(f"the Trainer's checkpoints under {scratch}; the other large files under {BUILD_DIR}")
     try:
         # loaded outside inference_mode: training saves these weights for backward
         pipe = loaded_path(dev, dataclasses.replace(
@@ -5157,18 +5788,23 @@ def main() -> int:
         free()
         # pipeline parallelism from the directory's files, the card free
         pipeline_path(dev, {**refs, "drop": drop_ref}, (by_name, by_kv))
+        # training under a mesh: the one-process reference, written for the
+        # FSDP and tensor worlds to read
+        train_refs = mesh_train_refs(dev)
         # FSDP from the same files, the card free
-        fsdp_path(dev, fsdp_refs, (by_name, by_kv))
+        fsdp_path(dev, {**fsdp_refs, "train": train_refs}, (by_name, by_kv))
         # tensor parallelism from the same files, the card free
-        tensor_path(dev, tensor_refs, (by_name, by_kv))
+        tensor_path(dev, {**tensor_refs, "train": train_refs}, (by_name, by_kv))
+        shutil.rmtree(MESH_DIR, ignore_errors=True)
         # training as a user runs it: the CLI from the directory's files, then
         # the Trainer (the directory is removed first: its checkpoints need
         # the disk)
         cli_path(dev, cfg, (by_name, by_kv))
         shutil.rmtree(CHECKPOINT_DIR, ignore_errors=True)
-        trainer_path(dev, (by_name, by_kv))
+        trainer_path(dev, (by_name, by_kv), scratch / "smoke_trainer")
     finally:
-        for d in (CHECKPOINT_DIR, TRAINER_DIR, CHECKPOINT_DIR.parent / "smoke_train_data"):
+        for d in (CHECKPOINT_DIR, CHECKPOINT_DIR.parent / "smoke_train_data", MESH_DIR,
+                  scratch):
             shutil.rmtree(d, ignore_errors=True)
 
     # K5 is the flash kernel's launches over KV past JAX's resident length

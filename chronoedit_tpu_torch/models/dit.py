@@ -554,8 +554,10 @@ def dit_forward(model: DiT, x: torch.Tensor, timesteps: torch.Tensor,
         rank runs its rows and the head's output is gathered over fsdp
         too, else every rank runs the whole batch (the gathers' backward
         then takes this rank's slice of the gradient instead of summing
-        the ranks'); an fsdp line holds the same token block under
-        context parallelism, and a data line runs the same request. With a
+        the ranks'; the LoRA adapters, whole on every rank, have their
+        gradients summed over fsdp when it split the batch); an fsdp line
+        holds the same token block under context parallelism, and a data
+        line runs the same request. With a
         tensor axis above 1 ``model`` holds this rank's columns / rows of
         the block projections (``shard_params``; the heads must divide the
         degree): each block runs on this rank's heads, the row products and
@@ -616,9 +618,12 @@ def dit_forward(model: DiT, x: torch.Tensor, timesteps: torch.Tensor,
     cos, sin = tables(cfg.rope, gt, gh, gw, device=x.device)
     lora_weights = None
     if lora is not None:
+        # the adapters are whole on every rank: when each fsdp rank ran its
+        # own rows, their gradients are summed over the fsdp group
+        summed = fsdp is not None and fsdp.summed and torch.is_grad_enabled()
         lora_weights = functools.partial(
             lora_lib.attached_weights if lora_attach else lora_lib.merged_weights,
-            scaling=lora.cfg.scaling)
+            scaling=lora.cfg.scaling, summed=fsdp.group if summed else None)
     if pipe > 1:
         tokens, cp = _pipeline_blocks(model, mesh, tokens, text_ctx, img_ctx, t_proj, cos,
                                       sin, hw, layer_mask, lora, lora_weights)

@@ -73,20 +73,24 @@ class LoRA(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.blocks = nn.ModuleList()
-        for blk in model.blocks:
+        for i, blk in enumerate(model.blocks):
             adapters = nn.ModuleDict()
             for target in cfg.targets:
                 module, layer = target.split("/")
-                d_in, d_out = _dims(blk.get_submodule(target.replace("/", ".")), target)
+                d_in, d_out = _dims(model, f"blocks.{i}.{module}.{layer}",
+                                    blk.get_submodule(target.replace("/", ".")), target)
                 if module not in adapters:
                     adapters[module] = nn.ModuleDict()
                 adapters[module][layer] = Adapter(d_in, d_out, cfg.rank, device=device)
             self.blocks.append(adapters)
 
 
-def _dims(lin: nn.Module, target: str) -> tuple[int, int]:
-    """(d_in, d_out) of a float or quantized linear layer."""
+def _dims(model: nn.Module, name: str, lin: nn.Module, target: str) -> tuple[int, int]:
+    """(d_in, d_out) of a float or quantized linear layer ``name`` of
+    ``model``; of the whole layer when a sharded model holds a block of its
+    float weight (``parallel/sharding.py``)."""
     from chronoedit_tpu_torch.ops import quant
+    from chronoedit_tpu_torch.parallel.sharding import local_box
 
     if isinstance(lin, quant.QuantLinear8):
         return lin.weight_q.shape[1], lin.weight_q.shape[0]
@@ -94,7 +98,8 @@ def _dims(lin: nn.Module, target: str) -> tuple[int, int]:
         if lin.in_features is None:
             raise ValueError(f"LoRA target {target}: the int4 leaf does not record its in-dim")
         return lin.in_features, lin.packed.shape[0]
-    return lin.weight.shape[1], lin.weight.shape[0]
+    d_out, d_in = local_box(model, f"{name}.weight", tuple(lin.weight.shape))[0]
+    return d_in, d_out
 
 
 def _linear(block: nn.Module, target: str) -> nn.Module:
@@ -155,18 +160,23 @@ def init_lora_params(generator: torch.Generator, model: nn.Module, cfg: LoRAConf
     return lora
 
 
-def _local(target: str, ad: Adapter, tp) -> tuple[torch.Tensor, torch.Tensor]:
+def _local(target: str, ad: Adapter, tp, summed=None) -> tuple[torch.Tensor, torch.Tensor]:
     """(a, b) of ``ad`` as a tensor rank applies them (``tp``, a
     ``sharding.TensorSplit``; None: whole): a column-split target takes its
     columns of b, a row-split one its rows of a. Both are replicated and
     each rank uses its share, so their gradients are summed over the
-    group."""
-    if tp is None:
-        return ad.a, ad.b
+    group. ``summed`` is the fsdp group when each of its ranks ran its own
+    rows of the batch: the adapters' gradients are summed over it too."""
     from chronoedit_tpu_torch.parallel import collectives as C
+
+    a, b = ad.a, ad.b
+    if summed is not None:
+        a, b = C.sum_grad_autograd(a, summed), C.sum_grad_autograd(b, summed)
+    if tp is None:
+        return a, b
     from chronoedit_tpu_torch.parallel.sharding import TP_ROW
 
-    a, b = C.sum_grad_autograd(ad.a, tp.group), C.sum_grad_autograd(ad.b, tp.group)
+    a, b = C.sum_grad_autograd(a, tp.group), C.sum_grad_autograd(b, tp.group)
     if tuple(target.split("/")) in TP_ROW:
         n = a.shape[0] // tp.size
         return a.narrow(0, tp.index * n, n), b
@@ -175,32 +185,34 @@ def _local(target: str, ad: Adapter, tp) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def merged_weights(block: nn.Module, adapters: nn.ModuleDict, scaling: float,
-                   tp=None) -> dict[nn.Module, torch.Tensor]:
+                   tp=None, summed=None) -> dict[nn.Module, torch.Tensor]:
     """{linear layer: its merged weight} for one block's targets:
     ``(W.float() + scaling * (a @ b).T).to(W.dtype)``; differentiable in
     the adapters (and in W, when W requires a gradient). Under tensor
     parallelism (``tp``) W is this rank's block of the whole weight and
-    the delta this rank's block of the whole delta (:func:`_local`)."""
+    the delta this rank's block of the whole delta; ``summed``: the fsdp
+    group whose ranks ran their own rows (:func:`_local`)."""
     out = {}
     for target, ad in iter_adapters(adapters):
         lin = _linear(block, target)
-        a, b = _local(target, ad, tp)
+        a, b = _local(target, ad, tp, summed)
         delta = (a.float() @ b.float()) * scaling
         out[lin] = (lin.weight.float() + delta.T).to(lin.weight.dtype)
     return out
 
 
-def attached_weights(block: nn.Module, adapters: nn.ModuleDict, scaling: float, tp=None
-                     ) -> dict[nn.Module, tuple[torch.Tensor, torch.Tensor]]:
+def attached_weights(block: nn.Module, adapters: nn.ModuleDict, scaling: float, tp=None,
+                     summed=None) -> dict[nn.Module, tuple[torch.Tensor, torch.Tensor]]:
     """{linear layer: (a, b * scaling)} for one block's targets, the side
     branches ``ops/layers.linear`` adds after the layer's own (float or
     quantized) product; b scaled in fp32, differentiable in the adapters.
     Under tensor parallelism (``tp``) each rank's share (:func:`_local`):
     a row-split layer's branch is then a partial sum, added to its partial
-    product before the sum over the group."""
+    product before the sum over the group; ``summed`` as for
+    :func:`merged_weights`."""
     out = {}
     for target, ad in iter_adapters(adapters):
-        a, b = _local(target, ad, tp)
+        a, b = _local(target, ad, tp, summed)
         out[block.get_submodule(target.replace("/", "."))] = (a, b.float() * scaling)
     return out
 

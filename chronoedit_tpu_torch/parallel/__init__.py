@@ -3,8 +3,8 @@
 (Megatron) and FSDP sharding of the DiT's parameters
 (``dit_param_sharding``, ``shard_params``), context-parallel (ring and
 Ulysses) attention and the collectives, GPipe pipeline stages
-(``gpipe_scan``), and cross-rank replica checks. ``host_local_to_global``
-is item 1.3 of the roadmap's queue 1."""
+(``gpipe_scan``), cross-rank replica checks, and ``host_local_to_global``,
+the data line's rows of a data-parallel training batch."""
 
 from chronoedit_tpu_torch.parallel.context import (
     gather_sequence,
@@ -14,6 +14,7 @@ from chronoedit_tpu_torch.parallel.context import (
 )
 from chronoedit_tpu_torch.parallel.distributed import (
     collate_metrics,
+    host_local_to_global,
     init_distributed,
     is_primary,
     local_batch_size,
@@ -30,6 +31,7 @@ from chronoedit_tpu_torch.parallel.sharding import (
 
 __all__ = [
     "collate_metrics",
+    "host_local_to_global",
     "init_distributed",
     "is_primary",
     "local_batch_size",

@@ -16,8 +16,9 @@ refuses two ranks on one device), and ``parallel/collectives.py`` stages
 their CUDA tensors through host memory. Nothing moves from one backend to
 another on its own.
 
-Not here yet (item 6b of the roadmap): ``host_local_to_global``, the
-per-process batch shards of data-parallel training.
+:func:`host_local_to_global` assembles data-parallel training's batch from
+each process's rows (JAX's makes global arrays of them; here every rank of
+a data line ends up holding the line's rows).
 """
 
 from __future__ import annotations
@@ -28,8 +29,9 @@ import os
 import torch
 import torch.distributed as dist
 
-from chronoedit_tpu_torch.parallel.collectives import all_reduce
-from chronoedit_tpu_torch.utils.platform import cuda_device
+from chronoedit_tpu_torch.parallel.collectives import all_gather, all_reduce
+from chronoedit_tpu_torch.parallel.mesh import AXIS_DATA, MESH_AXES
+from chronoedit_tpu_torch.utils.platform import cuda_device, multi_device_world
 
 # a rendezvous or collective that waits longer than this fails instead of
 # hanging
@@ -97,6 +99,14 @@ def is_primary() -> bool:
     return process_index() == 0
 
 
+def _host_device() -> torch.device:
+    """Where a small host value goes for a collective over the world: the
+    current card under NCCL (which moves CUDA tensors only), the host
+    under gloo."""
+    return (torch.device("cuda", torch.cuda.current_device())
+            if dist.get_backend() == "nccl" else torch.device("cpu"))
+
+
 def collate_metrics(metrics: dict) -> dict:
     """The cross-process means of scalar metrics (the reference's
     distributed-eval ``collate_batches``): each process evaluates its own
@@ -106,11 +116,8 @@ def collate_metrics(metrics: dict) -> dict:
     n = process_count()
     if n == 1 or not values:
         return values
-    # NCCL moves CUDA tensors only; gloo takes them from the host
-    device = (torch.device("cuda", torch.cuda.current_device())
-              if dist.get_backend() == "nccl" else torch.device("cpu"))
-    t = all_reduce(torch.tensor(list(values.values()), dtype=torch.float64, device=device),
-                   None)
+    t = all_reduce(torch.tensor(list(values.values()), dtype=torch.float64,
+                                device=_host_device()), None)
     return {k: float(x) / n for k, x in zip(values, t.tolist())}
 
 
@@ -120,3 +127,40 @@ def local_batch_size(global_batch: int) -> int:
     if global_batch % n:
         raise ValueError(f"global batch {global_batch} not divisible by {n} processes")
     return global_batch // n
+
+
+def all_gather_float(value: float) -> list[float]:
+    """Every process's ``value``, in rank order (one float64 all-gather over
+    the world; JAX's ``process_allgather`` of a scalar). One process: the
+    value alone."""
+    if process_count() == 1:
+        return [float(value)]
+    t = torch.tensor([float(value)], dtype=torch.float64, device=_host_device())
+    return all_gather(t, None, 0).tolist()
+
+
+def host_local_to_global(batch: dict, mesh) -> dict:
+    """The data line's rows from each process's rows (JAX's
+    ``host_local_to_global``, which makes global arrays sharded over
+    ``data`` from the processes' rows).
+
+    Each process holds ``local_batch_size(global_batch)`` rows of the
+    global batch, in rank order. The ranks that share this rank's ``data``
+    index (its lines along every other axis) gather their rows along the
+    batch dimension, innermost axis first, so that each of them holds the
+    line's rows in rank order: without a pipe axis the ``data`` index's
+    contiguous block of the global batch, JAX's ``P("data")`` layout. That
+    is what ``dit_forward`` takes: the same inputs on every rank of a data
+    line. One process: ``batch`` itself. ``None`` values stay None; every
+    rank must hold the same keys."""
+    if not multi_device_world():
+        return batch
+    out = dict(batch)
+    for axis in reversed(MESH_AXES):
+        group = None if axis == AXIS_DATA else mesh.group(axis)
+        if group is None:
+            continue
+        for key, value in out.items():
+            if isinstance(value, torch.Tensor):
+                out[key] = all_gather(value.contiguous(), group, 0)
+    return out

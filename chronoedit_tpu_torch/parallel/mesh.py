@@ -83,6 +83,11 @@ class MeshConfig:
     context: int = 1
     pipe: int = 1
 
+    @property
+    def shape(self) -> dict[str, int]:
+        """The degrees by axis, as a mesh's (``data`` -1: the rest)."""
+        return {axis: getattr(self, axis) for axis in MESH_AXES}
+
     def resolve(self, num_devices: int) -> tuple[int, int, int, int, int]:
         """(pipe, data, fsdp, tensor, context) for ``num_devices`` ranks;
         raises ValueError when they do not fill the mesh exactly."""

@@ -23,7 +23,8 @@ keeps each rank's slice of every leaf in the model itself:
 - :func:`shard_params` keeps this rank's slice of every leaf of a whole
   model (contiguous, in place): its tensor slice, then its fsdp slice of
   that; the plans are recorded in ``model.tensor`` and ``model.fsdp``
-  (:class:`Shards`, one an axis). A row-split int4 leaf is not a slice of
+  (:class:`Shards`, one an axis), and :func:`local_box` places a rank's
+  block in the whole leaf (a sharded checkpoint's layout). A row-split int4 leaf is not a slice of
   the packed bytes: it holds its contiguous rows repacked
   (``ops/quant.int4_rows``). :func:`materialize_shards` makes a model
   built on ``meta`` shard-shaped on a device, for a loader that reads only
@@ -218,6 +219,22 @@ def local_of(model: nn.Module, name: str, t: torch.Tensor) -> torch.Tensor:
         if shards is not None:
             t = shards.local(t, shards.dims.get(name))
     return t
+
+
+def local_box(model: nn.Module, name: str, shape: tuple[int, ...]
+              ) -> tuple[tuple[int, ...], tuple[int, ...]]:
+    """(the whole leaf's shape, where this rank's block of it starts) for
+    the float leaf ``name`` of ``model`` held at ``shape``: its tensor
+    block, then its fsdp block of that (:func:`local_of`); a leaf the plans
+    keep whole, or a module that is not sharded: ``shape`` at 0."""
+    whole, start = list(shape), [0] * len(shape)
+    # the fsdp block lies inside the tensor block: undo it first
+    for shards in (getattr(model, "fsdp", None), getattr(model, "tensor", None)):
+        dim = None if shards is None else shards.dims.get(name)
+        if dim is not None:
+            start[dim] += shards.index * whole[dim]
+            whole[dim] *= shards.size
+    return tuple(whole), tuple(start)
 
 
 def _keep_local(shards: Shards, mod: nn.Module, attr: str, is_param: bool,

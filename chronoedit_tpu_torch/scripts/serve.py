@@ -152,8 +152,8 @@ def main(argv=None) -> None:
 
     if args.mesh:
         raise SystemExit("--mesh: serving over several ranks (rank 0 takes the requests "
-                         "and broadcasts each batch) is not ported yet, item 6b of the "
-                         "roadmap; run_inference takes --mesh")
+                         "and broadcasts each batch) is not ported yet, item 1.6 of the "
+                         "roadmap's queue 1; run_inference and train take --mesh")
     pipe = ri.build_pipeline(args)
     server = EditServer(pipe, ServerConfig(max_batch=args.max_batch,
                                            max_wait_ms=args.max_wait_ms,

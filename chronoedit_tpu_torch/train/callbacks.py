@@ -12,8 +12,8 @@ Port-specific: :class:`DeviceMonitorCallback` reads
 tensors (by top-level module); :class:`ReplicaConsistencyCallback`
 compares every tensor's digest across the ranks of the process world
 (``parallel/consistency.py``) and raises on a divergence;
-:class:`StragglerDetector` works in one process, where it never fires (its
-cross-process gather is item 6b of the roadmap).
+:class:`StragglerDetector` all-gathers each process's step time over the
+world (in one process it never fires).
 """
 
 from __future__ import annotations
@@ -25,6 +25,10 @@ from typing import Any
 
 
 class Callback:
+    # True for a callback that runs a collective over the world: every
+    # process must then hold it (``Trainer.train`` refuses otherwise)
+    collective = False
+
     def on_train_start(self, trainer): ...
     def on_step_start(self, trainer, step: int): ...
     def on_step_end(self, trainer, step: int, metrics: dict[str, Any]): ...
@@ -302,6 +306,8 @@ class ReplicaConsistencyCallback(Callback):
     raises by default — the failure is silent otherwise and compounds every
     step."""
 
+    collective = True
+
     def __init__(self, every_n: int = 2000, abort: bool = True):
         self.every_n = every_n
         self.abort = abort
@@ -334,8 +340,12 @@ class StragglerDetector(Callback):
     process -> trivially never fires.
 
     ``gather_fn(x: float) -> np.ndarray`` is injectable for tests; the
-    default gathers this process's value (one process: itself alone).
+    default all-gathers every process's value over the world
+    (``parallel.distributed.all_gather_float``; one process: itself alone),
+    so every process must hold one and reach the same steps.
     """
+
+    collective = True
 
     def __init__(self, every_n: int = 50, rel_threshold: float = 1.5,
                  max_consecutive: int = 10, gather_fn=None, log_fn=print):
@@ -353,12 +363,9 @@ class StragglerDetector(Callback):
     def _default_gather(value: float):
         import numpy as np
 
-        from chronoedit_tpu_torch.parallel.distributed import process_count
+        from chronoedit_tpu_torch.parallel.distributed import all_gather_float
 
-        if process_count() != 1:
-            raise NotImplementedError("the cross-process gather is not ported yet "
-                                      "(item 6b of the roadmap)")
-        return np.asarray([value])
+        return np.asarray(all_gather_float(value))
 
     def on_step_start(self, trainer, step):
         self._t = time.perf_counter()

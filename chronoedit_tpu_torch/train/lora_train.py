@@ -17,6 +17,14 @@ applied count: JAX's LoRA step moves it on every micro-step at the
 micro-step count, the same rule when ``grad_accum = 1``; under
 accumulation the port follows JAX's full-parameter rule (``ROADMAP.md``
 queue 3).
+
+Under a mesh (``mesh=``: data, fsdp and tensor) the adapters stay whole on
+every rank over the base sharded by ``parallel/sharding.shard_params``;
+their gradients are summed where ranks used parts of them (tensor slices,
+fsdp rows: ``models/lora.py``) and averaged over ``data``, as the
+full-parameter step's (``train/train_step.py``). A quantized base (QLoRA)
+under a mesh raises ``ValueError``: the row layers' int8 token scale is
+all-reduced without a gradient (``ROADMAP.md`` queue 1, item 1.4).
 """
 
 from __future__ import annotations
@@ -29,7 +37,8 @@ import torch
 from chronoedit_tpu_torch.models import dit as dit_lib
 from chronoedit_tpu_torch.models import lora as lora_lib
 from chronoedit_tpu_torch.train.train_step import (
-    Optimizer, TrainConfig, apply_step, draw_train_noise, velocity_loss)
+    Optimizer, TrainConfig, apply_step, check_mesh, draw_train_noise, leaf_splits,
+    velocity_loss)
 
 
 @dataclasses.dataclass
@@ -44,29 +53,38 @@ class LoRATrainState:
         return self.optimizer.params
 
 
-def make_lora_train_state(lora: lora_lib.LoRA, cfg: TrainConfig) -> LoRATrainState:
+def make_lora_train_state(lora: lora_lib.LoRA, cfg: TrainConfig, mesh=None) -> LoRATrainState:
+    """The adapters' train state; under ``mesh`` they are whole on every
+    rank."""
+    check_mesh(mesh)
     params = list(lora.parameters())
     ema = [p.detach().clone() for p in params] if cfg.ema.enabled else None
-    return LoRATrainState(lora, Optimizer(params, cfg), ema)
+    return LoRATrainState(lora, Optimizer(params, cfg, leaf_splits(lora, mesh)), ema)
 
 
-def make_lora_train_step(dit_cfg: dit_lib.DiTConfig, cfg: TrainConfig
+def make_lora_train_step(dit_cfg: dit_lib.DiTConfig, cfg: TrainConfig, mesh=None
                          ) -> Callable[..., dict]:
     """``step(state, base, batch, generator=None, *, u=None, noise=None)``:
     one micro-step of the adapters over the frozen ``base`` DiT (merged
     into a float base, attached to a quantized one), in place; returns
-    {"loss", "grad_norm"}."""
+    {"loss", "grad_norm"}. Under ``mesh`` the base holds this rank's
+    shards and the batch is this data line's rows."""
+    check_mesh(mesh)
 
     def step(state: LoRATrainState, base: dit_lib.DiT, batch: dict,
              generator: torch.Generator | None = None, *,
              u: torch.Tensor | None = None, noise: torch.Tensor | None = None) -> dict:
+        attach = lora_lib.base_is_quantized(base, state.lora.cfg)
+        if attach and mesh is not None and mesh.size > 1:
+            raise ValueError("QLoRA under a mesh is not ported yet: the row layers' int8 token "
+                             "scale carries no gradient (ROADMAP.md queue 1, item 1.4)")
         if u is None or noise is None:
-            u, noise = draw_train_noise(generator, batch["latents"], cfg.rectified_flow)
+            u, noise = draw_train_noise(generator, batch["latents"], cfg.rectified_flow, mesh)
         loss = velocity_loss(base, dit_cfg, cfg.rectified_flow, batch["latents"],
                              batch["condition"], batch["text_emb"],
                              batch.get("image_emb"), u, noise, lora=state.lora,
-                             lora_attach=lora_lib.base_is_quantized(base, state.lora.cfg))
-        metrics = apply_step(loss, state.params, state.optimizer, state.ema_params, cfg)
+                             lora_attach=attach, mesh=mesh)
+        metrics = apply_step(loss, state.params, state.optimizer, state.ema_params, cfg, mesh)
         state.step += 1
         return metrics
 

@@ -28,6 +28,36 @@ differs only under accumulation, see ``ROADMAP.md`` queue 3). The random
 draws (train time u and the noise) are arguments of :func:`velocity_loss`,
 so a caller can feed the same draws to JAX and here;
 :func:`draw_train_noise` makes them from a ``torch.Generator``.
+
+Under a mesh (``make_train_step(..., mesh=)``, JAX's argument; the data,
+fsdp and tensor axes) the model holds this rank's shards
+(``parallel/sharding.shard_params``) and the step is given its data line's
+rows (``parallel/distributed.host_local_to_global``). After the backward
+each trainable leaf's gradient is the global loss's, restricted to the
+rank's shard; which collective covers which leaf:
+
+- ``fsdp``: a split leaf's gradient is reduce-scattered over the fsdp
+  group (or sliced, when every rank ran the whole batch) by the gather's
+  backward, a whole model leaf's summed over it (``sharding.Gather``), the
+  whole LoRA adapters' summed over it in their merge (``models/lora.py``);
+- ``tensor``: a column or row leaf's gradient is its rank's own; a leaf
+  whole over the tensor group gets the same gradient on every rank, bitwise
+  (the stream is whole on every rank, and each column group's input
+  gradient is summed over the group by ``copy_to_tensor``), except those
+  each rank used a slice of (the q / k norm weights, the LoRA adapters),
+  which ``sum_grad_autograd`` sums in the forward's graph;
+- ``data``: every leaf's gradient and the loss are averaged over the data
+  group here (:func:`data_mean`), in the gradient's dtype.
+
+:func:`global_norm` then sums each shard's squares and completes the sums
+over fsdp and tensor in fp32, counting a leaf whole over an axis once:
+``optax.global_norm`` over the global arrays, for the clip and the
+reported ``grad_norm``. AdamW, the accumulation's running mean and the
+EMA are elementwise on the local shards. Every rank draws ``u`` and the
+noise for the global batch from the same generator and keeps its data
+line's rows (:func:`draw_train_noise` with a mesh), so a mesh run draws
+what one process draws for the same global batch. ``context`` and
+``pipe`` above 1 raise ``ValueError`` (``ROADMAP.md`` queue 1, item 1.4).
 """
 
 from __future__ import annotations
@@ -40,8 +70,15 @@ import torch
 from chronoedit_tpu_torch.core import rectified_flow as rf
 from chronoedit_tpu_torch.models import dit as dit_lib
 from chronoedit_tpu_torch.models import vae as vae_lib
+from chronoedit_tpu_torch.parallel import collectives as C
+from chronoedit_tpu_torch.parallel.mesh import (AXIS_CONTEXT, AXIS_DATA, AXIS_FSDP, AXIS_PIPE,
+                                                AXIS_TENSOR)
 from chronoedit_tpu_torch.pipeline.edit_pipeline import PipelineConfig, prepare_condition
 from chronoedit_tpu_torch.train.ema import EMAConfig, ema_update
+
+# (tensor group, fsdp group) a leaf's shards are split over, None where
+# the leaf is whole along that axis
+Split = tuple[object | None, object | None]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,9 +95,70 @@ class TrainConfig:
     ema: EMAConfig = EMAConfig()
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares over all tensors, fp32 (optax.global_norm)."""
-    return torch.sqrt(sum(t.float().square().sum() for t in tensors))
+def check_mesh(mesh) -> None:
+    """Raise ValueError for a mesh whose training is not ported: a context
+    or pipe axis above 1."""
+    for axis in (AXIS_CONTEXT, AXIS_PIPE):
+        n = 1 if mesh is None else mesh.shape.get(axis, 1)
+        if n > 1:
+            raise ValueError(f"training under {axis}={n} is not ported yet (ROADMAP.md queue 1, "
+                             f"item 1.4: context and pipe training); data, fsdp and tensor "
+                             f"train")
+
+
+def leaf_splits(module: torch.nn.Module, mesh) -> list[Split] | None:
+    """For each parameter of ``module`` (a sharded DiT, or LoRA adapters,
+    whole on every rank), the groups its shards are split over under
+    ``mesh`` (``model.tensor`` / ``model.fsdp`` name the split leaves);
+    None without a mesh."""
+    if mesh is None:
+        return None
+    plans = [(getattr(module, axis, None), mesh.group(name))
+             for axis, name in (("tensor", AXIS_TENSOR), ("fsdp", AXIS_FSDP))]
+    return [tuple(group if plan is not None and plan.dims.get(n) is not None else None
+                  for plan, group in plans)
+            for n, _ in module.named_parameters()]
+
+
+def _sum_over(partial: torch.Tensor, group) -> torch.Tensor:
+    """Sums of squares completed over ``group``'s shards."""
+    return C.all_reduce(partial, group)
+
+
+def global_norm(tensors, splits: list[Split] | None = None) -> torch.Tensor:
+    """sqrt of the sum of squares over all tensors, fp32 (optax.global_norm).
+    With ``splits`` (:func:`leaf_splits`) each tensor is a shard: the
+    squares of the leaves split alike are summed locally, then over the
+    tensor and the fsdp group each is split over, so a leaf whole along an
+    axis counts once; every rank gets the same bits."""
+    tensors = list(tensors)
+    if splits is None:
+        return torch.sqrt(sum(t.float().square().sum() for t in tensors))
+    zero = torch.zeros((), dtype=torch.float32, device=tensors[0].device)
+    partial = {}  # (split over tensor, split over fsdp) -> local sum of squares
+    groups = [None, None]
+    for t, split in zip(tensors, splits):
+        key = tuple(g is not None for g in split)
+        partial[key] = partial.get(key, zero) + t.float().square().sum()
+        groups = [g if g is not None else h for g, h in zip(groups, split)]
+    both = partial.get((True, True), zero)
+    tensor_only, fsdp_only = partial.get((True, False), zero), partial.get((False, True), zero)
+    if groups[0] is not None:
+        tensor_only, both = _sum_over(torch.stack([tensor_only, both]), groups[0]).unbind()
+    if groups[1] is not None:
+        fsdp_only, both = _sum_over(torch.stack([fsdp_only, both]), groups[1]).unbind()
+    return torch.sqrt(partial.get((False, False), zero) + tensor_only + fsdp_only + both)
+
+
+def data_mean(tensors, mesh) -> list[torch.Tensor]:
+    """Each tensor averaged over ``mesh``'s data group, in its dtype (summed
+    over the group, then divided by the degree); the tensors themselves
+    without a data axis."""
+    group = None if mesh is None else mesh.group(AXIS_DATA)
+    if group is None:
+        return list(tensors)
+    n = mesh.shape[AXIS_DATA]
+    return [C.all_reduce(t.contiguous(), group).div_(n) for t in tensors]
 
 
 def warmup_lr(cfg: TrainConfig, count: int) -> float:
@@ -77,10 +175,13 @@ class Optimizer:
     adamw)``, under ``MultiSteps`` when ``cfg.grad_accum > 1``, over a list
     of parameters, updating them in place. ``gradient_step`` counts applied
     updates, ``mini_step`` the micro-steps of the accumulation under way,
-    ``acc`` holds its running mean (None without accumulation)."""
+    ``acc`` holds its running mean (None without accumulation). Under a
+    mesh the parameters are shards and ``splits`` (:func:`leaf_splits`)
+    says how, for the global norm."""
 
-    def __init__(self, params: list[torch.Tensor], cfg: TrainConfig):
-        self.params, self.cfg = params, cfg
+    def __init__(self, params: list[torch.Tensor], cfg: TrainConfig,
+                 splits: list[Split] | None = None):
+        self.params, self.cfg, self.splits = params, cfg, splits
         self.adamw = torch.optim.AdamW(params, lr=0.0, betas=cfg.betas, eps=cfg.eps,
                                        weight_decay=cfg.weight_decay)
         self.gradient_step = 0
@@ -111,7 +212,7 @@ class Optimizer:
         """Clip by the global norm (on the device), then one AdamW update at
         the warm-up's learning rate for ``gradient_step``."""
         cfg = self.cfg
-        g_norm = global_norm(grads)
+        g_norm = global_norm(grads, self.splits)
         below = g_norm < cfg.grad_clip
         for p, g in zip(self.params, grads):
             p.grad = torch.where(below, g, (g / g_norm.to(g.dtype)) * cfg.grad_clip)
@@ -139,14 +240,15 @@ class TrainState:
         return self.optimizer.params
 
 
-def make_train_state(model: dit_lib.DiT, cfg: TrainConfig) -> TrainState:
+def make_train_state(model: dit_lib.DiT, cfg: TrainConfig, mesh=None) -> TrainState:
     """Every parameter of ``model`` becomes trainable; the EMA starts as a
-    copy of them."""
+    copy of them. Under ``mesh`` the model holds this rank's shards."""
+    check_mesh(mesh)
     params = list(model.parameters())
     for p in params:
         p.requires_grad_(True)
     ema = [p.detach().clone() for p in params] if cfg.ema.enabled else None
-    return TrainState(model, Optimizer(params, cfg), ema)
+    return TrainState(model, Optimizer(params, cfg, leaf_splits(model, mesh)), ema)
 
 
 def edit_training_batch(vae: vae_lib.VAE, pipe_cfg: PipelineConfig, video: torch.Tensor
@@ -167,55 +269,70 @@ def edit_training_batch(vae: vae_lib.VAE, pipe_cfg: PipelineConfig, video: torch
 
 
 def draw_train_noise(generator: torch.Generator, latents: torch.Tensor,
-                     rf_cfg: rf.RectifiedFlowConfig) -> tuple[torch.Tensor, torch.Tensor]:
-    """(u (B,), noise like latents, fp32) from ``generator``."""
-    u = rf.sample_train_time(generator, latents.shape[0], rf_cfg)
-    noise = torch.randn(latents.shape, generator=generator, device=generator.device)
-    return u, noise
+                     rf_cfg: rf.RectifiedFlowConfig, mesh=None
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(u (B,), noise like latents, fp32) from ``generator``. Under a
+    ``mesh`` with a data axis of D, ``latents`` are this data line's B rows:
+    the draws are made for the global batch of D x B rows and this line's
+    block is kept."""
+    lines = 1 if mesh is None else mesh.shape.get(AXIS_DATA, 1)
+    b = latents.shape[0]
+    u = rf.sample_train_time(generator, lines * b, rf_cfg)
+    noise = torch.randn((lines * b, *latents.shape[1:]), generator=generator,
+                        device=generator.device)
+    if lines == 1:
+        return u, noise
+    rows = slice(mesh.index(AXIS_DATA) * b, (mesh.index(AXIS_DATA) + 1) * b)
+    return u[rows], noise[rows]
 
 
 def velocity_loss(model: dit_lib.DiT, dit_cfg: dit_lib.DiTConfig,
                   rf_cfg: rf.RectifiedFlowConfig, latents: torch.Tensor,
                   condition: torch.Tensor, text_emb: torch.Tensor,
                   image_emb: torch.Tensor | None, u: torch.Tensor, noise: torch.Tensor,
-                  lora=None, lora_attach: bool = False) -> torch.Tensor:
-    """Time-weighted velocity MSE for given draws u (B,) and noise."""
+                  lora=None, lora_attach: bool = False, mesh=None) -> torch.Tensor:
+    """Time-weighted velocity MSE for given draws u (B,) and noise; under
+    ``mesh``, of this data line's rows."""
     b = latents.shape[0]
     timesteps, sigmas = rf.discretize_time(u, rf_cfg)
     x_t, v_target = rf.get_interpolation(noise.float(), latents.float(), sigmas)
     xin = torch.cat([x_t.to(dit_cfg.dtype), condition.to(dit_cfg.dtype)], dim=1)
     v_pred = dit_lib.dit_forward(model, xin, timesteps, text_emb, image_emb, lora=lora,
-                                 lora_attach=lora_attach)
+                                 lora_attach=lora_attach, mesh=mesh)
     per_sample = (v_pred.float() - v_target).square().reshape(b, -1).mean(dim=1)
     return (rf.train_time_weight(timesteps, rf_cfg) * per_sample).mean()
 
 
 def apply_step(loss: torch.Tensor, params: list[torch.Tensor], optimizer: Optimizer,
-               ema_params: list[torch.Tensor] | None, cfg: TrainConfig) -> dict:
-    """Backward through ``loss`` to ``params``, one optimizer micro-step,
-    and one EMA step at the applied count when it applied an update."""
-    grads = torch.autograd.grad(loss, params)
-    g_norm = global_norm(grads)
-    if optimizer.update(list(grads)) and ema_params is not None:
+               ema_params: list[torch.Tensor] | None, cfg: TrainConfig, mesh=None) -> dict:
+    """Backward through ``loss`` to ``params``, the gradients and the loss
+    averaged over ``mesh``'s data group, one optimizer micro-step, and one
+    EMA step at the applied count when it applied an update."""
+    grads = data_mean(torch.autograd.grad(loss, params), mesh)
+    loss = data_mean([loss.detach()], mesh)[0]
+    g_norm = global_norm(grads, optimizer.splits)
+    if optimizer.update(grads) and ema_params is not None:
         ema_update(ema_params, params, optimizer.gradient_step - 1, cfg.ema)
-    return {"loss": loss.detach(), "grad_norm": g_norm}
+    return {"loss": loss, "grad_norm": g_norm}
 
 
-def make_train_step(dit_cfg: dit_lib.DiTConfig, cfg: TrainConfig
+def make_train_step(dit_cfg: dit_lib.DiTConfig, cfg: TrainConfig, mesh=None
                     ) -> Callable[..., dict]:
     """``step(state, batch, generator=None, *, u=None, noise=None)`` runs
     one micro-step in place and returns {"loss", "grad_norm"}; batch =
-    {"latents", "condition", "text_emb", "image_emb" (optional)}. The draws
-    come from ``generator`` unless u and noise are given."""
+    {"latents", "condition", "text_emb", "image_emb" (optional)}, this data
+    line's rows under ``mesh``. The draws come from ``generator`` unless u
+    and noise (for the batch's rows) are given."""
+    check_mesh(mesh)
 
     def step(state: TrainState, batch: dict, generator: torch.Generator | None = None,
              *, u: torch.Tensor | None = None, noise: torch.Tensor | None = None) -> dict:
         if u is None or noise is None:
-            u, noise = draw_train_noise(generator, batch["latents"], cfg.rectified_flow)
+            u, noise = draw_train_noise(generator, batch["latents"], cfg.rectified_flow, mesh)
         loss = velocity_loss(state.model, dit_cfg, cfg.rectified_flow,
                              batch["latents"], batch["condition"], batch["text_emb"],
-                             batch.get("image_emb"), u, noise)
-        metrics = apply_step(loss, state.params, state.optimizer, state.ema_params, cfg)
+                             batch.get("image_emb"), u, noise, mesh=mesh)
+        metrics = apply_step(loss, state.params, state.optimizer, state.ema_params, cfg, mesh)
         state.step += 1
         return metrics
 

@@ -13,6 +13,21 @@ seeds each micro-step's ``torch.Generator`` from ``(seed, micro-step
 count)`` and each validation's from ``(seed, iteration)``, so a resume
 continues the uninterrupted run bitwise. A caller that needs other draws
 (the tests replay JAX's) replaces ``_step_fn`` / ``_val_fn``.
+
+Under a mesh (``Trainer(..., mesh=)``: data, fsdp and tensor) every rank
+runs the loop on its shards of a model sharded by
+``parallel/sharding.shard_params`` and its data line's batches
+(``parallel/distributed.host_local_to_global``); the step averages the
+loss over ``data`` (``train/train_step.py``), so every rank reads the same
+loss and the non-finite check and the rewind decide alike on all of them
+(a rank that rewound while its peers stepped would hang the world).
+Validation losses are averaged over the processes (``collate_metrics``);
+checkpoints are sharded (``train/checkpoint.py``), and saving is
+collective. Callbacks run on the ranks that are given them: the CLI gives
+them to rank 0, as JAX's. A collective callback (``Callback.collective``:
+``StragglerDetector``, ``ReplicaConsistencyCallback``) must be given to
+every rank; ``train`` raises on every rank when the ranks hold different
+numbers of them.
 """
 
 from __future__ import annotations
@@ -67,10 +82,12 @@ class Trainer:
         trainer_cfg: TrainerConfig,
         checkpoint_cfg: CheckpointConfig | None = None,
         callbacks: list[Callback] | None = None,
+        mesh=None,
     ):
         self.dit_cfg = dit_cfg
         self.train_cfg = train_cfg
         self.cfg = trainer_cfg
+        self.mesh = mesh
         self.callbacks = CallbackBus(callbacks)
         self.checkpoints = CheckpointManager(checkpoint_cfg) if checkpoint_cfg else None
         # step(state, batch, generator) -> metrics, in place;
@@ -82,9 +99,10 @@ class Trainer:
     # ------------------------------------------------------------- state
 
     def init_state(self, model: dit_lib.DiT) -> TrainState:
-        """A train state over every parameter of ``model``, restored from the
-        latest checkpoint when there is one."""
-        state = make_train_state(model, self.train_cfg)
+        """A train state over every parameter of ``model`` (this rank's
+        shards under a mesh), restored from the latest checkpoint when there
+        is one."""
+        state = make_train_state(model, self.train_cfg, self.mesh)
         if self.checkpoints is not None:
             restored = self.checkpoints.restore(state)
             if restored is not None:
@@ -103,10 +121,10 @@ class Trainer:
             rf_cfg = self.train_cfg.rectified_flow
 
             def val_fn(state, batch, generator):
-                u, noise = draw_train_noise(generator, batch["latents"], rf_cfg)
+                u, noise = draw_train_noise(generator, batch["latents"], rf_cfg, self.mesh)
                 return velocity_loss(state.model, self.dit_cfg, rf_cfg, batch["latents"],
                                      batch["condition"], batch["text_emb"],
-                                     batch.get("image_emb"), u, noise)
+                                     batch.get("image_emb"), u, noise, mesh=self.mesh)
 
             self._val_fn = val_fn
         losses = []
@@ -142,6 +160,22 @@ class Trainer:
             self.cfg.profile_dir, f"trace_iter{self.cfg.profile_start}.json"))
         self._profiler = None
 
+    def _check_collective_callbacks(self) -> None:
+        """Raise on every rank at once unless each process of the world
+        holds as many collective callbacks as the others: a rank without
+        one would leave its peers waiting in its collective until
+        ``distributed.TIMEOUT``."""
+        from chronoedit_tpu_torch.parallel.distributed import all_gather_float, process_count
+
+        if process_count() == 1:
+            return
+        mine = sum(bool(getattr(cb, "collective", False)) for cb in self.callbacks.callbacks)
+        counts = [int(c) for c in all_gather_float(mine)]
+        if len(set(counts)) > 1:
+            raise ValueError(f"collective callbacks (StragglerDetector, "
+                             f"ReplicaConsistencyCallback) must be given to every rank; the "
+                             f"ranks hold {counts}")
+
     def train(
         self,
         state: TrainState,
@@ -151,16 +185,18 @@ class Trainer:
     ) -> TrainState:
         """Run iterations ``state.step // grad_accum`` .. ``max_iter - 1`` in
         place; batches are dicts of tensors on the model's device."""
+        from chronoedit_tpu_torch.parallel.distributed import is_primary
         from chronoedit_tpu_torch.utils import easy_io
         from chronoedit_tpu_torch.utils.config import config_to_dict
 
+        self._check_collective_callbacks()
         if self._step_fn is None:
-            self._step_fn = make_train_step(self.dit_cfg, self.train_cfg)
+            self._step_fn = make_train_step(self.dit_cfg, self.train_cfg, self.mesh)
         device = next(state.model.parameters()).device
 
         # serialize the resolved configs at job start (reference
-        # trainer.py:104-109 dumps pkl+yaml)
-        if self.checkpoints is not None:
+        # trainer.py:104-109 dumps pkl+yaml), once for the world
+        if self.checkpoints is not None and is_primary():
             easy_io.dump(
                 {"dit": config_to_dict(self.dit_cfg),
                  "train": config_to_dict(self.train_cfg),

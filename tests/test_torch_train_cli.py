@@ -3,7 +3,8 @@ train.py``, ``convert_weights.py``) on the CPU, tiny preset, fp32, against
 the JAX package's scripts where the two compute the same thing:
 
 - ``--dryrun`` resolves the same training and trainer configs as JAX's
-  (the printed lines equal); ``--smoke`` trains; ``--mesh`` raises;
+  (the printed lines equal); ``--smoke`` trains; ``--mesh`` trains over
+  data, fsdp and tensor and raises for context and pipe;
 - ``--lora-rank`` over ``--base-checkpoint`` (a tiny diffusers checkpoint
   the test writes) counts micro-steps as JAX's loop does, exports
   ``lora.safetensors`` that JAX's converter reads back as the trained
@@ -82,7 +83,9 @@ def test_dryrun_resolves_jax_configs_smoke_trains_and_mesh_raises(capsys, monkey
     builds nothing: the training and trainer lines equal JAX's (the
     warm-up rule ``min(1000, max(1, max_iter // 10))`` among them), and the
     ``--set`` override reaches the pipeline's. ``--smoke`` trains 2
-    iterations on the CPU; ``--mesh`` raises until multi-GPU is ported."""
+    iterations on the CPU, also under ``--mesh data=1`` (a world of one);
+    ``--mesh`` with a context or pipe axis raises ``ValueError`` naming the
+    roadmap item that ports it."""
     flags = ["--dryrun", "--max-iter", "30", "--grad-accum", "2", "--lr", "3e-4",
              "--set", "dit.num_layers=3", "--remat", "matmul_only"]
     assert train_t.main(flags) is None
@@ -97,8 +100,11 @@ def test_dryrun_resolves_jax_configs_smoke_trains_and_mesh_raises(capsys, monkey
 
     state = train_t.main(["--smoke", "--device", "cpu"])
     assert state.step == 2 and "done at step 2" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="mesh"):
-        train_t.main(["--smoke", "--device", "cpu", "--mesh", "fsdp=2"])
+    state = train_t.main(["--smoke", "--device", "cpu", "--mesh", "data=1"])
+    assert state.step == 2 and "done at step 2" in capsys.readouterr().out
+    for axis in ("context", "pipe"):
+        with pytest.raises(ValueError, match=f"{axis}=2 .*item 1.4"):
+            train_t.main(["--smoke", "--device", "cpu", "--mesh", f"{axis}=2"])
 
 
 def test_lora_cli_from_a_diffusers_base_exports_and_loads(trees, tmp_path, capsys):
