@@ -103,7 +103,7 @@ non-zero and no result line is printed:
    cuBLAS is reported); then context parallelism (``context_path``):
    the distilled model at full width cut to ``CP_BLOCKS`` blocks, seeded,
    its forwards at 28,800 and 7,200 tokens, a 720p edit and a reasoning
-   edit with the drop (k = 2) in this one process, then worlds of 2 and 4
+   edit with the drop (k = CP_DROP_K) in this one process, then worlds of 2 and 4
    worker processes on the same card (``parallel/launch.run_world``, gloo
    asked for explicitly: NCCL refuses two ranks on one device; the
    collectives staged through pinned host memory, a transport and not a
@@ -112,8 +112,12 @@ non-zero and no result line is printed:
    forwards at both lengths (held against this process's as dB over its
    peak, ``CP_MIN_DB``, beside two planted faults the phase reads itself;
    every rank's gathered output bitwise alike), the edit under a mesh of
-   context 2 and the drop under context 4 (against this process's at the
-   fidelity bar), and at 4 the flash ring's forward and backward at full
+   context 2 (CP_EDIT_STEPS steps) and the drop under context 4
+   (CP_DROP_STEPS steps; against this process's at the fidelity bar), at 2
+   the full-width VAE split over the rows (fp32: the edit's and the
+   reasoning mode's encodes and decodes against this process's at
+   TILED_DECODE_TOL, the bytes gathered exact, each rank's peak against
+   one process's, a planted short halo), and at 4 the flash ring's forward and backward at full
    width and 28,800 tokens (against K1 and K6/K7 on the whole sequence,
    at their bounds); every worker's launches zeroed before and checked
    after each run, by kernel and by KV length (the ring's P hops at S / P,
@@ -198,7 +202,12 @@ non-zero and no result line is printed:
    and the w4a16 edit at tensor 4 (fc2 padded to 28 int4 groups), batched
    CFG over tensor 2 x data 2, the edit over tensor 2 x context 2 in both
    modes and a forward over tensor 2 x fsdp 2, each against one process at
-   TP_MIN_DB, the training checks under data 2 x tensor 2 and the
+   TP_MIN_DB, serving under tensor 2 x context 2 (rank 0's ``EditServer``
+   broadcasting three 720p requests' batches of SERVE_STEPS steps to the
+   followers, each frame
+   against the same request's ``pipe(...)`` in the world at SERVE_MIN_DB
+   and one process at TP_MIN_DB, a follower drawing seed + 1 planted),
+   the training checks under data 2 x tensor 2 and the
    checkpoint restored under data 2 x fsdp 2 for a step; every rank's
    launches held exactly, K4's two tensor passes among them. The training
    checks under a mesh (``mesh_train``, against ``mesh_train_refs``' one
@@ -3133,6 +3142,13 @@ CP_WORLDS = (2, 4)
 CP_MIN_DB = 40.0
 # seconds a world of workers may take before it is ended and the phase fails
 CP_TIMEOUT = 900.0
+# the context phase's edit (P = 2) and reasoning drop (P = 4; the pipeline
+# phase's drops too) run 2 and 2 of the distilled model's 8 steps, the drop
+# after CP_DROP_K reasoning steps: cut from 8 steps (k = 2) to make room
+# for the sharded VAE's check and serving, every check kept
+CP_EDIT_STEPS = 2
+CP_DROP_STEPS = 2
+CP_DROP_K = 1
 # the KV length past which the flash forward plays K5's part, as in JAX (it
 # streams KV past 6 MiB of K and V: 12,288 tokens at D = 128 in bf16)
 STREAMED_KV = 12288
@@ -3333,7 +3349,6 @@ def cp_worker(rank: int, p: int, plan: dict) -> dict:
     build.lib()  # the parent's build, loaded: every source hashes the same
     mesh = make_mesh(MeshConfig(data=-1, context=p), device=dev)
     cfg = cp_config()
-    steps = cfg.num_steps
     res = {"forwards": {}}
     with torch.inference_mode():
         pipe = cp_model(dev, cfg)
@@ -3353,25 +3368,206 @@ def cp_worker(rank: int, p: int, plan: dict) -> dict:
         if plan.get("edit"):
             req = request(cfg, dev, 40, EDIT_H, EDIT_W, TEXT_TOKENS)
             gen = torch.Generator(device=dev).manual_seed(140)
-            res["edit"] = _cp_run("edit", functools.partial(pipe.edit_image, **req, generator=gen),
-                                  cp_launches(cfg, [(EDIT_TOKENS, "ulysses", p)] * steps),
-                                  rank, rank == 0)
+            res["edit"] = _cp_run("edit", functools.partial(
+                pipe.edit_image, **req, num_steps=CP_EDIT_STEPS, generator=gen),
+                cp_launches(cfg, [(EDIT_TOKENS, "ulysses", p)] * CP_EDIT_STEPS), rank, rank == 0)
         if plan.get("drop"):
             req = request(cfg, dev, 41, EDIT_H, EDIT_W, TEXT_TOKENS)
             gen = torch.Generator(device=dev).manual_seed(141)
             res["drop"] = _cp_run(
                 "reasoning drop", functools.partial(
-                    pipe, **req, enable_temporal_reasoning=True, num_temporal_reasoning_steps=2,
+                    pipe, **req, enable_temporal_reasoning=True,
+                    num_temporal_reasoning_steps=CP_DROP_K, num_steps=CP_DROP_STEPS,
                     generator=gen),
-                cp_launches(cfg, [(REASONING_TOKENS, "ulysses", p)] * 2
-                            + [(EDIT_TOKENS, "ulysses", p)] * (steps - 2)), rank, rank == 0)
+                cp_launches(cfg, [(REASONING_TOKENS, "ulysses", p)] * CP_DROP_K
+                            + [(EDIT_TOKENS, "ulysses", p)] * (CP_DROP_STEPS - CP_DROP_K)), rank,
+                rank == 0)
+    vae = pipe.vae
     del pipe
-    gc.collect()
-    torch.cuda.empty_cache()
+    free()
+    if plan.get("vae"):
+        with torch.inference_mode():
+            res["vae"] = vae_worker(rank, mesh, vae)
+    del vae
+    free()
     if plan.get("ring_backward"):
         res["ring_backward"] = _ring_backward(rank, p, dev, mesh)
     res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     return res
+
+
+# ----------------------------------------------------------- the sharded VAE
+
+# The VAE split over rows (``models/vae.py`` under a mesh), in the context
+# phase's world of 2 on the one card: at 720p the 90 latent rows go 45 a
+# rank over context 2; a rank runs the decoder's stages on 73 of them (45 +
+# 2 x 14 halo rows, clamped at the image's edge) and the encoder's on 520 of
+# the 720 pixel rows (360 + 2 x 80), then all-gathers its interior. Each
+# case below runs in fp32 with TF32 off on every rank and in this process
+# unsharded, and is held at TILED_DECODE_TOL: the halo covers the receptive
+# field, so only cuDNN's choice of algorithm for the shorter block differs.
+# "dual decode" is the reasoning mode's ``ChronoEditPipeline.decode``: the
+# 7-frame trajectory streamed with 4 W-tiles inside each rank's rows, then
+# the [first, last] edit clip.
+VAE_CASES = ("edit encode", "edit decode", "reasoning encode", "dual decode")
+# planted: halos of one latent row (8 pixel rows, 1 latent row) in place of
+# 80 and 14, on the edit's decode
+VAE_SHORT_HALOS = (8, 1)
+# predicted before the first run: a rank's VAE peak over one process's
+# (its block's share of the rows, plus the gathered output)
+VAE_PEAK_RATIO = {"edit encode": 520 / 720, "reasoning encode": 520 / 720,
+                  "edit decode": 73 / 90, "dual decode": 73 / 90}
+
+
+def vae_inputs(dev) -> dict:
+    """Each case's input, seeded on the device (the same bits in every
+    process of the card): the edit's 5-frame condition clip and the
+    reasoning mode's 29-frame one ([image, zeros], as ``prepare_condition``
+    builds them), 2 latent frames and an 8-frame trajectory."""
+    g = torch.Generator(device=dev).manual_seed(42)
+    image = torch.rand((1, 3, 1, EDIT_H, EDIT_W), generator=g, device=dev) * 2 - 1
+
+    def clip(frames):
+        return torch.cat([image, torch.zeros((1, 3, frames - 1, EDIT_H, EDIT_W), device=dev)], 2)
+
+    def latents(frames):
+        return torch.randn((1, 16, frames, EDIT_H // 8, EDIT_W // 8), generator=g, device=dev)
+
+    return {"edit encode": clip(5), "reasoning encode": clip(REASONING_FRAMES),
+            "edit decode": latents(2), "dual decode": latents(8)}
+
+
+def vae_fp32(vae):
+    """An fp32 copy of ``vae`` on its device."""
+    from chronoedit_tpu_torch.models import vae as vae_lib
+
+    cfg32 = dataclasses.replace(vae.cfg, dtype=torch.float32, param_dtype=torch.float32)
+    out = vae_lib.VAE(cfg32, device=vae.encoder.conv_in.weight.device)
+    out.load_state_dict(vae.state_dict())
+    return out
+
+
+def vae_case(vae, case: str, x: torch.Tensor, mesh) -> dict:
+    """One case under ``mesh`` (None: one process), with this process's
+    peak memory over what it held before, its seconds and the bytes it
+    staged through the host."""
+    from chronoedit_tpu_torch.models import vae as vae_lib
+    from chronoedit_tpu_torch.parallel import collectives
+    from chronoedit_tpu_torch.pipeline.edit_pipeline import ChronoEditPipeline
+
+    if case.endswith("encode"):
+        def fn():
+            return vae_lib.vae_encode(vae, x, mesh=mesh)
+    else:
+        pipe = ChronoEditPipeline(cp_config(), None, vae, mesh=mesh)
+
+        def fn():
+            return pipe.decode(x, dual=case == "dual decode")
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    staged = collectives.STAGED_BYTES["bytes"]
+    out, secs = host_s(fn)
+    return {"out": out, "secs": secs, "peak": torch.cuda.max_memory_allocated() - held,
+            "staged": collectives.STAGED_BYTES["bytes"] - staged}
+
+
+def vae_gathered_bytes(vae_cfg, case: str, p: int) -> int:
+    """The bytes a rank of ``p`` stages in ``case``'s all-gathers: its
+    block of the encoder's bottleneck (fp32, the mid block's channels), or
+    of the decoded pixels."""
+    rows, w = EDIT_H // 8 // p, EDIT_W // 8
+    if case.endswith("encode"):
+        frames = 2 if case == "edit encode" else vae_cfg.latent_frames(REASONING_FRAMES)
+        return 4 * vae_cfg.dim * vae_cfg.dim_mult[-1] * frames * rows * w
+    clips = [2] if case == "edit decode" else [7, 2]  # the dual decode's two
+    return sum(4 * 3 * vae_cfg.pixel_frames(t) * rows * 8 * w * 8 for t in clips)
+
+
+def vae_worker(rank: int, mesh, vae) -> dict:
+    """The sharded VAE's cases on this rank of the context phase's world of
+    2 (fp32 copy of ``vae``, TF32 off), then the edit's decode with the
+    halos planted short. Rank 0 returns the outputs; every rank their
+    digests, seconds, peaks and staged bytes."""
+    from chronoedit_tpu_torch.models import vae as vae_lib
+    from chronoedit_tpu_torch.parallel.consistency import tree_digest
+
+    vae = vae_fp32(vae)
+    inputs = vae_inputs(mesh.device)
+    res = {}
+    for case in VAE_CASES:
+        r = vae_case(vae, case, inputs[case], mesh)
+        out = r.pop("out")
+        r["digest"] = tree_digest(out)
+        if rank == 0:
+            r["out"] = out.cpu().numpy()
+        res[case] = r
+        del out
+    saved = vae_lib._encoder_halo, vae_lib._decoder_halo
+    vae_lib._encoder_halo = lambda cfg: VAE_SHORT_HALOS[0]
+    vae_lib._decoder_halo = lambda cfg: VAE_SHORT_HALOS[1]
+    try:
+        short = vae_case(vae, "edit decode", inputs["edit decode"], mesh)["out"]
+    finally:
+        vae_lib._encoder_halo, vae_lib._decoder_halo = saved
+    res["short halo"] = {"digest": tree_digest(short)}
+    if rank == 0:
+        res["short halo"]["out"] = short.cpu().numpy()
+    return res
+
+
+def vae_references(vae) -> dict:
+    """Each case in this process, unsharded (fp32 copy, TF32 off): the
+    outputs on the host, seconds and peaks."""
+    vae = vae_fp32(vae)
+    inputs = vae_inputs(vae.encoder.conv_in.weight.device)
+    refs = {}
+    for case in VAE_CASES:
+        r = vae_case(vae, case, inputs[case], None)
+        r["out"] = r["out"].cpu()
+        refs[case] = r
+    return refs
+
+
+def check_sharded_vae(results: list[dict], refs: dict, vae_cfg, card: str, dev) -> dict:
+    """The world's sharded VAE against this process's: every rank's digest
+    alike, rank 0's output within TILED_DECODE_TOL, the planted short halo
+    outside it, each rank's staged bytes its blocks' exactly; each rank's
+    peak over one process's printed beside the prediction."""
+    p = len(results)
+    summary = {}
+    for case in VAE_CASES + ("short halo",):
+        per_rank = [r["vae"][case] for r in results]
+        if any(r["digest"] != per_rank[0]["digest"] for r in per_rank):
+            raise AssertionError(f"sharded VAE {case}: the ranks' outputs differ")
+        want = refs["edit decode" if case == "short halo" else case]
+        got = torch.from_numpy(per_rank[0]["out"])
+        err = max_err(got, want["out"]) if got.shape == want["out"].shape else math.inf
+        tol = TILED_DECODE_TOL * max(1.0, float(want["out"].abs().max()))
+        if case == "short halo":
+            print(f"   sharded VAE, planted halos of {VAE_SHORT_HALOS} rows: max err {err:.3e} "
+                  f"against one process (must exceed {tol:.3e})")
+            if not err > tol:
+                raise AssertionError("the planted short halo reads within TILED_DECODE_TOL")
+            summary["short_halo_err"] = err
+            continue
+        staged = [r["staged"] for r in per_rank]
+        gathered = vae_gathered_bytes(vae_cfg, case, p)
+        ratio = [r["peak"] / want["peak"] for r in per_rank]
+        print(f"   sharded VAE {case} {tuple(want['out'].shape)} over context {p}: rank 0 "
+              f"{per_rank[0]['secs']:.2f} s (one process {want['secs']:.2f} s; {p} processes "
+              f"share the card: not a speed), every rank bitwise alike, max err {err:.3e} "
+              f"against one process (tol {tol:.3e}); staged {staged} B a rank (predicted "
+              f"{gathered}); peak {[round(r['peak'] / 2 ** 30, 3) for r in per_rank]} GiB a "
+              f"rank against one process's {want['peak'] / 2 ** 30:.3f} GiB: "
+              f"{[round(x, 3) for x in ratio]} (predicted {VAE_PEAK_RATIO[case]:.3f}) ({card})")
+        if not err <= tol:
+            raise AssertionError(f"sharded VAE {case}: {err:.3e} against one process > {tol:.3e}")
+        # a CPU rehearsal stages nothing: only CUDA tensors go through the host
+        if dev.type == "cuda" and any(b != gathered for b in staged):
+            raise AssertionError(f"sharded VAE {case}: staged {staged} B, predicted {gathered}")
+        summary[case] = {"err": err, "peak_ratio": ratio, "staged": staged[0]}
+    return summary
 
 
 def cp_plan(p: int) -> dict:
@@ -3381,8 +3577,8 @@ def cp_plan(p: int) -> dict:
     forwards = [(tokens, mode, None) for tokens in (REASONING_TOKENS, EDIT_TOKENS)
                 for mode in ("ring", "ulysses")]
     forwards += [(EDIT_TOKENS, "ring", "equal_merge"), (EDIT_TOKENS, "ulysses", "rope_rows")]
-    return {"forwards": forwards, "edit": p == 2, "drop": p == 4, "ring_backward": p == 4,
-            "device": "cuda:0"}
+    return {"forwards": forwards, "edit": p == 2, "vae": p == 2, "drop": p == 4,
+            "ring_backward": p == 4, "device": "cuda:0"}
 
 
 def nccl_cli(card: str) -> float:
@@ -3438,9 +3634,10 @@ def context_path(dev, launches: tuple[Counter, Counter]) -> dict:
     on ``cuda:0`` over host-staged gloo (a check of correctness and of the
     per-rank kernel launches, not a scaling figure), against this process's
     unsharded forwards, edit and reasoning drop on the same weights and
-    inputs; then NCCL at a world of 1 through the CLI. Adds the workers'
-    launches (forwards, edits, the ring's backward; not the planted faults)
-    to ``launches``."""
+    inputs, and at P = 2 the VAE split over the rows against this
+    process's (``vae_references``, ``check_sharded_vae``); then NCCL at a
+    world of 1 through the CLI. Adds the workers' launches (forwards,
+    edits, the ring's backward; not the planted faults) to ``launches``."""
     from chronoedit_tpu_torch.models import dit as dit_lib
     from chronoedit_tpu_torch.parallel import consistency
     from chronoedit_tpu_torch.parallel.launch import run_world
@@ -3459,13 +3656,20 @@ def context_path(dev, launches: tuple[Counter, Counter]) -> dict:
                   f"{secs:.3f} s")
         req = request(cfg, dev, 40, EDIT_H, EDIT_W, TEXT_TOKENS)
         refs["edit"] = pipe.edit_image(
-            **req, generator=torch.Generator(device=dev).manual_seed(140)).float().cpu()
+            **req, num_steps=CP_EDIT_STEPS,
+            generator=torch.Generator(device=dev).manual_seed(140)).float().cpu()
         req = request(cfg, dev, 41, EDIT_H, EDIT_W, TEXT_TOKENS)
         refs["drop"] = pipe(**req, enable_temporal_reasoning=True,
-                            num_temporal_reasoning_steps=2,
+                            num_temporal_reasoning_steps=CP_DROP_K, num_steps=CP_DROP_STEPS,
                             generator=torch.Generator(device=dev).manual_seed(141)).float().cpu()
+        # the sharded VAE's references, alone on the card before any world
+        # runs: beside the world of 2 the card reached 67.3 of 79.2 GiB (H100
+        # 80GB HBM3), a peak that rests on how the two runs interleave
+        vae_refs, vae_secs = host_s(lambda: vae_references(pipe.vae))
     del pipe
     free()
+    print(f"context_path: the one-process VAE references (fp32) in {vae_secs:.1f} s, "
+          f"before the worlds")
 
     sound, faults, summary = {}, {}, {}
     for p in CP_WORLDS:
@@ -3497,7 +3701,8 @@ def context_path(dev, launches: tuple[Counter, Counter]) -> dict:
                 label = f"forward {tokens} tokens {mode}" + (f", planted {fault}" if fault else "")
             else:
                 db = psnr(got, refs[key])
-                label = {"edit": "720p edit (8 steps)", "drop": "reasoning drop (k = 2)"}[key]
+                label = {"edit": f"720p edit ({CP_EDIT_STEPS} steps)",
+                         "drop": f"reasoning drop (k = {CP_DROP_K}, {CP_DROP_STEPS} steps)"}[key]
                 if not db >= MIN_PSNR_DB:
                     raise AssertionError(f"P = {p} {label}: {db:.2f} dB against one process "
                                          f"< {MIN_PSNR_DB} dB")
@@ -3509,6 +3714,8 @@ def context_path(dev, launches: tuple[Counter, Counter]) -> dict:
                 for r in per_rank:
                     launches[0].update(r["launches"][0])
                     launches[1].update(r["launches"][1]["flash_fwd"])
+        if plan.get("vae"):
+            summary["vae"] = check_sharded_vae(results, vae_refs, cfg.vae, card, dev)
         if plan.get("ring_backward"):
             rb = results[0]["ring_backward"]
             if any(r["ring_backward"]["grad_digests"] != rb["grad_digests"] for r in results):
@@ -3788,7 +3995,7 @@ def pp_worker(rank: int, p: int, plan: dict) -> dict:
     build.lib()  # the parent's build, loaded: every source hashes the same
     mesh = make_mesh(MeshConfig(data=-1, pipe=p), device=dev)
     cfg = main_config()
-    steps, per = cfg.num_steps, cfg.dit.num_layers // p
+    per = cfg.dit.num_layers // p
     res = {}
     with torch.inference_mode():
         torch.cuda.reset_peak_memory_stats()
@@ -3831,9 +4038,12 @@ def pp_worker(rank: int, p: int, plan: dict) -> dict:
                 res[f"drop {mode}"] = _cp_run(
                     f"reasoning drop {mode}", functools.partial(
                         pipe, **req, enable_temporal_reasoning=True,
-                        num_temporal_reasoning_steps=2, generator=gen),
-                    cp_launches(cfg, [(REASONING_TOKENS, mode, 2)] * 2
-                                + [(EDIT_TOKENS, mode, 2)] * (steps - 2), per), rank, rank == 0)
+                        num_temporal_reasoning_steps=CP_DROP_K, num_steps=CP_DROP_STEPS,
+                        generator=gen),
+                    cp_launches(cfg, [(REASONING_TOKENS, mode, 2)] * CP_DROP_K
+                                + [(EDIT_TOKENS, mode, 2)] * (CP_DROP_STEPS - CP_DROP_K), per),
+                    rank,
+                    rank == 0)
         res["peak_gib"] = max(res["peak_gib"], torch.cuda.max_memory_allocated() / 2 ** 30)
         del pipe
         free()
@@ -3903,8 +4113,10 @@ def pipeline_path(dev, refs: dict, launches: tuple[Counter, Counter]) -> dict:
                          f"CFG batched, guidance 5 (B = 2, 2 microbatches, {PP_SHORT_STEPS} "
                          f"steps)"))
         if plan["drops"]:
-            runs += [(f"drop {mode}", refs["drop"], cfg.num_steps,
-                      f"reasoning drop (k = 2, {CP_BLOCKS} blocks) over pipe 2 x context 2, "
+            runs += [(f"drop {mode}", refs["drop"], CP_DROP_STEPS,
+                      f"reasoning drop (k = {CP_DROP_K}, {CP_DROP_STEPS} steps, {CP_BLOCKS} "
+                      f"blocks) over "
+                      f"pipe 2 x context 2, "
                       f"{mode}") for mode in ("ring", "ulysses")]
         for key, want, steps, label in runs:
             per_rank = [r[key] for r in results]
@@ -4108,7 +4320,8 @@ def trace_pipe_ranks(dev) -> None:
 # forward stages 1.05 GB a rank. The world of 4 runs the edit over fsdp 2 x
 # context 2 in both context modes. Every edit takes FSDP_SHORT_STEPS steps
 # (8 steps of the world of 2's edit and w4a16 edit took 20-30 s more of the
-# command's time limit): each step stages the shards again, and the checks
+# command's time limit; 2 were cut to 1 to make room for the sharded VAE's
+# check and serving): each step stages the shards again, and the checks
 # read the same forward at every step.
 FSDP_WORLDS = (2, 4)
 FSDP_TIMEOUT = 900.0
@@ -4121,7 +4334,7 @@ FSDP_FORWARD_BLOCKS = 5
 TP_FORWARD_BLOCKS = 10
 TP_FORWARD_SEED = 51
 FSDP_BLOCKS = 2
-FSDP_SHORT_STEPS = 2
+FSDP_SHORT_STEPS = 1
 # the card's free GiB each world needs: its ranks' peaks (the first card
 # run: 17.97 GiB a rank over the 40-block forward, 9.54 at 4 ranks) and
 # CUDA contexts
@@ -4234,10 +4447,23 @@ def fsdp_worker(rank: int, p: int, plan: dict) -> dict:
         return pipe
 
     def edit(pipe, label, want, **kw):
+        """The edited frame, as ``edit_image`` computes it, with the final
+        latents kept (the VAE, split over the mesh, does not touch them)."""
+        from chronoedit_tpu_torch.parallel.consistency import tree_digest
+
         req = request(fcfg, dev, kw.pop("seed", 40), EDIT_H, EDIT_W, TEXT_TOKENS)
         gen = torch.Generator(device=dev).manual_seed(kw.pop("gen", 140))
-        return _cp_run(label, functools.partial(pipe.edit_image, **req, **kw, generator=gen),
-                       want, rank, rank == 0)
+        kept = {}
+
+        def run():
+            kept["latents"] = pipe(**req, **kw, generator=gen, output_type="latent")
+            return pipe.decode(kept["latents"])[:, :, -1]
+
+        out = _cp_run(label, run, want, rank, rank == 0)
+        out["latents_digest"] = tree_digest(kept["latents"])
+        if rank == 0:
+            out["latents"] = kept["latents"].cpu().numpy()
+        return out
 
     if p == 4:
         mesh = make_mesh(MeshConfig(fsdp=2, context=2), device=dev)
@@ -4321,8 +4547,9 @@ def fsdp_path(dev, whole: dict, launches: tuple[Counter, Counter]) -> dict:
     FSDP_SHORT_STEPS steps: the edit, batched CFG and, quantized to w4a16,
     the edit again. Each rank's bytes read are held
     to the files' headers, its fused shards to the whole model's slices,
-    the forward and the edits to one process (bitwise, CFG at
-    FSDP_CFG_MIN_DB, the ring at CP_MIN_DB), the training checks under fsdp
+    the forward and the edits' final latents to one process (bitwise; the
+    frames, decoded by the VAE split over the rows, at TILED_DECODE_TOL), CFG's
+    frame at FSDP_CFG_MIN_DB, the ring's at CP_MIN_DB, the training checks under fsdp
     2 and data 2 x fsdp 2 to ``whole["train"]`` (``mesh_train_refs``) at
     the training bars (fsdp 2's step-1 gradients also leaf by leaf at
     K6/K7's bounds, as the backward it replaces), the bytes staged a
@@ -4339,20 +4566,26 @@ def fsdp_path(dev, whole: dict, launches: tuple[Counter, Counter]) -> dict:
     t_phase = time.perf_counter()
     with torch.inference_mode():
         small = cp_model(dev, fcfg)
+        latents = {}
 
-        def edit(seed, gen, **kw):
+        def edit(seed, gen, key, **kw):
+            """The frame, and the final latents under ``key``."""
             req = request(fcfg, dev, seed, EDIT_H, EDIT_W, TEXT_TOKENS)
-            return small.edit_image(**req, **kw, generator=torch.Generator(
-                device=dev).manual_seed(gen)).float().cpu()
+            lat = small(**req, **kw, generator=torch.Generator(device=dev).manual_seed(gen),
+                        output_type="latent")
+            latents[key] = lat.cpu()
+            return small.decode(lat)[:, :, -1].float().cpu()
 
         neg = torch.randn((1, TEXT_TOKENS, fcfg.dit.text_dim), device=dev,
                           generator=torch.Generator(device=dev).manual_seed(PP_NEG_SEED))
         ref = {"forward": whole["forward"],
-               "cfg": edit(PP_CFG_SEED, 130, neg_prompt_emb=neg, guidance_scale=5.0,
+               "cfg": edit(PP_CFG_SEED, 130, "cfg", neg_prompt_emb=neg, guidance_scale=5.0,
                            num_steps=short)}
-        ref["edit"] = ref["edit ring"] = ref["edit ulysses"] = edit(40, 140, num_steps=short)
+        ref["edit"] = ref["edit ring"] = ref["edit ulysses"] = edit(40, 140, "edit",
+                                                                    num_steps=short)
+        latents["edit ring"] = latents["edit ulysses"] = latents["edit"]
         small.quantize(mode="int4")
-        ref["w4a16"] = edit(40, 140, num_steps=short)
+        ref["w4a16"] = edit(40, 140, "w4a16", num_steps=short)
         del small
         free()
     print(f"fsdp_path: the one-process references at {FSDP_BLOCKS} blocks in "
@@ -4364,7 +4597,11 @@ def fsdp_path(dev, whole: dict, launches: tuple[Counter, Counter]) -> dict:
         want_bytes = fsdp_bytes(sd, cfg, Shards(2, 0, dims))
         want_staged = fsdp_bytes(sd, cfg, Shards(2, 0, dims), fsdp_forward_blocks(cfg))
         lora_bytes = sum(lsd.nbytes(k) for k in lsd)
-    # (key, the bound in dB: inf for bitwise)
+    # (key, the bound in dB: inf for bitwise). The edits' bitwise claims
+    # hold the final latents, which the VAE does not touch; their frames,
+    # decoded by the VAE split over the mesh's rows (cuDNN may pick another
+    # algorithm for a rank's shorter block), are held at the VAE's own
+    # tiling tolerance, TILED_DECODE_TOL
     bounds = {"forward": math.inf, "edit": math.inf, "cfg": FSDP_CFG_MIN_DB,
               "w4a16": math.inf, "edit ulysses": math.inf, "edit ring": CP_MIN_DB}
     labels = {"forward": f"720p DiT forward ({cfg.dit.num_layers} blocks, the first "
@@ -4421,16 +4658,30 @@ def fsdp_path(dev, whole: dict, launches: tuple[Counter, Counter]) -> dict:
                                      f"{tuple(want.shape)}")
             db = psnr(got, want)
             forwards = 1 if key == "forward" else short
+            ok, held, bound = db >= bounds[key], "", bounds[key]
+            bound_text = "bitwise" if bound == math.inf else f"{bound} dB"
+            if key != "forward":
+                if any(r["latents_digest"] != first["latents_digest"] for r in per_rank):
+                    raise AssertionError(f"fsdp {labels[key]}: the ranks' latents differ")
+                lat_db = psnr(torch.from_numpy(first["latents"]), latents[key])
+                held = (f"final latents {'bitwise' if lat_db == math.inf else f'{lat_db:.2f} dB'}"
+                        f", frame ")
+                if bound == math.inf:  # the latents carry the bitwise claim
+                    tol = TILED_DECODE_TOL * max(1.0, float(want.abs().max()))
+                    err = max_err(got, want)
+                    ok = lat_db == math.inf and err <= tol
+                    held += f"max err {err:.3e}, "
+                    bound_text = f"latents bitwise, frame within {tol:.3e}"
             print(f"   {labels[key]}: rank 0 {first['secs']:.3f} s (host staging, not a "
                   f"speed), {first['staged'] / forwards / 1e9:.4f} GB staged a forward and rank, "
-                  f"every rank bitwise alike, {'bitwise' if db == math.inf else f'{db:.2f} dB'} "
-                  f"against one process (bound: "
-                  f"{'bitwise' if bounds[key] == math.inf else f'{bounds[key]} dB'}); rank 0's "
+                  f"every rank bitwise alike, {held}"
+                  f"{'bitwise' if db == math.inf else f'{db:.2f} dB'} "
+                  f"against one process (bound: {bound_text}); rank 0's "
                   f"launches {first['launches'][0]}, flash by KV "
                   f"{first['launches'][1]['flash_fwd']}")
-            if not db >= bounds[key]:
-                raise AssertionError(f"fsdp {labels[key]}: {db:.2f} dB against one process, "
-                                     f"bound {bounds[key]} dB")
+            if not ok:
+                raise AssertionError(f"fsdp {labels[key]}: {held}{db:.2f} dB against one "
+                                     f"process, bound {bound_text}")
             # a CPU rehearsal stages nothing: only CUDA tensors go through the host
             if key == "forward" and dev.type == "cuda" and any(
                     r["staged"] != want_staged for r in per_rank):
@@ -4466,17 +4717,25 @@ def fsdp_path(dev, whole: dict, launches: tuple[Counter, Counter]) -> dict:
 # faults' 2-block forwards, the w4a16 edit quantized under tensor and the
 # backward. The world of 4 serves the edit and the w4a16 edit at tensor = 4
 # (fc2's 3,456 local rows: 27 groups, padded to 28 for K8), batched CFG over
-# tensor 2 x data 2, the edit over tensor 2 x context 2 in both modes and a
-# forward over tensor 2 x fsdp 2. Every row product is summed over the
+# tensor 2 x data 2, the edit over tensor 2 x context 2 in both modes, a
+# forward over tensor 2 x fsdp 2, and serving (``served_world``). Every row
+# product is summed over the
 # tensor group in bf16: three (1, 7,200, 5,120) reduces a block, 8.85 GB a
 # 40-block forward and rank staged through the host.
 TP_WORLDS = (2, 4)
 TP_TIMEOUT = 900.0
 TP_DEVICE = "cuda:0"  # every rank's device: the one card
 TP_BLOCKS = 2
-TP_SHORT_STEPS = 2
+# the tensor worlds' edits: 1 step, cut from 2 to make room for serving (a
+# step repeats the same forward)
+TP_SHORT_STEPS = 1
+# the served requests: 2 steps, so that every rank's UniPC carries one
+# step's output and history into the next (its corrector) under the mesh
+SERVE_STEPS = 2
 # the card's free GiB each world needs: its ranks' peaks and CUDA contexts
-TP_CARD_GIB = {2: 44.0, 4: 40.0}
+# (the world of 4 serves a batch of 2 at 720p: 13.7 GiB a rank
+# alone on the card, H100 80GB HBM3, 700.00 W)
+TP_CARD_GIB = {2: 44.0, 4: 60.0}
 # a tensor-parallel reading against one process: partial products and K4's
 # statistics are summed across ranks (bf16 partials, each rounded once more
 # than one process rounds its product), so not bitwise
@@ -4591,6 +4850,117 @@ def tp_fault(fault: str | None, p: int = 2):
         dit_lib.rms_norm_tensor, dit_lib._row, quant.int4_rows = saved
 
 
+# Serving under a mesh, in the tensor phase's world of 4 (tensor 2 x
+# context 2, ``tp_model`` at TP_BLOCKS blocks, SERVE_STEPS steps): rank
+# 0's ``EditServer(max_batch=2)`` takes three 720p requests in one window
+# (a batch of 2, then 1) and broadcasts each batch; the other ranks run
+# ``pipeline/server.follow``. Requests (inputs seed, noise seed), each also
+# run by ``pipe(...)`` in the world. Planted: a session whose followers
+# draw each request's noise from seed + 1 (the last request).
+SERVE_REQUESTS = ((40, 140), (41, 141), (42, 142))
+
+
+def served_world(rank: int, pipe, mesh, tcfg, dev, want) -> dict:
+    """Rank 0 serves SERVE_REQUESTS through ``EditServer`` under ``mesh``
+    and the other ranks follow, each batch's launches zeroed just before
+    and held to ``want`` just after on every rank (the batcher's thread on
+    rank 0); then every rank runs each request through
+    ``pipe.edit_image`` in the world; then a planted session. Every
+    request takes SERVE_STEPS steps. Rank 0
+    returns the frames and the server's stats and health; every rank its
+    batches' sizes, seconds and launches."""
+    from chronoedit_tpu_torch.kernels import build
+    from chronoedit_tpu_torch.pipeline import server as server_mod
+
+    short = SERVE_STEPS
+    reqs = {noise: request(tcfg, dev, seed, EDIT_H, EDIT_W, TEXT_TOKENS)
+            for seed, noise in SERVE_REQUESTS}
+    inner, draw = server_mod._run, server_mod.request_latents
+    res = {"batches": []}
+
+    def counted(pipeline, key, tensors, latents):
+        build.reset_launches()
+        out, secs = host_s(lambda: inner(pipeline, key, tensors, latents))
+        got = read_launches()
+        if got != want:
+            raise AssertionError(f"rank {rank} served batch of {latents.shape[0]}: launches "
+                                 f"{got}, the path implies {want}")
+        res["batches"].append({"size": latents.shape[0], "secs": secs, "launches": got})
+        return out
+
+    def session(noises, shift: int) -> list:
+        server_mod.request_latents = (lambda pipeline, key, seed: draw(pipeline, key,
+                                                                       seed + shift))
+        if rank != 0:
+            return server_mod.follow(pipe, mesh)
+        srv = server_mod.EditServer(pipe, server_mod.ServerConfig(
+            max_batch=2, max_wait_ms=SERVER_WAIT_MS))
+        try:
+            futs = [srv.submit(**reqs[n], seed=n, num_steps=short) for n in noises]
+            srv.start()  # the requests wait in one window
+            frames = [f.result(timeout=600).numpy() for f in futs]
+            res.setdefault("health", srv.health())
+            res.setdefault("stats", dict(srv.stats))
+        finally:
+            srv.stop()
+        return frames
+
+    server_mod._run = counted
+    try:
+        res["served"] = session([n for _, n in SERVE_REQUESTS], 0)
+        server_mod._run = inner
+        res["direct"] = {n: _cp_run(f"edit {n} in the world", functools.partial(
+            pipe.edit_image, **reqs[n], num_steps=short,
+            generator=torch.Generator(device=dev).manual_seed(n)), want, rank, rank == 0)
+            for _, n in SERVE_REQUESTS}
+        res["planted"] = session([SERVE_REQUESTS[-1][1]], 0 if rank == 0 else 1)
+    finally:
+        server_mod._run, server_mod.request_latents = inner, draw
+    return res
+
+
+def check_served(results: list[dict], world_refs: dict, one: dict, card: str,
+                 launches: tuple[Counter, Counter]) -> dict:
+    """The served frames against the same requests run by ``pipe(...)`` in
+    the world (SERVE_MIN_DB) and by one process (TP_MIN_DB), the planted
+    follower below both; the batches and launches; adds the sound runs'
+    launches to ``launches``."""
+    r0 = results[0]["serve"]
+    sizes = [[b["size"] for b in r["serve"]["batches"]] for r in results]
+    followers = [r["serve"]["served"] for r in results[1:]]
+    print(f"   served under tensor 2 x context 2: rank 0's batches of {sizes[0]}, stats "
+          f"{r0['stats']}, health {r0['health']}; the followers ran {followers} batches then "
+          f"{[r['serve']['planted'] for r in results[1:]]} (planted); batch seconds on rank 0 "
+          f"{[round(b['secs'], 2) for b in r0['batches']]} ({card})")
+    if any(sz != [2, 1] for sz in sizes) or followers != [2] * (len(results) - 1):
+        raise AssertionError(f"served under a mesh: batches {sizes}, followers {followers}")
+    readings = {}
+    planted_frame = torch.from_numpy(r0["planted"][0])
+    for i, (_, n) in enumerate(SERVE_REQUESTS):
+        got = torch.from_numpy(r0["served"][i])
+        world = world_refs[n]
+        db_world, db_one = psnr(got, world), psnr(got, one[n])
+        readings[n] = (db_world, db_one)
+        print(f"   served request {n}: {db_world:.2f} dB against the world's pipe(...) "
+              f"(SERVE_MIN_DB {SERVE_MIN_DB}), {db_one:.2f} dB against one process "
+              f"(TP_MIN_DB {TP_MIN_DB})")
+        if not (db_world >= SERVE_MIN_DB and db_one >= TP_MIN_DB):
+            raise AssertionError(f"served request {n}: {db_world:.2f} / {db_one:.2f} dB")
+    n = SERVE_REQUESTS[-1][1]
+    planted = (psnr(planted_frame, world_refs[n]), psnr(planted_frame, one[n]))
+    print(f"   planted: followers drawing seed + 1, request {n}: {planted[0]:.2f} dB against the "
+          f"world's pipe(...), {planted[1]:.2f} dB against one process")
+    if not (planted[0] < SERVE_MIN_DB and planted[1] < TP_MIN_DB):
+        raise AssertionError(f"the planted follower reads {planted} dB, over the bars")
+    for r in results:
+        runs = [b["launches"] for b in r["serve"]["batches"][:2]]
+        runs += [d["launches"] for d in r["serve"]["direct"].values()]
+        for by_name, by_kv in runs:
+            launches[0].update(by_name)
+            launches[1].update(by_kv["flash_fwd"])
+    return {"served_db": readings, "planted_db": planted}
+
+
 def _leaves_bitwise(model, whole) -> tuple[int, int]:
     """(leaves of ``model`` bitwise ``whole``'s after ``whole`` is split
     by ``shard_params``, leaves): a model quantized under tensor against
@@ -4616,11 +4986,13 @@ def tp_worker(rank: int, p: int, plan: dict) -> dict:
     process's row gathered into the line's two; the state after step 1
     saved, sharded, and restored for step 2 again). At ``p`` = 4: the edit
     and the w4a16 edit under tensor 4; batched CFG (B = 2) over tensor 2 x
-    data 2; the edit over tensor 2 x context 2 in each mode; a 2-block
-    forward over tensor 2 x fsdp 2; the training checks under data 2 x
+    data 2; the edit over tensor 2 x context 2 in each mode, then serving
+    under that mesh (``served_world``); a 2-block forward over tensor 2 x
+    fsdp 2; the training checks under data 2 x
     tensor 2 (a row a data line), then the tensor 2 checkpoint restored
     under RESTORE_MESH for step 2 (``mesh_restore``). Every edit takes
-    TP_SHORT_STEPS steps. Every sound run with its launch counters zeroed just before and
+    TP_SHORT_STEPS steps, the served requests SERVE_STEPS. Every sound run
+    with its launch counters zeroed just before and
     held to what the path implies just after (``_cp_run``); rank 0 returns
     the outputs, every rank the digests, seconds, bytes read and staged and
     peak memory."""
@@ -4699,6 +5071,9 @@ def tp_worker(rank: int, p: int, plan: dict) -> dict:
                 pipe.dit.cfg = dataclasses.replace(tcfg.dit, context_parallel=mode)
                 res[f"edit {mode}"] = edit(pipe, f"edit {mode}", tp_want(cp_launches(
                     tcfg, [(EDIT_TOKENS, mode, 2)] * short)), num_steps=short)
+            pipe.dit.cfg = tcfg.dit  # "auto": Ulysses on the rank's 20 heads
+            res["serve"] = served_world(rank, pipe, mesh, tcfg, dev, tp_want(cp_launches(
+                tcfg, [(EDIT_TOKENS, "ulysses", 2)] * SERVE_STEPS)))
             del pipe
             free()
             mesh = make_mesh(MeshConfig(fsdp=2, tensor=2), device=dev)
@@ -4788,7 +5163,7 @@ def tensor_path(dev, whole: dict, launches: tuple[Counter, Counter]) -> dict:
     one process at TP_MIN_DB and the planted faults below it, the training
     checks under tensor 2 and data 2 x tensor 2 to ``whole["train"]``
     (``mesh_train_refs``) at the training bars, the sharded checkpoint of
-    the world of 2 restored in this process between the worlds
+    the world of 2 restored in this process after the world of 4
     (``check_checkpoint``) and under data 2 x tensor 2 (``check_restored``,
     then step 2 at the training bars), the bytes staged by the 40-block
     model's forward to ``tp_staged_bytes``. Adds the workers' launches to
@@ -4817,6 +5192,8 @@ def tensor_path(dev, whole: dict, launches: tuple[Counter, Counter]) -> dict:
         neg = torch.randn((1, TEXT_TOKENS, tcfg.dit.text_dim), device=dev,
                           generator=torch.Generator(device=dev).manual_seed(PP_NEG_SEED))
         ref = {"forward 40": whole["forward"], "edit": edit(40, 140, num_steps=short),
+               **{f"serve {n}": edit(seed, n, num_steps=SERVE_STEPS)
+                  for seed, n in SERVE_REQUESTS},
                "forward": forward(),
                "cfg": edit(PP_CFG_SEED, 130, neg_prompt_emb=neg, guidance_scale=5.0,
                            num_steps=short)}
@@ -4918,6 +5295,14 @@ def tensor_path(dev, whole: dict, launches: tuple[Counter, Counter]) -> dict:
                 for r in per_rank:
                     launches[0].update(r["launches"][0])
                     launches[1].update(r["launches"][1]["flash_fwd"])
+        if "serve" in results[0]:
+            direct = results[0]["serve"]["direct"]
+            for n in direct:
+                if any(r["serve"]["direct"][n]["digest"] != direct[n]["digest"] for r in results):
+                    raise AssertionError(f"request {n} in the world: the ranks' frames differ")
+            world_refs = {n: torch.from_numpy(d["out"]) for n, d in direct.items()}
+            one = {n: ref[f"serve {n}"] for _, n in SERVE_REQUESTS}
+            summary["serve"] = check_served(results, world_refs, one, card, launches)
         for rank, r in enumerate(results):
             for key in ("w4a16 leaves", "w4a16 tp4 leaves"):
                 if key in r:
@@ -4931,9 +5316,13 @@ def tensor_path(dev, whole: dict, launches: tuple[Counter, Counter]) -> dict:
         summary[f"train tp{p}"] = check_mesh_train(
             "tensor 2" if p == 2 else "data 2 x tensor 2", train, whole["train"], card)
         add_train_launches(train, launches)
-        if p == 2:  # the checkpoint in one process, while the card is free
-            checkpoint = check_checkpoint(dev, train, card)
+        if p == 2:
+            saved = train
         else:
+            # the world of 2's checkpoint in one process, once the world of
+            # 4 has left the card (its restore leaves this process holding
+            # 8 GiB, which the world of 4's served batch of 2 needs)
+            checkpoint = check_checkpoint(dev, saved, card)
             restored = [r["restore"] for r in results]
             label = " x ".join(f"{a} {n}" for a, n in RESTORE_MESH.items())
             check_restored(checkpoint, restored, label)

@@ -20,6 +20,18 @@ convolutional part (pre-mid encoder, post-mid decoder) on overlapping
 W-slices whose halo covers its receptive field, and keeps the interiors;
 the mid blocks' global attention runs untiled at the bottleneck scale.
 
+Under a mesh (``mesh=``) the same halo split runs over H, one block of
+whole latent rows a rank of the VAE's group (``parallel/mesh.vae_axes``:
+JAX's ``_spatial_shard`` takes context, tensor and fsdp in turn while
+they divide the rows), and the convolutional part's output is
+all-gathered over the group in rank order: the encoder's bottleneck
+before its mid block, the decoder's pixels at the end. Every rank then
+holds the same result. A rank's block is W-tiled inside when tiles are
+asked for, and streams its own chunks with its own caches. No axis that
+divides, or no mesh: the unsharded path, unchanged. The training batch's
+encode (``train/train_step.edit_training_batch``) stays unsharded, as
+JAX's takes no mesh.
+
 Layout: (B, C, T, H, W) at the public functions, as in JAX, and inside too
 (NCDHW, torch's Conv3d layout), so every cache slice is on dim 2; the JAX
 code is channels-last inside. Convolutions are ``F.conv3d``.
@@ -424,23 +436,68 @@ def _tile_plan(w: int, tiles: int, halo: int) -> tuple[int, int, list[int]]:
     return tile, wt, starts
 
 
+def _tile(fn, x: torch.Tensor, tiles: int, k: int, halo: int, up: int = 1,
+          down: int = 1, dim: int = -1) -> torch.Tensor:
+    """``fn`` on the ``k``-th of ``tiles`` overlapping slices of ``x`` along
+    ``dim`` (``halo`` rows or columns either side, clamped into the
+    tensor), keeping the tile's interior; ``fn`` scales ``dim`` by
+    up/down."""
+    tile, wt, starts = _tile_plan(x.shape[dim], tiles, halo)
+    s = starts[k]
+    out = fn(x.narrow(dim, s, wt))
+    return out.narrow(dim, (k * tile - s) * up // down, tile * up // down)
+
+
 def _over_w_tiles(fn, x: torch.Tensor, tiles: int, halo: int,
                   up: int = 1, down: int = 1) -> torch.Tensor:
     """``fn`` on ``tiles`` overlapping W-slices of ``x`` (``halo`` columns
     either side), keeping each tile's interior; ``fn`` scales W by up/down."""
-    tile, wt, starts = _tile_plan(x.shape[-1], tiles, halo)
-    parts = []
-    for k, s in enumerate(starts):
-        out = fn(x[..., s:s + wt])
-        v0 = (k * tile - s) * up // down
-        parts.append(out[..., v0:v0 + tile * up // down])
-    return torch.cat(parts, dim=-1)
+    return torch.cat([_tile(fn, x, tiles, k, halo, up, down) for k in range(tiles)], dim=-1)
+
+
+def _row_split(mesh, rows: int):
+    """(group, ranks, index): the VAE's group of ``mesh`` for ``rows``
+    latent rows (``parallel/mesh.vae_axes``), its size and this rank's
+    place in it (the group's rank order, which ``all_gather`` keeps);
+    (None, 1, 0) without a mesh or an axis that divides the rows."""
+    if mesh is None:
+        return None, 1, 0
+    import torch.distributed as dist
+
+    from chronoedit_tpu_torch.parallel.mesh import vae_axes
+
+    group = mesh.axes_group(vae_axes(mesh.shape, rows))
+    if group is None:
+        return None, 1, 0
+    return group, dist.get_world_size(group), dist.get_rank(group)
+
+
+def _over_blocks(fn, x: torch.Tensor, split, tiles: int, halo: int, up: int = 1,
+                 down: int = 1) -> torch.Tensor:
+    """``fn`` on this rank's block of H rows of ``x`` with ``halo`` rows
+    either side (the whole of ``x`` without a split), on ``tiles``
+    W-tiles inside it; with a split, the block's interior all-gathered
+    over the split's group in rank order, so every rank holds the whole."""
+    def block(xb):
+        return fn(xb) if tiles == 1 else _over_w_tiles(fn, xb, tiles, halo, up, down)
+
+    group, n, i = split
+    if group is None:
+        return block(x)
+    from chronoedit_tpu_torch.parallel.collectives import all_gather
+
+    part = _tile(block, x, n, i, halo, up, down, dim=-2)
+    return all_gather(part.contiguous(), group, -2)
 
 
 def _encoder_halo(cfg: VAEConfig) -> int:
     """Receptive-field halo (input px) of the pre-mid encoder, rounded up
     to the spatial factor: each 3x3 conv at scale s adds +-s px, each
-    stride-2 down conv +-2s. 14B geometry: 75 -> 80."""
+    stride-2 down conv +-2s. 14B geometry: 75 -> 80. It holds for rows as
+    for columns: every kernel is square and pads alike on both axes (the
+    down conv's one-sided pad is the bottom row as it is the right
+    column), and a block starting at a multiple of the spatial factor
+    keeps the stride-2 windows on the whole image's even rows."""
     rf, scale = 1, 1  # conv_in
     for i in range(len(cfg.dim_mult)):
         rf += 2 * cfg.num_res_blocks * scale
@@ -454,7 +511,9 @@ def _encoder_halo(cfg: VAEConfig) -> int:
 def _decoder_halo(cfg: VAEConfig) -> int:
     """Receptive-field halo (latent px) of the post-mid decoder: a 3x3 conv
     at up-scale s adds +-1/s latent px, stages carry num_res_blocks+1
-    blocks. 14B geometry: 12.25 -> 14 (one px spare)."""
+    blocks. 14B geometry: 12.25 -> 14 (one px spare). It holds for rows as
+    for columns: the upsample and every kernel are the same on both
+    axes."""
     rf, scale = 0.0, 1.0
     n = len(cfg.dim_mult)
     for i in range(n):
@@ -470,18 +529,21 @@ def _decoder_halo(cfg: VAEConfig) -> int:
 
 def vae_encode(vae: VAE, video: torch.Tensor, normalize: bool = True,
                streaming: bool | None = None,
-               spatial_tiles: int | None = None) -> torch.Tensor:
+               spatial_tiles: int | None = None, mesh=None) -> torch.Tensor:
     """Pixels in [-1, 1] (B, 3, T, H, W), T = 4k+1 -> latents
     (B, z_dim, 1+(T-1)//4, H/8, W/8), normalised when z_dim is 16.
     Only the mean of the moments is kept.
 
     ``streaming=None`` streams when T > 5 (the reasoning volume; the 5-frame
     edit clip runs full-sequence). ``spatial_tiles=None`` tiles the pre-mid
-    encoder 4 ways when streaming at W >= 1024, else not at all."""
+    encoder 4 ways when streaming at W >= 1024, else not at all. Under
+    ``mesh`` the pre-mid encoder runs on this rank's rows (module
+    docstring); the mid block and ``quant_conv`` run whole on every
+    rank."""
     cfg = vae.cfg
     enc = vae.encoder
     x = video.to(cfg.dtype)
-    t, w = x.shape[2], x.shape[-1]
+    t, h, w = x.shape[2], x.shape[-2], x.shape[-1]
     sf, tfac = cfg.spatial_factor, cfg.temporal_factor
     if streaming is None:
         streaming = t > 5
@@ -491,10 +553,11 @@ def vae_encode(vae: VAE, video: torch.Tensor, normalize: bool = True,
         raise ValueError(f"W={w} not divisible by spatial_tiles*{sf}")
     if streaming and (t - 1) % tfac:
         raise ValueError(f"streamed encode needs T = 1 + {tfac}k, got {t}")
-    if spatial_tiles > 1:
-        hmid = _over_w_tiles(
+    split = _row_split(mesh, h // sf) if h % sf == 0 else (None, 1, 0)
+    if spatial_tiles > 1 or split[0] is not None:
+        hmid = _over_blocks(
             lambda xt: _stream(_encoder_stages_stream, enc, _chunks(xt, streaming, tfac)),
-            x, spatial_tiles, _encoder_halo(cfg), down=sf)
+            x, split, spatial_tiles, _encoder_halo(cfg), down=sf)
         moments = _stream(_encoder_mid_stream, enc, _chunks(hmid, streaming))
     else:
         moments = _stream(_encoder_stream, enc, _chunks(x, streaming, tfac))
@@ -508,13 +571,15 @@ def vae_encode(vae: VAE, video: torch.Tensor, normalize: bool = True,
 
 def vae_decode(vae: VAE, latents: torch.Tensor, normalize: bool = True,
                streaming: bool | None = None,
-               spatial_tiles: int | None = None) -> torch.Tensor:
+               spatial_tiles: int | None = None, mesh=None) -> torch.Tensor:
     """Latents -> pixels (B, 3, (Tl-1)*4+1, H*8, W*8).
 
     ``streaming=None`` streams one latent frame at a time when Tl > 2 (the
     reasoning trajectory; the 2-frame edit decode runs full-sequence).
     ``spatial_tiles=None`` tiles the post-mid decoder 4 ways when streaming
-    at latent W >= 128, else not at all."""
+    at latent W >= 128, else not at all. Under ``mesh``
+    ``post_quant_conv`` and the mid block run whole on every rank and the
+    post-mid decoder on this rank's rows (module docstring)."""
     cfg = vae.cfg
     dec = vae.decoder
     z = latents.to(cfg.dtype)
@@ -531,9 +596,10 @@ def vae_decode(vae: VAE, latents: torch.Tensor, normalize: bool = True,
     if spatial_tiles > 1 and wl % spatial_tiles:
         raise ValueError(f"latent W={wl} not divisible by spatial_tiles")
     frames = _chunks(z, streaming)
-    if spatial_tiles > 1:
+    split = _row_split(mesh, z.shape[-2])
+    if spatial_tiles > 1 or split[0] is not None:
         hmid = _stream(_decoder_mid_stream, dec, frames)
-        return _over_w_tiles(
+        return _over_blocks(
             lambda ht: _stream(_decoder_stages_stream, dec, _chunks(ht, streaming)),
-            hmid, spatial_tiles, _decoder_halo(cfg), up=sf)
+            hmid, split, spatial_tiles, _decoder_halo(cfg), up=sf)
     return _stream(_decoder_stream, dec, frames)

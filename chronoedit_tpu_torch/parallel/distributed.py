@@ -44,7 +44,8 @@ def _launched() -> bool:
 
 def init_distributed(backend: str | None = None, device: torch.device | None = None,
                      init_method: str | None = None, world_size: int | None = None,
-                     rank: int | None = None) -> bool:
+                     rank: int | None = None,
+                     timeout: datetime.timedelta = TIMEOUT) -> bool:
     """Join the launcher's process world. Returns True when a process group
     was set up (or already was), False for one process without a launcher.
 
@@ -59,7 +60,8 @@ def init_distributed(backend: str | None = None, device: torch.device | None = N
     (``cuda:LOCAL_RANK``), which raises without a card; a CPU world is
     asked for by passing ``torch.device("cpu")``. The backend is NCCL for a
     CUDA device, gloo for the CPU, unless ``backend`` says otherwise; on
-    CUDA the rank's device becomes the current one.
+    CUDA the rank's device becomes the current one. ``timeout`` bounds
+    each collective of the process group.
     """
     if dist.is_initialized():
         return True
@@ -82,8 +84,19 @@ def init_distributed(backend: str | None = None, device: torch.device | None = N
         torch.cuda.set_device(device)
     kw = {"device_id": device} if backend == "nccl" else {}
     dist.init_process_group(backend, init_method=init_method, world_size=world_size,
-                            rank=rank, timeout=TIMEOUT, **kw)
+                            rank=rank, timeout=timeout, **kw)
     return True
+
+
+def leave_world() -> None:
+    """Leave the process world together at the end of a run: a barrier, so
+    that no rank exits while a peer still talks to it, then the process
+    group's teardown (a rank that exits with its gloo group open may abort
+    in the group's destructor). A no-op without a process group; every rank
+    must call it."""
+    if dist.is_initialized():
+        dist.barrier()
+        dist.destroy_process_group()
 
 
 def process_count() -> int:

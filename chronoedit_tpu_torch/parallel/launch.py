@@ -26,11 +26,13 @@ import traceback
 
 
 def _worker(rank: int, world: int, rdv: str, backend: str | None, device: str,
-            threads: int, out) -> None:
+            threads: int, pg_timeout: float | None, out) -> None:
+    import datetime
+
     import torch
     import torch.distributed as dist
 
-    from chronoedit_tpu_torch.parallel.distributed import init_distributed
+    from chronoedit_tpu_torch.parallel.distributed import TIMEOUT, init_distributed
 
     init_file = os.path.join(rdv, "init")
     try:
@@ -38,7 +40,9 @@ def _worker(rank: int, world: int, rdv: str, backend: str | None, device: str,
             fn, args = pickle.load(f)
         torch.set_num_threads(threads)
         init_distributed(backend=backend, device=torch.device(device),
-                         init_method=f"file://{init_file}", world_size=world, rank=rank)
+                         init_method=f"file://{init_file}", world_size=world, rank=rank,
+                         timeout=(TIMEOUT if pg_timeout is None
+                                  else datetime.timedelta(seconds=pg_timeout)))
         # every rank's connections are up before any rank may finish and
         # exit: a rank that leaves early breaks a peer's still-open connect
         dist.barrier()
@@ -52,7 +56,7 @@ def _worker(rank: int, world: int, rdv: str, backend: str | None, device: str,
 
 def run_world(fn, world: int, args: tuple = (), *, backend: str | None = None,
               device: str = "cpu", timeout: float = 120.0, threads: int = 1,
-              tmp_dir: str | None = None) -> list:
+              tmp_dir: str | None = None, pg_timeout: float | None = None) -> list:
     """``[fn(0, *args), ..., fn(world - 1, *args)]``, each call in its own
     process of a ``world``-rank process group on ``device`` (every rank the
     same device: the CPU, or one card shared by all ranks), over
@@ -60,7 +64,9 @@ def run_world(fn, world: int, args: tuple = (), *, backend: str | None = None,
     ``fn`` and ``args`` must pickle (a module-level function); so must the
     results, which come back through a pipe. ``threads`` is each rank's
     intra-op thread count; the rendezvous directory is made under
-    ``tmp_dir`` (default the temporary directory) and removed after."""
+    ``tmp_dir`` (default the temporary directory) and removed after.
+    ``pg_timeout`` is the process group's collective timeout in seconds
+    (default ``parallel/distributed.TIMEOUT``)."""
     ctx = mp.get_context("spawn")
     out = ctx.Queue()
     rdv = tempfile.mkdtemp(prefix="rendezvous_", dir=tmp_dir)
@@ -69,7 +75,8 @@ def run_world(fn, world: int, args: tuple = (), *, backend: str | None = None,
     # which would start the ranks one after another
     with open(os.path.join(rdv, "call.pkl"), "wb") as f:
         pickle.dump((fn, args), f)
-    procs = [ctx.Process(target=_worker, args=(r, world, rdv, backend, device, threads, out),
+    procs = [ctx.Process(target=_worker, args=(r, world, rdv, backend, device, threads,
+                                               pg_timeout, out),
                          daemon=True)
              for r in range(world)]
     results: dict[int, object] = {}

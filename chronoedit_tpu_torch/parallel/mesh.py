@@ -28,11 +28,17 @@ Ranks fill the mesh row-major in ``MESH_AXES`` order, as JAX reshapes its
 device list, so ``context`` is innermost: a context line is consecutive
 ranks, and a pipe line crosses one rank of every data and context line.
 Callers read degrees as JAX's do, ``mesh.shape.get("context", 1)``.
+
+The VAE splits its rows over the model-parallel axes ``VAE_AXES``
+(``vae_axes``, JAX's ``_spatial_shard`` rule), so besides one group per
+axis the mesh opens one group per combination of two or more of those
+axes (``Mesh.axes_group``); pipe and data ranks stay VAE replicas.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 
 import torch
@@ -47,6 +53,9 @@ AXIS_TENSOR = "tensor"
 AXIS_CONTEXT = "context"
 # pipe is outermost; the high-traffic axes (tensor, context) stay innermost
 MESH_AXES = (AXIS_PIPE, AXIS_DATA, AXIS_FSDP, AXIS_TENSOR, AXIS_CONTEXT)
+# the axes the VAE splits its rows over, in JAX's order of choice
+# (``chronoedit_tpu/models/vae.py``, ``_spatial_shard``)
+VAE_AXES = (AXIS_CONTEXT, AXIS_TENSOR, AXIS_FSDP)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,13 +134,39 @@ def mesh_coords(shape: tuple[int, ...], rank: int) -> dict[str, int]:
     return dict(zip(MESH_AXES, reversed(idx)))
 
 
-def axis_lines(shape: tuple[int, ...], axis: str) -> list[list[int]]:
-    """Every line of ranks along ``axis``, in a fixed order: the groups that
-    axis needs, each listed by rank in axis order."""
-    a = MESH_AXES.index(axis)
+def axis_lines(shape: tuple[int, ...], axis: str | tuple[str, ...]) -> list[list[int]]:
+    """Every line of ranks along ``axis`` (or along several axes together:
+    the ranks that differ only along them), in a fixed order: the groups
+    that axis needs, each listed by rank in axis order."""
+    axes = (axis,) if isinstance(axis, str) else axis
+    dims = [MESH_AXES.index(a) for a in axes]
     ranks = torch.arange(math.prod(shape)).reshape(shape)
-    lines = ranks.movedim(a, -1).reshape(-1, shape[a])
+    lines = ranks.movedim(dims, list(range(-len(dims), 0))).reshape(
+        -1, math.prod(shape[d] for d in dims))
     return [row.tolist() for row in lines]
+
+
+def vae_axes(shape: dict[str, int], rows: int) -> tuple[str, ...]:
+    """The axes the VAE splits ``rows`` latent rows over: JAX's choice,
+    each of ``VAE_AXES`` above size 1 taken in turn while the product of
+    the taken ones divides the rows (``_spatial_shard``). JAX tests the
+    divisibility on the array it shards, pixel rows in the encoder; the
+    port splits whole latent rows in both directions, so at 720p (90
+    latent rows) over 4 ranks it takes 2 where JAX's encode takes 4."""
+    taken, product = [], 1
+    for axis in VAE_AXES:
+        n = shape.get(axis, 1)
+        if n > 1 and rows % (product * n) == 0:
+            taken.append(axis)
+            product *= n
+    return tuple(taken)
+
+
+def _combinations(shape: dict[str, int]) -> list[tuple[str, ...]]:
+    """Every combination of two or more ``VAE_AXES`` above size 1 (in
+    ``VAE_AXES`` order), in a fixed order."""
+    live = [a for a in VAE_AXES if shape.get(a, 1) > 1]
+    return [c for n in range(2, len(live) + 1) for c in itertools.combinations(live, n)]
 
 
 class Mesh:
@@ -140,15 +175,18 @@ class Mesh:
 
     ``shape`` maps every axis to its degree; ``coords`` gives this rank's
     index along each; ``group(axis)`` is the group of the ranks that differ
-    from this one only along ``axis``; ``device`` is this rank's device."""
+    from this one only along ``axis``; ``axes_group(axes)`` the same along
+    several axes; ``device`` is this rank's device."""
 
     def __init__(self, shape: tuple[int, ...], rank: int, device: torch.device,
-                 groups: dict[str, object] | None = None):
+                 groups: dict[str, object] | None = None,
+                 combined: dict[tuple[str, ...], object] | None = None):
         self.shape = dict(zip(MESH_AXES, shape))
         self.rank = rank
         self.coords = mesh_coords(shape, rank)
         self.device = torch.device(device)
         self.groups = groups or {}
+        self.combined = combined or {}
 
     @property
     def size(self) -> int:
@@ -162,6 +200,15 @@ class Mesh:
 
     def index(self, axis: str) -> int:
         return self.coords.get(axis, 0)
+
+    def axes_group(self, axes: tuple[str, ...]):
+        """The group of the ranks that differ from this one only along
+        ``axes`` (each above size 1; ``make_mesh`` opens every combination
+        of ``VAE_AXES``); None for no axes."""
+        axes = tuple(a for a in VAE_AXES if a in axes)
+        if not axes:
+            return None
+        return self.group(axes[0]) if len(axes) == 1 else self.combined[axes]
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, rank={self.rank}, device={self.device})"
@@ -190,7 +237,7 @@ def make_mesh(config: MeshConfig | None = None, device: torch.device | None = No
             f"entry (chronoedit_tpu/parallel/pipeline_parallel.py, its in_specs)")
     if device is None:
         device = cuda_device()
-    groups = {}
+    groups, combined = {}, {}
     for axis, n in zip(MESH_AXES, shape):
         if n == 1:
             continue
@@ -198,7 +245,14 @@ def make_mesh(config: MeshConfig | None = None, device: torch.device | None = No
             g = dist.new_group(line)
             if rank in line:
                 groups[axis] = g
-    return Mesh(shape, rank, device, groups)
+    # the VAE's row groups: the same combinations, lines and order on every
+    # rank (new_group is collective)
+    for axes in _combinations(dict(zip(MESH_AXES, shape))):
+        for line in axis_lines(shape, axes):
+            g = dist.new_group(line)
+            if rank in line:
+                combined[axes] = g
+    return Mesh(shape, rank, device, groups, combined)
 
 
 def single_device_mesh(device: torch.device | None = None) -> Mesh:

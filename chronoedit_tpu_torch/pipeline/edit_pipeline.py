@@ -36,8 +36,11 @@ its parameters over the fsdp axis (gathering each block's as it runs, and splitt
 batch when the fsdp degree divides it), or runs its blocks as a pipeline
 over the pipe axis (each rank holding its stage's blocks, with the context
 axis inside the stages and the data axis on the batch), and gives every
-rank the whole velocity, so the latents, UniPC, the VAE and the encoders
-stay replicated and every rank ends with the same frame.
+rank the whole velocity, so the latents, UniPC and the encoders stay
+replicated. The VAE splits its rows over the context, tensor and fsdp
+axes that divide them (the condition encode and every decode, as JAX
+passes its mesh to each VAE call; ``models/vae.py``) and all-gathers its
+output, so every rank ends with the same frame by construction.
 JAX's ``_shard`` lays the latents out over the context axis before the
 DiT; here the DiT's own token split takes its place. In reasoning mode the
 drop from 8 latent frames to 2 changes each rank's block in mid-run (at
@@ -96,9 +99,11 @@ class PipelineConfig:
 
 
 def prepare_condition(vae: vae_lib.VAE, cfg: PipelineConfig, image: torch.Tensor,
-                      num_frames: int, spatial_tiles: int | None = None) -> torch.Tensor:
+                      num_frames: int, spatial_tiles: int | None = None,
+                      mesh=None) -> torch.Tensor:
     """(B, 3, H, W) image in [-1, 1] -> (B, tfac + z_dim, Tl, H/8, W/8): the
-    first-frame mask channels, then the VAE latents of [image, zeros]."""
+    first-frame mask channels, then the VAE latents of [image, zeros]
+    (encoded over ``mesh``'s VAE group when given)."""
     b, c, h, w = image.shape
     tfac = cfg.vae.temporal_factor
     tl = cfg.vae.latent_frames(num_frames)
@@ -106,7 +111,7 @@ def prepare_condition(vae: vae_lib.VAE, cfg: PipelineConfig, image: torch.Tensor
         [image[:, :, None],
          torch.zeros((b, c, num_frames - 1, h, w), dtype=image.dtype,
                      device=image.device)], dim=2)
-    cond_latents = vae_lib.vae_encode(vae, video, spatial_tiles=spatial_tiles)
+    cond_latents = vae_lib.vae_encode(vae, video, spatial_tiles=spatial_tiles, mesh=mesh)
 
     hl, wl = h // cfg.vae.spatial_factor, w // cfg.vae.spatial_factor
     # mask over pixel frames (frame 0 -> 1), the first frame repeated tfac
@@ -313,7 +318,7 @@ class ChronoEditPipeline:
 
         coeffs = make_unipc_coeffs(make_flow_schedule(num_steps, shift=shift))
         condition = prepare_condition(self.vae, cfg, image, num_frames,
-                                      cfg.vae_spatial_tiles)
+                                      cfg.vae_spatial_tiles, self.mesh)
         use_cache = cfg.cache_blocks is not None and (
             cfg.cache_period > 1 or cfg.cache_thresh is not None)
         do_cfg = guidance > 1.0 and neg_prompt_emb is not None
@@ -365,7 +370,8 @@ class ChronoEditPipeline:
         cfg = self.config
 
         def decode(z):
-            return vae_lib.vae_decode(self.vae, z, spatial_tiles=cfg.vae_spatial_tiles)
+            return vae_lib.vae_decode(self.vae, z, spatial_tiles=cfg.vae_spatial_tiles,
+                                      mesh=self.mesh)
 
         if not dual:
             return decode(latents)

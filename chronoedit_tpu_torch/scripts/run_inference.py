@@ -46,8 +46,9 @@ the ``context`` ranks, its heads and block projections over the ``tensor``
 ranks, its parameters over the ``fsdp`` ranks (each tensor or fsdp rank
 reads only its slice of each tensor; ``--smoke`` shards the seeded model)
 and its blocks over the ``pipe`` stages (each rank loads only its stage's
-blocks); the VAE and the encoders load whole, and only rank 0 writes the
-output.
+blocks); the VAE and the encoders load whole, the VAE splits its rows
+over the context, tensor and fsdp ranks and gathers them, and only rank 0
+writes the output.
 
 Text prompts (``--prompt``) need the UMT5 tokenizer's vocabulary, which is a
 download; ``--prompt-ids`` takes the token ids as a ``.npy`` instead.
@@ -237,8 +238,12 @@ def main(argv=None) -> None:
                  enable_temporal_reasoning=args.enable_temporal_reasoning,
                  num_temporal_reasoning_steps=args.num_temporal_reasoning_steps,
                  generator=torch.Generator(device=device).manual_seed(args.seed))
-    if pipe.mesh is not None and pipe.mesh.rank != 0:
-        return  # every rank holds the same frame; rank 0 writes it
+    if pipe.mesh is not None:
+        from chronoedit_tpu_torch.parallel.distributed import leave_world
+
+        leave_world()
+        if pipe.mesh.rank != 0:
+            return  # every rank holds the same frame; rank 0 writes it
     # the edit is the last frame; reasoning mode also writes the trajectory
     video = video.float().cpu().numpy()
     save_image(args.output, video[0, :, -1])

@@ -17,9 +17,30 @@ Examples:
       --checkpoint-dir ./checkpoints/ChronoEdit-14B --lora distill.safetensors \\
       --cache-blocks 8:32 --warmup 720x1280
 
+  # over 4 GPUs (NCCL): each of 2 tensor ranks holds 20 of the 40 heads, and
+  # 2 context ranks split the tokens; rank 0 listens and broadcasts every
+  # batch, the other ranks follow it
+  torchrun --nproc-per-node 4 -m chronoedit_tpu_torch.scripts.serve \\
+      --mesh tensor=2,context=2 --checkpoint-dir ./checkpoints/ChronoEdit-14B \\
+      --lora distill.safetensors --quantize --cache-blocks 8:32 --warmup 720x1280
+  # the same over 2 CPU processes (gloo)
+  torchrun --nproc-per-node 2 -m chronoedit_tpu_torch.scripts.serve \\
+      --mesh context=2 --smoke --device cpu --port 8080
+
+Under ``--mesh`` (``run_inference``'s axes, over the torchrun world) rank 0
+runs the batcher and the HTTP front and broadcasts each batch (its
+requests' inputs and seeds) to the other ranks, which run the same
+pipeline call (``pipeline/server.follow``); ``--warmup`` goes the same way,
+so every rank warms up. On SIGINT or SIGTERM rank 0 stops the batcher and
+broadcasts the stop, on which every rank exits; the followers ignore those
+signals themselves (torchrun forwards them to every rank) and wait for
+rank 0's stop. If a rank fails, the served world ends and rank 0 exits
+with an error (``pipeline/server.py``).
+
 Protocol:
   GET  /healthz
-      -> JSON {pending, device, requests, batches, ...}
+      -> JSON {pending, device, requests, batches, ...; under --mesh also
+         mesh (the degree of each axis) and world (ranks, ended)}
   POST /edit?seed=0&prompt=<urlencoded>&steps=8&frame_only=1
       body: .npz with arrays
         image       (3,H,W) or (1,3,H,W) float32 in [-1,1]   required
@@ -36,6 +57,8 @@ from __future__ import annotations
 import argparse
 import io
 import json
+import signal
+import threading
 import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
@@ -148,34 +171,55 @@ def make_handler(server, max_body_mb: int = 64):
 
 def main(argv=None) -> None:
     args = parse_args(argv)
-    from chronoedit_tpu_torch.pipeline.server import EditServer, ServerConfig
+    from chronoedit_tpu_torch.parallel.distributed import leave_world
+    from chronoedit_tpu_torch.pipeline.server import EditServer, ServerConfig, follow
 
-    if args.mesh:
-        raise SystemExit("--mesh: serving over several ranks (rank 0 takes the requests "
-                         "and broadcasts each batch) is not ported yet, item 1.6 of the "
-                         "roadmap's queue 1; run_inference and train take --mesh")
     pipe = ri.build_pipeline(args)
+    mesh = pipe.mesh
+    if mesh is not None and mesh.rank != 0:
+        # a follower: rank 0 checks the guardrails once, and its stop (not a
+        # signal, which torchrun forwards to every rank) ends this loop
+        pipe.guardrails = None
+        for sig in (signal.SIGINT, signal.SIGTERM):
+            signal.signal(sig, signal.SIG_IGN)
+        batches = follow(pipe, mesh)
+        leave_world()
+        print(f"[serve] rank {mesh.rank}: stopped after {batches} batches", flush=True)
+        return
     server = EditServer(pipe, ServerConfig(max_batch=args.max_batch,
                                            max_wait_ms=args.max_wait_ms,
                                            max_queue=args.max_queue)).start()
-    if args.warmup:
-        h, w = (int(x) for x in args.warmup.lower().split("x"))
-        print(f"[serve] warming up batch buckets {server.cfg.resolved_buckets()} at "
-              f"{h}x{w} ...", flush=True)
-        server.warmup(h, w)
-        if args.warmup_bare:
-            server.warmup(h, w, with_image_emb=False)
-
-    httpd = ThreadingHTTPServer((args.host, args.port), make_handler(server, args.max_body_mb))
-    print(f"[serve] listening on {args.host}:{httpd.server_address[1]} "
-          f"({server.health()['device']})", flush=True)
+    stopping = threading.Event()
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        signal.signal(sig, lambda *_: stopping.set())
+    httpd = None
     try:
-        httpd.serve_forever()
-    except KeyboardInterrupt:
-        pass
+        if args.warmup:
+            h, w = (int(x) for x in args.warmup.lower().split("x"))
+            print(f"[serve] warming up batch buckets {server.cfg.resolved_buckets()} at "
+                  f"{h}x{w} ...", flush=True)
+            server.warmup(h, w)
+            if args.warmup_bare:
+                server.warmup(h, w, with_image_emb=False)
+        httpd = ThreadingHTTPServer((args.host, args.port),
+                                    make_handler(server, args.max_body_mb))
+        threading.Thread(target=httpd.serve_forever, daemon=True, name="http").start()
+        health = server.health()
+        where = health["device"] + (f", mesh {health['mesh']}" if mesh is not None else "")
+        print(f"[serve] listening on {args.host}:{httpd.server_address[1]} ({where})",
+              flush=True)
+        while not stopping.wait(0.5):
+            if server.health().get("world", {}).get("ended"):
+                break
     finally:
-        httpd.server_close()
+        if httpd is not None:
+            httpd.shutdown()
+            httpd.server_close()
         server.stop()
+    ended = server.health().get("world", {}).get("ended")
+    if ended not in (None, "stopped"):
+        raise SystemExit(f"[serve] the served world ended: {ended}")
+    leave_world()
 
 
 if __name__ == "__main__":

@@ -105,6 +105,7 @@ def main(argv=None):
     from chronoedit_tpu_torch.configs import get_experiment
     from chronoedit_tpu_torch.parallel import (host_local_to_global, init_distributed,
                                                is_primary, process_count, process_index)
+    from chronoedit_tpu_torch.parallel.distributed import leave_world
     from chronoedit_tpu_torch.parallel.mesh import make_mesh, parse_mesh, single_device_mesh
     from chronoedit_tpu_torch.train.callbacks import (
         HeartbeatCallback, IterSpeedCallback, LossLoggerCallback)
@@ -159,7 +160,9 @@ def main(argv=None):
     data = (host_local_to_global(batch, mesh) for batch in data)
 
     if args.lora_rank > 0:
-        return _train_lora(args, dit_cfg, train_cfg, model, data, mesh)
+        state = _train_lora(args, dit_cfg, train_cfg, model, data, mesh)
+        leave_world()
+        return state
 
     # host-side observability is rank-0-only (the reference's rank0 filter)
     callbacks = []
@@ -175,6 +178,7 @@ def main(argv=None):
     state = trainer.train(trainer.init_state(model), data)
     if is_primary():
         print(f"done at step {state.step}")
+    leave_world()
     return state
 
 
