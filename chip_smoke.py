@@ -143,9 +143,15 @@ non-zero and no result line is printed:
    rounded once to bf16, the VAE and the encoders bitwise the originals
    after their files' casts. The loaded pipeline encodes 512 token ids and the 720p
    image (``encode_prompt``, ``encode_image``; no kernel launch) and serves
-   a cold and a warm edit from those embeddings; the encoders are dropped,
-   and the same pipeline serves two more 720p edits, then two 29-frame
-   reasoning edits (the whole trajectory, k = 8; the drop, k = 2) through
+   a cold and a warm edit from those embeddings; with the encoders still
+   attached, ``scripts/gradio_paintbrush.run_edit`` edits a seeded 720p
+   composite with a painted square (token ids for the prompts, 1 step),
+   bitwise ``edit_image`` on the same crop, embeddings and noise
+   (``paintbrush_check``), and the encoders embed the training CLI's
+   prompts (``train_prompt_refs``); the encoders are dropped,
+   and the same pipeline serves one more 720p edit, then two 29-frame
+   reasoning edits (the whole trajectory at WHOLE_STEPS = 4 steps, k = 4;
+   the drop, k = 2 of 8) through
    ``__call__``; then serves through ``EditServer(max_batch=4)`` with the
    bundled text blocklist (``server_path``): three requests in one window
    as one batch padded to 4, two as a batch of 2, the first three alone,
@@ -163,7 +169,7 @@ non-zero and no result line is printed:
    rank-32 LoRA steps (``make_lora_train_step``, remat "full") on 720p mock
    edit pairs and two under remat "matmul_only"; then quantizes that DiT in
    place to w4a16 (Lloyd grid), takes three rank-32 QLoRA steps over it (K8
-   under autograd) and serves two 720p edits and a w4a16 + int8-score
+   under autograd) and serves a 720p edit and a w4a16 + int8-score
    reasoning edit (k = 2); loads the bf16 model again from the same files,
    quantizes it to mixed2 and serves one edit; with the card free, runs
    pipeline parallelism (``pipeline_path``): worlds of pipe = 2 and 4
@@ -218,17 +224,25 @@ non-zero and no result line is printed:
    local shards, the gradients left as each data line computed them, the
    replicated q / k norm weights unreduced over tensor; the gradients
    summed over data are planted in the CPU test). Then it runs the
-   training CLI
-   (``scripts/train.main``: rank-32 LoRA, remat "full", ``--grad-accum 2
+   training CLIs: ``scripts/extract_umt5.main`` on the directory's
+   UMT5-XXL over a column of the prompts' token ids (its pickles bitwise
+   the loaded pipeline's ``encode_ids`` on the same ids), then
+   ``scripts/train.main`` (rank-32 LoRA, remat "full", ``--grad-accum 2
    --max-iter 4``) from the directory's DiT shards on two 720p PNG pairs
-   with UMT5-XXL embeddings written for it, and serves an edit with the
+   with those embeddings, and serves an edit with the
    exported LoRA through ``load_pipeline``; removes the directory and runs
    the ``Trainer`` (full-parameter, ``TRAINER_BLOCKS`` blocks at full
    width, ``grad_accum = 2``, validation, ``guard_host_sync``, whose
    guard must first raise on a device read; its checkpoints in the
    machine's memory, ``scratch_dir``) 4 iterations straight and 2 + a
    resume + 2 (the last save synchronous and timed), which must end
-   bitwise equal, then times a restore of its checkpoint and round-trips
+   bitwise equal; the straight run renders the edit under the EMA once
+   (``EveryNDrawSample`` over ``data/item_dataset.make_sample_fn`` on a
+   720p item with the CLI's first embedding, RENDER_STEPS steps, inside
+   ``utils/profiling.profile_trace``): the frame bitwise a direct
+   ``pipe(...)`` with the EMA copied in by hand, the trained parameters
+   bitwise unchanged after it, its launches exact and its Chrome trace
+   naming K1-K4's kernels (``render_check``); then times a restore of its checkpoint and round-trips
    it through ``convert_weights``; every directory is removed at the end, whatever
    happened. The launch counters are zeroed just before each
    edit and each step and must then show exactly the launches the path
@@ -442,6 +456,9 @@ EDIT_H, EDIT_W = 720, 1280
 TEXT_TOKENS = 512
 IMAGE_TOKENS = 257
 REASONING_FRAMES = 29
+# the whole-trajectory reasoning edit's steps (k = all of them): half the
+# config's 8, so that the command stays inside its time limit
+WHOLE_STEPS = 4
 # the edit's self-attention: 2 latent frames x 45 x 80 patches
 EDIT_TOKENS = 2 * (EDIT_H // 16) * (EDIT_W // 16)
 # reasoning self-attention: 8 latent frames x 45 x 80 patches
@@ -1649,7 +1666,7 @@ def training_references(dev: torch.device) -> dict[str, dict]:
 
 
 def expected_launches(cfg, tokens: list[int], int4: bool = False, qk8: bool = False,
-                      blocks: list[list[int]] | None = None
+                      blocks: list[list[int]] | None = None, image: bool = True
                       ) -> tuple[dict[str, int], dict[str, dict[int, int]]]:
     """Kernel launches of one edit whose step i self-attends over tokens[i]
     and runs forwards of ``blocks[i]`` blocks each (default one forward of
@@ -1657,7 +1674,8 @@ def expected_launches(cfg, tokens: list[int], int4: bool = False, qk8: bool = Fa
     or the block cache skips blocks; a batch launches each kernel once):
     per block 3 attentions (self, text, image), 2 LN-modulates, 2 gated
     residuals and 5 RMSNorms (self q, k; cross q; text k; image k), plus
-    each forward's head LN-modulate, and no backward. With ``int4`` (w4a16)
+    each forward's head LN-modulate, and no backward; without an ``image``
+    context (no CLIP embedding) 2 attentions and 4 RMSNorms a block. With ``int4`` (w4a16)
     every block's 12 projections run K8: 8 over the step's tokens, 2 over
     the text and 2 over the image context; with ``qk8`` self-attention past
     JAX's resident KV length runs K9 instead of the flash forward. No
@@ -1667,7 +1685,7 @@ def expected_launches(cfg, tokens: list[int], int4: bool = False, qk8: bool = Fa
     from chronoedit_tpu_torch.ops.flash_attention import uses_int8_scores
 
     blocks = blocks or [[cfg.dit.num_layers]] * len(tokens)
-    by_kv = {TEXT_TOKENS: 0, IMAGE_TOKENS: 0}
+    by_kv = {TEXT_TOKENS: 0, IMAGE_TOKENS: 0} if image else {TEXT_TOKENS: 0}
     qk8_kv, rows = {}, {}
     n_blocks = n_forwards = 0
     for s, forwards in zip(tokens, blocks):
@@ -1675,14 +1693,15 @@ def expected_launches(cfg, tokens: list[int], int4: bool = False, qk8: bool = Fa
             n_blocks += n
             n_forwards += 1
             by_kv[TEXT_TOKENS] += n
-            by_kv[IMAGE_TOKENS] += n
+            if image:
+                by_kv[IMAGE_TOKENS] += n
             counts = qk8_kv if qk8 and uses_int8_scores(s, cfg.dit.head_dim, 2) else by_kv
             counts[s] = counts.get(s, 0) + n
             if int4:
                 for m, per_block in ((s, 8), (TEXT_TOKENS, 2), (IMAGE_TOKENS, 2)):
                     rows[m] = rows.get(m, 0) + per_block * n
     by_name = {"flash_fwd": sum(by_kv.values()), "ln_modulate": 2 * n_blocks + n_forwards,
-               "gated_residual": 2 * n_blocks, "rms_norm": 5 * n_blocks,
+               "gated_residual": 2 * n_blocks, "rms_norm": (5 if image else 4) * n_blocks,
                "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
                "int4_matmul": sum(rows.values()), "flash_fwd_qk8": sum(qk8_kv.values()),
                **dict.fromkeys(GROUPED + TP_NORMS, 0)}
@@ -1932,13 +1951,91 @@ def loaded_path(dev: torch.device, cfg, launches: tuple[Counter, Counter]):
             serve(pipe.edit_image, cfg, dev, f"loaded edit ({label})", 42, (1, 3, EDIT_H, EDIT_W),
                   [EDIT_TOKENS] * cfg.num_steps, launches, req=req, times=times)
         with_encoders = torch.cuda.max_memory_allocated() / 2**30
+        paintbrush_check(pipe, dev, launches)
+        train_prompts = train_prompt_refs(pipe, dev)
         pipe.text_encoder = pipe.image_encoder = None
         torch.cuda.empty_cache()
     print(f"from files to the first edit: load {load_s:.1f} s + encode "
           f"{t5_s + clip_s:.2f} s + cold edit {times[0]:.2f} s; warm edit {times[1]:.2f} s; "
           f"peak {with_encoders:.2f} GiB with the encoders, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated after dropping them")
-    return pipe
+    return pipe, train_prompts
+
+
+# the training data's prompts: TRAIN_PROMPTS seeded draws of TEXT_TOKENS
+# ids, of which the first PROMPT_LEN are the prompt
+TRAIN_PROMPTS = 2
+PAINT_SEED = 43
+
+
+def train_prompt_refs(pipe, dev) -> dict[str, list]:
+    """The training CLI's prompts as token ids (numpy, ``PROMPT_LEN`` each)
+    and their UMT5-XXL embeddings through the loaded pipeline's
+    ``UMT5TextEncoder.encode_ids``, on the ids and mask that
+    ``scripts/extract_umt5`` makes of them (fp32 numpy): what
+    ``cli_path``'s run of that CLI on the same checkpoint must write,
+    bitwise."""
+    import numpy as np
+
+    from chronoedit_tpu_torch.models import umt5
+    from chronoedit_tpu_torch.scripts.extract_umt5 import padded_ids
+
+    g = torch.Generator(device=dev).manual_seed(51)
+    refs = {"ids": [], "emb": []}
+    for _ in range(TRAIN_PROMPTS):
+        draw = torch.randint(0, umt5.UMT5Config().vocab_size, (1, TEXT_TOKENS), generator=g,
+                             device=dev)
+        ids = draw[0, :PROMPT_LEN].cpu().numpy()
+        padded, mask = padded_ids(ids, TEXT_TOKENS)
+        emb = pipe.text_encoder.encode_ids(padded.to(dev), mask.to(dev))[0]
+        refs["ids"].append(ids)
+        refs["emb"].append(emb.float().cpu().numpy())
+    if any(e.shape != (TEXT_TOKENS, pipe.config.dit.text_dim) or not np.isfinite(e).all()
+           for e in refs["emb"]):
+        raise AssertionError("the training prompts' UMT5 embeddings are not finite "
+                             f"({TEXT_TOKENS}, {pipe.config.dit.text_dim})")
+    return refs
+
+
+def paintbrush_check(pipe, dev, launches: tuple[Counter, Counter]) -> None:
+    """``scripts/gradio_paintbrush.run_edit`` on the loaded main model with
+    its encoders: a seeded 720p background and a composite with a painted
+    square, 512 seeded token ids for the prompt and 8 for the negative, one
+    step; its frame must be bitwise ``edit_image`` on the same cropped
+    composite, the encoders' embeddings of the same ids and a generator of
+    the same seed, and each call's launches exactly one step's."""
+    import numpy as np
+    from PIL import Image
+
+    from chronoedit_tpu_torch.models import umt5
+    from chronoedit_tpu_torch.scripts import gradio_paintbrush as paintbrush
+
+    cfg = pipe.config
+    rng = np.random.default_rng(PAINT_SEED)
+    background = rng.integers(0, 256, (EDIT_H, EDIT_W, 3), dtype=np.uint8)
+    composite = background.copy()
+    composite[200:400, 500:800] = (230, 40, 40)
+    value = {"background": Image.fromarray(background), "composite": Image.fromarray(composite)}
+    g = torch.Generator(device=dev).manual_seed(PAINT_SEED)
+    vocab = umt5.UMT5Config().vocab_size
+    ids = torch.randint(0, vocab, (1, TEXT_TOKENS), generator=g, device=dev)
+    neg = torch.randint(0, vocab, (1, 8), generator=g, device=dev)
+    seed = 100 + PAINT_SEED  # serve()'s generator seed for the reference call
+    # run_edit draws its noise from its own generator of ``seed``
+    got = serve(lambda value, generator: paintbrush.run_edit(
+                    pipe, value, ids, 1, 1.0, seed=seed, negative_prompt=neg),
+                cfg, dev, "paintbrush run_edit (1 step)", PAINT_SEED, (1, 3, EDIT_H, EDIT_W),
+                [EDIT_TOKENS], launches, req={"value": value})
+    image = paintbrush.composite_image(value, dev)
+    req = dict(image=image, prompt_emb=pipe.encode_prompt(ids),
+               neg_prompt_emb=pipe.encode_prompt(neg), image_emb=pipe.encode_image(image))
+    want = serve(pipe.edit_image, cfg, dev, "edit_image on the same crop (1 step)", PAINT_SEED,
+                 (1, 3, EDIT_H, EDIT_W), [EDIT_TOKENS], launches, req=req, num_steps=1,
+                 guidance_scale=1.0)
+    if not torch.equal(got, want):
+        raise AssertionError(f"paintbrush: run_edit's frame is not edit_image's "
+                             f"(max |diff| {float((got - want).abs().max())})")
+    print("   paintbrush run_edit's frame bitwise edit_image's")
 
 
 def serve(entry, cfg, dev, label: str, seed: int, shape: tuple, tokens: list[int],
@@ -2008,14 +2105,14 @@ def stages(pipe, dev, num_frames: int, seed: int, suffix: str = ""):
 
 def edit_path(pipe, dev, launches: tuple[Counter, Counter],
               profile_dir: Path | None) -> dict[int, torch.Tensor]:
-    """Two 720p edits through ``edit_image``, then warm per-stage times (and
-    profiles when ``profile_dir`` is set); adds their launches to
-    ``launches``. Returns the edits by request seed."""
+    """A 720p edit through ``edit_image`` (the loaded path's warm edit is
+    another), then warm per-stage times (and profiles
+    when ``profile_dir`` is set); adds its launches to ``launches``.
+    Returns the edit by request seed."""
     cfg = pipe.config
     tokens = [EDIT_TOKENS] * cfg.num_steps
-    outs = {seed: serve(pipe.edit_image, cfg, dev, f"edit {i} (warm)", seed,
-                        (1, 3, EDIT_H, EDIT_W), tokens, launches)
-            for i, seed in enumerate((10, 11))}
+    outs = {10: serve(pipe.edit_image, cfg, dev, "edit (warm)", 10, (1, 3, EDIT_H, EDIT_W),
+                      tokens, launches)}
 
     fns, x, enc_s = stages(pipe, dev, cfg.num_frames, 12)
     _, dit_s = host_s(fns["dit_forward"])
@@ -2030,28 +2127,28 @@ def edit_path(pipe, dev, launches: tuple[Counter, Counter],
 def reasoning_path(pipe, dev, launches: tuple[Counter, Counter],
                    profile_dir: Path | None) -> dict[int, torch.Tensor]:
     """Two 29-frame reasoning edits through ``__call__``: the whole
-    trajectory (k = num_steps, 8 forwards at 28,800 tokens) and the drop
-    (k = 2: two forwards at 28,800 tokens, the rest at 7,200); then warm
-    stage times (the dual decode of each submode among them), the
-    tiled-against-untiled decode check and, with
-    ``profile_dir``, profiles. Adds the edits' launches to ``launches``;
-    returns the edits by request seed."""
+    trajectory (k = num_steps at WHOLE_STEPS steps, every forward at 28,800
+    tokens) and the drop (k = 2 of the config's 8 steps: two forwards at
+    28,800 tokens, the rest at 7,200); then warm stage times (the dual
+    decode of each submode among them), the tiled-against-untiled decode
+    check and, with ``profile_dir``, profiles. Adds the edits' launches to
+    ``launches``; returns the edits by request seed."""
     cfg = pipe.config
-    steps, outs = cfg.num_steps, {}
-    for label, seed, k, frames in (("whole trajectory", 20, steps, REASONING_FRAMES),
-                                   ("drop", 21, 2, 5)):
+    outs = {}
+    for label, seed, steps, k, frames in (
+            ("whole trajectory", 20, WHOLE_STEPS, WHOLE_STEPS, REASONING_FRAMES),
+            ("drop", 21, cfg.num_steps, 2, 5)):
         tokens = [REASONING_TOKENS] * k + [EDIT_TOKENS] * (steps - k)
-        outs[seed] = serve(pipe, cfg, dev, f"reasoning edit ({label}, k = {k})", seed,
-                           (1, 3, frames, EDIT_H, EDIT_W), tokens, launches,
-                           enable_temporal_reasoning=True, num_temporal_reasoning_steps=k)
+        outs[seed] = serve(pipe, cfg, dev, f"reasoning edit ({label}, {steps} steps, k = {k})",
+                           seed, (1, 3, frames, EDIT_H, EDIT_W), tokens, launches,
+                           num_steps=steps, enable_temporal_reasoning=True,
+                           num_temporal_reasoning_steps=k)
 
     fns, x, enc_s = stages(pipe, dev, REASONING_FRAMES, 22, "_reasoning")
     _, dit_s = host_s(fns["dit_forward_reasoning"])
-    video, dec_s = host_s(fns["vae_decode_reasoning"])
     print(f"reasoning stages: streaming VAE encode of {REASONING_FRAMES} frames "
           f"{enc_s:.3f} s, DiT forward (one step, {x.shape[2]}x{x.shape[3]}x"
-          f"{x.shape[4]} latents, {REASONING_TOKENS} tokens) {dit_s:.3f} s, streaming "
-          f"VAE decode of {x.shape[2]} latent frames to {tuple(video.shape)} {dec_s:.3f} s")
+          f"{x.shape[4]} latents, {REASONING_TOKENS} tokens) {dit_s:.3f} s")
     # the dual decode each submode ends with: the whole trajectory's 8 latent
     # frames, or the [first, last] pair left after the drop
     for label, z in (("k = 8", x), ("k = 2", x[:, :, [0, -1]])):
@@ -2681,7 +2778,7 @@ def w4a16_path(pipe, dev, launches: tuple[Counter, Counter], refs: dict[int, tor
     as side branches, K8 under autograd in the forward and the recompute)
     with exact launches by kernel, KV length and K8 rows, finite loss and
     grad_norm, every b moved and the base's bits (its int4 buffers)
-    unchanged; then, in ``inference_mode``, two 720p edits and the reasoning
+    unchanged; then, in ``inference_mode``, a 720p edit and the reasoning
     drop (k = 2) with int8 scores (K9 at 28,800 tokens), each with exact
     launch counts and its PSNR against the bf16 output of the same request
     and noise (``refs``, by seed); then a warm w4a16 DiT forward, profiled
@@ -2717,12 +2814,10 @@ def w4a16_path(pipe, dev, launches: tuple[Counter, Counter], refs: dict[int, tor
     free()
 
     with torch.inference_mode():
-        for i, seed in enumerate((10, 11)):
-            out = serve(pipe.edit_image, cfg, dev, f"w4a16 edit {i}", seed,
-                        (1, 3, EDIT_H, EDIT_W), [EDIT_TOKENS] * cfg.num_steps, launches,
-                        int4=True)
-            print(f"   PSNR against the bf16 edit of the same request and noise "
-                  f"{psnr(out, refs[seed]):.2f} dB (random weights: no bar)")
+        out = serve(pipe.edit_image, cfg, dev, "w4a16 edit", 10, (1, 3, EDIT_H, EDIT_W),
+                    [EDIT_TOKENS] * cfg.num_steps, launches, int4=True)
+        print(f"   PSNR against the bf16 edit of the same request and noise "
+              f"{psnr(out, refs[10]):.2f} dB (random weights: no bar)")
         pipe.dit.cfg = dataclasses.replace(pipe.dit.cfg, attn_qk_int8=True)
         steps = cfg.num_steps
         out = serve(pipe, cfg, dev, "w4a16 + int8-score reasoning edit (drop, k = 2)", 21,
@@ -2767,62 +2862,71 @@ def mixed2_path(pipe, dev, launches: tuple[Counter, Counter], refs: dict[int, to
         profile_stages({"dit_forward_mixed2": fns["dit_forward_mixed2"]}, profile_dir)
 
 
-def write_train_data(root: Path, dev: torch.device, text_dim: int, n: int = 2) -> Path:
-    """A metadata directory for the training CLI: ``n`` 720p ``image`` /
-    ``edit_image`` PNG pairs (seeded noise) and UMT5 embeddings of ``n``
-    seeded prompts (512 token ids, ``PROMPT_LEN`` unmasked) from the
-    checkpoint directory's UMT5-XXL, pickled as the reference's
-    ``umt5_emb`` files; returns ``metadata.csv``."""
+def write_train_data(root: Path, prompts: dict[str, list]) -> Path:
+    """A metadata directory for the training CLI, written as a user writes
+    it: a 720p ``image`` / ``edit_image`` PNG pair (seeded noise) and a
+    ``.npy`` of the prompt's token ids for each of ``prompts`` (from
+    ``train_prompt_refs``), then ``scripts/extract_umt5`` on the checkpoint
+    directory's UMT5-XXL over the ids column, which writes the ``umt5_emb``
+    pickles and column. Each pickle must be bitwise the loaded pipeline's
+    ``encode_ids`` on the same ids (``prompts["emb"]``). Returns
+    ``metadata.csv``."""
+    import csv
     import pickle
 
     import numpy as np
     from PIL import Image
 
-    from chronoedit_tpu_torch.models import umt5
-    from chronoedit_tpu_torch.models import weights as w
-    from chronoedit_tpu_torch.pipeline.loader import T5_FILE
+    from chronoedit_tpu_torch.scripts import extract_umt5
 
     root.mkdir(parents=True)
-    encoder, secs = host_s(lambda: umt5.UMT5TextEncoder(umt5.convert_umt5_checkpoint(
-        w.load_torch(str(CHECKPOINT_DIR / T5_FILE)), device=dev)))
     rng = np.random.default_rng(50)
-    g = torch.Generator(device=dev).manual_seed(51)
-    mask = (torch.arange(TEXT_TOKENS, device=dev) < PROMPT_LEN).long()[None]
     rows = []
-    for i in range(n):
+    for i, ids in enumerate(prompts["ids"]):
         for name in ("image", "edit_image"):
             Image.fromarray(rng.integers(0, 256, (EDIT_H, EDIT_W, 3), dtype=np.uint8)).save(
                 root / f"{name}{i}.png")
-        ids = torch.randint(0, encoder.cfg.vocab_size, (1, TEXT_TOKENS), generator=g,
-                            device=dev)
-        emb = encoder.encode_ids(ids, mask)[0].float().cpu().numpy()
-        if emb.shape != (TEXT_TOKENS, text_dim) or not np.isfinite(emb).all():
-            raise AssertionError(f"UMT5 embedding {emb.shape} is not a finite "
-                                 f"({TEXT_TOKENS}, {text_dim})")
-        with open(root / f"umt5_emb{i}.pkl", "wb") as f:
-            pickle.dump(emb, f)
-        rows.append(f"image{i}.png,edit_image{i}.png,edit {i},umt5_emb{i}.pkl")
-    (root / "metadata.csv").write_text("image,edit_image,prompt,umt5_emb\n" + "\n".join(rows)
-                                       + "\n")
-    print(f"training data: {n} 720p PNG pairs and UMT5-XXL embeddings ({TEXT_TOKENS} ids, "
-          f"{PROMPT_LEN} unmasked; the encoder loaded in {secs:.1f} s) under {root}")
-    del encoder
+        np.save(root / f"ids{i}.npy", ids)
+        rows.append(f"image{i}.png,edit_image{i}.png,edit {i},ids{i}.npy")
+    meta = root / "metadata.csv"
+    meta.write_text("image,edit_image,prompt,prompt_ids\n" + "\n".join(rows) + "\n")
+    argv = ["--metadata", str(meta), "--checkpoint-dir", str(CHECKPOINT_DIR),
+            "--ids-column", "prompt_ids", "--output-dir", str(root / "umt5")]
+    outs, secs = host_s(lambda: extract_umt5.main(argv))
+    written = [row["umt5_emb"] for row in csv.DictReader(open(meta))]
+    for i, (out, want) in enumerate(zip(outs, prompts["emb"])):
+        with open(out, "rb") as f:
+            got = pickle.load(f)
+        if got.dtype != want.dtype or got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(f"extract_umt5: row {i}'s pickle is not encode_ids' on the "
+                                 f"same ids ({got.dtype} {got.shape})")
+    if written != outs or len(outs) != len(prompts["ids"]):
+        raise AssertionError(f"extract_umt5: metadata's umt5_emb column {written}, wrote {outs}")
+    print(f"training data: {len(outs)} 720p PNG pairs; extract_umt5 (UMT5-XXL from the "
+          f"checkpoint directory, {TEXT_TOKENS} ids with {PROMPT_LEN} unmasked) in {secs:.1f} s, "
+          f"its pickles bitwise encode_ids' on the same ids, the umt5_emb column written")
     free()
-    return root / "metadata.csv"
+    return meta
 
 
-def cli_path(dev: torch.device, cfg, launches: tuple[Counter, Counter]) -> dict:
-    """The training CLI as a user runs it: ``scripts.train.main`` with
+def cli_path(dev: torch.device, cfg, launches: tuple[Counter, Counter],
+             prompts: dict[str, list]) -> dict:
+    """The training CLIs as a user runs them: ``scripts.extract_umt5`` for
+    the prompts' embeddings (``write_train_data``), then
+    ``scripts.train.main`` with
     ``--experiment chronoedit_14b --lora-rank 32 --remat full --grad-accum
     2 --max-iter 4`` over the checkpoint directory's diffusers shards
-    (``--base-checkpoint``) on a metadata file of two 720p pairs with UMT5
-    embeddings (``write_train_data``), encoded by the CLI's random VAE.
+    (``--base-checkpoint``) on that metadata file of two 720p pairs with
+    their UMT5 embeddings, encoded by the CLI's random VAE.
     Four step calls (micro-steps, as JAX's loop counts them: two applied
     updates, the second at a learning rate above 0) with exact launches
     (no image context: the metadata path has none), every b moved, the
     exported ``lora.safetensors`` equal to the trained adapters; then
     ``load_pipeline(cfg, dir, loras=[(that file, 1.0)])`` serves one 720p
-    edit with exact launches."""
+    edit with exact launches. Returns the readings and the first prompt's
+    embedding as the CLI wrote it."""
+    import pickle
+
     from safetensors.torch import load_file
 
     from chronoedit_tpu_torch.kernels import build
@@ -2832,7 +2936,9 @@ def cli_path(dev: torch.device, cfg, launches: tuple[Counter, Counter]) -> dict:
     from chronoedit_tpu_torch.scripts import train as train_cli
 
     data_dir, out_dir = CHECKPOINT_DIR.parent / "smoke_train_data", CHECKPOINT_DIR / "trained"
-    meta = write_train_data(data_dir, dev, cfg.dit.text_dim)
+    meta = write_train_data(data_dir, prompts)
+    with open(data_dir / "umt5" / f"{0:08d}.pkl", "rb") as f:
+        first_emb = pickle.load(f)
     argv = ["--experiment", "chronoedit_14b", "--set", f"dit.num_layers={MAIN_BLOCKS}",
             "--lora-rank", "32", "--remat", "full",
             "--grad-accum", "2", "--max-iter", "4", "--base-checkpoint",
@@ -2879,7 +2985,7 @@ def cli_path(dev: torch.device, cfg, launches: tuple[Counter, Counter]) -> dict:
     del pipe
     free()
     shutil.rmtree(data_dir, ignore_errors=True)
-    return {"seconds": secs, "peak_gib": peak}
+    return {"seconds": secs, "peak_gib": peak, "prompt_emb": first_emb}
 
 
 
@@ -2888,9 +2994,17 @@ def cli_path(dev: torch.device, cfg, launches: tuple[Counter, Counter]) -> dict:
 # bytes of bf16 parameters, gradients, two AdamW moments, EMA and
 # accumulator)
 TRAINER_BLOCKS = 1
+# the training-time render (EveryNDrawSample over make_sample_fn): after
+# iteration RENDER_EVERY of the straight run, RENDER_STEPS solver steps, and
+# the hand-written kernels its trace must name
+RENDER_EVERY = 2
+RENDER_STEPS = 2
+RENDER_KERNELS = ("flash_fwd_wgmma_kernel", "ln_modulate_ring_kernel", "gated_residual_kernel",
+                  "rms_norm_ring_kernel")
 
 
-def trainer_path(dev: torch.device, launches: tuple[Counter, Counter], root: Path) -> dict:
+def trainer_path(dev: torch.device, launches: tuple[Counter, Counter], root: Path,
+                 prompt_emb) -> dict:
     """The ``Trainer`` (full-parameter, the only mode JAX's runs) on the 14B
     DiT's width at ``TRAINER_BLOCKS`` blocks, remat "none", 720p mock pairs
     from a seeded full-width VAE: ``grad_accum = 2``, a checkpoint every 2
@@ -2904,7 +3018,12 @@ def trainer_path(dev: torch.device, launches: tuple[Counter, Counter], root: Pat
     counters) must be bitwise equal (K6/K7 are deterministic). Then a timed
     synchronous save and restore of the state (GB/s), and the checkpoint
     through ``convert_weights`` to diffusers safetensors and back, bitwise.
-    Its files go under ``root``, which it removes. Returns the readings."""
+    The straight run also renders the edit under the EMA weights once,
+    after iteration RENDER_EVERY (``render_check``: ``EveryNDrawSample``
+    over ``make_sample_fn`` on a one-item ``PromptItemDataset`` of a 720p
+    image and ``prompt_emb``, the first training prompt's embedding as
+    ``extract_umt5`` wrote it). Its files go under ``root``, which it
+    removes. Returns the readings."""
     from chronoedit_tpu_torch.configs import chronoedit_14b
     from chronoedit_tpu_torch.data.mock import MockEditDataset, mock_batch_iterator
     from chronoedit_tpu_torch.kernels import build
@@ -2926,8 +3045,9 @@ def trainer_path(dev: torch.device, launches: tuple[Counter, Counter], root: Pat
         height=EDIT_H, width=EDIT_W, text_tokens=TEXT_TOKENS, text_dim=cfg.text_dim,
         image_tokens=cfg.image_tokens, image_dim=cfg.image_dim, seed=61))
     batches, val = [next(it) for _ in range(8)], [next(it) for _ in range(2)]
-    del vae, it
+    del it
     torch.cuda.empty_cache()
+    renders = []
     tcfg = train_step.TrainConfig(lr=1e-4, warmup_steps=1, grad_accum=2)
     iter_s = []
 
@@ -2973,20 +3093,26 @@ def trainer_path(dev: torch.device, launches: tuple[Counter, Counter], root: Pat
 
     save_s = []
 
-    def run(directory, max_iter, skip, checkpoints=True, async_save=True):
+    def run(directory, max_iter, skip, checkpoints=True, async_save=True, render=False):
         lines = []
+        dit = model()
         callbacks = [Launches(), cb.IterSpeedCallback(log_every=1, log_fn=lines.append),
                      cb.HeartbeatCallback(path=str(directory / "heartbeat.txt"), every_s=0.0),
                      cb.DeviceMonitorCallback(every_n=1, log_fn=lines.append),
                      cb.LossLoggerCallback(str(directory / "loss.jsonl"), log_every=1),
                      SaveTime()]
+        if render:  # after Launches, which reads the iteration's own counts first
+            callbacks.append(cb.EveryNDrawSample(
+                RENDER_EVERY, render_check(small, dit, vae, root, prompt_emb, dev, launches,
+                                           renders),
+                out_dir=str(directory / "samples"), guidance_sweep=(1.0,)))
         trainer = Trainer(cfg, tcfg, TrainerConfig(max_iter=max_iter, save_every=2,
                                                    validate_every=2, validate_batches=1,
                                                    guard_host_sync=True),
                           ck.CheckpointConfig(directory=str(directory), max_to_keep=1,
                                               async_save=async_save)
                           if checkpoints else None, callbacks)
-        state = trainer.init_state(model())
+        state = trainer.init_state(dit)
         state = trainer.train(state, iter(batches[2 * skip:]), val_data=iter(val[skip // 2:]))
         for line in lines:
             print(f"   {line}")
@@ -3003,8 +3129,11 @@ def trainer_path(dev: torch.device, launches: tuple[Counter, Counter], root: Pat
     print(f"Trainer: the 14B DiT's width at {TRAINER_BLOCKS} blocks, full-parameter, "
           f"grad_accum 2, remat 'none', 720p mock pairs, guard_host_sync on")
     torch.cuda.reset_peak_memory_stats()
-    straight, secs = host_s(lambda: run(root / "a", 4, 0, checkpoints=False))
+    straight, secs = host_s(lambda: run(root / "a", 4, 0, checkpoints=False, render=True))
     peak = torch.cuda.max_memory_allocated() / 2**30
+    if len(renders) != 1:
+        raise AssertionError(f"the training-time render ran {len(renders)} times, not once")
+    del vae
     want = ck.state_tensors(straight), ck.state_counters(straight)
     n_params = sum(p.numel() for p in straight.params)
     print(f"Trainer, {n_params / 1e9:.3f} B parameters, 4 iterations straight (no "
@@ -3059,7 +3188,88 @@ def trainer_path(dev: torch.device, launches: tuple[Counter, Counter], root: Pat
     del straight, resumed, want, got, params, back
     free()
     return {"peak_gib": peak, "save_gbps": nbytes / save_s / 1e9,
-            "restore_gbps": nbytes / restore_s / 1e9, "checkpoint_gb": nbytes / 1e9}
+            "restore_gbps": nbytes / restore_s / 1e9, "checkpoint_gb": nbytes / 1e9,
+            "render": renders[0]}
+
+
+def render_check(pipe_cfg, dit, vae, root: Path, prompt_emb, dev,
+                 launches: tuple[Counter, Counter], renders: list):
+    """The ``sample_fn`` that ``EveryNDrawSample`` calls in the Trainer:
+    ``make_sample_fn`` over a one-item ``PromptItemDataset`` (a seeded
+    720p image and ``prompt_emb``, written under ``root``) on a pipeline of
+    the trained ``dit`` and ``vae``, RENDER_STEPS steps, traced by
+    ``utils/profiling.profile_trace``. Around the render it checks that the
+    frame is bitwise a direct ``pipe(...)`` call with the EMA copied into
+    the DiT by hand (the trained parameters copied back after), that the
+    trained parameters are bitwise unchanged and in their own storage
+    after it, that the launch counters hold exactly one render's (no image
+    context: the item has no CLIP embedding), added to ``launches``, and
+    that the Chrome trace names every kernel of RENDER_KERNELS. Appends the
+    readings to ``renders``; gives the callback the edited frame."""
+    from chronoedit_tpu_torch.data.item_dataset import (PromptItemDataset, make_sample_fn,
+                                                        write_item_dataset)
+    from chronoedit_tpu_torch.kernels import build
+    from chronoedit_tpu_torch.pipeline.edit_pipeline import ChronoEditPipeline
+    from chronoedit_tpu_torch.utils.profiling import kernel_names, profile_trace
+
+    g = torch.Generator(device=dev).manual_seed(64)
+    image = (torch.rand((3, EDIT_H, EDIT_W), generator=g, device=dev) * 2 - 1).cpu().numpy()
+    write_item_dataset(str(root / "items"), [{"prompt": "edit 0", "image": image,
+                                               "t5_text_embeddings": prompt_emb}])
+    items = PromptItemDataset(str(root / "items"), max_t5_length=TEXT_TOKENS)
+    pipe = ChronoEditPipeline(pipe_cfg, dit, vae)
+    fn = make_sample_fn(pipe, items, num_steps=RENDER_STEPS)
+
+    def sample(params, guidance):
+        own = list(dit.parameters())
+        before = [p.detach().clone() for p in own]
+        ptrs = [p.data_ptr() for p in own]
+        if all(torch.equal(e, p) for e, p in zip(params, own)):
+            raise AssertionError("the render's EMA equals the trained parameters")
+        torch.cuda.synchronize()
+        build.reset_launches()
+        with profile_trace(str(root / "trace"), device=dev) as trace:
+            frame, secs = host_s(lambda: fn(params, guidance))
+        got = read_launches()
+        want = expected_launches(pipe_cfg, [EDIT_TOKENS] * RENDER_STEPS, image=False)
+        moved = [i for i, (p, b, ptr) in enumerate(zip(own, before, ptrs))
+                 if p.data_ptr() != ptr or not torch.equal(p, b)]
+        with torch.no_grad():  # the EMA by hand, then the trained weights back
+            for p, e in zip(own, params):
+                p.copy_(e)
+            item = items[0]
+            direct = pipe(torch.as_tensor(item["image"])[None].to(dev),
+                          torch.as_tensor(item["t5_text_embeddings"])[None].to(dev),
+                          guidance_scale=guidance, num_steps=RENDER_STEPS,
+                          generator=torch.Generator(device=dev).manual_seed(item["__idx__"]))
+            for p, b in zip(own, before):
+                p.copy_(b)
+        direct = direct[0].float().cpu().numpy()
+        names = kernel_names(trace.path)
+        missing = [k for k in RENDER_KERNELS if not any(k in n for n in names)]
+        print(f"training-time render (EveryNDrawSample, EMA weights, {RENDER_STEPS} steps, "
+              f"guidance {guidance}): {secs:.2f} s, frame {frame.shape}; launches {got[0]}, by "
+              f"KV length {got[1]}; its trace {Path(trace.path).name}: {len(names)} kernel "
+              f"events, {len(set(names))} distinct")
+        if got != want:
+            raise AssertionError(f"render: launches {got}, the path implies {want}")
+        if moved:
+            raise AssertionError(f"render: {len(moved)} trained parameters changed: {moved[:4]}")
+        if frame.shape != direct.shape or not (frame == direct).all():
+            raise AssertionError("render: the frame is not the direct call's with the EMA")
+        if missing:
+            raise AssertionError(f"render: the trace names no {missing}")
+        print(f"   the frame bitwise pipe(...) with the EMA loaded by hand; all {len(own)} trained "
+              f"parameters bitwise unchanged after it; the trace names {list(RENDER_KERNELS)}")
+        for total, counts in zip(launches, (got[0], got[1]["flash_fwd"])):
+            total.update(counts)
+        renders.append({"seconds": secs, "kernel_events": len(names)})
+        # the edit's frame, the clip's last, which the callback writes as a
+        # PNG (a 5-frame clip would need imageio, which the card's machine
+        # lacks)
+        return frame[:, -1]
+
+    return sample
 
 
 def tiled_decode_check(vae, x: torch.Tensor) -> None:
@@ -6138,7 +6348,7 @@ def main() -> int:
     print(f"the Trainer's checkpoints under {scratch}; the other large files under {BUILD_DIR}")
     try:
         # loaded outside inference_mode: training saves these weights for backward
-        pipe = loaded_path(dev, dataclasses.replace(
+        pipe, train_prompts = loaded_path(dev, dataclasses.replace(
             cfg, dit=dataclasses.replace(cfg.dit, remat="full")), (by_name, by_kv))
         with torch.inference_mode():
             refs = edit_path(pipe, dev, (by_name, by_kv), profile_dir)
@@ -6188,9 +6398,9 @@ def main() -> int:
         # training as a user runs it: the CLI from the directory's files, then
         # the Trainer (the directory is removed first: its checkpoints need
         # the disk)
-        cli_path(dev, cfg, (by_name, by_kv))
+        prompt_emb = cli_path(dev, cfg, (by_name, by_kv), train_prompts)["prompt_emb"]
         shutil.rmtree(CHECKPOINT_DIR, ignore_errors=True)
-        trainer_path(dev, (by_name, by_kv), scratch / "smoke_trainer")
+        trainer_path(dev, (by_name, by_kv), scratch / "smoke_trainer", prompt_emb)
     finally:
         for d in (CHECKPOINT_DIR, CHECKPOINT_DIR.parent / "smoke_train_data", MESH_DIR,
                   scratch):

@@ -38,10 +38,13 @@ class FlowMatchSchedule:
     def num_steps(self) -> int:
         return len(self.timesteps)
 
-    def model_timesteps(self) -> np.ndarray:
+    def model_timesteps(self, int_timesteps: bool = True) -> np.ndarray:
         """Timesteps as fed to the DiT: floored, as the reference casts them
-        to int64 before the transformer forward (``fm_solvers_unipc.py:224``)."""
-        return np.floor(self.timesteps)
+        to int64 before the transformer forward (``fm_solvers_unipc.py:224``);
+        ``int_timesteps=False`` keeps them float, as JAX's option does."""
+        if int_timesteps:
+            return np.floor(self.timesteps)
+        return self.timesteps
 
 
 def train_sigmas(num_train_timesteps: int = 1000) -> np.ndarray:

@@ -88,34 +88,55 @@ def _lmbda(sigma: float) -> float:
     return math.log(1.0 - sigma) - math.log(sigma)
 
 
-def _bh2_terms(h: float) -> tuple[float, float, float]:
-    """(hh, h_phi_1, B_h) of the bh2 variant; fm_solvers_unipc.py:448-468."""
+def _bh_terms(h: float, solver_type: str) -> tuple[float, float, float]:
+    """(hh, h_phi_1, B_h) of the bh1 / bh2 variants; fm_solvers_unipc.py:448-468."""
     hh = -h
     h_phi_1 = math.expm1(hh)
-    return hh, h_phi_1, h_phi_1
+    if solver_type == "bh1":
+        return hh, h_phi_1, hh
+    if solver_type == "bh2":
+        return hh, h_phi_1, h_phi_1
+    raise ValueError(f"unknown solver_type {solver_type!r}")
 
 
-def make_unipc_coeffs(schedule: FlowMatchSchedule) -> UniPCCoeffs:
-    """Precompute all per-step UniPC scalars on the host (float64), as every
-    ChronoEdit config runs the solver: order 2, bh2, lower order on the
-    final steps, the corrector on every step after the first."""
+def make_unipc_coeffs(
+    schedule: FlowMatchSchedule,
+    solver_order: int = 2,
+    solver_type: str = "bh2",
+    lower_order_final: bool = True,
+    disable_corrector: tuple[int, ...] = (),
+    int_timesteps: bool = True,
+) -> UniPCCoeffs:
+    """Precompute all per-step UniPC scalars on the host (float64). The
+    defaults are how every ChronoEdit config runs the solver: order 2, bh2,
+    lower order on the final steps, the corrector on every step after the
+    first. JAX's options: ``solver_order`` 1 or 2 (higher raises
+    ``NotImplementedError``, as JAX's), ``solver_type`` "bh1" / "bh2",
+    ``lower_order_final``, ``disable_corrector`` (steps whose corrector is
+    skipped; step i's corrector follows predictor step i - 1) and
+    ``int_timesteps`` (floored model timesteps)."""
+    if solver_order not in (1, 2):
+        raise NotImplementedError("solver_order must be 1 or 2")
     sig = schedule.sigmas
     n = schedule.num_steps
     lam = np.array([_lmbda(float(s)) for s in sig])
-    p_order = [min(2, i + 1, n - i) for i in range(n)]
+    # p_order[i] = min(solver_order, i + 1, n - i if lower_order_final);
+    # the corrector at step i has order p_order[i - 1]
+    p_order = [min(solver_order, i + 1, (n - i) if lower_order_final else solver_order)
+               for i in range(n)]
     cols: dict[str, list[float]] = {k: [] for k in (
         "use_c", "cx", "cm0", "cD", "c_r0", "c_r1", "c_rk",
         "px", "pm0", "pD", "p_q0", "p_qk")}
 
     for i in range(n):
         # corrector (UniC) at step i, sigma[i-1] -> sigma[i]
-        use_c = i > 0
+        use_c = i > 0 and (i - 1) not in disable_corrector
         c_order = p_order[i - 1] if i > 0 else 1
         if use_c:
             s_t, s_s0 = float(sig[i]), float(sig[i - 1])
             a_t = 1.0 - s_t
             h = lam[i] - lam[i - 1]
-            hh, h_phi_1, b_h = _bh2_terms(h)
+            hh, h_phi_1, b_h = _bh_terms(h, solver_type)
             cx = s_t / s_s0
             cm0 = -a_t * h_phi_1
             cd = -a_t * b_h
@@ -148,7 +169,7 @@ def make_unipc_coeffs(schedule: FlowMatchSchedule) -> UniPCCoeffs:
         if math.isinf(h):  # final sigma == 0: x_n = m0 exactly
             px, pm0, pd, q0, qk = 0.0, 1.0, 0.0, 0.0, 1.0
         else:
-            hh, h_phi_1, b_h = _bh2_terms(h)
+            hh, h_phi_1, b_h = _bh_terms(h, solver_type)
             px = s_t / s_s0
             pm0 = -a_t * h_phi_1
             if order >= 2:
@@ -164,7 +185,7 @@ def make_unipc_coeffs(schedule: FlowMatchSchedule) -> UniPCCoeffs:
         cols["p_qk"].append(qk)
 
     return UniPCCoeffs(
-        timesteps=schedule.model_timesteps(),
+        timesteps=schedule.model_timesteps(int_timesteps),
         sigma=sig[:n].copy(),
         **{k: np.asarray(v) for k, v in cols.items()},
     )
@@ -204,3 +225,12 @@ def run_unipc(model_fn: Callable[..., torch.Tensor], coeffs: UniPCCoeffs,
         v, aux = model_fn(state.x, row[0], idx, aux)
         state = unipc_step(state, row, v)
     return state, aux
+
+
+def unipc_sample(model_fn: Callable[[torch.Tensor, float], torch.Tensor],
+                 x_init: torch.Tensor, schedule: FlowMatchSchedule, solver_order: int = 2,
+                 **kwargs) -> torch.Tensor:
+    """One-shot sampler: noise in, denoised x0 out (fp32, on the device of
+    ``x_init``); ``kwargs`` are :func:`make_unipc_coeffs`' options."""
+    coeffs = make_unipc_coeffs(schedule, solver_order=solver_order, **kwargs)
+    return run_unipc(model_fn, coeffs, UniPCState.init(x_init)).x

@@ -62,6 +62,15 @@ PARALLEL_MODULES = ("parallel.mesh", "parallel.collectives", "parallel.context",
                     "models.dit", "ops.fused_norms", "ops.quant", "pipeline.edit_pipeline",
                     "scripts.run_inference", "utils.platform")
 
+# the last host modules (data loading, the item dataset's training-time
+# render, Euler, profiling, logging, the prompt enhancer) and the four CLIs
+# that had no port
+HOST_MODULES = ("data.res_buckets", "data.augmentors", "data.native_loader", "data.webdataset",
+                "utils.checkpoint_db", "utils.log", "utils.profiling", "core.euler",
+                "data.item_dataset", "aux.prompt_enhancer", "scripts.extract_umt5",
+                "scripts.prompt_enhancer", "scripts.data_captioning",
+                "scripts.gradio_paintbrush")
+
 _WALK = """
 import pkgutil, sys
 for blocked in ("jax", "jaxlib", "chronoedit_tpu"):
@@ -100,6 +109,25 @@ def test_walk_reaches_parallelism():
     assert {f"chronoedit_tpu_torch.{m}" for m in PARALLEL_MODULES} <= _walked()
 
 
+def test_walk_reaches_the_last_host_modules():
+    """... and the host code and CLIs ported last."""
+    assert {f"chronoedit_tpu_torch.{m}" for m in HOST_MODULES} <= _walked()
+
+
+def test_every_jax_module_has_a_namesake():
+    """Module for module: each ``.py`` file of the JAX package has one at
+    the same path in the port, and each repo-root CLI one under the port's
+    ``scripts/``."""
+    jax_tree = {p.relative_to(REPO / "chronoedit_tpu")
+                for p in (REPO / "chronoedit_tpu").rglob("*.py")}
+    port_tree = {p.relative_to(REPO / "chronoedit_tpu_torch")
+                 for p in (REPO / "chronoedit_tpu_torch").rglob("*.py")}
+    assert sorted(map(str, jax_tree - port_tree)) == []
+    clis = {p.name for p in (REPO / "scripts").glob("*.py")}
+    ported = {p.name for p in (REPO / "chronoedit_tpu_torch" / "scripts").glob("*.py")}
+    assert sorted(clis - ported) == []
+
+
 def test_importing_the_scripts_starts_nothing():
     """Importing a CLI module parses no arguments and starts no thread."""
     proc = subprocess.run([sys.executable, "-c", _SCRIPTS, "--not-an-option"], cwd=REPO,
@@ -110,8 +138,9 @@ def test_importing_the_scripts_starts_nothing():
 
 _SCRIPTS = """
 import threading
-from chronoedit_tpu_torch.scripts import (check_environment, convert_weights, run_inference,
-                                          serve, train)
+from chronoedit_tpu_torch.scripts import (check_environment, convert_weights, data_captioning,
+                                          extract_umt5, gradio_paintbrush, prompt_enhancer,
+                                          run_inference, serve, train)
 print(threading.active_count())
 """
 
