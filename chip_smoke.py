@@ -100,7 +100,9 @@ non-zero and no result line is printed:
    projection shape through cuBLAS, K2 and K3 on half a frame and on a
    frame, K4 on those rows and K1 on 10 of 40 heads, against those rows or
    heads of the whole call at 7,200 tokens: the kernels must be bitwise,
-   cuBLAS is reported); then context parallelism (``context_path``):
+   cuBLAS is reported); then the mesh training's one-process reference
+   (``mesh_train_refs``, below), written under ``build/`` for every
+   parallel phase to read; then context parallelism (``context_path``):
    the distilled model at full width cut to ``CP_BLOCKS`` blocks, seeded,
    its forwards at 28,800 and 7,200 tokens, a 720p edit and a reasoning
    edit with the drop (k = CP_DROP_K) in this one process, then worlds of 2 and 4
@@ -117,7 +119,9 @@ non-zero and no result line is printed:
    the full-width VAE split over the rows (fp32: the edit's and the
    reasoning mode's encodes and decodes against this process's at
    TILED_DECODE_TOL, the bytes gathered exact, each rank's peak against
-   one process's, a planted short halo), and at 4 the flash ring's forward and backward at full
+   one process's, a planted short halo) and two full-parameter Trainer
+   steps under context 2 in each mode (``cp_pp_train``, below), and at 4
+   the flash ring's forward and backward at full
    width and 28,800 tokens (against K1 and K6/K7 on the whole sequence,
    at their bounds); every worker's launches zeroed before and checked
    after each run, by kernel and by KV length (the ring's P hops at S / P,
@@ -150,7 +154,7 @@ non-zero and no result line is printed:
    (``paintbrush_check``), and the encoders embed the training CLI's
    prompts (``train_prompt_refs``); the encoders are dropped,
    and the same pipeline serves one more 720p edit, then two 29-frame
-   reasoning edits (the whole trajectory at WHOLE_STEPS = 4 steps, k = 4;
+   reasoning edits (the whole trajectory at WHOLE_STEPS = 2 steps, k = 2;
    the drop, k = 2 of 8) through
    ``__call__``; then serves through ``EditServer(max_batch=4)`` with the
    bundled text blocklist (``server_path``): three requests in one window
@@ -175,13 +179,14 @@ non-zero and no result line is printed:
    pipeline parallelism (``pipeline_path``): worlds of pipe = 2 and 4
    processes on the card over host-staged gloo, each rank loading only its
    stage's blocks of the directory's DiT and LoRA (the bytes it read held
-   to the files' headers), serving the 720p edit at MAIN_BLOCKS blocks (against the
-   edit path's, seed 10), at pipe = 2 also batched CFG (against
-   ``guidance_cache_path``'s) and the backward of a CP_BLOCKS-deep DiT
-   (against one process, at K6/K7's bounds), at pipe = 4 then the
-   reasoning drop over pipe 2 x context 2 in both modes at CP_BLOCKS
-   blocks (against the context phase's one-process drop), every rank's
-   launches held to the schedule's; then FSDP (``fsdp_path``): a world of
+   to the files' headers), serving the 720p edit at MAIN_BLOCKS blocks and
+   PP_SHORT_STEPS steps (against one process's on the same files), at pipe
+   = 2 also batched CFG (against one process's) and two Trainer steps under
+   pipe 2 (their step-1 gradients also leaf by leaf at K6/K7's bounds), at
+   pipe = 4 then the reasoning drop over pipe 2 x context 2 in both modes
+   at CP_BLOCKS blocks (against the context phase's one-process drop) and
+   two Trainer steps under pipe 2 x context 2, every rank's launches held
+   to the schedule's; then FSDP (``fsdp_path``): a world of
    fsdp = 2 processes, each rank loading its slice of every tensor of the
    directory's DiT with the LoRA fused into it (the bytes held to the
    headers, each shard's checksum to the one-process model's slice), one
@@ -223,7 +228,12 @@ non-zero and no result line is printed:
    beside planted faults read from the run's own tensors (the norm over
    local shards, the gradients left as each data line computed them, the
    replicated q / k norm weights unreduced over tensor; the gradients
-   summed over data are planted in the CPU test). Then it runs the
+   summed over data are planted in the CPU test). The training checks
+   under context and pipe (``cp_pp_train``, the same reference): two
+   full-parameter Trainer steps at the training bars, each line's
+   replicas bitwise alike, each rank's launches exact (K6 / K7 once a
+   ring hop), beside the planted fault read from the context runs'
+   tensors (a rank's gradient left its token block's share). Then it runs the
    training CLIs: ``scripts/extract_umt5.main`` on the directory's
    UMT5-XXL over a column of the prompts' token ids (its pickles bitwise
    the loaded pipeline's ``encode_ids`` on the same ids), then
@@ -271,12 +281,14 @@ the repository root.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import copy
 import dataclasses
 import functools
 from collections import Counter
 import gc
+import importlib
 import json
 import math
 import os
@@ -456,9 +468,10 @@ EDIT_H, EDIT_W = 720, 1280
 TEXT_TOKENS = 512
 IMAGE_TOKENS = 257
 REASONING_FRAMES = 29
-# the whole-trajectory reasoning edit's steps (k = all of them): half the
-# config's 8, so that the command stays inside its time limit
-WHOLE_STEPS = 4
+# the whole-trajectory reasoning edit's steps (k = all of them): a quarter
+# of the config's 8 (half until the training under context and pipe took
+# its seconds), so that the command stays inside its time limit
+WHOLE_STEPS = 2
 # the edit's self-attention: 2 latent frames x 45 x 80 patches
 EDIT_TOKENS = 2 * (EDIT_H // 16) * (EDIT_W // 16)
 # reasoning self-attention: 8 latent frames x 45 x 80 patches
@@ -2156,9 +2169,10 @@ def reasoning_path(pipe, dev, launches: tuple[Counter, Counter],
         print(f"dual decode ({label}) of {z.shape[2]} latent frames to "
               f"{tuple(video.shape)}: {secs:.3f} s")
     del video
-    # the tiling check on the trajectory's first 4 latent frames (13 video
-    # frames): all 8 took 11 s more of the command's time limit
-    tiled_decode_check(pipe.vae, x[:, :, :4].contiguous())
+    # the tiling check on the trajectory's first 2 latent frames (5 video
+    # frames, two of the stream's chunks): all 8 took 11 s more of the
+    # command's time limit, 4 about 5 s more
+    tiled_decode_check(pipe.vae, x[:, :, :2].contiguous())
     if profile_dir is not None:
         profile_stages(fns, profile_dir)
     return outs
@@ -3543,9 +3557,10 @@ def cp_worker(rank: int, p: int, plan: dict) -> dict:
     parent's seeds (the same bits on every rank: the replica check below
     and the digest the parent compares prove it), loads the kernels the
     parent built, and runs ``plan``: DiT forwards (tokens, mode, planted
-    fault), the 720p edit, the reasoning edit with the drop, and the
-    ring's backward; each with its launch counters zeroed just before it
-    and held to what the path implies just after. Rank 0 returns the
+    fault), the 720p edit, the reasoning edit with the drop, the ring's
+    backward and the Trainer steps under context (``cp_pp_train``); each
+    with its launch counters zeroed just before it and held to what the
+    path implies just after. Rank 0 returns the
     outputs; every rank their digests, its seconds, staged bytes and peak
     memory."""
     from chronoedit_tpu_torch.kernels import build
@@ -3555,6 +3570,7 @@ def cp_worker(rank: int, p: int, plan: dict) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    warm = prewarm_optimizer_import() if plan.get("train") else None
     dev = torch.device(plan["device"])
     build.lib()  # the parent's build, loaded: every source hashes the same
     mesh = make_mesh(MeshConfig(data=-1, context=p), device=dev)
@@ -3603,6 +3619,11 @@ def cp_worker(rank: int, p: int, plan: dict) -> dict:
     if plan.get("ring_backward"):
         res["ring_backward"] = _ring_backward(rank, p, dev, mesh)
     res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    if plan.get("train"):
+        warm.result()
+        res["train"] = {mode: cp_pp_train(rank, dev, {"context": p}, mode, plan["clip"],
+                                          fault=mode == CP_TRAIN_MODES[0])
+                        for mode in CP_TRAIN_MODES}
     return res
 
 
@@ -3617,9 +3638,14 @@ def cp_worker(rank: int, p: int, plan: dict) -> dict:
 # unsharded, and is held at TILED_DECODE_TOL: the halo covers the receptive
 # field, so only cuDNN's choice of algorithm for the shorter block differs.
 # "dual decode" is the reasoning mode's ``ChronoEditPipeline.decode``: the
-# 7-frame trajectory streamed with 4 W-tiles inside each rank's rows, then
-# the [first, last] edit clip.
+# trajectory's latent frames but the last streamed with 4 W-tiles inside
+# each rank's rows, then the [first, last] edit clip.
 VAE_CASES = ("edit encode", "edit decode", "reasoning encode", "dual decode")
+# the reasoning mode's clip in these cases: 13 frames (4 latent frames, the
+# streaming encode's first frame and three chunks of 4); 29 (8 latent
+# frames), the reasoning edit's own, until the training under context and
+# pipe took their seconds
+VAE_REASONING_FRAMES = 13
 # planted: halos of one latent row (8 pixel rows, 1 latent row) in place of
 # 80 and 14, on the edit's decode
 VAE_SHORT_HALOS = (8, 1)
@@ -3632,8 +3658,9 @@ VAE_PEAK_RATIO = {"edit encode": 520 / 720, "reasoning encode": 520 / 720,
 def vae_inputs(dev) -> dict:
     """Each case's input, seeded on the device (the same bits in every
     process of the card): the edit's 5-frame condition clip and the
-    reasoning mode's 29-frame one ([image, zeros], as ``prepare_condition``
-    builds them), 2 latent frames and an 8-frame trajectory."""
+    reasoning mode's VAE_REASONING_FRAMES-frame one ([image, zeros], as
+    ``prepare_condition`` builds them), 2 latent frames and a trajectory of
+    the latent frames of VAE_REASONING_FRAMES."""
     g = torch.Generator(device=dev).manual_seed(42)
     image = torch.rand((1, 3, 1, EDIT_H, EDIT_W), generator=g, device=dev) * 2 - 1
 
@@ -3643,8 +3670,9 @@ def vae_inputs(dev) -> dict:
     def latents(frames):
         return torch.randn((1, 16, frames, EDIT_H // 8, EDIT_W // 8), generator=g, device=dev)
 
-    return {"edit encode": clip(5), "reasoning encode": clip(REASONING_FRAMES),
-            "edit decode": latents(2), "dual decode": latents(8)}
+    trajectory = cp_config().vae.latent_frames(VAE_REASONING_FRAMES)
+    return {"edit encode": clip(5), "reasoning encode": clip(VAE_REASONING_FRAMES),
+            "edit decode": latents(2), "dual decode": latents(trajectory)}
 
 
 def vae_fp32(vae):
@@ -3687,10 +3715,11 @@ def vae_gathered_bytes(vae_cfg, case: str, p: int) -> int:
     block of the encoder's bottleneck (fp32, the mid block's channels), or
     of the decoded pixels."""
     rows, w = EDIT_H // 8 // p, EDIT_W // 8
+    trajectory = vae_cfg.latent_frames(VAE_REASONING_FRAMES)
     if case.endswith("encode"):
-        frames = 2 if case == "edit encode" else vae_cfg.latent_frames(REASONING_FRAMES)
+        frames = 2 if case == "edit encode" else trajectory
         return 4 * vae_cfg.dim * vae_cfg.dim_mult[-1] * frames * rows * w
-    clips = [2] if case == "edit decode" else [7, 2]  # the dual decode's two
+    clips = [2] if case == "edit decode" else [trajectory - 1, 2]  # the dual decode's two
     return sum(4 * 3 * vae_cfg.pixel_frames(t) * rows * 8 * w * 8 for t in clips)
 
 
@@ -3780,26 +3809,35 @@ def check_sharded_vae(results: list[dict], refs: dict, vae_cfg, card: str, dev) 
     return summary
 
 
-def cp_plan(p: int) -> dict:
+def cp_plan(p: int, clip: float) -> dict:
     """What a world of ``p`` runs on ``cuda:0``: ring and Ulysses forwards at
-    both lengths, both planted faults at the edit's length, and the edit
-    (P = 2) or the reasoning drop and the ring's backward (P = 4)."""
+    both lengths, both planted faults at the edit's length, and the edit,
+    the sharded VAE and the Trainer steps under each of CP_TRAIN_MODES
+    (P = 2, at the reference's ``clip``) or the reasoning drop and the
+    ring's backward (P = 4)."""
     forwards = [(tokens, mode, None) for tokens in (REASONING_TOKENS, EDIT_TOKENS)
                 for mode in ("ring", "ulysses")]
     forwards += [(EDIT_TOKENS, "ring", "equal_merge"), (EDIT_TOKENS, "ulysses", "rope_rows")]
     return {"forwards": forwards, "edit": p == 2, "vae": p == 2, "drop": p == 4,
-            "ring_backward": p == 4, "device": "cuda:0"}
+            "ring_backward": p == 4, "train": p == 2, "clip": clip, "device": "cuda:0"}
+
+
+# the steps of the NCCL world's edit through ``run_inference`` (8, the
+# distilled model's, until the training under context and pipe took their
+# seconds)
+NCCL_EDIT_STEPS = 2
 
 
 def nccl_cli(card: str) -> float:
     """The CLIs under ``torch.distributed.run --nproc-per-node 1``, each a
     world of one over NCCL (``init_distributed``'s choice for a CUDA rank),
     started together: ``run_inference --mesh context=1`` on the distilled
-    model at full width and depth on random weights (``--smoke``), rank 0
-    writing the edit; ``train --mesh fsdp=1`` full-parameter (the Trainer,
-    ``--smoke``: 2 iterations) and with ``--lora-rank 32`` (2 micro-steps,
-    rank 0 exporting the adapters), the 14B model's width at
-    MESH_CLI_BLOCKS blocks on the CLI's mock pairs. Returns their
+    model at full width and depth on random weights (``--smoke``,
+    NCCL_EDIT_STEPS steps), rank 0 writing the edit; ``train --mesh
+    fsdp=1`` full-parameter (the Trainer, ``--smoke``: 2 iterations) and
+    with ``--lora-rank 32`` (2 micro-steps, rank 0 exporting the adapters),
+    the 14B model's width at MESH_CLI_BLOCKS blocks on the CLI's mock
+    pairs. Returns their
     seconds."""
     out = CHECKPOINT_DIR.parent / "cp_nccl_edit.png"
     lora_dir = CHECKPOINT_DIR.parent / "nccl_train_lora"
@@ -3812,7 +3850,8 @@ def nccl_cli(card: str) -> float:
              "--set", f"dit.num_layers={MESH_CLI_BLOCKS}", "--data", "mock", "--mesh", "fsdp=1"]
     cmds = {"run_inference --mesh context=1": [
                 *run, "chronoedit_tpu_torch.scripts.run_inference", "--smoke", "--experiment",
-                "chronoedit_14b_distilled", "--mesh", "context=1", "--output", str(out)],
+                "chronoedit_14b_distilled", "--mesh", "context=1", "--num-steps",
+                str(NCCL_EDIT_STEPS), "--output", str(out)],
             "train --mesh fsdp=1": [*train, "--smoke"],
             "train --mesh fsdp=1 --lora-rank 32": [
                 *train, "--lora-rank", "32", "--max-iter", "2", "--checkpoint-dir",
@@ -3839,15 +3878,17 @@ def nccl_cli(card: str) -> float:
     return secs
 
 
-def context_path(dev, launches: tuple[Counter, Counter]) -> dict:
+def context_path(dev, launches: tuple[Counter, Counter], train_refs: dict) -> dict:
     """Context parallelism on the one card: worlds of P = 2 and 4 processes
     on ``cuda:0`` over host-staged gloo (a check of correctness and of the
     per-rank kernel launches, not a scaling figure), against this process's
     unsharded forwards, edit and reasoning drop on the same weights and
     inputs, and at P = 2 the VAE split over the rows against this
-    process's (``vae_references``, ``check_sharded_vae``); then NCCL at a
-    world of 1 through the CLI. Adds the workers' launches (forwards,
-    edits, the ring's backward; not the planted faults) to ``launches``."""
+    process's (``vae_references``, ``check_sharded_vae``) and the Trainer's
+    steps under context 2 against ``train_refs`` (``mesh_train_refs``,
+    ``check_cp_pp_train``); then NCCL at a world of 1 through the CLI. Adds
+    the workers' launches (forwards, edits, the ring's backward, the train
+    steps; not the planted faults) to ``launches``."""
     from chronoedit_tpu_torch.models import dit as dit_lib
     from chronoedit_tpu_torch.parallel import consistency
     from chronoedit_tpu_torch.parallel.launch import run_world
@@ -3883,7 +3924,7 @@ def context_path(dev, launches: tuple[Counter, Counter]) -> dict:
 
     sound, faults, summary = {}, {}, {}
     for p in CP_WORLDS:
-        plan = cp_plan(p)
+        plan = cp_plan(p, train_refs["clip"])
         results, secs = host_s(lambda: run_world(cp_worker, p, (p, plan), backend="gloo",
                                                  device=plan["device"], timeout=CP_TIMEOUT,
                                                  threads=2))
@@ -3941,6 +3982,12 @@ def context_path(dev, launches: tuple[Counter, Counter]) -> dict:
             for r in results:
                 launches[0].update(r["ring_backward"]["launches"][0])
                 launches[1].update(r["ring_backward"]["launches"][1]["flash_fwd"])
+        if plan.get("train"):
+            for mode in CP_TRAIN_MODES:
+                trained = [r["train"][mode] for r in results]
+                summary[f"train context {p} {mode}"] = check_cp_pp_train(
+                    f"training under context {p}, {mode}", trained, train_refs, card)
+                add_train_launches(trained, launches)
     print(f"context_path: sound {min(sound.values()):.2f}-{max(sound.values()):.2f} dB, planted "
           f"faults {min(faults.values()):.2f}-{max(faults.values()):.2f} dB "
           f"(CP_MIN_DB {CP_MIN_DB}) ({card})")
@@ -4054,15 +4101,14 @@ def ulysses_trace(dev) -> dict[str, bool]:
 
 # The pipeline phase (``pipeline_path``) runs worlds of 2 and 4 processes on
 # the one card over host-staged gloo, as the context phase does: the 720p
-# edit at full width and depth (40 blocks) over pipe = 2 and 4, each rank
-# loading only its stage's blocks from the checkpoint directory that
-# ``loaded_path`` wrote (about 30.5 / n GiB a rank, so the world holds the
-# DiT once); batched CFG (B = 2, two microbatches) over pipe = 2; the
-# backward of a CP_BLOCKS-deep DiT over pipe = 2; and the reasoning drop
-# over pipe = 2 x context = 2 at CP_BLOCKS blocks (``cp_model``): every
-# stage's blocks are held once per context rank, so 40 blocks would need
-# 2 x 30.5 GiB of weights beside four ranks' VAEs, contexts and 28,800-token
-# activations on the 80 GB card; at CP_BLOCKS = 4 it is 2 x 3.0 GiB.
+# edit at the main model's full width and depth (MAIN_BLOCKS) over pipe = 2
+# and 4, each rank loading only its stage's blocks from the checkpoint
+# directory that ``loaded_path`` wrote (the world holds the DiT once);
+# batched CFG (B = 2, two microbatches) over pipe = 2; the reasoning drop
+# over pipe = 2 x context = 2 at CP_BLOCKS blocks (``cp_model``: every
+# stage's blocks are held once per context rank); and the Trainer's steps
+# under pipe 2 (whose step-1 gradients carry the pipe backward's check)
+# and pipe 2 x context 2 (``cp_pp_train``, PP_TRAIN_MESHES).
 PP_WORLDS = (2, 4)
 PP_TIMEOUT = 900.0
 PP_DEVICE = "cuda:0"  # every rank's device: the one card
@@ -4071,9 +4117,9 @@ PP_DEVICE = "cuda:0"  # every rank's device: the one card
 # negative prompt seed 32), whose one-process outputs are the references
 PP_EDIT_SEED = 10
 PP_CFG_SEED, PP_NEG_SEED = 30, 32
-# the steps of the pipe = 4 world's edit and the pipe = 2 world's guided
-# edit (8 steps took 15-20 s more of the command's time limit); the pipe =
-# 2 world's edit keeps 8, against the edit path's
+# the steps of the pipe worlds' edits and the pipe = 2 world's guided edit
+# (8 steps took 15-20 s more of the command's time limit; the pipe = 2
+# world's edit ran 8 until the training under pipe took its seconds)
 PP_SHORT_STEPS = 2
 # the card's free GiB each world needs: its ranks' peaks and CUDA contexts
 PP_CARD_GIB = {2: 50.0, 4: 67.0}
@@ -4092,66 +4138,6 @@ def stage_bytes(files, num_layers: int, pipe: int, lora: bool = False) -> list[i
             if (i is None and not lora) or (i is not None and i // per == stage):
                 out[stage] += files.nbytes(key)
     return out
-
-
-def _pp_backward(rank: int, dev, mesh) -> dict:
-    """The backward of the CP_BLOCKS-deep DiT (``build_model``'s seeded
-    weights) at 7,200 tokens under ``mesh`` (pipe = 2), loss the sum of the
-    output's squares: first in this process without a mesh (the reference,
-    outside the counted launches), then with the other stage's blocks
-    dropped under the mesh. The input's gradient and each parameter's the
-    rank holds against the reference, at K6/K7's bounds (``k67_check``),
-    and which are bitwise."""
-    from chronoedit_tpu_torch.models import dit as dit_lib
-    from chronoedit_tpu_torch.parallel.pipeline_parallel import stage_range
-
-    cfg = cp_config()
-    dit = build_model(dev, cfg).dit.requires_grad_(True)  # built frozen
-    x, ts, text, img = cp_inputs(cfg, dev, EDIT_TOKENS)
-    x.requires_grad_()
-    layers = stage_range(cfg.dit.num_layers, mesh)
-
-    def keep(name):
-        i = name.split(".")[1] if name.startswith("blocks.") else None
-        return i is None or int(i) in layers
-
-    def run(m):
-        out = dit_lib.dit_forward(dit, x, ts, text, img, mesh=m)
-        (out.float() ** 2).sum().backward()
-        return out.detach()
-
-    run(None)
-    ref = {"x": x.grad}
-    ref.update({n: p.grad for n, p in dit.named_parameters() if keep(n)})
-    dit.zero_grad(set_to_none=True)
-    x.grad = None
-    dit.keep_layers(layers)
-    free()
-    n = len(layers)
-    want = expected_tool_launches([(name, kv, n) for name in ("flash_fwd", "flash_bwd_dq",
-                                                              "flash_bwd_dkv")
-                                   for kv in (EDIT_TOKENS, TEXT_TOKENS, IMAGE_TOKENS)])
-    want[0].update(ln_modulate=2 * n + 1, gated_residual=2 * n, rms_norm=5 * n)
-    res = _cp_run("backward", functools.partial(run, mesh), want, rank, False)
-    params = dict(dit.named_parameters())
-
-    def local(name):  # a kept parameter's name in the stage-local model
-        if not name.startswith("blocks."):
-            return name
-        _, i, rest = name.split(".", 2)
-        return f"blocks.{int(i) - layers.start}.{rest}"
-
-    checks, bitwise = {}, []
-    for name, want_g in ref.items():
-        g = x.grad if name == "x" else params[local(name)].grad
-        if torch.equal(g, want_g):
-            bitwise.append(name)
-            continue
-        checks[name] = k67_check(g, want_g)
-    res.update(bitwise=len(bitwise), tensors=len(ref), x_bitwise="x" in bitwise,
-               blocks_bitwise=all(n in bitwise for n in ref if n.startswith("blocks.")),
-               checks=checks, ok=all(c["ok"] for c in checks.values()))
-    return res
 
 
 def pp_request(cfg, dev, kind: str) -> dict:
@@ -4185,12 +4171,12 @@ def pp_worker(rank: int, p: int, plan: dict) -> dict:
     pinned host memory. Under a mesh of pipe = ``p`` it loads its stage of
     the distilled model with the distilled LoRA from the checkpoint
     directory (``load_pipeline(..., mesh=)``: only its stage's blocks are
-    read) and serves the 720p edit (``plan["edit_steps"]`` steps) and, with
+    read) and serves the 720p edit (PP_SHORT_STEPS steps) and, with
     ``plan["cfg"]``, the guided edit (B = 2, PP_SHORT_STEPS steps); then
-    frees it and, with ``plan["backward"]``, runs
-    ``_pp_backward``, and with ``plan["drops"]`` the reasoning drop over
-    pipe = 2 x context = 2 on ``cp_model``'s CP_BLOCKS blocks, its other
-    stage's blocks dropped, in each context mode. Every run with its launch
+    frees it and, with ``plan["drops"]``, runs the reasoning drop over pipe
+    = 2 x context = 2 on ``cp_model``'s CP_BLOCKS blocks, its other stage's
+    blocks dropped, in each context mode, and the Trainer's steps under the
+    mesh ``plan["train"]`` (``cp_pp_train``). Every run with its launch
     counters zeroed just before and held to what the path implies just
     after (``_cp_run``); rank 0 returns the outputs, every rank the digests,
     seconds, bytes read and staged and peak memory."""
@@ -4201,6 +4187,7 @@ def pp_worker(rank: int, p: int, plan: dict) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    warm = prewarm_optimizer_import() if plan.get("train") else None
     dev = torch.device(plan["device"])
     build.lib()  # the parent's build, loaded: every source hashes the same
     mesh = make_mesh(MeshConfig(data=-1, pipe=p), device=dev)
@@ -4217,10 +4204,9 @@ def pp_worker(rank: int, p: int, plan: dict) -> dict:
                        "layers": (pipe.dit.layers.start, pipe.dit.layers.stop),
                        "blocks": len(pipe.dit.blocks),
                        "gib": torch.cuda.memory_allocated() / 2 ** 30}
-        edit_steps = plan["edit_steps"]
         res["edit"] = _cp_run("edit", functools.partial(
-            pipe.edit_image, **pp_request(cfg, dev, "edit"), num_steps=edit_steps),
-            cp_launches(cfg, [(EDIT_TOKENS, "none", 1)] * edit_steps, per), rank, rank == 0)
+            pipe.edit_image, **pp_request(cfg, dev, "edit"), num_steps=PP_SHORT_STEPS),
+            cp_launches(cfg, [(EDIT_TOKENS, "none", 1)] * PP_SHORT_STEPS, per), rank, rank == 0)
         if plan.get("cfg"):
             res["cfg"] = _cp_run("CFG batched", functools.partial(
                 pipe.edit_image, **pp_request(cfg, dev, "cfg"), num_steps=PP_SHORT_STEPS),
@@ -4229,9 +4215,6 @@ def pp_worker(rank: int, p: int, plan: dict) -> dict:
         res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     del pipe
     free()
-    if plan.get("backward"):
-        res["backward"] = _pp_backward(rank, dev, mesh)
-        free()
     if plan.get("drops"):
         mesh = make_mesh(MeshConfig(pipe=2, context=2), device=dev)
         cfg = cp_config()
@@ -4257,6 +4240,10 @@ def pp_worker(rank: int, p: int, plan: dict) -> dict:
         res["peak_gib"] = max(res["peak_gib"], torch.cuda.max_memory_allocated() / 2 ** 30)
         del pipe
         free()
+    if plan.get("train"):
+        warm.result()
+        mode = "ulysses" if plan["train"].get("context", 1) > 1 else "auto"
+        res["train"] = cp_pp_train(rank, dev, plan["train"], mode, plan["clip"])
     return res
 
 
@@ -4265,13 +4252,13 @@ def pipeline_path(dev, refs: dict, launches: tuple[Counter, Counter]) -> dict:
     processes on ``cuda:0`` over host-staged gloo (correctness and per-rank
     launches, not a scaling figure), each rank reading only its stage's
     block tensors from ``CHECKPOINT_DIR`` (checked, per rank, against the
-    files' headers), against the one-process outputs in ``refs``: the 8-step
-    720p edit (``refs[PP_EDIT_SEED]``) at pipe = 2 and its PP_SHORT_STEPS-step
-    one (``refs["edit short"]``) at pipe = 4, the guided edit at
-    PP_SHORT_STEPS steps (``refs["cfg short"]``) at pipe = 2, and the
-    reasoning drop over pipe = 2 x context = 2 in both modes
-    (``refs["drop"]``), at the fidelity bar; the
-    backward at pipe = 2 against one process at K6/K7's bounds. Adds the
+    files' headers), against the one-process outputs in ``refs``: the
+    PP_SHORT_STEPS-step 720p edit (``refs["edit short"]``) at pipe = 2 and 4,
+    the guided edit at PP_SHORT_STEPS steps (``refs["cfg short"]``) at pipe
+    = 2, and the reasoning drop over pipe = 2 x context = 2 in both modes
+    (``refs["drop"]``), at the fidelity bar; the Trainer's steps under pipe
+    2 and pipe 2 x context 2 against ``refs["train"]`` at the training bars,
+    pipe 2's step-1 gradients leaf by leaf at K6/K7's bounds. Adds the
     workers' launches to ``launches``. Needs the card free: the
     one-process runs were freed before."""
     from chronoedit_tpu_torch.models import weights as w
@@ -4288,8 +4275,8 @@ def pipeline_path(dev, refs: dict, launches: tuple[Counter, Counter]) -> dict:
                           stage_bytes(lsd, cfg.dit.num_layers, p, lora=True)) for p in PP_WORLDS}
     summary = {}
     for p in PP_WORLDS:
-        plan = {"cfg": p == 2, "backward": p == 2, "drops": p == 4, "device": PP_DEVICE,
-                "edit_steps": cfg.num_steps if p == 2 else PP_SHORT_STEPS}
+        plan = {"cfg": p == 2, "drops": p == 4, "train": PP_TRAIN_MESHES[p],
+                "clip": refs["train"]["clip"], "device": PP_DEVICE}
         # the ranks' peaks on an H100 80GB HBM3: pipe 2 23.34 GiB, pipe 4 15.79
         wait_for_card(f"pipeline_path pipe = {p}", PP_CARD_GIB[p])
         with compact_workers():
@@ -4315,9 +4302,8 @@ def pipeline_path(dev, refs: dict, launches: tuple[Counter, Counter]) -> dict:
                 raise AssertionError(f"pipe = {p} rank {stage}: loaded {load}, expected blocks "
                                      f"of stage {stage} and {dit_want[stage]} / "
                                      f"{lora_want[stage]} bytes")
-        steps = plan["edit_steps"]
-        runs = [("edit", refs[PP_EDIT_SEED] if p == 2 else refs["edit short"], steps,
-                 f"720p edit ({steps} steps, {cfg.dit.num_layers} blocks)")]
+        runs = [("edit", refs["edit short"], PP_SHORT_STEPS,
+                 f"720p edit ({PP_SHORT_STEPS} steps, {cfg.dit.num_layers} blocks)")]
         if plan["cfg"]:
             runs.append(("cfg", refs["cfg short"], PP_SHORT_STEPS,
                          f"CFG batched, guidance 5 (B = 2, 2 microbatches, {PP_SHORT_STEPS} "
@@ -4351,22 +4337,11 @@ def pipeline_path(dev, refs: dict, launches: tuple[Counter, Counter]) -> dict:
             for r in per_rank:
                 launches[0].update(r["launches"][0])
                 launches[1].update(r["launches"][1]["flash_fwd"])
-        if plan["backward"]:
-            for stage, r in enumerate(results):
-                bw = r["backward"]
-                worst = max((c["rel"] for c in bw["checks"].values()), default=0.0)
-                print(f"   backward ({CP_BLOCKS} blocks, {EDIT_TOKENS} tokens) rank {stage}: "
-                      f"{bw['secs']:.3f} s, {bw['staged'] / 1e9:.3f} GB staged; "
-                      f"{bw['bitwise']} of {bw['tensors']} gradients bitwise one process's "
-                      f"(input {'bitwise' if bw['x_bitwise'] else 'not bitwise'}, the stage's "
-                      f"blocks {'bitwise' if bw['blocks_bitwise'] else 'not all bitwise'}), "
-                      f"the rest within K6/K7's bounds: worst normwise {worst:.3e}; "
-                      f"launches {bw['launches'][0]}")
-                if not bw["ok"]:
-                    raise AssertionError(f"pipe = {p} rank {stage} backward: "
-                                         f"{ {k: c for k, c in bw['checks'].items() if not c['ok']} }")
-                launches[0].update(bw["launches"][0])
-                launches[1].update(bw["launches"][1]["flash_fwd"])
+        trained = [r["train"] for r in results]
+        mesh = " x ".join(f"{k} {v}" for k, v in PP_TRAIN_MESHES[p].items())
+        summary[f"train {mesh}"] = check_cp_pp_train(
+            f"training under {mesh}", trained, refs["train"], card, per_leaf=p == 2)
+        add_train_launches(trained, launches)
     print(f"pipeline_path: {time.perf_counter() - t_phase:.1f} s ({card})")
     return summary
 
@@ -4537,11 +4512,13 @@ FSDP_WORLDS = (2, 4)
 FSDP_TIMEOUT = 900.0
 FSDP_DEVICE = "cuda:0"  # every rank's device: the one card
 FSDP_FORWARD_SEED = 50
-# the blocks the fsdp and the tensor world's forwards of the 40-block model
+# the blocks the fsdp and the tensor world's forwards of the loaded model
 # run (a layer mask skips the rest, which no rank then gathers or reduces):
-# all 40 took 20-25 s (fsdp) and 14 s (tensor) of the command's time limit
-FSDP_FORWARD_BLOCKS = 5
-TP_FORWARD_BLOCKS = 10
+# all 40 took 20-25 s (fsdp) and 14 s (tensor) of the command's time limit;
+# 5 and 10 of the 20 until the training under context and pipe took their
+# seconds
+FSDP_FORWARD_BLOCKS = 3
+TP_FORWARD_BLOCKS = 5
 TP_FORWARD_SEED = 51
 FSDP_BLOCKS = 2
 FSDP_SHORT_STEPS = 1
@@ -5643,20 +5620,28 @@ def capture_step(state, owner):
     """For the next micro-step of ``state`` (parameters named as
     ``owner``'s): ``grads``, what its optimizer applies (this rank's
     shards, averaged over data); ``line``, the gradients before the mean
-    over data; ``partial``, the rank's own gradient of each leaf that
-    ``sum_grad_autograd`` sums over a group, before the sum (over tensor:
-    the q / k norm weights, each used in slices)."""
+    over data; ``share``, before the sum over the context group (each
+    rank's token block's share); ``partial``, the rank's own gradient of
+    each leaf that ``sum_grad_autograd`` sums over a group, before the sum
+    (over tensor: the q / k norm weights, each used in slices)."""
     from chronoedit_tpu_torch.parallel import collectives as C
     from chronoedit_tpu_torch.train import train_step
 
-    got = {"grads": None, "line": None, "partial": {}}
+    got = {"grads": None, "line": None, "share": None, "partial": {}}
     names = {id(p): n for n, p in owner.named_parameters()}
     update, mean, sum_grad = state.optimizer.update, train_step.data_mean, C.sum_grad_autograd
+    context_sum = train_step.context_sum
 
     def update_(grads):
         if got["grads"] is None:
             got["grads"] = [g.detach().clone() for g in grads]
         return update(grads)
+
+    def context_sum_(tensors, group):
+        tensors = list(tensors)
+        if got["share"] is None and group is not None and len(tensors) == len(names):
+            got["share"] = [t.detach().clone() for t in tensors]
+        return context_sum(tensors, group)
 
     def mean_(tensors, mesh):
         tensors = list(tensors)
@@ -5674,11 +5659,13 @@ def capture_step(state, owner):
 
     state.optimizer.update = update_
     train_step.data_mean, C.sum_grad_autograd = mean_, sum_grad_
+    train_step.context_sum = context_sum_
     try:
         yield got
     finally:
         del state.optimizer.update
         train_step.data_mean, C.sum_grad_autograd = mean, sum_grad
+        train_step.context_sum = context_sum
 
 
 def ref_file(kind: str) -> Path:
@@ -5772,6 +5759,22 @@ def mesh_trainer(cfg, mesh, clip: float, max_iter: int, metrics=None):
 
     return Trainer(cfg.dit, mesh_tcfg(clip), TrainerConfig(max_iter=max_iter, save_every=10 ** 9),
                    callbacks=[metrics] if metrics is not None else None, mesh=mesh)
+
+
+def trainer_steps(cfg, mesh, clip: float, state, line: dict, max_iter: int, label: str, want,
+                  rank: int, capture: bool = False):
+    """``state``'s ``Trainer`` (``mesh_trainer``) run on to ``max_iter``
+    iterations, each on ``line``, its launches held to ``want(steps)``
+    (``_counted``); with ``capture`` the first micro-step's tensors
+    (``capture_step``). Returns (each iteration's loss and grad_norm, its
+    seconds, launches and bytes staged, the capture or None)."""
+    metrics = metrics_callback()
+    trainer = mesh_trainer(cfg, mesh, clip, max_iter, metrics)
+    steps = max_iter - state.step
+    with capture_step(state, state.model) if capture else contextlib.nullcontext() as cap:
+        _, secs, got, staged = _counted(label, lambda: trainer.train(state, iter([line] * steps)),
+                                        want(steps), rank)
+    return metrics.rows, {"secs": secs, "launches": got, "staged": staged}, cap
 
 
 def state_sums(state) -> dict:
@@ -5890,14 +5893,9 @@ def mesh_train(rank: int, dev, mesh, plan: dict, gathered: bool, save: bool = Fa
     free()
 
     def run(state, max_iter, label, capture=False):
-        metrics = metrics_callback()
-        trainer = mesh_trainer(cfg, mesh, clip, max_iter, metrics)
-        steps = max_iter - state.step
-        with capture_step(state, dit) if capture else contextlib.nullcontext() as cap:
-            _, secs, got, staged = _counted(
-                label, lambda: trainer.train(state, iter([line] * steps)),
-                _train_launches(cfg, steps, False, tensor), rank)
-        return metrics.rows, {"secs": secs, "launches": got, "staged": staged}, cap
+        return trainer_steps(cfg, mesh, clip, state, line, max_iter, label,
+                             lambda steps: _train_launches(cfg, steps, False, tensor), rank,
+                             capture)
 
     state = mesh_trainer(cfg, mesh, clip, 2).init_state(dit)
     names = [n for n, _ in dit.named_parameters()]
@@ -6166,6 +6164,205 @@ def add_train_launches(results: list[dict], launches: tuple[Counter, Counter]) -
                 launches[1].update(r[key]["launches"][1]["flash_fwd"])
 
 
+# ----------------------------------------------------------- training under context and pipe
+
+# The full-parameter step under context and pipeline parallelism, at the
+# training bars (TRAIN_*) against ``mesh_train_refs``' one-process
+# reference: the same weights (``tp_model`` at ``mesh_train_config``'s 2
+# blocks of full width), batch (MESH_BATCH 720p pairs, 7,200 tokens) and
+# draws (the Trainer's, from its seed), two Trainer steps a mesh: context 2
+# under each of CP_TRAIN_MODES in ``context_path``'s world of 2; pipe 2 in
+# ``pipeline_path``'s world of 2, whose step-1 gradients are also held leaf
+# by leaf at K6/K7's bounds (the pipe backward's check, folded into the
+# step); pipe 2 x context 2 in its world of 4 (PP_TRAIN_MESHES). Under pipe
+# a rank keeps its stage's block (``keep_layers``) and runs the line's 2
+# rows as 2 microbatches. The planted fault, read from the sound context
+# run's tensors (context 2 under Ulysses): a rank's token block's share of
+# the gradient, the sum over context left out.
+CP_TRAIN_MODES = ("ulysses", "ring")
+PP_TRAIN_MESHES = {2: {"pipe": 2}, 4: {"pipe": 2, "context": 2}}
+
+
+def prewarm_optimizer_import() -> concurrent.futures.Future:
+    """Start importing ``torch._dynamo`` in a thread and return its future:
+    the first optimizer a process makes imports it (``torch.optim``'s
+    ``add_param_group`` is wrapped by ``torch._disable_dynamo``), which took
+    about 10 s a rank in the worlds on the card, so a worker that trains
+    after other checks starts it at its start and waits for it
+    (``result()``) before its first train state."""
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    future = pool.submit(importlib.import_module, "torch._dynamo")
+    pool.shutdown(wait=False)
+    return future
+
+
+def cp_pp_train_launches(cfg, mesh, mode: str, steps: int):
+    """The launch counters one rank reads after ``steps`` Trainer steps
+    under ``mesh``: its stage's blocks once a microbatch (the line's rows
+    in min(rows, pipe) microbatches), each as one process's block
+    (``expected_train_launches``, remat "none", every parameter trained);
+    under the ring each self-attention's forward, K6 and K7 once a hop at
+    the rank's KV block (tokens / P), as Ulysses' at the whole sequence."""
+    pipe, cp = mesh.shape["pipe"], mesh.shape["context"]
+    micro = min(MESH_BATCH // mesh.shape["data"], pipe)
+    blocks = cfg.dit.num_layers // pipe * micro
+    by_name, by_kv = expected_train_launches(
+        dataclasses.replace(cfg, dit=dataclasses.replace(cfg.dit, num_layers=blocks)),
+        remat="none", lora=False, steps=steps)
+    if mode == "ring" and cp > 1:
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            n = by_kv[name].pop(EDIT_TOKENS)
+            by_kv[name][EDIT_TOKENS // cp] = cp * n
+            by_name[name] += (cp - 1) * n
+    return by_name, by_kv
+
+
+def line_replicas(state, mesh) -> dict[str, list[str]]:
+    """``consistency.check_state_replicas`` on the card's clock: for each
+    axis of ``mesh`` above 1, the paths of the tensors its lines keep whole
+    (``consistency.state_line_trees``) whose ``tensor_checksum`` differs
+    across this rank's line; the checksums are made on the device and
+    gathered, where the port's check copies every tensor to the host for
+    its digest."""
+    import torch.distributed as dist
+
+    from chronoedit_tpu_torch.parallel.consistency import state_line_trees
+
+    out = {}
+    for axis, tree in state_line_trees(state, mesh).items():
+        sums = {k: tensor_checksum(t) for k, t in tree.items()}
+        everyone: list = [None] * mesh.shape[axis]
+        dist.all_gather_object(everyone, sums, group=mesh.group(axis))
+        out[axis] = [k for k in sums if len({theirs[k] for theirs in everyone}) > 1]
+    return out
+
+
+def cp_pp_train(rank: int, dev, config: dict, mode: str, clip: float,
+                fault: bool = False) -> dict:
+    """Two full-parameter Trainer steps on one rank under the mesh of
+    ``config`` (context-parallel ``mode``), ``tp_model``'s weights at
+    ``mesh_train_config`` cut to this rank's stage, the line's rows of the
+    global batch, each step's launches held exact. Returns step 1's
+    metrics and gradients against the reference's (``block_stats``, with
+    K6/K7's per-leaf verdicts; with ``fault`` also each rank's share
+    before the sum over context), step 2's metrics, update and Adam's
+    first moment, the replica check of every line (``line_replicas``),
+    seconds (each part's), bytes staged and the peak."""
+    from chronoedit_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from chronoedit_tpu_torch.parallel.pipeline_parallel import stage_range
+
+    t0 = time.perf_counter()
+    mesh = make_mesh(MeshConfig(data=-1, **config), device=dev)
+    cfg = mesh_train_config()
+    cfg = dataclasses.replace(cfg, dit=dataclasses.replace(cfg.dit, context_parallel=mode))
+    dit = tp_model(dev, cfg).dit.keep_layers(stage_range(cfg.dit.num_layers, mesh))
+    line = _line(mesh_train_batch(cfg, dev), mesh, gathered=False)
+    free()
+    state = mesh_trainer(cfg, mesh, clip, 2).init_state(dit)
+    names = [dit.global_name(n) for n, _ in dit.named_parameters()]
+    before = {n: p.detach().clone() for n, p in zip(names, state.params)}
+    want = functools.partial(cp_pp_train_launches, cfg, mesh, mode)
+    torch.cuda.reset_peak_memory_stats()
+    parts = {"build": time.perf_counter() - t0}
+    rows, step1, cap = trainer_steps(cfg, mesh, clip, state, line, 1, "Trainer step 1", want,
+                                     rank, capture=True)
+    t0 = time.perf_counter()
+    step1.update(metrics=rows[0], stats=block_stats(dict(zip(names, cap["grads"])), dit, "grads",
+                                                    k67=True))
+    if fault:
+        step1["share_stats"] = block_stats(dict(zip(names, cap["share"])), dit, "grads")
+    del cap
+    free()
+    parts["step 1 stats"] = time.perf_counter() - t0
+    rows, step2, _ = trainer_steps(cfg, mesh, clip, state, line, 2, "Trainer step 2", want, rank)
+    t0 = time.perf_counter()
+    adamw = state.optimizer.adamw.state
+    step2.update(
+        metrics=rows[0], peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        update=block_stats(dict(zip(names, state.params)), dit, "params", minus=before),
+        moment=block_stats({n: adamw[p]["exp_avg"] for n, p in zip(names, state.params)}, dit,
+                           "exp_avg"))
+    parts["step 2 stats"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = {"step1": step1, "step2": step2, "replicas": line_replicas(state, mesh),
+           "layers": [dit.layers.start, dit.layers.stop]}
+    parts["replicas"] = time.perf_counter() - t0
+    res["parts"] = parts
+    del state, dit, before
+    free()
+    return res
+
+
+def check_cp_pp_train(label: str, results: list[dict], refs: dict, card: str,
+                      per_leaf: bool = False) -> dict:
+    """The parent's verdict on ``cp_pp_train``'s per-rank readings under one
+    mesh against the reference's: the training bars on the loss and
+    grad_norm of both steps, step 1's whole gradient (each distinct block
+    once), step 2's update and Adam's first moment; every rank's metrics
+    alike; every line's replicas bitwise alike; with ``per_leaf`` every
+    leaf of step 1's gradient within K6/K7's bounds; under context the
+    planted fault (a rank's unsummed share, where it was read) outside the
+    bars. Prints the
+    readings beside ``card``; returns them."""
+    ref, r0 = refs["metrics"], results[0]
+
+    def rel(got, want):
+        return abs(got - want) / abs(want)
+
+    steps = [r0["step1"]["metrics"], r0["step2"]["metrics"]]
+    grads = sum_stats([r["step1"]["stats"] for r in results])
+    update = sum_stats([r["step2"]["update"] for r in results])
+    moment = sum_stats([r["step2"]["moment"] for r in results])
+    rd = {"loss_rel": max(rel(s["loss"], w["loss"]) for s, w in zip(steps, ref)),
+          "norm_rel": max(rel(s["grad_norm"], w["grad_norm"]) for s, w in zip(steps, ref)),
+          "grad_cos": grads["cos"], "grad_norm_rel": grads["norm_rel"],
+          "update_rel": update["rel"], "moment_rel": moment["rel"],
+          "within": grads["within"], "blocks": grads["blocks"]}
+    same = all(r["step1"]["metrics"] == r0["step1"]["metrics"]
+               and r["step2"]["metrics"] == r0["step2"]["metrics"] for r in results)
+    differing = sorted({f"{axis}: {path}" for r in results
+                        for axis, paths in r["replicas"].items() for path in paths})
+    print(f"   {label}: Trainer steps 1, 2: losses {[round(s['loss'], 6) for s in steps]} vs "
+          f"{[round(w['loss'], 6) for w in ref]} (worst {rd['loss_rel']:.2e}, bound "
+          f"{TRAIN_LOSS_REL}), grad_norms {[round(s['grad_norm'], 4) for s in steps]} (worst "
+          f"{rd['norm_rel']:.2e}, bound {TRAIN_NORM_REL}); step 1's gradient over "
+          f"{grads['blocks']} blocks cosine {grads['cos']:.6f} (bound {TRAIN_GRAD_COS}), norm "
+          f"{grads['norm_rel']:.2e}, {grads['within']} within K6/K7's bounds (worst "
+          f"{grads['worst'][1]:.3e}, {grads['worst'][0]}); after step 2 the update "
+          f"{update['rel']:.3e} (bound {TRAIN_UPDATE_REL}), Adam's first moment "
+          f"{moment['rel']:.3e} (bound {TRAIN_MOMENT_REL}) normwise; every rank's metrics "
+          f"alike: {same}; replicas differing: {len(differing)}")
+    for rank, r in enumerate(results):
+        by_name, by_kv = r["step2"]["launches"]
+        attention = {k: by_kv[k] for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+        parts = ", ".join(f"{k} {v:.2f} s" for k, v in r["parts"].items())
+        print(f"      rank {rank} (blocks {r['layers']}): step 1 {r['step1']['secs']:.2f} s, "
+              f"{r['step1']['staged'] / 1e9:.3f} GB staged; step 2 {r['step2']['secs']:.2f} s, "
+              f"{r['step2']['staged'] / 1e9:.3f} GB; {parts}; peak "
+              f"{r['step2']['peak_gib']:.2f} GiB; launches a step {by_name}, attention by KV "
+              f"{attention} ({card})")
+    ok = (rd["loss_rel"] <= TRAIN_LOSS_REL and rd["norm_rel"] <= TRAIN_NORM_REL
+          and grads["cos"] >= TRAIN_GRAD_COS and grads["norm_rel"] <= TRAIN_NORM_REL
+          and update["rel"] <= TRAIN_UPDATE_REL and moment["rel"] <= TRAIN_MOMENT_REL and same
+          and not differing and (not per_leaf or grads["within"] == grads["blocks"]))
+    fault_ok = True
+    if "share_stats" in r0["step1"]:
+        share = sum_stats([r["step1"]["share_stats"] for r in results])
+        rd["faults"] = {"context_unsummed_cos": share["cos"],
+                        "context_unsummed_norm_rel": share["norm_rel"]}
+        fault_ok = share["cos"] < TRAIN_GRAD_COS or share["norm_rel"] > TRAIN_NORM_REL
+        print(f"   {label} planted fault (read from this run's tensors): a rank's token "
+              f"block's share, not summed over context: cosine {share['cos']:.6f}, norm "
+              f"{share['norm_rel']:.3e} (bars: cosine {TRAIN_GRAD_COS}, norm {TRAIN_NORM_REL})")
+    if not ok:
+        raise AssertionError(f"training under {label}: {rd}, metrics alike {same}, replicas "
+                             f"differing {differing[:6]}")
+    if not fault_ok:
+        raise AssertionError(f"training under {label}: the planted fault within its bars: "
+                             f"{rd['faults']}")
+    return rd
+
+
 # ----------------------------------------------------------- main
 
 # name in the kernel table: (source, the TPU kernel it replaces, the
@@ -6342,11 +6539,14 @@ def main() -> int:
     free()
     ulysses_trace(dev)
     free()
-    drop_ref = context_path(dev, (by_name, by_kv))["drop_ref"]
     cfg = main_config()
     scratch = scratch_dir()
     print(f"the Trainer's checkpoints under {scratch}; the other large files under {BUILD_DIR}")
     try:
+        # training under a mesh: the one-process reference, written for the
+        # context, pipeline, FSDP and tensor worlds to read
+        train_refs = mesh_train_refs(dev)
+        drop_ref = context_path(dev, (by_name, by_kv), train_refs)["drop_ref"]
         # loaded outside inference_mode: training saves these weights for backward
         pipe, train_prompts = loaded_path(dev, dataclasses.replace(
             cfg, dit=dataclasses.replace(cfg.dit, remat="full")), (by_name, by_kv))
@@ -6386,10 +6586,7 @@ def main() -> int:
             del pipe
         free()
         # pipeline parallelism from the directory's files, the card free
-        pipeline_path(dev, {**refs, "drop": drop_ref}, (by_name, by_kv))
-        # training under a mesh: the one-process reference, written for the
-        # FSDP and tensor worlds to read
-        train_refs = mesh_train_refs(dev)
+        pipeline_path(dev, {**refs, "drop": drop_ref, "train": train_refs}, (by_name, by_kv))
         # FSDP from the same files, the card free
         fsdp_path(dev, {**fsdp_refs, "train": train_refs}, (by_name, by_kv))
         # tensor parallelism from the same files, the card free

@@ -211,6 +211,15 @@ class DiT(nn.Module):
         self.tensor = None
         self.fsdp = None
 
+    def global_name(self, name: str) -> str:
+        """The whole model's name of the parameter or buffer ``name``: a
+        stage-local model's block ``j`` is block ``layers.start + j`` of
+        the whole (checkpoints and references use these names)."""
+        if not name.startswith("blocks.") or self.layers.start == 0:
+            return name
+        _, j, rest = name.split(".", 2)
+        return f"blocks.{self.layers.start + int(j)}.{rest}"
+
     def keep_layers(self, layers: range) -> "DiT":
         """Keep only the blocks of ``layers`` (global indices among those the
         model holds) and drop the rest, freeing them: a whole model made a
@@ -572,7 +581,9 @@ def dit_forward(model: DiT, x: torch.Tensor, timesteps: torch.Tensor,
         else of the stack (``DiT(..., layers=)``); the context axis then
         splits the tokens inside the stages, the data axis the batch, and
         the head's output is gathered over both. Inputs are the same on
-        every rank of the mesh.
+        every rank of the mesh (a training step passes its data line's
+        rows under ``Mesh.data_line``: the same on every rank of the line,
+        not split over data).
     Returns:
       (B, C_out, T, H, W) in cfg.dtype (and the cache when active).
     """
@@ -696,7 +707,14 @@ def _pipeline_blocks(model: DiT, mesh, tokens, text_ctx, img_ctx, t_proj, cos, s
     RoPE tables and its frames of the time projection. A skip-layer mask
     skips blocks by global index. Returns this rank's share of the output
     tokens (its batch rows when the batch splits over data, its token
-    block under context parallelism) and the context split or None."""
+    block under context parallelism) and the context split or None.
+
+    Gradients (``pipeline_parallel``'s notes): a stage's blocks get theirs
+    on their own rank only; the embedders and the head the same whole
+    gradient on every rank of a pipe line; under context each rank's is
+    its token block's share, which a trainer sums over the context group.
+    A training step gives the line's rows under ``Mesh.data_line``, so
+    nothing here splits over data (``train/train_step.py``)."""
     cfg = model.cfg
     layers = pp.stage_range(cfg.num_layers, mesh)
     if model.layers != layers:

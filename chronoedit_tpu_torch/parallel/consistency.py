@@ -10,7 +10,12 @@ the port each rank holds its replica of a tensor, so
 gathers the digests with ``all_gather_object`` and returns the paths of
 the tensors whose digests differ. In one process no replica can disagree
 and it returns ``[]``. :func:`tree_digest` is one deterministic digest of a
-whole tree, to compare across ranks or runs.
+whole tree, to compare across ranks or runs. Under a mesh a replica is a
+line's: :func:`check_state_replicas` compares a train state's tensors along
+each axis, each over the leaves that axis keeps whole (every leaf over a
+data or context line, every leaf outside the blocks over a pipe line, the
+leaves a tensor or fsdp plan leaves whole over its line), with their EMA
+and AdamW's moments.
 
 A "tree" here is what the trainer and the pipeline hold: tensors,
 ``nn.Module``s (their parameters and buffers), dicts, lists, tuples and
@@ -80,3 +85,48 @@ def tree_digest(tree: Any) -> str:
         h.update(f"{path}:{t.dtype}:{tuple(t.shape)}".encode())
         h.update(_digest(t).encode())
     return h.hexdigest()
+
+
+def whole_leaves(owner: nn.Module, axis: str) -> list[str]:
+    """The names of ``owner``'s parameters that every rank of this rank's
+    line along a mesh's ``axis`` holds whole: all of them along
+    ``data`` and ``context``; along ``fsdp`` and ``tensor`` those the
+    model's plan (``owner.fsdp``, ``owner.tensor``) keeps whole; along
+    ``pipe`` those outside the blocks (each stage holds its own blocks)."""
+    names = [n for n, _ in owner.named_parameters()]
+    if axis == "pipe":
+        return [n for n in names if not n.startswith("blocks.")]
+    plan = getattr(owner, axis, None) if axis in ("fsdp", "tensor") else None
+    return [n for n in names if plan is None or plan.dims.get(n) is None]
+
+
+def state_line_trees(state: Any, mesh) -> dict[str, dict[str, torch.Tensor]]:
+    """For each axis of ``mesh`` above 1, the train state's tensors that
+    every rank of this rank's line along the axis holds alike, by path:
+    the parameters, the EMA and AdamW's moments of the leaves the axis
+    keeps whole (:func:`whole_leaves`)."""
+    owner = state.model if hasattr(state, "model") else state.lora
+    adamw = state.optimizer.adamw.state
+    index = {n: i for i, (n, _) in enumerate(owner.named_parameters())}
+    out = {}
+    for axis, n in mesh.shape.items():
+        if n == 1:
+            continue
+        tree = out[axis] = {}
+        for name in whole_leaves(owner, axis):
+            p = state.params[index[name]]
+            tree[f"params/{name}"] = p
+            if state.ema_params is not None:
+                tree[f"ema_params/{name}"] = state.ema_params[index[name]]
+            for key in ("exp_avg", "exp_avg_sq"):
+                if key in adamw.get(p, {}):
+                    tree[f"opt_state/{key}/{name}"] = adamw[p][key]
+    return out
+
+
+def check_state_replicas(state: Any, mesh) -> dict[str, list[str]]:
+    """For each axis of ``mesh`` above 1, the paths of the train state's
+    tensors that its line keeps whole (:func:`state_line_trees`) and that
+    differ across the line; every rank of the mesh must call it."""
+    return {axis: check_replica_consistency(tree, group=mesh.group(axis))
+            for axis, tree in state_line_trees(state, mesh).items()}

@@ -30,7 +30,7 @@ import torch
 import torch.distributed as dist
 
 from chronoedit_tpu_torch.parallel.collectives import all_gather, all_reduce
-from chronoedit_tpu_torch.parallel.mesh import AXIS_DATA, MESH_AXES
+from chronoedit_tpu_torch.parallel.mesh import AXIS_DATA, AXIS_PIPE, MESH_AXES
 from chronoedit_tpu_torch.utils.platform import cuda_device, multi_device_world
 
 # a rendezvous or collective that waits longer than this fails instead of
@@ -158,17 +158,28 @@ def host_local_to_global(batch: dict, mesh) -> dict:
     ``data`` from the processes' rows).
 
     Each process holds ``local_batch_size(global_batch)`` rows of the
-    global batch, in rank order. The ranks that share this rank's ``data``
-    index (its lines along every other axis) gather their rows along the
-    batch dimension, innermost axis first, so that each of them holds the
-    line's rows in rank order: without a pipe axis the ``data`` index's
-    contiguous block of the global batch, JAX's ``P("data")`` layout. That
-    is what ``dit_forward`` takes: the same inputs on every rank of a data
-    line. One process: ``batch`` itself. ``None`` values stay None; every
-    rank must hold the same keys."""
+    global batch, the processes' rows in rank order making it. Every rank
+    of data index ``d`` of ``D`` ends up holding the global batch's rows
+    ``[d B / D, (d + 1) B / D)`` in order, JAX's ``P("data")`` layout,
+    whatever the other axes: the same inputs on every rank of a data line,
+    which is what a training step under the mesh takes (its forward runs
+    the line's rows, ``Mesh.data_line``). Without a pipe axis the ranks of
+    a data line are consecutive, and they gather their rows along the
+    other axes, innermost first. Under a pipe axis (outermost in the rank
+    order) a line's ranks are not consecutive: each rank gathers the whole
+    global batch over the world and keeps its line's block. Under context
+    every rank of a context line holds the line's rows whole (the forward
+    splits their tokens). One process: ``batch`` itself. ``None`` values
+    stay None; every rank must hold the same keys."""
     if not multi_device_world():
         return batch
     out = dict(batch)
+    if mesh.shape.get(AXIS_PIPE, 1) > 1:
+        lines, d = mesh.shape.get(AXIS_DATA, 1), mesh.index(AXIS_DATA)
+        for key, value in out.items():
+            if isinstance(value, torch.Tensor):
+                out[key] = all_gather(value.contiguous(), None, 0).chunk(lines)[d]
+        return out
     for axis in reversed(MESH_AXES):
         group = None if axis == AXIS_DATA else mesh.group(axis)
         if group is None:

@@ -6,7 +6,9 @@ each rank returns: the launcher of the multi-process tests and of
 forked CUDA or thread state), joins them into one world through a
 ``file://`` rendezvous in a fresh directory (no port to clash with another
 world), calls ``fn(rank, *args)`` in each and returns the results in rank
-order. It raises with the rank's traceback when a rank raises, and after
+order; every rank whose process group is still open waits at a barrier
+after ``fn`` returns, before it tears the group down. It raises with the
+rank's traceback when a rank raises, and after
 ``timeout`` seconds when the world has not finished, terminating every
 process either way, so a rendezvous or collective that never completes
 fails instead of hanging. A user's job starts its ranks with torchrun
@@ -46,7 +48,13 @@ def _worker(rank: int, world: int, rdv: str, backend: str | None, device: str,
         # every rank's connections are up before any rank may finish and
         # exit: a rank that leaves early breaks a peer's still-open connect
         dist.barrier()
-        out.put((rank, True, fn(rank, *args)))
+        result = fn(rank, *args)
+        # and no rank tears its groups down while a peer still connects a
+        # group that ``fn`` opened after the first barrier (a served world
+        # that ended itself closed its group inside ``fn`` on every rank)
+        if dist.is_initialized():
+            dist.barrier()
+        out.put((rank, True, result))
     except BaseException:  # the parent re-raises it with the rank's traceback
         out.put((rank, False, traceback.format_exc()))
     finally:

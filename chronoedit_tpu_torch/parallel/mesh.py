@@ -37,6 +37,7 @@ axes (``Mesh.axes_group``); pipe and data ranks stay VAE replicas.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import itertools
 import math
@@ -209,6 +210,19 @@ class Mesh:
         if not axes:
             return None
         return self.group(axes[0]) if len(axes) == 1 else self.combined[axes]
+
+    def data_line(self) -> "Mesh":
+        """This mesh as one data line sees it: the data axis folded to 1
+        (no data group, index 0), every other axis as it is. A training
+        step's forward runs under it on the line's own rows and averages
+        over data afterwards; itself when the data axis is 1."""
+        if self.shape.get(AXIS_DATA, 1) == 1:
+            return self
+        line = copy.copy(self)
+        line.shape = {**self.shape, AXIS_DATA: 1}
+        line.coords = {**self.coords, AXIS_DATA: 0}
+        line.groups = {k: g for k, g in self.groups.items() if k != AXIS_DATA}
+        return line
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, rank={self.rank}, device={self.device})"

@@ -36,10 +36,19 @@ once (every rank computes the same loss on the replicated output) and
 zeros elsewhere: it neither sums the ``n`` copies nor drops them. At the
 entry the gradients of ``x`` and of the context tensors are summed over
 the pipe group, so every rank of a pipe line ends with the line's whole
-gradient of its inputs; a stage's blocks get theirs on their own rank.
-Over ``data`` and ``context`` each rank's gradient is that of its own
-share (zeros outside it), as in the port's context parallelism: a
-data- or context-parallel trainer sums them.
+gradient of its inputs, bitwise alike, and so with the same gradient of
+every parameter that made them (the embedders); a stage's blocks get
+theirs on their own rank. Over ``data`` and ``context`` each rank's
+gradient is that of its own share (zeros outside it), as in the port's
+context parallelism: the trainer sums it over context.
+
+**Training.** ``train/train_step.py`` hands the pipeline its data line's
+rows under ``Mesh.data_line`` (the data axis folded to 1), so the batch
+does not split over data here, and averages every gradient over data
+after the backward. Splitting the line's rows over data again, and then
+averaging, would count each gradient wrongly (the tests plant it).
+Serving keeps JAX's layout: the global batch on every rank, split over
+data inside.
 """
 
 from __future__ import annotations

@@ -21,10 +21,15 @@ Examples:
       --experiment chronoedit_14b --data /path/to/metadata.csv --mesh fsdp=8 \\
       --max-iter 5000 --checkpoint-dir ckpts/
 
-  # data x fsdp on the CPU, two processes over gloo
+  # data parallelism on the CPU, two processes over gloo
   python -m torch.distributed.run --standalone --nproc-per-node 2 \\
       -m chronoedit_tpu_torch.scripts.train --experiment tiny --data mock --smoke \\
       --device cpu --mesh data=2
+
+  # context or pipeline parallelism on the CPU (pipe=2,context=2 over 4)
+  python -m torch.distributed.run --standalone --nproc-per-node 2 \\
+      -m chronoedit_tpu_torch.scripts.train --experiment tiny --data mock --smoke \\
+      --device cpu --mesh pipe=2
 
 As in JAX: the training clips are encoded by a VAE with random weights
 (seed 1; there is no flag to load one), the full-parameter path starts
@@ -34,16 +39,21 @@ with ``--base-checkpoint`` (LoRA mode) its weights come straight from the
 shards, no random model beside it.
 
 ``--mesh`` trains over the ``data``, ``fsdp`` and ``tensor`` axes and their
-compositions, in both modes, one process a device (``torchrun``; a world
-of several processes needs ``--mesh``): the DiT is sharded by JAX's
-placement (``parallel.shard_params``; with ``--base-checkpoint`` each rank
-reads only its slices), the VAE and the LoRA adapters are whole on every
-rank; each process encodes its own rows (the metadata rows strided by
-process, a mock stream seeded by process) and ``host_local_to_global``
-gathers a data line's rows; callbacks, logs and the exported LoRA are rank
-0's; checkpoints are sharded. ``--batch-size`` is per process. ``context``
-or ``pipe`` above 1 raise ``ValueError`` (``ROADMAP.md`` queue 1, item
-1.4), as does a quantized base under a mesh.
+compositions in both modes, and in full-parameter mode also over
+``context`` and ``pipe`` and their compositions with the others (pipe x
+fsdp excepted), one process a device (``torchrun``; a world of several
+processes needs ``--mesh``): the DiT is sharded by JAX's placement
+(``parallel.shard_params``; with ``--base-checkpoint`` each rank reads only
+its slices); under ``pipe`` each rank keeps only its stage's blocks of the
+seeded model (``DiT.keep_layers``: bitwise the whole model's); the VAE and
+the LoRA adapters are whole on every rank; each process encodes its own
+rows (the metadata rows strided by process, a mock stream seeded by
+process) and ``host_local_to_global`` gives every rank its data line's
+rows; callbacks, logs and the exported LoRA are rank 0's; checkpoints are
+sharded (a stage's blocks under their global names). ``--batch-size`` is
+per process. ``pipe`` x ``fsdp`` raises ``ValueError`` (``ROADMAP.md``
+queue 1, item 3.2), as do LoRA mode under ``context`` or ``pipe`` and a
+quantized base under a mesh (item 3.3).
 """
 
 from __future__ import annotations
@@ -73,8 +83,10 @@ def parse_args(argv=None):
     p.add_argument("--checkpoint-dir", type=str, default=None)
     p.add_argument("--log-file", type=str, default=None)
     p.add_argument("--mesh", type=str, default=None,
-                   help="parallelism over the processes' devices, e.g. 'fsdp=8' or "
-                        "'data=2,fsdp=2,tensor=2' (context / pipe: not ported)")
+                   help="parallelism over the processes' devices, e.g. 'fsdp=8', "
+                        "'data=2,fsdp=2,tensor=2', 'context=2' or 'data=2,pipe=2,context=2': "
+                        "data, fsdp, tensor, context and pipe train in full-parameter mode "
+                        "(not pipe with fsdp), data, fsdp and tensor in LoRA mode")
     p.add_argument("--remat", type=str, default="none",
                    choices=["none", "full", "matmul_only"])
     p.add_argument("--lora-rank", type=int, default=0,
@@ -110,13 +122,13 @@ def main(argv=None):
     from chronoedit_tpu_torch.train.callbacks import (
         HeartbeatCallback, IterSpeedCallback, LossLoggerCallback)
     from chronoedit_tpu_torch.train.checkpoint import CheckpointConfig
-    from chronoedit_tpu_torch.train.train_step import TrainConfig, check_mesh
+    from chronoedit_tpu_torch.train.train_step import TrainConfig, check_lora_mesh, check_mesh
     from chronoedit_tpu_torch.train.trainer import Trainer, TrainerConfig
     from chronoedit_tpu_torch.utils.config import apply_overrides
     from chronoedit_tpu_torch.utils.platform import cuda_device, multi_device_world
 
     mesh_cfg = parse_mesh(args.mesh) if args.mesh else None
-    check_mesh(mesh_cfg)
+    (check_lora_mesh if args.lora_rank > 0 else check_mesh)(mesh_cfg)
     init_distributed(device=None if args.device is None else torch.device(args.device))
     pipe_cfg = apply_overrides(get_experiment(args.experiment), args.overrides)
     dit_cfg = dataclasses.replace(pipe_cfg.dit, remat=args.remat)
@@ -185,9 +197,11 @@ def main(argv=None):
 def _build_dit(args, dit_cfg, device: torch.device, mesh):
     """The DiT, once, holding this rank's shards under ``mesh``: from the
     ``--base-checkpoint`` shards in LoRA mode (each rank reading only its
-    slices), else random weights from seed 0, sharded."""
+    slices), else random weights from seed 0, sharded; under a pipe axis
+    only this rank's stage's blocks of the seeded model are kept."""
     from chronoedit_tpu_torch.models import dit as dit_lib
     from chronoedit_tpu_torch.models import weights as w
+    from chronoedit_tpu_torch.parallel.pipeline_parallel import stage_range
     from chronoedit_tpu_torch.parallel.sharding import shard_params
 
     if args.lora_rank > 0 and args.base_checkpoint:
@@ -198,6 +212,7 @@ def _build_dit(args, dit_cfg, device: torch.device, mesh):
             return w.convert_diffusers_dit(sd, dit_cfg, device, mesh=mesh)
     model = dit_lib.init_dit_params(dit_cfg, torch.Generator(device=device).manual_seed(0),
                                     device=device)
+    model.keep_layers(stage_range(dit_cfg.num_layers, mesh))
     return shard_params(model, mesh)
 
 

@@ -249,6 +249,12 @@ class EveryNDrawSample(Callback):
 
     ``sample_fn(params, guidance) -> (C, T, H, W) [-1,1] array``; outputs go
     to ``{out_dir}/iter{N}_g{guidance}`` via the visualize writers.
+
+    The render runs on the rank that holds the callback, on that rank's
+    model (``data/item_dataset.make_sample_fn``): under a trainer's pipe
+    axis a rank holds only its stage's blocks, so ``on_train_start`` raises
+    ``ValueError`` there; under the other axes give it to a rank whose
+    model is whole (no fsdp or tensor split).
     """
 
     def __init__(self, every_n: int, sample_fn, out_dir: str = "samples",
@@ -258,6 +264,15 @@ class EveryNDrawSample(Callback):
         self.out_dir = out_dir
         self.guidance_sweep = guidance_sweep
         self.use_ema = use_ema
+
+    def on_train_start(self, trainer):
+        mesh = getattr(trainer, "mesh", None)
+        pipe = 1 if mesh is None else mesh.shape.get("pipe", 1)
+        if pipe > 1:
+            raise ValueError(f"EveryNDrawSample renders on one rank's model, and under pipe="
+                             f"{pipe} a rank holds only its stage's blocks: render from a "
+                             f"checkpoint instead (train/checkpoint.load_params into a whole "
+                             f"model)")
 
     def on_step_end(self, trainer, step, metrics):
         if step == 0 or step % self.every_n:
@@ -301,7 +316,9 @@ class ReplicaConsistencyCallback(Callback):
 
     Every ``every_n`` steps, every replicated leaf of the train state is
     hashed per addressable shard; replicas covering the same global index
-    must be bitwise identical.  Divergence (nondeterministic collective,
+    must be bitwise identical (under the trainer's mesh, along each axis
+    the leaves its lines keep whole: ``check_state_replicas``).
+    Divergence (nondeterministic collective,
     host-dependent state leaking into "replicated" params, restore race)
     raises by default — the failure is silent otherwise and compounds every
     step."""
@@ -315,12 +332,18 @@ class ReplicaConsistencyCallback(Callback):
     def on_step_end(self, trainer, step, metrics):
         if (step + 1) % self.every_n:
             return
-        from chronoedit_tpu_torch.parallel.consistency import check_replica_consistency
+        from chronoedit_tpu_torch.parallel.consistency import (check_replica_consistency,
+                                                               check_state_replicas)
 
         state = getattr(trainer, "_last_state", None)
         if state is None:
             return
-        bad = check_replica_consistency(state)
+        mesh = getattr(trainer, "mesh", None)
+        if mesh is None:
+            bad = check_replica_consistency(state)
+        else:  # a line's replicas, along each axis (sharded leaves differ)
+            bad = [f"{axis}: {path}" for axis, paths in
+                   check_state_replicas(state, mesh).items() for path in paths]
         if bad:
             msg = (f"replica divergence at step {step} in {len(bad)} "
                    f"leaves: {bad[:5]}")

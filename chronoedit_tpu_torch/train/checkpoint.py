@@ -16,14 +16,20 @@ A save is written under a temporary name and renamed into place, so
 async save copies every tensor to host memory before :meth:`save` returns
 and writes on a thread (one at a time), as Orbax's async checkpointer does.
 
-In a world of several processes (a sharded state: ``parallel/sharding``)
-the save is collective, as Orbax's, and sharded: each rank writes the
-tensors it holds to ``<step>/state-<rank>.safetensors`` (5 digits), each
-block of a leaf once (the lowest rank that holds it writes it: a leaf whole
-on every rank is rank 0's), with every tensor's whole shape and the start
-of its block in the file's metadata (``layout``); rank 0 writes the
-counters. After a barrier rank 0 renames the step into place, and after a
-second barrier it deletes the steps beyond ``max_to_keep``. A restore, in
+In a world of several processes (a sharded state: ``parallel/sharding``,
+or a pipeline stage's blocks) the save is collective, as Orbax's, and
+sharded: each rank writes the tensors it holds to
+``<step>/state-<rank>.safetensors`` (5 digits), each block of a leaf once
+(the lowest rank that holds it writes it: a leaf whole on every rank is
+rank 0's, a context line's replicas are written once), with every
+tensor's whole shape and the start of its block in the file's metadata
+(``layout``); rank 0 writes the counters. Tensors are named as the whole
+model names them: a stage-local model's block ``j`` is written as
+``blocks.{layers.start + j}`` (``DiT.global_name``), so every block is
+held once under its global name, by its stage's lowest rank, and the
+leaves outside the blocks once, by rank 0. After a barrier rank 0 renames
+the step into place, and after a second barrier it deletes the steps
+beyond ``max_to_keep``. A restore, in
 any world and under any mesh (one process included), reads for each of the
 live tensors only the slices it needs from the files that hold them
 (``safetensors``' ``get_slice``), from the one-process file as from the
@@ -82,11 +88,24 @@ class CheckpointConfig:
     load_ema_to_reg: bool = False
 
 
+def _owner(state: Any):
+    return state.model if hasattr(state, "model") else state.lora
+
+
+def _global(owner, name: str) -> str:
+    """``name`` as the whole model names it (``DiT.global_name``: a
+    pipeline stage's blocks by their global index)."""
+    rename = getattr(owner, "global_name", None)
+    return name if rename is None else rename(name)
+
+
 def _param_names(state: Any) -> list[str]:
-    """The names of ``state.params`` in order: the model's parameters for a
-    full-parameter state, the adapters' for a LoRA state."""
-    owner = state.model if hasattr(state, "model") else state.lora
-    names = [n for n, _ in owner.named_parameters()]
+    """The names of ``state.params`` in order, as the whole model names
+    them: the model's parameters for a full-parameter state (a pipeline
+    stage's blocks by their global index), the adapters' for a LoRA
+    state."""
+    owner = _owner(state)
+    names = [_global(owner, n) for n, _ in owner.named_parameters()]
     if len(names) != len(state.params):
         raise ValueError("the state's parameters are not its module's")
     return names
@@ -114,8 +133,9 @@ def state_boxes(state: Any) -> dict[str, tuple[tuple[int, ...], tuple[int, ...]]
     a model sharded by ``parallel/sharding``, or over whole adapters)."""
     from chronoedit_tpu_torch.parallel.sharding import local_box
 
-    owner = state.model if hasattr(state, "model") else state.lora
-    per_leaf = {n: local_box(owner, n, tuple(p.shape)) for n, p in owner.named_parameters()}
+    owner = _owner(state)
+    per_leaf = {_global(owner, n): local_box(owner, n, tuple(p.shape))
+                for n, p in owner.named_parameters()}
     return {k: per_leaf[k.rsplit("/", 1)[1]] for k in state_tensors(state)}
 
 

@@ -22,9 +22,11 @@ Under a mesh (``mesh=``: data, fsdp and tensor) the adapters stay whole on
 every rank over the base sharded by ``parallel/sharding.shard_params``;
 their gradients are summed where ranks used parts of them (tensor slices,
 fsdp rows: ``models/lora.py``) and averaged over ``data``, as the
-full-parameter step's (``train/train_step.py``). A quantized base (QLoRA)
-under a mesh raises ``ValueError``: the row layers' int8 token scale is
-all-reduced without a gradient (``ROADMAP.md`` queue 1, item 1.4).
+full-parameter step's (``train/train_step.py``). A context or pipe axis
+above 1 raises ``ValueError`` (JAX's LoRA step takes no mesh;
+``ROADMAP.md`` queue 1, item 3.3), as does a quantized base (QLoRA) under
+a mesh: the row layers' int8 token scale is all-reduced without a
+gradient (item 3.3 too).
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ import torch
 from chronoedit_tpu_torch.models import dit as dit_lib
 from chronoedit_tpu_torch.models import lora as lora_lib
 from chronoedit_tpu_torch.train.train_step import (
-    Optimizer, TrainConfig, apply_step, check_mesh, draw_train_noise, leaf_splits,
+    Optimizer, TrainConfig, apply_step, check_lora_mesh, draw_train_noise, leaf_splits,
     velocity_loss)
 
 
@@ -56,7 +58,7 @@ class LoRATrainState:
 def make_lora_train_state(lora: lora_lib.LoRA, cfg: TrainConfig, mesh=None) -> LoRATrainState:
     """The adapters' train state; under ``mesh`` they are whole on every
     rank."""
-    check_mesh(mesh)
+    check_lora_mesh(mesh)
     params = list(lora.parameters())
     ema = [p.detach().clone() for p in params] if cfg.ema.enabled else None
     return LoRATrainState(lora, Optimizer(params, cfg, leaf_splits(lora, mesh)), ema)
@@ -69,7 +71,7 @@ def make_lora_train_step(dit_cfg: dit_lib.DiTConfig, cfg: TrainConfig, mesh=None
     into a float base, attached to a quantized one), in place; returns
     {"loss", "grad_norm"}. Under ``mesh`` the base holds this rank's
     shards and the batch is this data line's rows."""
-    check_mesh(mesh)
+    check_lora_mesh(mesh)
 
     def step(state: LoRATrainState, base: dit_lib.DiT, batch: dict,
              generator: torch.Generator | None = None, *,
@@ -77,7 +79,7 @@ def make_lora_train_step(dit_cfg: dit_lib.DiTConfig, cfg: TrainConfig, mesh=None
         attach = lora_lib.base_is_quantized(base, state.lora.cfg)
         if attach and mesh is not None and mesh.size > 1:
             raise ValueError("QLoRA under a mesh is not ported yet: the row layers' int8 token "
-                             "scale carries no gradient (ROADMAP.md queue 1, item 1.4)")
+                             "scale carries no gradient (ROADMAP.md queue 1, item 3.3)")
         if u is None or noise is None:
             u, noise = draw_train_noise(generator, batch["latents"], cfg.rectified_flow, mesh)
         loss = velocity_loss(base, dit_cfg, cfg.rectified_flow, batch["latents"],

@@ -29,13 +29,38 @@ draws (train time u and the noise) are arguments of :func:`velocity_loss`,
 so a caller can feed the same draws to JAX and here;
 :func:`draw_train_noise` makes them from a ``torch.Generator``.
 
-Under a mesh (``make_train_step(..., mesh=)``, JAX's argument; the data,
-fsdp and tensor axes) the model holds this rank's shards
-(``parallel/sharding.shard_params``) and the step is given its data line's
-rows (``parallel/distributed.host_local_to_global``). After the backward
-each trainable leaf's gradient is the global loss's, restricted to the
-rank's shard; which collective covers which leaf:
+Under a mesh (``make_train_step(..., mesh=)``, JAX's argument) the model
+holds this rank's shards (``parallel/sharding.shard_params``; under a pipe
+axis only its stage's blocks, ``DiT(..., layers=)``) and the step is given
+its data line's rows (``parallel/distributed.host_local_to_global``).
 
+**The batch layout.** The step's forward runs the line's rows under the
+mesh as one data line sees it (:func:`forward_mesh`, the data axis folded
+away), then averages the loss and every gradient over data
+(:func:`data_mean`). So under pipe x data the pipeline does not split the
+batch over data again: it runs the line's rows in ``min(B_line, pipe)``
+microbatches, where JAX's ``gpipe_scan`` takes the global batch and splits
+each microbatch over data inside its ``shard_map``; both end with the
+global loss's gradient counted once. (Serving keeps JAX's layout: the
+global batch on every rank, split inside the pipeline.)
+
+After the backward each trainable leaf's gradient is the global loss's,
+restricted to the rank's shard; which collective covers which leaf:
+
+- ``context``: when the forward splits the tokens over the context group
+  (:func:`context_group`: ring or Ulysses attention, whole frames a rank),
+  every leaf is whole on every rank of the group, the head runs on the
+  rank's own tokens and the gathered output's backward gives the rank its
+  slice. Each rank's gradient is its token block's share of the global
+  loss's: :func:`context_sum` sums it over the group (not a mean: the loss
+  is whole on every rank). A forward that runs whole (tokens that do not
+  split into whole frames a rank, ``"none"``) gives every rank the whole
+  gradient, and nothing is summed;
+- ``pipe``: a stage's block leaves get their gradient on their own rank
+  only. The embedders get the same whole gradient on every rank of a pipe
+  line (the pipeline's entry sums its inputs' gradients over pipe,
+  ``parallel/pipeline_parallel.py``), and so does the head (every rank
+  computes the loss on the replicated output): no collective;
 - ``fsdp``: a split leaf's gradient is reduce-scattered over the fsdp
   group (or sliced, when every rank ran the whole batch) by the gather's
   backward, a whole model leaf's summed over it (``sharding.Gather``), the
@@ -50,19 +75,23 @@ rank's shard; which collective covers which leaf:
   group here (:func:`data_mean`), in the gradient's dtype.
 
 :func:`global_norm` then sums each shard's squares and completes the sums
-over fsdp and tensor in fp32, counting a leaf whole over an axis once:
-``optax.global_norm`` over the global arrays, for the clip and the
+over the tensor, fsdp and pipe groups a leaf is split over (a block leaf
+over pipe: each stage's blocks counted once, each other leaf once), in
+fp32: ``optax.global_norm`` over the global arrays, for the clip and the
 reported ``grad_norm``. AdamW, the accumulation's running mean and the
 EMA are elementwise on the local shards. Every rank draws ``u`` and the
 noise for the global batch from the same generator and keeps its data
-line's rows (:func:`draw_train_noise` with a mesh), so a mesh run draws
-what one process draws for the same global batch. ``context`` and
-``pipe`` above 1 raise ``ValueError`` (``ROADMAP.md`` queue 1, item 1.4).
+line's rows (:func:`draw_train_noise` with a mesh; a context or pipe line
+draws alike), so a mesh run draws what one process draws for the same
+global batch. A pipe axis beside an fsdp axis raises ``ValueError``
+(``ROADMAP.md`` queue 1, item 3.2); the LoRA step refuses context and
+pipe (item 3.3, ``train/lora_train.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Callable
 
 import torch
@@ -76,9 +105,9 @@ from chronoedit_tpu_torch.parallel.mesh import (AXIS_CONTEXT, AXIS_DATA, AXIS_FS
 from chronoedit_tpu_torch.pipeline.edit_pipeline import PipelineConfig, prepare_condition
 from chronoedit_tpu_torch.train.ema import EMAConfig, ema_update
 
-# (tensor group, fsdp group) a leaf's shards are split over, None where
-# the leaf is whole along that axis
-Split = tuple[object | None, object | None]
+# (tensor group, fsdp group, pipe group) a leaf's shards are split over,
+# None where the leaf is whole along that axis
+Split = tuple[object | None, object | None, object | None]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,28 +124,48 @@ class TrainConfig:
     ema: EMAConfig = EMAConfig()
 
 
+def _degree(mesh, axis: str) -> int:
+    return 1 if mesh is None else mesh.shape.get(axis, 1)
+
+
 def check_mesh(mesh) -> None:
-    """Raise ValueError for a mesh whose training is not ported: a context
-    or pipe axis above 1."""
+    """Raise ValueError for a mesh (or ``MeshConfig``) whose full-parameter
+    training is not ported: a pipe axis beside an fsdp axis above 1."""
+    pipe, fsdp = _degree(mesh, AXIS_PIPE), _degree(mesh, AXIS_FSDP)
+    if pipe > 1 and fsdp > 1:
+        raise ValueError(f"training under pipe={pipe} x fsdp={fsdp} is not ported yet "
+                         f"(ROADMAP.md queue 1, item 3.2: pipe x fsdp); data, fsdp, tensor, "
+                         f"context and pipe train, and their other compositions")
+
+
+def check_lora_mesh(mesh) -> None:
+    """Raise ValueError for a mesh (or ``MeshConfig``) the LoRA step does not
+    train under: a context or pipe axis above 1 (JAX's LoRA step takes no
+    mesh), and :func:`check_mesh`'s."""
     for axis in (AXIS_CONTEXT, AXIS_PIPE):
-        n = 1 if mesh is None else mesh.shape.get(axis, 1)
+        n = _degree(mesh, axis)
         if n > 1:
-            raise ValueError(f"training under {axis}={n} is not ported yet (ROADMAP.md queue 1, "
-                             f"item 1.4: context and pipe training); data, fsdp and tensor "
-                             f"train")
+            raise ValueError(f"LoRA training under {axis}={n} is not ported yet (ROADMAP.md "
+                             f"queue 1, item 3.3: LoRA under context or pipe); the LoRA step "
+                             f"trains over data, fsdp and tensor, the full-parameter step "
+                             f"also over context and pipe")
+    check_mesh(mesh)
 
 
 def leaf_splits(module: torch.nn.Module, mesh) -> list[Split] | None:
     """For each parameter of ``module`` (a sharded DiT, or LoRA adapters,
     whole on every rank), the groups its shards are split over under
-    ``mesh`` (``model.tensor`` / ``model.fsdp`` name the split leaves);
-    None without a mesh."""
+    ``mesh``: ``model.tensor`` / ``model.fsdp`` name the leaves split over
+    tensor / fsdp, and under a pipe axis every block leaf (``blocks.*``) is
+    split over pipe (each stage holds its own); None without a mesh."""
     if mesh is None:
         return None
     plans = [(getattr(module, axis, None), mesh.group(name))
              for axis, name in (("tensor", AXIS_TENSOR), ("fsdp", AXIS_FSDP))]
+    pipe = mesh.group(AXIS_PIPE)
     return [tuple(group if plan is not None and plan.dims.get(n) is not None else None
                   for plan, group in plans)
+            + (pipe if n.startswith("blocks.") else None,)
             for n, _ in module.named_parameters()]
 
 
@@ -129,25 +178,55 @@ def global_norm(tensors, splits: list[Split] | None = None) -> torch.Tensor:
     """sqrt of the sum of squares over all tensors, fp32 (optax.global_norm).
     With ``splits`` (:func:`leaf_splits`) each tensor is a shard: the
     squares of the leaves split alike are summed locally, then over the
-    tensor and the fsdp group each is split over, so a leaf whole along an
-    axis counts once; every rank gets the same bits."""
+    tensor, the fsdp and the pipe group each is split over, so a leaf
+    whole along an axis counts once; every rank gets the same bits."""
     tensors = list(tensors)
     if splits is None:
         return torch.sqrt(sum(t.float().square().sum() for t in tensors))
     zero = torch.zeros((), dtype=torch.float32, device=tensors[0].device)
-    partial = {}  # (split over tensor, split over fsdp) -> local sum of squares
-    groups = [None, None]
+    keys = list(itertools.product((False, True), repeat=3))
+    partial = dict.fromkeys(keys, zero)  # (split over tensor, fsdp, pipe) -> sum of squares
+    groups = [None, None, None]
     for t, split in zip(tensors, splits):
         key = tuple(g is not None for g in split)
-        partial[key] = partial.get(key, zero) + t.float().square().sum()
+        partial[key] = partial[key] + t.float().square().sum()
         groups = [g if g is not None else h for g, h in zip(groups, split)]
-    both = partial.get((True, True), zero)
-    tensor_only, fsdp_only = partial.get((True, False), zero), partial.get((False, True), zero)
-    if groups[0] is not None:
-        tensor_only, both = _sum_over(torch.stack([tensor_only, both]), groups[0]).unbind()
-    if groups[1] is not None:
-        fsdp_only, both = _sum_over(torch.stack([fsdp_only, both]), groups[1]).unbind()
-    return torch.sqrt(partial.get((False, False), zero) + tensor_only + fsdp_only + both)
+    for axis, group in enumerate(groups):  # every rank sums the same keys
+        if group is not None:
+            split = [k for k in keys if k[axis]]
+            summed = _sum_over(torch.stack([partial[k] for k in split]), group).unbind()
+            partial.update(zip(split, summed))
+    return torch.sqrt(sum(partial[k] for k in keys))
+
+
+def forward_mesh(mesh):
+    """The mesh a step's forward runs under: ``mesh`` as one data line
+    sees it (``Mesh.data_line``: the batch is the line's rows, averaged
+    over data after the backward), None without one."""
+    return None if mesh is None else mesh.data_line()
+
+
+def context_group(dit_cfg: dit_lib.DiTConfig, mesh, shape: tuple[int, ...]):
+    """The context group the forward of a (..., T, H, W) latent batch by a
+    DiT of ``dit_cfg`` splits its tokens over under ``mesh``
+    (``dit_lib.context_split``, the rule ``dit_forward`` and its pipeline
+    stages apply), None when it runs them whole."""
+    if mesh is None or mesh.group(AXIS_CONTEXT) is None:
+        return None
+    pt, ph, pw = dit_cfg.patch_size
+    t, h, w = shape[-3:]
+    hw = (h // ph) * (w // pw)
+    split = dit_lib.context_split(dit_cfg, mesh, (t // pt) * hw, hw)
+    return None if split is None else split.group
+
+
+def context_sum(tensors, group) -> list[torch.Tensor]:
+    """Each tensor summed over the context ``group``, in its dtype (each
+    rank's gradient is its token block's share); the tensors themselves
+    when the forward did not split over context (None)."""
+    if group is None:
+        return list(tensors)
+    return [C.all_reduce(t.contiguous(), group) for t in tensors]
 
 
 def data_mean(tensors, mesh) -> list[torch.Tensor]:
@@ -242,7 +321,8 @@ class TrainState:
 
 def make_train_state(model: dit_lib.DiT, cfg: TrainConfig, mesh=None) -> TrainState:
     """Every parameter of ``model`` becomes trainable; the EMA starts as a
-    copy of them. Under ``mesh`` the model holds this rank's shards."""
+    copy of them. Under ``mesh`` the model holds this rank's shards (under
+    a pipe axis, its stage's blocks)."""
     check_mesh(mesh)
     params = list(model.parameters())
     for p in params:
@@ -251,18 +331,22 @@ def make_train_state(model: dit_lib.DiT, cfg: TrainConfig, mesh=None) -> TrainSt
     return TrainState(model, Optimizer(params, cfg, leaf_splits(model, mesh)), ema)
 
 
-def edit_training_batch(vae: vae_lib.VAE, pipe_cfg: PipelineConfig, video: torch.Tensor
-                        ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(clean latents fp32 (B, z, 2, h, w), condition (B, tfac + z, 2, h,
+def edit_training_batch(vae: vae_lib.VAE, pipe_cfg: PipelineConfig, video: torch.Tensor,
+                        is_video_prior: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """(clean latents fp32 (B, z, Tl, h, w), condition (B, tfac + z, Tl, h,
     w)) from a raw edit-pair clip (B, 3, T, H, W) in [-1, 1]: the first
     frame is the source, the last the edit target, repeated tfac times so
-    the clip encodes to 2 latent frames. (JAX's ``is_video_prior`` option,
-    which keeps the whole trajectory, has no caller in the port yet.)"""
+    the clip encodes to 2 latent frames (Tl = 2). ``is_video_prior`` keeps
+    the whole trajectory: the latents of every frame but the last,
+    followed by the edit target's latent frame (JAX's option)."""
     vcfg = pipe_cfg.vae
     tfac = vcfg.temporal_factor
     first, last = video[:, :, :1], video[:, :, -1:]
     edit_clip = torch.cat([first] + [last] * tfac, dim=2)
     latents = vae_lib.vae_encode(vae, edit_clip).float()
+    if is_video_prior:
+        prior = vae_lib.vae_encode(vae, video[:, :, :-1]).float()
+        latents = torch.cat([prior, latents[:, :, 1:]], dim=2)
     num_frames = vcfg.pixel_frames(latents.shape[2])
     condition = prepare_condition(vae, pipe_cfg, first[:, :, 0], num_frames)
     return latents, condition
@@ -292,23 +376,28 @@ def velocity_loss(model: dit_lib.DiT, dit_cfg: dit_lib.DiTConfig,
                   image_emb: torch.Tensor | None, u: torch.Tensor, noise: torch.Tensor,
                   lora=None, lora_attach: bool = False, mesh=None) -> torch.Tensor:
     """Time-weighted velocity MSE for given draws u (B,) and noise; under
-    ``mesh``, of this data line's rows."""
+    ``mesh``, of this data line's rows (the forward runs under
+    :func:`forward_mesh`)."""
     b = latents.shape[0]
     timesteps, sigmas = rf.discretize_time(u, rf_cfg)
     x_t, v_target = rf.get_interpolation(noise.float(), latents.float(), sigmas)
     xin = torch.cat([x_t.to(dit_cfg.dtype), condition.to(dit_cfg.dtype)], dim=1)
     v_pred = dit_lib.dit_forward(model, xin, timesteps, text_emb, image_emb, lora=lora,
-                                 lora_attach=lora_attach, mesh=mesh)
+                                 lora_attach=lora_attach, mesh=forward_mesh(mesh))
     per_sample = (v_pred.float() - v_target).square().reshape(b, -1).mean(dim=1)
     return (rf.train_time_weight(timesteps, rf_cfg) * per_sample).mean()
 
 
 def apply_step(loss: torch.Tensor, params: list[torch.Tensor], optimizer: Optimizer,
-               ema_params: list[torch.Tensor] | None, cfg: TrainConfig, mesh=None) -> dict:
-    """Backward through ``loss`` to ``params``, the gradients and the loss
-    averaged over ``mesh``'s data group, one optimizer micro-step, and one
-    EMA step at the applied count when it applied an update."""
-    grads = data_mean(torch.autograd.grad(loss, params), mesh)
+               ema_params: list[torch.Tensor] | None, cfg: TrainConfig, mesh=None,
+               context=None) -> dict:
+    """Backward through ``loss`` to ``params``, the gradients summed over
+    the ``context`` group the forward split its tokens over (None: it did
+    not), the gradients and the loss averaged over ``mesh``'s data group,
+    one optimizer micro-step, and one EMA step at the applied count when it
+    applied an update."""
+    grads = context_sum(torch.autograd.grad(loss, params), context)
+    grads = data_mean(grads, mesh)
     loss = data_mean([loss.detach()], mesh)[0]
     g_norm = global_norm(grads, optimizer.splits)
     if optimizer.update(grads) and ema_params is not None:
@@ -332,7 +421,9 @@ def make_train_step(dit_cfg: dit_lib.DiTConfig, cfg: TrainConfig, mesh=None
         loss = velocity_loss(state.model, dit_cfg, cfg.rectified_flow,
                              batch["latents"], batch["condition"], batch["text_emb"],
                              batch.get("image_emb"), u, noise, mesh=mesh)
-        metrics = apply_step(loss, state.params, state.optimizer, state.ema_params, cfg, mesh)
+        context = context_group(state.model.cfg, forward_mesh(mesh), batch["latents"].shape)
+        metrics = apply_step(loss, state.params, state.optimizer, state.ema_params, cfg, mesh,
+                             context)
         state.step += 1
         return metrics
 

@@ -14,20 +14,22 @@ count)`` and each validation's from ``(seed, iteration)``, so a resume
 continues the uninterrupted run bitwise. A caller that needs other draws
 (the tests replay JAX's) replaces ``_step_fn`` / ``_val_fn``.
 
-Under a mesh (``Trainer(..., mesh=)``: data, fsdp and tensor) every rank
-runs the loop on its shards of a model sharded by
-``parallel/sharding.shard_params`` and its data line's batches
-(``parallel/distributed.host_local_to_global``); the step averages the
-loss over ``data`` (``train/train_step.py``), so every rank reads the same
-loss and the non-finite check and the rewind decide alike on all of them
-(a rank that rewound while its peers stepped would hang the world).
+Under a mesh (``Trainer(..., mesh=)``: data, fsdp, tensor, context and
+pipe, and their compositions but pipe x fsdp) every rank runs the loop on
+its shards of a model sharded by ``parallel/sharding.shard_params`` (under
+pipe, a stage-local model holding its stage's blocks) and its data line's
+batches (``parallel/distributed.host_local_to_global``); the step sums the
+gradients over context and averages the loss over ``data``
+(``train/train_step.py``), so every rank reads the same loss and the
+non-finite check and the rewind decide alike on all of them (a rank that
+rewound while its peers stepped would hang the world).
 Validation losses are averaged over the processes (``collate_metrics``);
-checkpoints are sharded (``train/checkpoint.py``), and saving is
-collective. Callbacks run on the ranks that are given them: the CLI gives
-them to rank 0, as JAX's. A collective callback (``Callback.collective``:
-``StragglerDetector``, ``ReplicaConsistencyCallback``) must be given to
-every rank; ``train`` raises on every rank when the ranks hold different
-numbers of them.
+checkpoints are sharded (``train/checkpoint.py``: a stage's blocks under
+their global names), and saving is collective. Callbacks run on the ranks
+that are given them: the CLI gives them to rank 0, as JAX's. A collective
+callback (``Callback.collective``: ``StragglerDetector``,
+``ReplicaConsistencyCallback``) must be given to every rank; ``train``
+raises on every rank when the ranks hold different numbers of them.
 """
 
 from __future__ import annotations
@@ -100,8 +102,8 @@ class Trainer:
 
     def init_state(self, model: dit_lib.DiT) -> TrainState:
         """A train state over every parameter of ``model`` (this rank's
-        shards under a mesh), restored from the latest checkpoint when there
-        is one."""
+        shards under a mesh, its stage's blocks under pipe), restored from
+        the latest checkpoint when there is one."""
         state = make_train_state(model, self.train_cfg, self.mesh)
         if self.checkpoints is not None:
             restored = self.checkpoints.restore(state)

@@ -84,8 +84,9 @@ def test_dryrun_resolves_jax_configs_smoke_trains_and_mesh_raises(capsys, monkey
     warm-up rule ``min(1000, max(1, max_iter // 10))`` among them), and the
     ``--set`` override reaches the pipeline's. ``--smoke`` trains 2
     iterations on the CPU, also under ``--mesh data=1`` (a world of one);
-    ``--mesh`` with a context or pipe axis raises ``ValueError`` naming the
-    roadmap item that ports it."""
+    a mesh that is not ported raises ``ValueError`` naming the roadmap item
+    that ports it: LoRA mode with a context or pipe axis (item 3.3), pipe x
+    fsdp (item 3.2)."""
     flags = ["--dryrun", "--max-iter", "30", "--grad-accum", "2", "--lr", "3e-4",
              "--set", "dit.num_layers=3", "--remat", "matmul_only"]
     assert train_t.main(flags) is None
@@ -103,8 +104,10 @@ def test_dryrun_resolves_jax_configs_smoke_trains_and_mesh_raises(capsys, monkey
     state = train_t.main(["--smoke", "--device", "cpu", "--mesh", "data=1"])
     assert state.step == 2 and "done at step 2" in capsys.readouterr().out
     for axis in ("context", "pipe"):
-        with pytest.raises(ValueError, match=f"{axis}=2 .*item 1.4"):
-            train_t.main(["--smoke", "--device", "cpu", "--mesh", f"{axis}=2"])
+        with pytest.raises(ValueError, match=f"{axis}=2 .*item 3.3"):
+            train_t.main(["--smoke", "--device", "cpu", "--lora-rank", "2", "--mesh", f"{axis}=2"])
+    with pytest.raises(ValueError, match="pipe=2 x fsdp=2 .*item 3.2"):
+        train_t.main(["--smoke", "--device", "cpu", "--mesh", "pipe=2,fsdp=2"])
 
 
 def test_lora_cli_from_a_diffusers_base_exports_and_loads(trees, tmp_path, capsys):
