@@ -102,34 +102,7 @@ non-zero and no result line is printed:
    heads of the whole call at 7,200 tokens: the kernels must be bitwise,
    cuBLAS is reported); then the mesh training's one-process reference
    (``mesh_train_refs``, below), written under ``build/`` for every
-   parallel phase to read; then context parallelism (``context_path``):
-   the distilled model at full width cut to ``CP_BLOCKS`` blocks, seeded,
-   its forwards at 28,800 and 7,200 tokens, a 720p edit and a reasoning
-   edit with the drop (k = CP_DROP_K) in this one process, then worlds of 2 and 4
-   worker processes on the same card (``parallel/launch.run_world``, gloo
-   asked for explicitly: NCCL refuses two ranks on one device; the
-   collectives staged through pinned host memory, a transport and not a
-   scaling setup), each rank rebuilding the same weights (checked across
-   ranks and against this process's digest) and running ring and Ulysses
-   forwards at both lengths (held against this process's as dB over its
-   peak, ``CP_MIN_DB``, beside two planted faults the phase reads itself;
-   every rank's gathered output bitwise alike), the edit under a mesh of
-   context 2 (CP_EDIT_STEPS steps) and the drop under context 4
-   (CP_DROP_STEPS steps; against this process's at the fidelity bar), at 2
-   the full-width VAE split over the rows (fp32: the edit's and the
-   reasoning mode's encodes and decodes against this process's at
-   TILED_DECODE_TOL, the bytes gathered exact, each rank's peak against
-   one process's, a planted short halo) and two full-parameter Trainer
-   steps under context 2 in each mode (``cp_pp_train``, below), and at 4
-   the flash ring's forward and backward at full
-   width and 28,800 tokens (against K1 and K6/K7 on the whole sequence,
-   at their bounds); every worker's launches zeroed before and checked
-   after each run, by kernel and by KV length (the ring's P hops at S / P,
-   Ulysses' one call at S); each world's seconds, peak memory per rank
-   and bytes staged printed; then ``run_inference --mesh context=1`` under
-   ``torch.distributed.run``: NCCL as a world of one, rank 0 writing the
-   edit, and beside it ``train --mesh fsdp=1`` (the Trainer, and the LoRA
-   loop exporting its adapters), each an NCCL world of one;
+   parallel phase to read;
 6. the main paths: ``chronoedit_14b_distilled`` at full width, cut to
    MAIN_BLOCKS = 20 blocks (x 5120, bf16; the H100 machines this runs on
    end a command that writes more than 45 GiB to their disk, and at 40
@@ -176,6 +149,36 @@ non-zero and no result line is printed:
    under autograd) and serves a 720p edit and a w4a16 + int8-score
    reasoning edit (k = 2); loads the bf16 model again from the same files,
    quantizes it to mixed2 and serves one edit; with the card free, runs
+   the mesh phases in one world of 2 processes and one of 4 (``mesh_worlds``:
+   each phase's part of a world runs in turn on its ranks, so that each
+   size starts once): context parallelism (``context_path``):
+   the distilled model at full width cut to ``CP_BLOCKS`` blocks, seeded,
+   its forwards at 28,800 and 7,200 tokens, a 720p edit and a reasoning
+   edit with the drop (k = CP_DROP_K) in this one process, then worlds of 2 and 4
+   worker processes on the same card (``parallel/launch.run_world``, gloo
+   asked for explicitly: NCCL refuses two ranks on one device; the
+   collectives staged through pinned host memory, a transport and not a
+   scaling setup), each rank rebuilding the same weights (checked across
+   ranks and against this process's digest) and running ring and Ulysses
+   forwards at both lengths (held against this process's as dB over its
+   peak, ``CP_MIN_DB``, beside two planted faults the phase reads itself;
+   every rank's gathered output bitwise alike), the edit under a mesh of
+   context 2 (CP_EDIT_STEPS steps) and the drop under context 4
+   (CP_DROP_STEPS steps; against this process's at the fidelity bar), at 2
+   the full-width VAE split over the rows (fp32: the edit's and the
+   reasoning mode's encodes and decodes against this process's at
+   TILED_DECODE_TOL, the bytes gathered exact, each rank's peak against
+   one process's, a planted short halo) and two full-parameter Trainer
+   steps under context 2 in each mode (``cp_pp_train``, below), and at 4
+   the flash ring's forward and backward at full
+   width and 28,800 tokens (against K1 and K6/K7 on the whole sequence,
+   at their bounds); every worker's launches zeroed before and checked
+   after each run, by kernel and by KV length (the ring's P hops at S / P,
+   Ulysses' one call at S); each world's seconds, peak memory per rank
+   and bytes staged printed; then ``run_inference --mesh context=1`` under
+   ``torch.distributed.run``: NCCL as a world of one, rank 0 writing the
+   edit, and beside it ``train --mesh fsdp=1`` (the Trainer, and the LoRA
+   loop exporting its adapters), each an NCCL world of one; then
    pipeline parallelism (``pipeline_path``): worlds of pipe = 2 and 4
    processes on the card over host-staged gloo, each rank loading only its
    stage's blocks of the directory's DiT and LoRA (the bytes it read held
@@ -184,9 +187,17 @@ non-zero and no result line is printed:
    = 2 also batched CFG (against one process's) and two Trainer steps under
    pipe 2 (their step-1 gradients also leaf by leaf at K6/K7's bounds), at
    pipe = 4 then the reasoning drop over pipe 2 x context 2 in both modes
-   at CP_BLOCKS blocks (against the context phase's one-process drop) and
-   two Trainer steps under pipe 2 x context 2, every rank's launches held
-   to the schedule's; then FSDP (``fsdp_path``): a world of
+   at CP_BLOCKS blocks (against the context phase's one-process drop),
+   two Trainer steps under pipe 2 x context 2 and, on a second mesh over
+   the same ranks, pipe 2 x fsdp 2 (``pf_checks``): the main model's
+   MAIN_BLOCKS blocks loaded stage- and shard-local (the bytes held to the
+   headers, the shards' checksums to the whole load's fsdp slices), a
+   forward through one block a stage (bitwise one process, the staged
+   bytes exact), ``tp_model``'s edit, batched CFG and w4a16 edit quantized
+   under the mesh against one process, two Trainer steps (step 1's
+   gradients leaf by leaf at K6/K7's bounds) and their sharded checkpoint
+   restored in this process, every rank's launches held to the schedule's;
+   then FSDP (``fsdp_path``): a world of
    fsdp = 2 processes, each rank loading its slice of every tensor of the
    directory's DiT with the LoRA fused into it (the bytes held to the
    headers, each shard's checksum to the one-process model's slice), one
@@ -300,6 +311,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -3343,6 +3355,107 @@ def profile_stages(stages: dict, out_dir: Path) -> None:
             sort_by="self_device_time_total", row_limit=80, max_name_column_width=100))
 
 
+# ----------------------------------------------------------- the shared worlds
+
+# The context, pipeline, FSDP and tensor phases each need a world of 2 and
+# one of 4 processes on the one card. Each phase is a generator that yields
+# a ``WorldJob`` for each of its worlds and is sent the ranks' results;
+# ``mesh_worlds`` runs the jobs of one size as one world whose ranks run the
+# phases' workers in turn (``world_jobs``), so that each size pays one
+# start: the processes' spawn, imports and CUDA contexts, and the first
+# optimizer's import of ``torch._dynamo`` (``prewarm_optimizer_import``):
+# 12-14 s and 10-14 s a world on an H100 80GB HBM3 (700.00 W), eight worlds
+# in all when each phase started its own.
+class WorldJob(NamedTuple):
+    """A phase's part of a world of ``p`` processes on the one card:
+    ``worker(rank, p, plan)`` on every rank (``plan["device"]`` its
+    device), within ``timeout`` seconds, with ``card_gib`` GiB of the card
+    free before the world starts."""
+    p: int
+    worker: object
+    plan: dict
+    timeout: float
+    card_gib: float = 0.0
+
+
+def world_jobs(rank: int, p: int, jobs: list) -> list[dict]:
+    """One rank of a shared world: each ``(worker, plan)`` of ``jobs`` in
+    turn, the ranks meeting at a barrier before each and the card's cache
+    returned after each; each result gets ``clock``, the job's start and
+    end on the wall clock (``time.time``, which the parent reads too)."""
+    import torch.distributed as dist
+
+    warm = prewarm_optimizer_import()
+    out = []
+    for worker, plan in jobs:
+        dist.barrier()
+        t0 = time.time()
+        res = worker(rank, p, plan)
+        free()
+        res["clock"] = (t0, time.time())
+        out.append(res)
+    warm.result()
+    return out
+
+
+def job_secs(results: list[dict]) -> float:
+    """Rank 0's seconds in its job of a shared world."""
+    start, end = results[0]["clock"]
+    return end - start
+
+
+def mesh_worlds(phases: dict) -> dict:
+    """Drive ``phases`` ({name: generator}, in order): each yields a
+    ``WorldJob`` for each world it needs and is sent the ranks' results of
+    that job; the jobs of one size, the smallest first, run as one world
+    (``parallel/launch.run_world`` over gloo, expandable segments on:
+    ``compact_workers``) whose ranks run them in the phases' order. Prints
+    each world's seconds (from its start to the first job, each job's on
+    rank 0, after the last job) and each phase's seconds in this process;
+    returns each phase's return value."""
+    from chronoedit_tpu_torch.parallel.launch import run_world
+
+    card = card_line()
+    pending, done, own = {}, {}, dict.fromkeys(phases, 0.0)
+
+    def advance(name, results=None):
+        t0 = time.perf_counter()
+        try:
+            pending[name] = phases[name].send(results)
+        except StopIteration as stop:
+            pending.pop(name, None)
+            done[name] = stop.value
+        own[name] += time.perf_counter() - t0
+
+    for name in phases:
+        advance(name)
+    while pending:
+        p = min(job.p for job in pending.values())
+        names = [n for n in phases if n in pending and pending[n].p == p]
+        jobs = [pending[n] for n in names]
+        label = f"shared world of {p} ({', '.join(names)})"
+        wait_for_card(label, max(job.card_gib for job in jobs))
+        t0 = time.time()
+        with compact_workers():
+            results, secs = host_s(lambda: run_world(
+                world_jobs, p, (p, [(job.worker, job.plan) for job in jobs]), backend="gloo",
+                device=jobs[0].plan["device"], timeout=sum(job.timeout for job in jobs),
+                threads=2))
+        first = max(r[0]["clock"][0] for r in results) - t0
+        last = t0 + secs - max(r[-1]["clock"][1] for r in results)
+        print(f"{label}: {p} processes sharing one card over host-staged gloo (not a scaling "
+              f"figure): {secs:.1f} s; the first job began {first:.1f} s after the world's "
+              f"start, then on rank 0 "
+              + ", ".join(f"{n} {job_secs([r[i] for r in results]):.1f} s"
+                          for i, n in enumerate(names))
+              + f"; the world ended {last:.1f} s after the last job ({card})", flush=True)
+        for i, name in enumerate(names):
+            advance(name, [r[i] for r in results])
+    print(f"the mesh phases' checks and one-process work in this process: "
+          f"{ {n: round(s, 1) for n, s in own.items()} } s ({card})")
+    return done
+
+
 # ----------------------------------------------------------- context parallelism
 
 # The context-parallel phase (``context_path``) runs the DiT at full width
@@ -3366,6 +3479,7 @@ CP_WORLDS = (2, 4)
 CP_MIN_DB = 40.0
 # seconds a world of workers may take before it is ended and the phase fails
 CP_TIMEOUT = 900.0
+CP_DEVICE = "cuda:0"  # every rank's device: the one card
 # the context phase's edit (P = 2) and reasoning drop (P = 4; the pipeline
 # phase's drops too) run 2 and 2 of the distilled model's 8 steps, the drop
 # after CP_DROP_K reasoning steps: cut from 8 steps (k = 2) to make room
@@ -3570,7 +3684,6 @@ def cp_worker(rank: int, p: int, plan: dict) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    warm = prewarm_optimizer_import() if plan.get("train") else None
     dev = torch.device(plan["device"])
     build.lib()  # the parent's build, loaded: every source hashes the same
     mesh = make_mesh(MeshConfig(data=-1, context=p), device=dev)
@@ -3620,7 +3733,6 @@ def cp_worker(rank: int, p: int, plan: dict) -> dict:
         res["ring_backward"] = _ring_backward(rank, p, dev, mesh)
     res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     if plan.get("train"):
-        warm.result()
         res["train"] = {mode: cp_pp_train(rank, dev, {"context": p}, mode, plan["clip"],
                                           fault=mode == CP_TRAIN_MODES[0])
                         for mode in CP_TRAIN_MODES}
@@ -3641,11 +3753,11 @@ def cp_worker(rank: int, p: int, plan: dict) -> dict:
 # trajectory's latent frames but the last streamed with 4 W-tiles inside
 # each rank's rows, then the [first, last] edit clip.
 VAE_CASES = ("edit encode", "edit decode", "reasoning encode", "dual decode")
-# the reasoning mode's clip in these cases: 13 frames (4 latent frames, the
-# streaming encode's first frame and three chunks of 4); 29 (8 latent
+# the reasoning mode's clip in these cases: 9 frames (3 latent frames, the
+# streaming encode's first frame and two chunks of 4); 29 (8 latent
 # frames), the reasoning edit's own, until the training under context and
-# pipe took their seconds
-VAE_REASONING_FRAMES = 13
+# pipe took their seconds, then 13 until the pipe x fsdp world took its
+VAE_REASONING_FRAMES = 9
 # planted: halos of one latent row (8 pixel rows, 1 latent row) in place of
 # 80 and 14, on the edit's decode
 VAE_SHORT_HALOS = (8, 1)
@@ -3819,7 +3931,7 @@ def cp_plan(p: int, clip: float) -> dict:
                 for mode in ("ring", "ulysses")]
     forwards += [(EDIT_TOKENS, "ring", "equal_merge"), (EDIT_TOKENS, "ulysses", "rope_rows")]
     return {"forwards": forwards, "edit": p == 2, "vae": p == 2, "drop": p == 4,
-            "ring_backward": p == 4, "train": p == 2, "clip": clip, "device": "cuda:0"}
+            "ring_backward": p == 4, "train": p == 2, "clip": clip, "device": CP_DEVICE}
 
 
 # the steps of the NCCL world's edit through ``run_inference`` (8, the
@@ -3878,24 +3990,15 @@ def nccl_cli(card: str) -> float:
     return secs
 
 
-def context_path(dev, launches: tuple[Counter, Counter], train_refs: dict) -> dict:
-    """Context parallelism on the one card: worlds of P = 2 and 4 processes
-    on ``cuda:0`` over host-staged gloo (a check of correctness and of the
-    per-rank kernel launches, not a scaling figure), against this process's
-    unsharded forwards, edit and reasoning drop on the same weights and
-    inputs, and at P = 2 the VAE split over the rows against this
-    process's (``vae_references``, ``check_sharded_vae``) and the Trainer's
-    steps under context 2 against ``train_refs`` (``mesh_train_refs``,
-    ``check_cp_pp_train``); then NCCL at a world of 1 through the CLI. Adds
-    the workers' launches (forwards, edits, the ring's backward, the train
-    steps; not the planted faults) to ``launches``."""
+def context_refs(dev) -> dict:
+    """This process's unsharded readings of ``cp_model`` that the context
+    worlds are held to: the forwards at 28,800 and 7,200 tokens, the 720p
+    edit and the reasoning drop (the pipeline phase's reference too), the
+    sharded VAE's cases (``vae_references``) and the weights' digest."""
     from chronoedit_tpu_torch.models import dit as dit_lib
     from chronoedit_tpu_torch.parallel import consistency
-    from chronoedit_tpu_torch.parallel.launch import run_world
 
-    card = card_line()
     cfg = cp_config()
-    t_phase = time.perf_counter()
     with torch.inference_mode():
         pipe = cp_model(dev, cfg)
         digest = consistency.tree_digest(pipe.dit)
@@ -3916,21 +4019,38 @@ def context_path(dev, launches: tuple[Counter, Counter], train_refs: dict) -> di
         # the sharded VAE's references, alone on the card before any world
         # runs: beside the world of 2 the card reached 67.3 of 79.2 GiB (H100
         # 80GB HBM3), a peak that rests on how the two runs interleave
-        vae_refs, vae_secs = host_s(lambda: vae_references(pipe.vae))
+        refs["vae"], vae_secs = host_s(lambda: vae_references(pipe.vae))
     del pipe
     free()
     print(f"context_path: the one-process VAE references (fp32) in {vae_secs:.1f} s, "
           f"before the worlds")
+    refs["digest"] = digest
+    return refs
 
+
+def context_path(dev, launches: tuple[Counter, Counter], train_refs: dict, refs: dict):
+    """Context parallelism on the one card, a generator for ``mesh_worlds``:
+    its parts of the shared worlds of P = 2 and 4 processes on ``cuda:0``
+    over host-staged gloo (a check of correctness and of the per-rank
+    kernel launches, not a scaling figure), against this process's
+    unsharded forwards, edit and reasoning drop on the same weights and
+    inputs (``refs``, ``context_refs``), and at P = 2 the VAE split over
+    the rows against this process's (``check_sharded_vae``) and the
+    Trainer's steps under context 2 against ``train_refs``
+    (``mesh_train_refs``, ``check_cp_pp_train``); then NCCL at a world of 1
+    through the CLI. Adds the workers' launches (forwards, edits, the
+    ring's backward, the train steps; not the planted faults) to
+    ``launches``."""
+    card = card_line()
+    cfg = cp_config()
+    digest, vae_refs = refs["digest"], refs["vae"]
     sound, faults, summary = {}, {}, {}
     for p in CP_WORLDS:
         plan = cp_plan(p, train_refs["clip"])
-        results, secs = host_s(lambda: run_world(cp_worker, p, (p, plan), backend="gloo",
-                                                 device=plan["device"], timeout=CP_TIMEOUT,
-                                                 threads=2))
+        results = yield WorldJob(p, cp_worker, plan, CP_TIMEOUT)
         print(f"context_path P = {p}: {p} processes sharing one card over host-staged gloo "
-              f"(not a scaling figure): the world's {secs:.1f} s, peak memory per rank "
-              f"{[round(r['peak_gib'], 2) for r in results]} GiB ({card})")
+              f"(not a scaling figure): its part of the shared world {job_secs(results):.1f} s, "
+              f"peak memory per rank {[round(r['peak_gib'], 2) for r in results]} GiB ({card})")
         if results[0]["digest"] != digest or any(r["diverged"] for r in results):
             raise AssertionError(f"P = {p}: the ranks' weights differ from the parent's or "
                                  f"from each other's: {[r['diverged'] for r in results]}")
@@ -3997,9 +4117,6 @@ def context_path(dev, launches: tuple[Counter, Counter], train_refs: dict) -> di
         raise AssertionError(f"context_path: sound readings under CP_MIN_DB {low}, planted "
                              f"faults over it {high}")
     summary["nccl_cli_s"] = nccl_cli(card)
-    print(f"context_path: {time.perf_counter() - t_phase:.1f} s ({card})")
-    # the one-process drop is the pipeline phase's reference too
-    summary["drop_ref"] = refs["drop"]
     return summary
 
 
@@ -4119,10 +4236,58 @@ PP_EDIT_SEED = 10
 PP_CFG_SEED, PP_NEG_SEED = 30, 32
 # the steps of the pipe worlds' edits and the pipe = 2 world's guided edit
 # (8 steps took 15-20 s more of the command's time limit; the pipe = 2
-# world's edit ran 8 until the training under pipe took its seconds)
-PP_SHORT_STEPS = 2
+# world's edit ran 8 until the training under pipe took its seconds, and
+# every one 2 until the pipe x fsdp world took its)
+PP_SHORT_STEPS = 1
 # the card's free GiB each world needs: its ranks' peaks and CUDA contexts
 PP_CARD_GIB = {2: 50.0, 4: 67.0}
+# pipe 2 x fsdp 2 (``pf_checks``), run by the pipe = 4 world after its own
+# checks on a second mesh over the same ranks: each rank holds its fsdp half
+# of its stage's blocks. Its forward of the loaded model runs the first
+# block of each stage (``pf_mask``): every fsdp gather stages a rank's
+# shard through the host at 0.4-0.55 GB/s, about 0.40 GB a block
+PF_MESH = {"pipe": 2, "fsdp": 2}
+PF_FORWARD_SEED = 52
+
+
+def pf_mask(cfg) -> list[float]:
+    """The pipe x fsdp forward's layer mask: the first block of each of the
+    two stages runs."""
+    per = cfg.dit.num_layers // PF_MESH["pipe"]
+    return [1.0 if i % per == 0 else 0.0 for i in range(cfg.dit.num_layers)]
+
+
+def pf_bytes(files, cfg, dims: dict, blocks: range, gathered: bool = False) -> int:
+    """The bytes a pipe 2 x fsdp 2 rank holding the blocks ``blocks`` reads
+    from the DiT's shards (``files``, a ``SafetensorsFiles``), from the
+    headers: its fsdp half of each tensor the plan (``dims``, fsdp = 2)
+    splits, the whole of the others, for those blocks and the non-block
+    tensors; with ``gathered`` the split ones only: what its gathers of
+    those modules stage through the host."""
+    from chronoedit_tpu_torch.models.weights import block_index, diffusers_dit_names
+
+    names = diffusers_dit_names(cfg.dit)
+    total = 0
+    for key in files:
+        name = names.get(key.removeprefix("transformer."))
+        if name is None or (block_index(name) is not None and block_index(name) not in blocks):
+            continue
+        if dims[name] is not None:
+            total += files.nbytes(key) // 2
+        elif not gathered:
+            total += files.nbytes(key)
+    return total
+
+
+def pf_whole_forward(pipe, dev) -> torch.Tensor:
+    """The one-process 720p forward through ``pf_mask`` of ``pipe``'s DiT
+    (the model loaded whole from ``CHECKPOINT_DIR`` with its LoRA, as the
+    pipe x fsdp ranks load their shards; fp32, on the host)."""
+    from chronoedit_tpu_torch.models import dit as dit_lib
+
+    cfg = pipe.config
+    return dit_lib.dit_forward(pipe.dit, *cp_inputs(cfg, dev, EDIT_TOKENS, PF_FORWARD_SEED),
+                               layer_mask=pf_mask(cfg)).float().cpu()
 
 
 def stage_bytes(files, num_layers: int, pipe: int, lora: bool = False) -> list[int]:
@@ -4187,7 +4352,6 @@ def pp_worker(rank: int, p: int, plan: dict) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    warm = prewarm_optimizer_import() if plan.get("train") else None
     dev = torch.device(plan["device"])
     build.lib()  # the parent's build, loaded: every source hashes the same
     mesh = make_mesh(MeshConfig(data=-1, pipe=p), device=dev)
@@ -4241,14 +4405,200 @@ def pp_worker(rank: int, p: int, plan: dict) -> dict:
         del pipe
         free()
     if plan.get("train"):
-        warm.result()
         mode = "ulysses" if plan["train"].get("context", 1) > 1 else "auto"
         res["train"] = cp_pp_train(rank, dev, plan["train"], mode, plan["clip"])
+    if plan.get("pf"):
+        res["pf"] = pf_checks(rank, dev, plan)
     return res
 
 
-def pipeline_path(dev, refs: dict, launches: tuple[Counter, Counter]) -> dict:
-    """Pipeline parallelism on the one card: worlds of pipe = 2 and 4
+def pf_checks(rank: int, dev, plan: dict) -> dict:
+    """One rank's pipe 2 x fsdp 2 checks, on a mesh made in the same order
+    on every rank of the pipe = 4 world after its own checks: the distilled
+    model with the distilled LoRA loaded stage- and shard-local from the
+    checkpoint directory (its fsdp half of its stage's block tensors and
+    of the non-block ones; the shards' checksums returned) and one 720p
+    forward through ``pf_mask`` (a block a stage); then ``tp_model``'s
+    weights at TP_BLOCKS blocks cut to the rank's stage and sharded: the
+    edit, batched CFG (B = 2: two microbatches) and, quantized under the
+    mesh, the w4a16 edit, each at TP_SHORT_STEPS steps; then two Trainer
+    steps (``cp_pp_train``), the state after step 1 saved sharded under
+    ``plan["pf_checkpoint"]``. Every run with its launches held exact
+    (``_cp_run``); rank 0 returns the outputs, every rank the digests,
+    seconds, bytes read and staged and peak memory."""
+    from chronoedit_tpu_torch.models import dit as dit_lib
+    from chronoedit_tpu_torch.ops import quant
+    from chronoedit_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from chronoedit_tpu_torch.parallel.pipeline_parallel import stage_range
+    from chronoedit_tpu_torch.parallel.sharding import shard_params
+    from chronoedit_tpu_torch.pipeline.loader import load_pipeline
+
+    # the parent's int4 codebook (the same numpy arithmetic from the same
+    # seed gives the same bits): a rank skips the 13-16 s search
+    quant._lloyd_levels = plan["lloyd"].__getitem__
+    mesh = make_mesh(MeshConfig(data=-1, **PF_MESH), device=dev)
+    cfg, tcfg, short = main_config(), tp_config(), TP_SHORT_STEPS
+    res = {}
+    with torch.inference_mode():
+        torch.cuda.reset_peak_memory_stats()
+        pipe, secs = host_s(lambda: load_pipeline(
+            cfg, str(CHECKPOINT_DIR), loras=[(str(CHECKPOINT_DIR / "distill_lora.safetensors"),
+                                              1.0)],
+            with_text_encoder=False, with_image_encoder=False, device=dev, mesh=mesh))
+        dit = pipe.dit
+        res["load"] = {"secs": secs, "bytes": dict(pipe.load_bytes),
+                       "layers": (dit.layers.start, dit.layers.stop), "blocks": len(dit.blocks),
+                       "gib": torch.cuda.memory_allocated() / 2 ** 30,
+                       "sums": {dit.global_name(n): tensor_checksum(t)
+                                for n, t in dit.named_parameters()}}
+        args = cp_inputs(cfg, dev, EDIT_TOKENS, PF_FORWARD_SEED)
+        res["forward"] = _cp_run("forward", functools.partial(
+            dit_lib.dit_forward, dit, *args, mesh=mesh, layer_mask=pf_mask(cfg)),
+            cp_launches(cfg, [(EDIT_TOKENS, "none", 1)], 1), rank, rank == 0)
+        res["peak_gib_main"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        del pipe, dit, args
+        free()
+        torch.cuda.reset_peak_memory_stats()
+        small = tp_model(dev, tcfg)
+        shard_params(small.dit.keep_layers(stage_range(tcfg.dit.num_layers, mesh)), mesh)
+        small.mesh = mesh
+        free()
+
+        def edit(seed, gen, **kw):
+            req = request(tcfg, dev, seed, EDIT_H, EDIT_W, TEXT_TOKENS)
+            return small.edit_image(**req, **kw, generator=torch.Generator(
+                device=dev).manual_seed(gen))
+
+        per = len(small.dit.layers)
+        res["edit"] = _cp_run("edit", functools.partial(edit, 40, 140, num_steps=short),
+                              cp_launches(tcfg, [(EDIT_TOKENS, "none", 1)] * short, per), rank,
+                              rank == 0)
+        res["cfg"] = _cp_run("CFG batched", functools.partial(
+            edit, PP_CFG_SEED, 130, neg_prompt_emb=tp_negative(tcfg, dev), guidance_scale=5.0,
+            num_steps=short), cp_launches(tcfg, [(EDIT_TOKENS, "none", 1)] * short, per,
+                                          microbatches=2), rank, rank == 0)
+        _, res["quantize_secs"] = host_s(lambda: small.quantize(mode="int4"))
+        stage = dataclasses.replace(tcfg, dit=dataclasses.replace(tcfg.dit, num_layers=per))
+        res["w4a16"] = _cp_run("w4a16 edit", functools.partial(edit, 40, 140, num_steps=short),
+                               expected_launches(stage, [EDIT_TOKENS] * short, int4=True), rank,
+                               rank == 0)
+        res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        del small
+    free()
+    res["train"] = cp_pp_train(rank, dev, PF_MESH, "auto", plan["clip"],
+                               save=plan["pf_checkpoint"])
+    return res
+
+
+def check_pipe_fsdp(dev, results: list[dict], refs: dict, plan: dict,
+                    launches: tuple[Counter, Counter]) -> dict:
+    """The parent's verdict on the pipe x fsdp checks (``pf_checks``' per-rank
+    readings, rank = 2 x stage + fsdp index): each rank's stage and bytes
+    read held to the files' headers and its shards' checksums to the whole
+    model's slices (``refs["fsdp"]``, fsdp = 2); the forward's output and
+    bytes staged; the edits against ``refs["small"]`` at the fidelity bar
+    (bitwise or not, printed); every rank's outputs alike; the Trainer's
+    steps at the training bars (step 1's gradients leaf by leaf at K6/K7's
+    bounds); the sharded checkpoint's bytes and its restore into one
+    process (``check_checkpoint``). Adds the ranks' launches to
+    ``launches``; returns the readings."""
+    from chronoedit_tpu_torch.models import weights as w
+
+    card = card_line()
+    cfg, dims, sums = main_config(), refs["fsdp"]["dims"], refs["fsdp"]["sums"]
+    pipe = PF_MESH["pipe"]
+    per = cfg.dit.num_layers // pipe
+    stages = [range(s * per, (s + 1) * per) for s in range(pipe)]
+    shards = sorted(str(f) for f in (CHECKPOINT_DIR / "transformer").glob("*.safetensors"))
+    with w.load_safetensors(shards) as sd, \
+            w.load_safetensors(str(CHECKPOINT_DIR / "distill_lora.safetensors")) as lsd:
+        total = sum(sd.nbytes(k) for k in sd)
+        want_bytes = [pf_bytes(sd, cfg, dims, r) for r in stages]
+        lora_want = stage_bytes(lsd, cfg.dit.num_layers, pipe, lora=True)
+        run = [i for i, keep in enumerate(pf_mask(cfg)) if keep]
+        want_staged = [pf_bytes(sd, cfg, dims, range(b, b + 1), gathered=True) for b in run]
+    # every rank hands its output on once (m + n - 2 = 1) and takes part in
+    # the final broadcast, each a (1, 7,200, 5,120) bf16 stream
+    handoffs = 2 * EDIT_TOKENS * cfg.dit.dim * 2
+    summary = {}
+    print(f"   pipe 2 x fsdp 2 (a second mesh over the pipe = 4 world's ranks; rank = 2 x stage "
+          f"+ fsdp index):")
+    for rank, r in enumerate(results):
+        load, stage = r["pf"]["load"], rank // 2
+        layers = stages[stage]
+        bad = [n for n, s in load["sums"].items() if s != sums[rank % 2][n]]
+        names = {n for n in sums[0] if w.block_index(n) is None or w.block_index(n) in layers}
+        print(f"   rank {rank}: blocks {load['layers']}, read {load['bytes']['dit'] / 1e9:.3f} GB "
+              f"of the DiT's {total / 1e9:.3f} GB (expected {want_bytes[stage] / 1e9:.3f}) and "
+              f"{load['bytes']['loras'] / 1e6:.1f} MB of the LoRA (expected "
+              f"{lora_want[stage] / 1e6:.1f}) in {load['secs']:.2f} s, {load['gib']:.2f} GiB "
+              f"after the load; {len(load['sums']) - len(bad)} of {len(load['sums'])} shards "
+              f"bitwise the one-process model's slices; peak {r['pf']['peak_gib_main']:.2f} "
+              f"GiB over the forward, {r['pf']['peak_gib']:.2f} over the edits")
+        if (load["layers"] != (layers.start, layers.stop) or load["blocks"] != per
+                or load["bytes"]["dit"] != want_bytes[stage]
+                or load["bytes"]["loras"] != lora_want[stage] or bad
+                or set(load["sums"]) != names):
+            raise AssertionError(f"pipe x fsdp rank {rank}: loaded {load['layers']}, "
+                                 f"{load['bytes']}, expected stage {stage} and "
+                                 f"{want_bytes[stage]} / {lora_want[stage]} bytes; shards "
+                                 f"differing from the whole model's slices: {bad[:8]}")
+        summary[f"rank{rank}_dit_bytes"] = load["bytes"]["dit"]
+    short = TP_SHORT_STEPS
+    runs = {"forward": (refs["pf forward"], 1, f"720p DiT forward ({cfg.dit.num_layers} "
+                                               f"blocks, block {run} run: one a stage)"),
+            "edit": (refs["small"]["edit"], short, f"720p edit ({short} steps, {TP_BLOCKS} "
+                                                   f"blocks: one a stage)"),
+            "cfg": (refs["small"]["cfg"], short, f"CFG batched, guidance 5 (B = 2, 2 "
+                                                 f"microbatches, {short} steps)"),
+            "w4a16": (refs["small"]["w4a16"], short, f"w4a16 edit, quantized under pipe 2 x "
+                                                     f"fsdp 2 ({short} steps)")}
+    for key, (want, forwards, label) in runs.items():
+        per_rank = [r["pf"][key] for r in results]
+        first = per_rank[0]
+        if any(r["digest"] != first["digest"] for r in per_rank) or not first["finite"]:
+            raise AssertionError(f"pipe x fsdp {label}: the ranks' outputs differ or are not "
+                                 f"finite")
+        got = torch.from_numpy(first["out"])
+        if got.shape != want.shape:
+            raise AssertionError(f"pipe x fsdp {label}: {tuple(got.shape)} against "
+                                 f"{tuple(want.shape)}")
+        db = psnr(got, want)
+        staged = [r["staged"] / forwards for r in per_rank]
+        print(f"   {label}: rank 0 {first['secs']:.3f} s (host staging, not a speed), "
+              f"{[round(s / 1e9, 4) for s in staged]} GB staged a forward and rank, every rank "
+              f"bitwise alike, {'bitwise' if db == math.inf else f'{db:.2f} dB'} against one "
+              f"process (bar {MIN_PSNR_DB} dB); rank 0's launches {first['launches'][0]}, flash "
+              f"by KV {first['launches'][1]['flash_fwd']}, int4 by rows "
+              f"{first['launches'][1]['int4_matmul']}")
+        if not db >= MIN_PSNR_DB:
+            raise AssertionError(f"pipe x fsdp {label}: {db:.2f} dB against one process < "
+                                 f"{MIN_PSNR_DB} dB")
+        # a CPU rehearsal stages nothing: only CUDA tensors go through the host
+        want_forward = [want_staged[rank // 2] + handoffs for rank in range(len(per_rank))]
+        if key == "forward" and dev.type == "cuda" and [r["staged"] for r in per_rank] != \
+                want_forward:
+            raise AssertionError(f"pipe x fsdp forward: staged {[r['staged'] for r in per_rank]}"
+                                 f" bytes, predicted the run block's and the non-block shards "
+                                 f"and two handoffs, {want_forward}")
+        summary[f"pf {key}"] = db
+        for r in per_rank:
+            launches[0].update(r["launches"][0])
+            launches[1].update(r["launches"][1]["flash_fwd"])
+    print(f"   quantized under pipe 2 x fsdp 2 (a gathered block at a time) in "
+          f"{results[0]['pf']['quantize_secs']:.1f} s")
+    trained = [r["pf"]["train"] for r in results]
+    summary["train pipe 2 x fsdp 2"] = check_cp_pp_train(
+        "training under pipe 2 x fsdp 2", trained, refs["train"], card, per_leaf=True)
+    add_train_launches(trained, launches)
+    check_checkpoint(dev, trained, card, Path(plan["pf_checkpoint"]), "pipe 2 x fsdp 2")
+    shutil.rmtree(plan["pf_checkpoint"], ignore_errors=True)
+    return summary
+
+
+def pipeline_path(dev, refs: dict, launches: tuple[Counter, Counter], scratch: Path):
+    """Pipeline parallelism on the one card, a generator for
+    ``mesh_worlds``: its parts of the shared worlds of pipe = 2 and 4
     processes on ``cuda:0`` over host-staged gloo (correctness and per-rank
     launches, not a scaling figure), each rank reading only its stage's
     block tensors from ``CHECKPOINT_DIR`` (checked, per rank, against the
@@ -4258,15 +4608,17 @@ def pipeline_path(dev, refs: dict, launches: tuple[Counter, Counter]) -> dict:
     = 2, and the reasoning drop over pipe = 2 x context = 2 in both modes
     (``refs["drop"]``), at the fidelity bar; the Trainer's steps under pipe
     2 and pipe 2 x context 2 against ``refs["train"]`` at the training bars,
-    pipe 2's step-1 gradients leaf by leaf at K6/K7's bounds. Adds the
-    workers' launches to ``launches``. Needs the card free: the
-    one-process runs were freed before."""
+    pipe 2's step-1 gradients leaf by leaf at K6/K7's bounds; then the
+    pipe = 4 world's pipe 2 x fsdp 2 checks (``pf_checks``,
+    ``check_pipe_fsdp``: ``refs["pf forward"]``, ``refs["small"]``,
+    ``refs["fsdp"]``), its checkpoint in ``scratch``. Adds the workers'
+    launches to ``launches``. Needs the card free: the one-process runs
+    were freed before."""
     from chronoedit_tpu_torch.models import weights as w
-    from chronoedit_tpu_torch.parallel.launch import run_world
+    from chronoedit_tpu_torch.ops import quant
 
     card = card_line()
     cfg = main_config()
-    t_phase = time.perf_counter()
     shards = sorted(str(f) for f in (CHECKPOINT_DIR / "transformer").glob("*.safetensors"))
     with w.load_safetensors(shards) as sd, \
             w.load_safetensors(str(CHECKPOINT_DIR / "distill_lora.safetensors")) as lsd:
@@ -4274,18 +4626,17 @@ def pipeline_path(dev, refs: dict, launches: tuple[Counter, Counter]) -> dict:
         want_bytes = {p: (stage_bytes(sd, cfg.dit.num_layers, p),
                           stage_bytes(lsd, cfg.dit.num_layers, p, lora=True)) for p in PP_WORLDS}
     summary = {}
+    # every in-dimension at full width is at least the group of 128 rows
+    lloyd = {quant.INT4_GROUP: quant._lloyd_levels(quant.INT4_GROUP)}
     for p in PP_WORLDS:
         plan = {"cfg": p == 2, "drops": p == 4, "train": PP_TRAIN_MESHES[p],
-                "clip": refs["train"]["clip"], "device": PP_DEVICE}
+                "clip": refs["train"]["clip"], "device": PP_DEVICE, "pf": p == 4,
+                "lloyd": lloyd, "pf_checkpoint": str(scratch / "pf_checkpoint")}
         # the ranks' peaks on an H100 80GB HBM3: pipe 2 23.34 GiB, pipe 4 15.79
-        wait_for_card(f"pipeline_path pipe = {p}", PP_CARD_GIB[p])
-        with compact_workers():
-            results, secs = host_s(lambda: run_world(pp_worker, p, (p, plan), backend="gloo",
-                                                     device=plan["device"], timeout=PP_TIMEOUT,
-                                                     threads=2))
+        results = yield WorldJob(p, pp_worker, plan, PP_TIMEOUT, PP_CARD_GIB[p])
         print(f"pipeline_path pipe = {p}: {p} processes sharing one card over host-staged gloo "
-              f"(not a scaling figure): the world's {secs:.1f} s, peak memory per rank "
-              f"{[round(r['peak_gib'], 2) for r in results]} GiB ({card})")
+              f"(not a scaling figure): its part of the shared world {job_secs(results):.1f} s, "
+              f"peak memory per rank {[round(r['peak_gib'], 2) for r in results]} GiB ({card})")
         dit_want, lora_want = want_bytes[p]
         for stage, r in enumerate(results):
             load = r["load"]
@@ -4342,7 +4693,8 @@ def pipeline_path(dev, refs: dict, launches: tuple[Counter, Counter]) -> dict:
         summary[f"train {mesh}"] = check_cp_pp_train(
             f"training under {mesh}", trained, refs["train"], card, per_leaf=p == 2)
         add_train_launches(trained, launches)
-    print(f"pipeline_path: {time.perf_counter() - t_phase:.1f} s ({card})")
+        if plan["pf"]:
+            summary.update(check_pipe_fsdp(dev, results, refs, plan, launches))
     return summary
 
 
@@ -4516,9 +4868,9 @@ FSDP_FORWARD_SEED = 50
 # run (a layer mask skips the rest, which no rank then gathers or reduces):
 # all 40 took 20-25 s (fsdp) and 14 s (tensor) of the command's time limit;
 # 5 and 10 of the 20 until the training under context and pipe took their
-# seconds
-FSDP_FORWARD_BLOCKS = 3
-TP_FORWARD_BLOCKS = 5
+# seconds, 3 and 5 until the pipe x fsdp world took its
+FSDP_FORWARD_BLOCKS = 2
+TP_FORWARD_BLOCKS = 3
 TP_FORWARD_SEED = 51
 FSDP_BLOCKS = 2
 FSDP_SHORT_STEPS = 1
@@ -4724,9 +5076,10 @@ def fsdp_whole_refs(pipe, dev) -> dict:
     return {"dims": dims, "sums": sums, "forward": fwd.float().cpu()}
 
 
-def fsdp_path(dev, whole: dict, launches: tuple[Counter, Counter]) -> dict:
-    """FSDP on the one card: worlds of 2 (fsdp 2) and 4 (fsdp 2 x context
-    2) processes on ``cuda:0`` over host-staged gloo (correctness, bytes
+def fsdp_path(dev, whole: dict, launches: tuple[Counter, Counter]):
+    """FSDP on the one card, a generator for ``mesh_worlds``: its parts of
+    the shared worlds of 2 (fsdp 2) and 4 (fsdp 2 x context 2) processes on
+    ``cuda:0`` over host-staged gloo (correctness, bytes
     and per-rank launches, not a scaling figure). ``whole`` holds the whole
     model's references (``fsdp_whole_refs``: each rank's slices'
     checksums and the 720p forward at 40 blocks); first, in this process,
@@ -4744,7 +5097,6 @@ def fsdp_path(dev, whole: dict, launches: tuple[Counter, Counter]) -> dict:
     ``launches``. Needs the card free."""
     from chronoedit_tpu_torch.models import weights as w
     from chronoedit_tpu_torch.ops import quant
-    from chronoedit_tpu_torch.parallel.launch import run_world
     from chronoedit_tpu_torch.parallel.sharding import Shards
 
     card = card_line()
@@ -4807,15 +5159,12 @@ def fsdp_path(dev, whole: dict, launches: tuple[Counter, Counter]) -> dict:
     lloyd = {quant.INT4_GROUP: quant._lloyd_levels(quant.INT4_GROUP)}
     for p in FSDP_WORLDS:
         plan = {"device": FSDP_DEVICE, "lloyd": lloyd, "train": whole["train"]}
-        wait_for_card(f"fsdp_path world of {p}", FSDP_CARD_GIB[p])
-        with compact_workers():
-            results, secs = host_s(lambda: run_world(fsdp_worker, p, (p, plan), backend="gloo",
-                                                     device=plan["device"], timeout=FSDP_TIMEOUT,
-                                                     threads=2))
+        results = yield WorldJob(p, fsdp_worker, plan, FSDP_TIMEOUT, FSDP_CARD_GIB[p])
+        summary[f"world{p}_s"] = job_secs(results)
         print(f"fsdp_path world of {p}: {p} processes sharing one card over host-staged gloo "
-              f"(not a scaling figure): the world's {secs:.1f} s, peak memory per rank "
-              f"{[round(r['peak_gib'], 2) for r in results]} GiB ({card})")
-        summary[f"world{p}_s"] = secs
+              f"(not a scaling figure): its part of the shared world {summary[f'world{p}_s']:.1f} "
+              f"s, peak memory per rank {[round(r['peak_gib'], 2) for r in results]} GiB "
+              f"({card})")
         if p == 2:
             for rank, r in enumerate(results):
                 load = r["load"]
@@ -4886,8 +5235,6 @@ def fsdp_path(dev, whole: dict, launches: tuple[Counter, Counter]) -> dict:
         summary[f"train fsdp{p}"] = check_mesh_train(
             "fsdp 2" if p == 2 else "data 2 x fsdp 2", train, whole["train"], card)
         add_train_launches(train, launches)
-    summary["secs"] = time.perf_counter() - t_phase
-    print(f"fsdp_path: {summary['secs']:.1f} s ({card})")
     return summary
 
 
@@ -5337,33 +5684,16 @@ def tensor_whole_refs(pipe, dev) -> dict:
     return {"dims": dims, "sums": sums, "forward": fwd.float().cpu()}
 
 
-def tensor_path(dev, whole: dict, launches: tuple[Counter, Counter]) -> dict:
-    """Tensor parallelism on the one card: worlds of 2 and 4 processes on
-    ``cuda:0`` over host-staged gloo (correctness, bytes and per-rank
-    launches, not a scaling figure). ``whole`` holds the whole model's
-    references (``tensor_whole_refs``); first, in this process,
-    ``tp_model``'s weights at TP_BLOCKS blocks give the rest: the edit,
-    batched CFG and the context edit at TP_SHORT_STEPS steps, a
-    2-block forward and, quantized to w4a16, the edit at TP_SHORT_STEPS
-    steps and the forward again. Each rank's bytes read are held to the
-    files' headers, its fused slices to the whole model's, every reading to
-    one process at TP_MIN_DB and the planted faults below it, the training
-    checks under tensor 2 and data 2 x tensor 2 to ``whole["train"]``
-    (``mesh_train_refs``) at the training bars, the sharded checkpoint of
-    the world of 2 restored in this process after the world of 4
-    (``check_checkpoint``) and under data 2 x tensor 2 (``check_restored``,
-    then step 2 at the training bars), the bytes staged by the 40-block
-    model's forward to ``tp_staged_bytes``. Adds the workers' launches to
-    ``launches``. Needs the card free."""
+def tp_small_refs(dev) -> dict:
+    """The one-process references at TP_BLOCKS blocks of ``tp_model``'s
+    weights that the tensor worlds and the pipe x fsdp world are held to
+    (fp32, on the host): the edit (seed 40) and batched CFG at
+    TP_SHORT_STEPS steps, the served requests at SERVE_STEPS steps, a
+    forward; then, quantized to w4a16, the edit and the forward again
+    (``int4_packed_slice``: the planted fault's reference)."""
     from chronoedit_tpu_torch.models import dit as dit_lib
-    from chronoedit_tpu_torch.models import weights as w
-    from chronoedit_tpu_torch.ops import quant
-    from chronoedit_tpu_torch.parallel.launch import run_world
 
-    card = card_line()
-    cfg, tcfg = main_config(), tp_config()
-    dims, sums, short = whole["dims"], whole["sums"], TP_SHORT_STEPS
-    t_phase = time.perf_counter()
+    tcfg, short = tp_config(), TP_SHORT_STEPS
     with torch.inference_mode():
         small = tp_model(dev, tcfg)
 
@@ -5376,24 +5706,53 @@ def tensor_path(dev, whole: dict, launches: tuple[Counter, Counter]) -> dict:
             args = cp_inputs(tcfg, dev, EDIT_TOKENS, TP_FORWARD_SEED)
             return dit_lib.dit_forward(small.dit, *args).float().cpu()
 
-        neg = torch.randn((1, TEXT_TOKENS, tcfg.dit.text_dim), device=dev,
-                          generator=torch.Generator(device=dev).manual_seed(PP_NEG_SEED))
-        ref = {"forward 40": whole["forward"], "edit": edit(40, 140, num_steps=short),
+        ref = {"edit": edit(40, 140, num_steps=short),
                **{f"serve {n}": edit(seed, n, num_steps=SERVE_STEPS)
                   for seed, n in SERVE_REQUESTS},
                "forward": forward(),
-               "cfg": edit(PP_CFG_SEED, 130, neg_prompt_emb=neg, guidance_scale=5.0,
-                           num_steps=short)}
-        ref["edit tp4"] = ref["edit"]
-        ref["forward fsdp"] = ref["k4_local_stats"] = ref["bias_on_every_rank"] = ref["forward"]
-        ref["edit ring"] = ref["edit ulysses"] = ref["edit"]
+               "cfg": edit(PP_CFG_SEED, 130, neg_prompt_emb=tp_negative(tcfg, dev),
+                           guidance_scale=5.0, num_steps=short)}
         small.quantize(mode="int4")
-        ref["w4a16"] = ref["w4a16 tp4"] = edit(40, 140, num_steps=short)
+        ref["w4a16"] = edit(40, 140, num_steps=short)
         ref["int4_packed_slice"] = forward()
         del small
-        free()
-    print(f"tensor_path: the one-process references at {TP_BLOCKS} blocks in "
-          f"{time.perf_counter() - t_phase:.1f} s")
+    free()
+    return ref
+
+
+def tp_negative(cfg, dev) -> torch.Tensor:
+    """The guided edits' negative prompt embedding (seed PP_NEG_SEED)."""
+    return torch.randn((1, TEXT_TOKENS, cfg.dit.text_dim), device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(PP_NEG_SEED))
+
+
+def tensor_path(dev, whole: dict, launches: tuple[Counter, Counter]):
+    """Tensor parallelism on the one card, a generator for ``mesh_worlds``:
+    its parts of the shared worlds of 2 and 4 processes on ``cuda:0`` over
+    host-staged gloo (correctness, bytes and per-rank
+    launches, not a scaling figure). ``whole`` holds the whole model's
+    references (``tensor_whole_refs``) and, under "small", ``tp_small_refs``'
+    one-process readings of ``tp_model``'s weights at TP_BLOCKS blocks,
+    which give the rest. Each rank's bytes read are held to the
+    files' headers, its fused slices to the whole model's, every reading to
+    one process at TP_MIN_DB and the planted faults below it, the training
+    checks under tensor 2 and data 2 x tensor 2 to ``whole["train"]``
+    (``mesh_train_refs``) at the training bars, the sharded checkpoint of
+    the world of 2 restored in this process after the world of 4
+    (``check_checkpoint``) and under data 2 x tensor 2 (``check_restored``,
+    then step 2 at the training bars), the bytes staged by the 40-block
+    model's forward to ``tp_staged_bytes``. Adds the workers' launches to
+    ``launches``. Needs the card free."""
+    from chronoedit_tpu_torch.models import weights as w
+    from chronoedit_tpu_torch.ops import quant
+
+    card = card_line()
+    cfg = main_config()
+    dims, sums, short = whole["dims"], whole["sums"], TP_SHORT_STEPS
+    ref = {"forward 40": whole["forward"], **whole["small"]}
+    ref["edit tp4"] = ref["edit ring"] = ref["edit ulysses"] = ref["edit"]
+    ref["forward fsdp"] = ref["k4_local_stats"] = ref["bias_on_every_rank"] = ref["forward"]
+    ref["w4a16 tp4"] = ref["w4a16"]
     shards = sorted(str(f) for f in (CHECKPOINT_DIR / "transformer").glob("*.safetensors"))
     with w.load_safetensors(shards) as sd, \
             w.load_safetensors(str(CHECKPOINT_DIR / "distill_lora.safetensors")) as lsd:
@@ -5428,15 +5787,12 @@ def tensor_path(dev, whole: dict, launches: tuple[Counter, Counter]) -> dict:
     lloyd = {quant.INT4_GROUP: quant._lloyd_levels(quant.INT4_GROUP)}
     for p in TP_WORLDS:
         plan = {"device": TP_DEVICE, "lloyd": lloyd, "train": whole["train"]}
-        wait_for_card(f"tensor_path world of {p}", TP_CARD_GIB[p])
-        with compact_workers():
-            results, secs = host_s(lambda: run_world(tp_worker, p, (p, plan), backend="gloo",
-                                                     device=plan["device"], timeout=TP_TIMEOUT,
-                                                     threads=2))
+        results = yield WorldJob(p, tp_worker, plan, TP_TIMEOUT, TP_CARD_GIB[p])
+        summary[f"world{p}_s"] = job_secs(results)
         print(f"tensor_path world of {p}: {p} processes sharing one card over host-staged gloo "
-              f"(not a scaling figure): the world's {secs:.1f} s, peak memory per rank "
-              f"{[round(r['peak_gib'], 2) for r in results]} GiB ({card})")
-        summary[f"world{p}_s"] = secs
+              f"(not a scaling figure): its part of the shared world {summary[f'world{p}_s']:.1f} "
+              f"s, peak memory per rank {[round(r['peak_gib'], 2) for r in results]} GiB "
+              f"({card})")
         if p == 2:
             for rank, r in enumerate(results):
                 load = r["load"]
@@ -5534,8 +5890,6 @@ def tensor_path(dev, whole: dict, launches: tuple[Counter, Counter]) -> dict:
     if not min(sound.values()) >= TP_MIN_DB > max(faults.values()):
         raise AssertionError(f"tensor: sound {sound}, faults {faults}: TP_MIN_DB {TP_MIN_DB} "
                              f"must lie between them")
-    summary["secs"] = time.perf_counter() - t_phase
-    print(f"tensor_path: {summary['secs']:.1f} s ({card})")
     return summary
 
 
@@ -5679,19 +6033,25 @@ def block_stats(tensors: dict, owner, kind: str, minus: dict | None = None,
     ``minus``'s tensor, this rank's weights before: an update): {name:
     [block start, got . want,
     |got|^2, |want|^2, |got - want|^2, K6/K7's normwise error and verdict
-    (with ``k67``)]}, for the parent to sum over the distinct blocks."""
+    (with ``k67``)]}, for the parent to sum over the distinct blocks; a
+    pipeline stage's blocks under the whole model's names
+    (``DiT.global_name``)."""
     from safetensors import safe_open
 
     from chronoedit_tpu_torch.parallel.sharding import local_box
 
     out = {}
+    rename = getattr(owner, "global_name", lambda n: n)
     with safe_open(str(ref_file(kind)), framework="pt") as f:
-        for name, t in tensors.items():
-            _, start = local_box(owner, name, tuple(t.shape))
-            want = f.get_slice(name)[tuple(slice(s, s + n) for s, n in zip(start, t.shape))]
+        for local, t in tensors.items():
+            name = rename(local)
+            _, start = local_box(owner, local, tuple(t.shape))
+            # the whole leaf read in one piece, then this rank's block: a
+            # block cut along a later axis is a strided read of the file
+            want = f.get_tensor(name)[tuple(slice(s, s + n) for s, n in zip(start, t.shape))]
             got, w = t.detach().float(), want.to(t.device).float()
             if minus is not None:
-                got, w = got - minus[name].float(), w - minus[name].float()
+                got, w = got - minus[local].float(), w - minus[local].float()
             check = (k67_check(t.detach(), want.to(t.device)) if k67
                      else {"rel": 0.0, "ok": True})
             out[name] = [list(start), float((got * w).sum()), float(got.square().sum()),
@@ -6085,21 +6445,26 @@ def check_mesh_train(label: str, results: list[dict], refs: dict, card: str) -> 
     return rd
 
 
-def check_checkpoint(dev, results: list[dict], card: str) -> list[dict]:
-    """The sharded checkpoint that the tensor 2 world saved after step 1
-    (``results``: its ranks' ``mesh_train`` readings): each rank's file
-    holds the blocks no lower rank holds, its bytes on disk 8 + its header
-    + those blocks' bytes; restored in this process into a whole state,
-    every tensor bitwise the ranks' saved blocks (checksums). Returns the
-    checksums of the whole's blocks under RESTORE_MESH, rank by rank
-    (``layout_sums``), for that layout's restore."""
+def check_checkpoint(dev, results: list[dict], card: str, directory: Path | None = None,
+                     label: str = "tensor 2") -> list[dict] | None:
+    """The sharded checkpoint that a world saved after step 1 under
+    ``directory`` (default ``checkpoint_dir()``, the tensor 2 world's;
+    ``results``: its ranks' ``mesh_train`` or ``cp_pp_train`` readings):
+    each rank's file holds the blocks no lower rank holds, its bytes on
+    disk 8 + its header + those blocks' bytes; restored in this process
+    into a whole state, every tensor bitwise the ranks' saved blocks
+    (checksums); where the ranks resumed their own layout from it, their
+    step 2 bitwise the straight one. For the tensor 2 checkpoint returns
+    the checksums of the whole's blocks under RESTORE_MESH, rank by rank
+    (``layout_sums``), for that layout's restore; None for another."""
     from chronoedit_tpu_torch.train import checkpoint as ck
     from chronoedit_tpu_torch.train.train_step import make_train_state
 
+    directory = checkpoint_dir() if directory is None else directory
     cfg = mesh_train_config()
     state = make_train_state(tp_model(dev, cfg).dit, mesh_tcfg(1.0))
     _, secs = host_s(lambda: ck.CheckpointManager(
-        ck.CheckpointConfig(directory=str(checkpoint_dir()))).restore(state))
+        ck.CheckpointConfig(directory=str(directory))).restore(state))
     whole = ck.state_tensors(state)
     seen, bad, want = set(), [], []
     for rank, r in enumerate(results):
@@ -6114,25 +6479,31 @@ def check_checkpoint(dev, results: list[dict], card: str) -> list[dict]:
         want.append(mine)
     files = []
     for rank, r in enumerate(results):
-        file = checkpoint_dir() / "1" / ck.RANK_FILE.format(rank)
+        file = directory / "1" / ck.RANK_FILE.format(rank)
         header = 0
         if file.exists():
             with open(file, "rb") as f:
                 header = int.from_bytes(f.read(8), "little")
         files.append((r["file_bytes"], 8 + header + want[rank] if want[rank] else 0))
     nbytes = sum(n for n, _ in files)
-    print(f"   sharded checkpoint of the tensor 2 state after step 1: rank files "
+    resumed = [r["resumed"]["bitwise"] for r in results if "resumed" in r]
+    n_blocks = sum(len(r["saved"]) for r in results)
+    print(f"   sharded checkpoint of the {label} state after step 1: rank files "
           f"{[n for n, _ in files]} B (predicted {[w for _, w in files]}: each block once, the "
           f"lowest rank holding it writes it), {nbytes / 1e9:.3f} GB; saved in "
           f"{results[0]['save_secs']:.2f} s to the host copy, "
           f"{results[0]['wait_secs']:.2f} s more to the rename; restored in one process in "
-          f"{secs:.2f} s, {len(whole) * len(results) - len(bad)} of {len(whole) * len(results)} "
-          f"rank blocks bitwise the whole's; the same layout's step 2 after a restore of step "
-          f"{results[0]['restored_step']} bitwise the straight step 2 on every rank: "
-          f"{all(r['resumed']['bitwise'] for r in results)} ({card})")
-    if bad or any(n != w for n, w in files) or not all(r["resumed"]["bitwise"] for r in results):
-        raise AssertionError(f"sharded checkpoint: blocks differing {bad[:6]}, bytes {files}, "
-                             f"resumed bitwise {[r['resumed']['bitwise'] for r in results]}")
+          f"{secs:.2f} s, {n_blocks - len(bad)} of {n_blocks} rank blocks bitwise the whole's"
+          + (f"; the same layout's step 2 after a restore of step "
+             f"{results[0]['restored_step']} bitwise the straight step 2 on every rank: "
+             f"{all(resumed)}" if resumed else "") + f" ({card})")
+    if bad or any(n != w for n, w in files) or not all(resumed):
+        raise AssertionError(f"sharded checkpoint of {label}: blocks differing {bad[:6]}, bytes "
+                             f"{files}, resumed bitwise {resumed}")
+    if directory != checkpoint_dir():
+        del state, whole
+        free()
+        return None
     expected = layout_sums(whole, cfg, RESTORE_MESH, 4)
     del state, whole
     free()
@@ -6187,9 +6558,10 @@ def prewarm_optimizer_import() -> concurrent.futures.Future:
     """Start importing ``torch._dynamo`` in a thread and return its future:
     the first optimizer a process makes imports it (``torch.optim``'s
     ``add_param_group`` is wrapped by ``torch._disable_dynamo``), which took
-    about 10 s a rank in the worlds on the card, so a worker that trains
-    after other checks starts it at its start and waits for it
-    (``result()``) before its first train state."""
+    about 10 s a rank in the worlds on the card, so each rank of a shared
+    world starts it as it starts (``world_jobs``), beside its first checks;
+    an optimizer made before it ends waits for it on the module's import
+    lock."""
     pool = concurrent.futures.ThreadPoolExecutor(1)
     future = pool.submit(importlib.import_module, "torch._dynamo")
     pool.shutdown(wait=False)
@@ -6238,28 +6610,35 @@ def line_replicas(state, mesh) -> dict[str, list[str]]:
 
 
 def cp_pp_train(rank: int, dev, config: dict, mode: str, clip: float,
-                fault: bool = False) -> dict:
+                fault: bool = False, save: str | None = None) -> dict:
     """Two full-parameter Trainer steps on one rank under the mesh of
     ``config`` (context-parallel ``mode``), ``tp_model``'s weights at
-    ``mesh_train_config`` cut to this rank's stage, the line's rows of the
+    ``mesh_train_config`` cut to this rank's stage and sharded for the
+    mesh (``shard_params``: over fsdp beside pipe), the line's rows of the
     global batch, each step's launches held exact. Returns step 1's
     metrics and gradients against the reference's (``block_stats``, with
     K6/K7's per-leaf verdicts; with ``fault`` also each rank's share
     before the sum over context), step 2's metrics, update and Adam's
     first moment, the replica check of every line (``line_replicas``),
-    seconds (each part's), bytes staged and the peak."""
+    seconds (each part's), bytes staged and the peak. With ``save`` (a
+    directory) the state after step 1 is saved there (sharded, async: step
+    2 runs while it is written) and its checksums and this rank's file's
+    bytes are returned, for ``check_checkpoint``."""
     from chronoedit_tpu_torch.parallel.mesh import MeshConfig, make_mesh
     from chronoedit_tpu_torch.parallel.pipeline_parallel import stage_range
+    from chronoedit_tpu_torch.parallel.sharding import shard_params
+    from chronoedit_tpu_torch.train import checkpoint as ck
 
     t0 = time.perf_counter()
     mesh = make_mesh(MeshConfig(data=-1, **config), device=dev)
     cfg = mesh_train_config()
     cfg = dataclasses.replace(cfg, dit=dataclasses.replace(cfg.dit, context_parallel=mode))
-    dit = tp_model(dev, cfg).dit.keep_layers(stage_range(cfg.dit.num_layers, mesh))
+    dit = shard_params(tp_model(dev, cfg).dit.keep_layers(stage_range(cfg.dit.num_layers, mesh)),
+                       mesh)
     line = _line(mesh_train_batch(cfg, dev), mesh, gathered=False)
     free()
     state = mesh_trainer(cfg, mesh, clip, 2).init_state(dit)
-    names = [dit.global_name(n) for n, _ in dit.named_parameters()]
+    names = [n for n, _ in dit.named_parameters()]
     before = {n: p.detach().clone() for n, p in zip(names, state.params)}
     want = functools.partial(cp_pp_train_launches, cfg, mesh, mode)
     torch.cuda.reset_peak_memory_stats()
@@ -6274,7 +6653,16 @@ def cp_pp_train(rank: int, dev, config: dict, mode: str, clip: float,
     del cap
     free()
     parts["step 1 stats"] = time.perf_counter() - t0
+    saved = {}
+    if save is not None:
+        mgr = ck.CheckpointManager(ck.CheckpointConfig(directory=save))
+        _, saved["save_secs"] = host_s(lambda: mgr.save(1, state))  # the host copy, then async
+        saved["saved"] = state_sums(state)
     rows, step2, _ = trainer_steps(cfg, mesh, clip, state, line, 2, "Trainer step 2", want, rank)
+    if save is not None:
+        _, saved["wait_secs"] = host_s(mgr.wait_until_finished)
+        file = Path(save) / "1" / ck.RANK_FILE.format(rank)
+        saved["file_bytes"] = file.stat().st_size if file.exists() else 0
     t0 = time.perf_counter()
     adamw = state.optimizer.adamw.state
     step2.update(
@@ -6285,7 +6673,7 @@ def cp_pp_train(rank: int, dev, config: dict, mode: str, clip: float,
     parts["step 2 stats"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     res = {"step1": step1, "step2": step2, "replicas": line_replicas(state, mesh),
-           "layers": [dit.layers.start, dit.layers.stop]}
+           "layers": [dit.layers.start, dit.layers.stop], **saved}
     parts["replicas"] = time.perf_counter() - t0
     res["parts"] = parts
     del state, dit, before
@@ -6517,6 +6905,10 @@ def main() -> int:
           f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(dev)}")
     print(f"card: {card}")
 
+    def stamp(done: str) -> None:
+        """Print the command's seconds so far, after ``done``."""
+        print(f"[{time.perf_counter() - t_start:.1f} s] {done}", flush=True)
+
     _, secs = host_s(build.lib)
     print(f"kernels built and loaded in {secs:.1f} s: {build.library_path().name}")
     print_ptxas(build.build_log_path())
@@ -6530,13 +6922,16 @@ def main() -> int:
     with torch.no_grad():
         results = compare_kernels(dev)
     torch.cuda.empty_cache()
+    stamp("the kernels against their twins")
     with torch.no_grad():
         tool_launches = experiment_tools()
+    stamp("the experiment tools")
     with torch.inference_mode():
         small_references(dev)
         encoder_references(dev)
     training_references(dev)
     free()
+    stamp("the small, encoder and training references")
     ulysses_trace(dev)
     free()
     cfg = main_config()
@@ -6546,10 +6941,11 @@ def main() -> int:
         # training under a mesh: the one-process reference, written for the
         # context, pipeline, FSDP and tensor worlds to read
         train_refs = mesh_train_refs(dev)
-        drop_ref = context_path(dev, (by_name, by_kv), train_refs)["drop_ref"]
+        stamp("the Ulysses trace and the mesh training's reference")
         # loaded outside inference_mode: training saves these weights for backward
         pipe, train_prompts = loaded_path(dev, dataclasses.replace(
             cfg, dit=dataclasses.replace(cfg.dit, remat="full")), (by_name, by_kv))
+        stamp("the checkpoint directory written and loaded")
         with torch.inference_mode():
             refs = edit_path(pipe, dev, (by_name, by_kv), profile_dir)
             refs.update(reasoning_path(pipe, dev, (by_name, by_kv), profile_dir))
@@ -6559,8 +6955,10 @@ def main() -> int:
             refs["cfg"] = guidance_cache_path(pipe, dev, (by_name, by_kv))["cfg"]
             guardrail_path(dev)
         torch.cuda.empty_cache()
+        stamp("the edits, reasoning, serving, guidance and the guardrails")
         batches = train_batches(pipe)
         training_path(pipe, dev, (by_name, by_kv), batches, profile_dir)
+        stamp("LoRA training")
         # quantized: the trained-on bf16 DiT quantized in place (its bf16
         # weights freed as the walk goes), QLoRA over it, then serving; then
         # the bf16 model loaded again from the same files for mixed2, so
@@ -6580,24 +6978,41 @@ def main() -> int:
             tensor_refs, secs_t = host_s(lambda: tensor_whole_refs(pipe, dev))
             pp_refs, secs_p = host_s(lambda: pipeline_whole_refs(pipe, dev))
             refs.update({f"{k} short": v for k, v in pp_refs.items()})
+            refs["pf forward"] = pf_whole_forward(pipe, dev)
             print(f"fsdp_path's, tensor_path's and pipeline_path's references from the whole "
                   f"model in {secs:.1f} + {secs_t:.1f} + {secs_p:.1f} s")
             mixed2_path(pipe, dev, (by_name, by_kv), refs, profile_dir)
             del pipe
         free()
-        # pipeline parallelism from the directory's files, the card free
-        pipeline_path(dev, {**refs, "drop": drop_ref, "train": train_refs}, (by_name, by_kv))
-        # FSDP from the same files, the card free
-        fsdp_path(dev, {**fsdp_refs, "train": train_refs}, (by_name, by_kv))
-        # tensor parallelism from the same files, the card free
-        tensor_path(dev, {**tensor_refs, "train": train_refs}, (by_name, by_kv))
+        stamp("w4a16 with QLoRA, the whole model's references and mixed2")
+        # tp_model's one-process readings, for the pipe x fsdp and tensor worlds
+        small_refs, secs = host_s(lambda: tp_small_refs(dev))
+        print(f"the pipe x fsdp world's and tensor_path's one-process references at "
+              f"{TP_BLOCKS} blocks in {secs:.1f} s")
+        cp_refs = context_refs(dev)
+        # context, pipeline (and pipe x fsdp), FSDP and tensor parallelism, the
+        # last three from the directory's files, in one world of 2 processes
+        # and one of 4, the card free
+        counts = (by_name, by_kv)
+        stamp("the one-process references of the mesh phases")
+        mesh_worlds({
+            "context": context_path(dev, counts, train_refs, cp_refs),
+            "pipeline": pipeline_path(dev, {**refs, "drop": cp_refs["drop"], "train": train_refs,
+                                            "small": small_refs, "fsdp": fsdp_refs},
+                                      counts, scratch),
+            "fsdp": fsdp_path(dev, {**fsdp_refs, "train": train_refs}, counts),
+            "tensor": tensor_path(dev, {**tensor_refs, "small": small_refs, "train": train_refs},
+                                  counts)})
         shutil.rmtree(MESH_DIR, ignore_errors=True)
+        stamp("the mesh phases")
         # training as a user runs it: the CLI from the directory's files, then
         # the Trainer (the directory is removed first: its checkpoints need
         # the disk)
         prompt_emb = cli_path(dev, cfg, (by_name, by_kv), train_prompts)["prompt_emb"]
         shutil.rmtree(CHECKPOINT_DIR, ignore_errors=True)
+        stamp("the training CLIs")
         trainer_path(dev, (by_name, by_kv), scratch / "smoke_trainer", prompt_emb)
+        stamp("the Trainer")
     finally:
         for d in (CHECKPOINT_DIR, CHECKPOINT_DIR.parent / "smoke_train_data", MESH_DIR,
                   scratch):

@@ -566,7 +566,11 @@ def dit_forward(model: DiT, x: torch.Tensor, timesteps: torch.Tensor,
         the ranks'; the LoRA adapters, whole on every rank, have their
         gradients summed over fsdp when it split the batch); an fsdp line
         holds the same token block under context parallelism, and a data
-        line runs the same request. With a
+        line runs the same request. Beside a pipe axis the rows never split
+        over fsdp: each rank holds its fsdp shards of its stage's blocks,
+        every fsdp rank of a stage runs the stage's microbatches whole
+        (JAX's batch splits over data only inside ``gpipe_scan``), and the
+        gathers' backward takes this rank's slice. With a
         tensor axis above 1 ``model`` holds this rank's columns / rows of
         the block projections (``shard_params``; the heads must divide the
         degree): each block runs on this rank's heads, the row products and
@@ -606,7 +610,7 @@ def dit_forward(model: DiT, x: torch.Tensor, timesteps: torch.Tensor,
     tp = sharding.tensor_plan(model, mesh)
     fsdp = sharding.fsdp_gather(model, mesh, b)
     gather = _whole if fsdp is None else fsdp
-    if fsdp is not None and fsdp.summed:  # this rank's rows of the batch
+    if fsdp is not None and fsdp.summed:  # this rank's rows (never beside a pipe axis)
         ranks, rank = mesh.shape["fsdp"], mesh.index("fsdp")
         x, timesteps, text_emb, image_emb = (
             t if t is None or t.shape[0] != b else t.chunk(ranks, dim=0)[rank]
@@ -637,14 +641,14 @@ def dit_forward(model: DiT, x: torch.Tensor, timesteps: torch.Tensor,
             scaling=lora.cfg.scaling, summed=fsdp.group if summed else None)
     if pipe > 1:
         tokens, cp = _pipeline_blocks(model, mesh, tokens, text_ctx, img_ctx, t_proj, cos,
-                                      sin, hw, layer_mask, lora, lora_weights)
+                                      sin, hw, layer_mask, lora, lora_weights, gather)
         if cp is not None:
             (temb,), hw = local_frame_slice((temb,), hw, tokens.shape[1], cp.index)
             gathers.append((cp.group, 1))
         if pp.splits_data(mesh, b):
             temb = temb.chunk(mesh.shape["data"], dim=0)[mesh.index("data")]
             gathers.append((mesh.group("data"), 0))
-        return _head(model, tokens, temb, hw, grid, gathers)
+        return _head(model, tokens, temb, hw, grid, gathers, gather)
 
     cp = context_split(cfg, mesh, tokens.shape[1], hw)
     if cp is not None:
@@ -696,7 +700,7 @@ def _head(model: DiT, tokens, temb, hw: int, grid, gathers, gather=_whole) -> to
 
 
 def _pipeline_blocks(model: DiT, mesh, tokens, text_ctx, img_ctx, t_proj, cos, sin, hw: int,
-                     layer_mask, lora, lora_weights):
+                     layer_mask, lora, lora_weights, gather=_whole):
     """The blocks as a GPipe pipeline over ``mesh``'s pipe axis (JAX's
     pipe branch of ``dit_forward``): this rank's stage runs its blocks
     (``stage_range``) inside ``gpipe_scan``, the time projection and the
@@ -705,9 +709,14 @@ def _pipeline_blocks(model: DiT, mesh, tokens, text_ctx, img_ctx, t_proj, cos, s
     (:func:`context_split` on the rank's context group, an ``InnerAxes``),
     they split inside the stages: each block takes its rows of the global
     RoPE tables and its frames of the time projection. A skip-layer mask
-    skips blocks by global index. Returns this rank's share of the output
-    tokens (its batch rows when the batch splits over data, its token
-    block under context parallelism) and the context split or None.
+    skips blocks by global index. With an fsdp axis the stage's blocks
+    are this rank's shards: each is gathered by ``gather`` (the fsdp
+    path's ``sharding.Gather``, unsummed: every fsdp rank of the stage runs
+    its microbatches whole) just before it runs in a tick and dropped
+    after; a bubble tick or a masked block gathers nothing, on both fsdp
+    peers alike. Returns this rank's share of the output tokens (its batch
+    rows when the batch splits over data, its token block under context
+    parallelism) and the context split or None.
 
     Gradients (``pipeline_parallel``'s notes): a stage's blocks get theirs
     on their own rank only; the embedders and the head the same whole
@@ -737,7 +746,7 @@ def _pipeline_blocks(model: DiT, mesh, tokens, text_ctx, img_ctx, t_proj, cos, s
             (tp,), hw_l = local_frame_slice((tp,), hw, s_loc, cp.index)
         adapters = None if lora is None else lora.blocks[j]
         return _run_block(cfg, model.blocks[j], adapters, lora_weights, x_cur, t_ctx, i_ctx,
-                          tp, cos_l, sin_l, hw_l, cfg, cp)
+                          tp, cos_l, sin_l, hw_l, cfg, cp, gather)
 
     out = pp.gpipe_scan(block, stage, tokens, (text_ctx, img_ctx, t_proj), mesh,
                         context_axis="context" if cp is not None else None,

@@ -410,7 +410,9 @@ def convert_diffusers_dit(sd: StateDict, cfg: DiTConfig, device=None,
     rank's shard shapes (``parallel.sharding.materialize_shards``; placed
     by ``dit_param_sharding``: a tensor rank's columns or rows of each
     block projection, then its fsdp slice of that) and each tensor's slice
-    alone is read."""
+    alone is read; with both (a pipe x fsdp mesh) the stage's blocks are
+    built at their fsdp shard shapes, and only their slices and the
+    non-block tensors' slices are read."""
     from chronoedit_tpu_torch.parallel import sharding
 
     sd = _stage_view(_renamed(sd, ("model.diffusion_model.", "transformer.", "model.")),

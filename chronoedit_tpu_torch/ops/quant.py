@@ -403,7 +403,9 @@ def quantize_dit(model: nn.Module, skip: tuple = (), mode: str = "int8",
     scale over a shard of the in-dimension, or a 128-row int4 group cut at
     a shard's edge, would differ from the whole model's: the leaves are
     bitwise those of quantizing the whole model and then sharding it, as
-    JAX's order is.
+    JAX's order is. A pipeline stage's model sharded over fsdp (pipe x
+    fsdp) is quantized the same way, its stage's blocks one gathered block
+    at a time: bitwise quantize-then-stage-then-shard.
 
     A model split over ``mesh``'s tensor axis (``model.tensor``) quantizes
     each rank's local layers (inside the fsdp gather when both split): a

@@ -15,7 +15,10 @@ line's: :func:`check_state_replicas` compares a train state's tensors along
 each axis, each over the leaves that axis keeps whole (every leaf over a
 data or context line, every leaf outside the blocks over a pipe line, the
 leaves a tensor or fsdp plan leaves whole over its line), with their EMA
-and AdamW's moments.
+and AdamW's moments. Under pipe x fsdp a pipe line's ranks share an fsdp
+index, so the non-block leaves' fsdp slices are alike along it; along an
+fsdp line the two peers of a stage hold the same blocks, and the leaves
+the plan keeps whole, block or not, are alike.
 
 A "tree" here is what the trainer and the pipeline hold: tensors,
 ``nn.Module``s (their parameters and buffers), dicts, lists, tuples and
@@ -92,7 +95,9 @@ def whole_leaves(owner: nn.Module, axis: str) -> list[str]:
     line along a mesh's ``axis`` holds whole: all of them along
     ``data`` and ``context``; along ``fsdp`` and ``tensor`` those the
     model's plan (``owner.fsdp``, ``owner.tensor``) keeps whole; along
-    ``pipe`` those outside the blocks (each stage holds its own blocks)."""
+    ``pipe`` those outside the blocks (each stage holds its own blocks;
+    beside fsdp, the slices of the rank's fsdp index, which the line
+    shares)."""
     names = [n for n, _ in owner.named_parameters()]
     if axis == "pipe":
         return [n for n in names if not n.startswith("blocks.")]

@@ -14,7 +14,10 @@ the same order on every rank, as ``dist.new_group`` requires:
 - ``fsdp``    fully sharded data parallelism: each rank of an fsdp line
               holds its slice of every DiT parameter, gathers a block's
               just before the block runs, and takes its share of the
-              batch when the degree divides it (``parallel/sharding.py``);
+              batch when the degree divides it and there is no pipe axis
+              (``parallel/sharding.py``); beside a pipe axis it splits
+              each stage's blocks, and every fsdp rank of a stage runs
+              the stage's microbatches whole;
 - ``tensor``  tensor (Megatron) parallelism: each rank of a tensor line
               holds its columns of the DiT blocks' q / k / v / fc1
               projections and its rows of o / fc2, runs its share of the
@@ -234,21 +237,18 @@ def make_mesh(config: MeshConfig | None = None, device: torch.device | None = No
     ``cuda_device()``, which raises without a card: a CPU mesh is asked
     for by passing ``torch.device("cpu")``).
 
-    Raises ValueError when the degrees do not fill the world or when both
-    ``pipe`` and ``fsdp`` are above 1. A ``tensor`` axis beside a ``pipe``
-    axis is replicated inside the stages, as JAX's ``gpipe_scan`` does (it
-    warns). Every rank must call this with the same config, in the same
-    order as its other group creations.
+    Raises ValueError when the degrees do not fill the world. A ``tensor``
+    axis beside a ``pipe`` axis is replicated inside the stages, as JAX's
+    ``gpipe_scan`` does (it warns); an ``fsdp`` axis beside it splits each
+    stage's blocks (``parallel/sharding.py``). Every rank must call this
+    with the same config, in the same order as its other group creations:
+    the groups are opened axis by axis in ``MESH_AXES`` order, each axis's
+    lines in ``axis_lines``' order, the same on every rank.
     """
     config = config or MeshConfig()
     world = dist.get_world_size() if dist.is_initialized() else 1
     rank = dist.get_rank() if dist.is_initialized() else 0
     shape = config.resolve(world)
-    if config.pipe > 1 and config.fsdp > 1:
-        raise ValueError(
-            f"mesh pipe={config.pipe} x fsdp={config.fsdp}: a pipeline over FSDP shards is not "
-            f"ported; JAX's gpipe_scan gathers each stage's parameters whole over fsdp at its "
-            f"entry (chronoedit_tpu/parallel/pipeline_parallel.py, its in_specs)")
     if device is None:
         device = cuda_device()
     groups, combined = {}, {}

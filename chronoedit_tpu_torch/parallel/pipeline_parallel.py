@@ -40,7 +40,12 @@ gradient of its inputs, bitwise alike, and so with the same gradient of
 every parameter that made them (the embedders); a stage's blocks get
 theirs on their own rank. Over ``data`` and ``context`` each rank's
 gradient is that of its own share (zeros outside it), as in the port's
-context parallelism: the trainer sums it over context.
+context parallelism: the trainer sums it over context. Beside an ``fsdp``
+axis the stage's blocks are fsdp shards that ``block_fn`` gathers
+(``models/dit.py``'s ``_pipeline_blocks``): every fsdp rank of a stage runs
+the same ticks on the same microbatches, so each gather's backward runs
+inside the same reverse tick on both peers and takes this rank's slice of
+the one gradient.
 
 **Training.** ``train/train_step.py`` hands the pipeline its data line's
 rows under ``Mesh.data_line`` (the data axis folded to 1), so the batch

@@ -38,7 +38,15 @@ keeps each rank's slice of every leaf in the model itself:
   its own part of the batch the backward sums the ranks' partial
   gradients (reduce-scatter, and an all-reduce for a leaf that is whole);
   when every rank ran the whole batch it takes this rank's slice of the
-  one gradient.
+  one gradient (always under a pipe axis, :func:`fsdp_gather`).
+- Under a pipe axis the model is a stage's (``DiT(layers=)``): the plans
+  are keyed by the local block index, as the model names its blocks, and
+  each of the stage's block leaves is split over the stage's fsdp group by
+  the same rule (``fsdp_dim`` never reads the block's index). A rank
+  holds 1 / (pipe x fsdp) of the blocks; JAX holds every block's fsdp
+  shard on every pipe rank and gathers the stage's whole at the
+  pipeline's entry. Make the stage first (``DiT.keep_layers``), then
+  shard.
 - :func:`tensor_plan`: how ``dit_forward`` runs a model split over the
   tensor axis (the group, this rank's index, the degree); the block's
   column / row products and their collectives are ``models/dit.py``'s.
@@ -415,8 +423,12 @@ def fsdp_gather(model: nn.Module, mesh, batch: int) -> Gather | None:
     """How ``dit_forward`` reads ``model`` under ``mesh``: None for a whole
     model under no fsdp axis; a :class:`Gather` over the fsdp group for a
     model sharded over it, ``summed`` when the fsdp degree divides the
-    batch (each rank then runs its ``batch / fsdp`` rows). Raises
-    ValueError when the model's sharding and the mesh's fsdp axis differ."""
+    batch and there is no pipe axis (each rank then runs its ``batch /
+    fsdp`` rows). Under a pipe axis every fsdp rank of a stage runs the
+    stage's microbatches whole, as in JAX's ``gpipe_scan`` (the batch
+    splits over data only), so the gather's backward takes this rank's
+    slice of the one gradient. Raises ValueError when the model's sharding
+    and the mesh's fsdp axis differ."""
     fsdp = 1 if mesh is None else mesh.shape.get(AXIS_FSDP, 1)
     shards = getattr(model, "fsdp", None)
     if shards is None and fsdp == 1:
@@ -426,7 +438,8 @@ def fsdp_gather(model: nn.Module, mesh, batch: int) -> Gather | None:
                          f" but the mesh's fsdp axis is {fsdp}: shard it with "
                          f"parallel.sharding.shard_params(model, mesh) (or load it with the "
                          f"mesh)")
-    return Gather(model, mesh.group(AXIS_FSDP), batch % fsdp == 0)
+    return Gather(model, mesh.group(AXIS_FSDP),
+                  batch % fsdp == 0 and mesh.shape.get(AXIS_PIPE, 1) == 1)
 
 
 @dataclasses.dataclass(frozen=True)

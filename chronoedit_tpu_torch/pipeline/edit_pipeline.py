@@ -156,8 +156,9 @@ class ChronoEditPipeline:
         projections in float, ``upgrade`` makes them w8a8 inside an int4
         model (``INT4_MIXED2_UPGRADE`` is the recipe over the 35 dB bar).
         Attention, the embedders, the head and the VAE keep their dtype. A
-        DiT sharded over the mesh's fsdp axis is quantized a gathered block
-        at a time and stays sharded (JAX re-shards after quantizing); one
+        DiT sharded over the mesh's fsdp axis (a pipeline stage's too) is
+        quantized a gathered block at a time and stays sharded (JAX
+        re-shards after quantizing); one
         split over its tensor axis quantizes each rank's layers, the row
         layers' scales taken over the tensor group. Returns self."""
         from chronoedit_tpu_torch.ops.quant import quantize_dit

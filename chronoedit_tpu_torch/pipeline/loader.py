@@ -9,7 +9,8 @@ reference's files: diffusers DiT shards (``transformer/*.safetensors``, or
 from its file and copied into its parameter on the target device
 (``models/weights.py``). Under a pipe mesh each rank reads only its
 stage's blocks of the DiT shards and of the LoRA files; under a tensor or
-fsdp mesh only its slice of each DiT tensor.
+fsdp mesh only its slice of each DiT tensor; under pipe x fsdp only its
+fsdp slice of its stage's blocks and of the non-block tensors.
 """
 
 from __future__ import annotations
@@ -84,7 +85,14 @@ def load_pipeline(
     axis) a rank reads its columns of each block's q / k / v / k_img /
     v_img / fc1 tensors and its rows of o / fc2, and the rest whole; under
     tensor x fsdp its fsdp slice of its tensor slice; each LoRA's whole
-    delta is added to its slice in the same way. Over ``context`` and
+    delta is added to its slice in the same way. Under a pipe axis beside
+    an fsdp axis the DiT is a stage's, sharded: the rank builds its
+    stage's blocks on ``meta`` at its fsdp shard shapes
+    (``DiT(layers=)``, then ``materialize_shards``), reads from the
+    shards its fsdp slice of each of its stage's block tensors and of each
+    non-block tensor (``load_bytes["dit"]`` counts exactly those), and
+    merges each LoRA's stage-local adapters' whole deltas into its slices;
+    a rank holds 1 / (pipe x fsdp) of the blocks. Over ``context`` and
     ``data`` the weights are replicated.
     """
     from chronoedit_tpu_torch.models.clip import CLIPImageEncoder, convert_clip_vision_checkpoint

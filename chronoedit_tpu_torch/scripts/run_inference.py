@@ -33,6 +33,14 @@ Examples:
   torchrun --nproc-per-node 2 -m chronoedit_tpu_torch.scripts.run_inference \
       --mesh fsdp=2 --smoke --device cpu
 
+  # pipeline stages whose blocks are sharded over fsdp: each of 4 ranks
+  # holds half of its stage's 20 blocks (a quarter of the 40)
+  torchrun --nproc-per-node 4 -m chronoedit_tpu_torch.scripts.run_inference \
+      --mesh pipe=2,fsdp=2 --checkpoint-dir ./checkpoints/ChronoEdit-14B ...
+  # the same over 4 CPU processes (gloo)
+  torchrun --nproc-per-node 4 -m chronoedit_tpu_torch.scripts.run_inference \
+      --mesh pipe=2,fsdp=2 --smoke --device cpu
+
   # tensor parallelism: each of 2 ranks holds 20 of the 40 heads (Megatron
   # column / row blocks), composed with context parallelism over 4
   torchrun --nproc-per-node 4 -m chronoedit_tpu_torch.scripts.run_inference \
@@ -46,7 +54,7 @@ the ``context`` ranks, its heads and block projections over the ``tensor``
 ranks, its parameters over the ``fsdp`` ranks (each tensor or fsdp rank
 reads only its slice of each tensor; ``--smoke`` shards the seeded model)
 and its blocks over the ``pipe`` stages (each rank loads only its stage's
-blocks); the VAE and the encoders load whole, the VAE splits its rows
+blocks; beside ``fsdp``, only its fsdp slice of each of them); the VAE and the encoders load whole, the VAE splits its rows
 over the context, tensor and fsdp ranks and gathers them, and only rank 0
 writes the output.
 
@@ -76,12 +84,13 @@ def add_pipeline_args(p: argparse.ArgumentParser) -> None:
                    help="LoRA safetensors path[:scale], repeatable")
     p.add_argument("--mesh", type=str, default=None,
                    help="parallelism over the torchrun world, e.g. data=2,context=4, "
-                        "tensor=2,context=2, fsdp=2,context=2 or pipe=2,context=2 (data: "
-                        "ranks that run the same edit, or split its batch inside a "
-                        "pipeline; tensor: ranks that each hold a share of the DiT's heads "
-                        "and block projections; fsdp: ranks that each hold a slice of "
-                        "every DiT parameter; context: ranks that split the DiT's tokens; "
-                        "pipe: stages that each hold and run a share of the DiT's blocks)")
+                        "tensor=2,context=2, fsdp=2,context=2, pipe=2,context=2 or "
+                        "pipe=2,fsdp=2 (data: ranks that run the same edit, or split its "
+                        "batch inside a pipeline; tensor: ranks that each hold a share of "
+                        "the DiT's heads and block projections; fsdp: ranks that each hold "
+                        "a slice of every DiT parameter, of their stage's blocks beside "
+                        "pipe; context: ranks that split the DiT's tokens; pipe: stages "
+                        "that each hold and run a share of the DiT's blocks)")
     p.add_argument("--quantize", nargs="?", const="int8", default=None,
                    choices=("int8", "int4", "int4_a8"),
                    help="quantize the DiT's projections: 'int8' (w8a8; the bare "

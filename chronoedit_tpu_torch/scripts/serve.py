@@ -26,6 +26,9 @@ Examples:
   # the same over 2 CPU processes (gloo)
   torchrun --nproc-per-node 2 -m chronoedit_tpu_torch.scripts.serve \\
       --mesh context=2 --smoke --device cpu --port 8080
+  # two pipeline stages, each stage's blocks sharded over 2 fsdp ranks
+  torchrun --nproc-per-node 4 -m chronoedit_tpu_torch.scripts.serve \\
+      --mesh pipe=2,fsdp=2 --smoke --device cpu --port 8080
 
 Under ``--mesh`` (``run_inference``'s axes, over the torchrun world) rank 0
 runs the batcher and the HTTP front and broadcasts each batch (its

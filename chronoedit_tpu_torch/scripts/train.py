@@ -31,6 +31,11 @@ Examples:
       -m chronoedit_tpu_torch.scripts.train --experiment tiny --data mock --smoke \\
       --device cpu --mesh pipe=2
 
+  # pipeline stages whose blocks are sharded over fsdp, on the CPU
+  python -m torch.distributed.run --standalone --nproc-per-node 4 \\
+      -m chronoedit_tpu_torch.scripts.train --experiment tiny --data mock --smoke \\
+      --device cpu --mesh pipe=2,fsdp=2
+
 As in JAX: the training clips are encoded by a VAE with random weights
 (seed 1; there is no flag to load one), the full-parameter path starts
 from a random DiT (seed 0), and the LoRA loop calls the step ``--max-iter``
@@ -40,20 +45,20 @@ shards, no random model beside it.
 
 ``--mesh`` trains over the ``data``, ``fsdp`` and ``tensor`` axes and their
 compositions in both modes, and in full-parameter mode also over
-``context`` and ``pipe`` and their compositions with the others (pipe x
-fsdp excepted), one process a device (``torchrun``; a world of several
+``context`` and ``pipe`` and their compositions with the others, one
+process a device (``torchrun``; a world of several
 processes needs ``--mesh``): the DiT is sharded by JAX's placement
 (``parallel.shard_params``; with ``--base-checkpoint`` each rank reads only
 its slices); under ``pipe`` each rank keeps only its stage's blocks of the
-seeded model (``DiT.keep_layers``: bitwise the whole model's); the VAE and
+seeded model (``DiT.keep_layers``: bitwise the whole model's), and beside
+``fsdp`` its fsdp slice of each of them; the VAE and
 the LoRA adapters are whole on every rank; each process encodes its own
 rows (the metadata rows strided by process, a mock stream seeded by
 process) and ``host_local_to_global`` gives every rank its data line's
 rows; callbacks, logs and the exported LoRA are rank 0's; checkpoints are
 sharded (a stage's blocks under their global names). ``--batch-size`` is
-per process. ``pipe`` x ``fsdp`` raises ``ValueError`` (``ROADMAP.md``
-queue 1, item 3.2), as do LoRA mode under ``context`` or ``pipe`` and a
-quantized base under a mesh (item 3.3).
+per process. LoRA mode under ``context`` or ``pipe`` and a quantized base
+under a mesh raise ``ValueError`` (``ROADMAP.md`` queue 1, item 3.3).
 """
 
 from __future__ import annotations
@@ -84,9 +89,9 @@ def parse_args(argv=None):
     p.add_argument("--log-file", type=str, default=None)
     p.add_argument("--mesh", type=str, default=None,
                    help="parallelism over the processes' devices, e.g. 'fsdp=8', "
-                        "'data=2,fsdp=2,tensor=2', 'context=2' or 'data=2,pipe=2,context=2': "
-                        "data, fsdp, tensor, context and pipe train in full-parameter mode "
-                        "(not pipe with fsdp), data, fsdp and tensor in LoRA mode")
+                        "'data=2,fsdp=2,tensor=2', 'context=2', 'data=2,pipe=2,context=2' or "
+                        "'pipe=2,fsdp=2': data, fsdp, tensor, context and pipe train in "
+                        "full-parameter mode, data, fsdp and tensor in LoRA mode")
     p.add_argument("--remat", type=str, default="none",
                    choices=["none", "full", "matmul_only"])
     p.add_argument("--lora-rank", type=int, default=0,
@@ -122,13 +127,14 @@ def main(argv=None):
     from chronoedit_tpu_torch.train.callbacks import (
         HeartbeatCallback, IterSpeedCallback, LossLoggerCallback)
     from chronoedit_tpu_torch.train.checkpoint import CheckpointConfig
-    from chronoedit_tpu_torch.train.train_step import TrainConfig, check_lora_mesh, check_mesh
+    from chronoedit_tpu_torch.train.train_step import TrainConfig, check_lora_mesh
     from chronoedit_tpu_torch.train.trainer import Trainer, TrainerConfig
     from chronoedit_tpu_torch.utils.config import apply_overrides
     from chronoedit_tpu_torch.utils.platform import cuda_device, multi_device_world
 
     mesh_cfg = parse_mesh(args.mesh) if args.mesh else None
-    (check_lora_mesh if args.lora_rank > 0 else check_mesh)(mesh_cfg)
+    if args.lora_rank > 0:
+        check_lora_mesh(mesh_cfg)
     init_distributed(device=None if args.device is None else torch.device(args.device))
     pipe_cfg = apply_overrides(get_experiment(args.experiment), args.overrides)
     dit_cfg = dataclasses.replace(pipe_cfg.dit, remat=args.remat)

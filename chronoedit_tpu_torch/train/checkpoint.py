@@ -27,7 +27,9 @@ tensor's whole shape and the start of its block in the file's metadata
 model names them: a stage-local model's block ``j`` is written as
 ``blocks.{layers.start + j}`` (``DiT.global_name``), so every block is
 held once under its global name, by its stage's lowest rank, and the
-leaves outside the blocks once, by rank 0. After a barrier rank 0 renames
+leaves outside the blocks once, by rank 0; under pipe x fsdp each fsdp
+piece of a stage's block by that stage's rank of the piece's fsdp index,
+and each piece of a non-block leaf by stage 0's. After a barrier rank 0 renames
 the step into place, and after a second barrier it deletes the steps
 beyond ``max_to_keep``. A restore, in
 any world and under any mesh (one process included), reads for each of the
@@ -130,7 +132,8 @@ def state_tensors(state: Any) -> dict[str, torch.Tensor]:
 def state_boxes(state: Any) -> dict[str, tuple[tuple[int, ...], tuple[int, ...]]]:
     """{checkpoint name: (the leaf's whole shape, where this rank's tensor
     starts in it)} for every tensor of :func:`state_tensors` (a state over
-    a model sharded by ``parallel/sharding``, or over whole adapters)."""
+    a model sharded by ``parallel/sharding``, or over whole adapters); a
+    stage's block under its global name with its fsdp box."""
     from chronoedit_tpu_torch.parallel.sharding import local_box
 
     owner = _owner(state)

@@ -64,7 +64,11 @@ restricted to the rank's shard; which collective covers which leaf:
 - ``fsdp``: a split leaf's gradient is reduce-scattered over the fsdp
   group (or sliced, when every rank ran the whole batch) by the gather's
   backward, a whole model leaf's summed over it (``sharding.Gather``), the
-  whole LoRA adapters' summed over it in their merge (``models/lora.py``);
+  whole LoRA adapters' summed over it in their merge (``models/lora.py``).
+  Beside a pipe axis every fsdp rank of a stage runs the line's rows
+  whole (JAX's ``gpipe_scan`` splits the batch over data only), so each
+  split leaf takes its slice of the one gradient, a stage's block leaves
+  and the embedders' and head's alike, and nothing is summed over fsdp;
 - ``tensor``: a column or row leaf's gradient is its rank's own; a leaf
   whole over the tensor group gets the same gradient on every rank, bitwise
   (the stream is whole on every rank, and each column group's input
@@ -83,9 +87,8 @@ EMA are elementwise on the local shards. Every rank draws ``u`` and the
 noise for the global batch from the same generator and keeps its data
 line's rows (:func:`draw_train_noise` with a mesh; a context or pipe line
 draws alike), so a mesh run draws what one process draws for the same
-global batch. A pipe axis beside an fsdp axis raises ``ValueError``
-(``ROADMAP.md`` queue 1, item 3.2); the LoRA step refuses context and
-pipe (item 3.3, ``train/lora_train.py``).
+global batch. The LoRA step refuses context and pipe (``ROADMAP.md``
+queue 1, item 3.3, ``train/lora_train.py``).
 """
 
 from __future__ import annotations
@@ -128,20 +131,10 @@ def _degree(mesh, axis: str) -> int:
     return 1 if mesh is None else mesh.shape.get(axis, 1)
 
 
-def check_mesh(mesh) -> None:
-    """Raise ValueError for a mesh (or ``MeshConfig``) whose full-parameter
-    training is not ported: a pipe axis beside an fsdp axis above 1."""
-    pipe, fsdp = _degree(mesh, AXIS_PIPE), _degree(mesh, AXIS_FSDP)
-    if pipe > 1 and fsdp > 1:
-        raise ValueError(f"training under pipe={pipe} x fsdp={fsdp} is not ported yet "
-                         f"(ROADMAP.md queue 1, item 3.2: pipe x fsdp); data, fsdp, tensor, "
-                         f"context and pipe train, and their other compositions")
-
-
 def check_lora_mesh(mesh) -> None:
     """Raise ValueError for a mesh (or ``MeshConfig``) the LoRA step does not
     train under: a context or pipe axis above 1 (JAX's LoRA step takes no
-    mesh), and :func:`check_mesh`'s."""
+    mesh)."""
     for axis in (AXIS_CONTEXT, AXIS_PIPE):
         n = _degree(mesh, axis)
         if n > 1:
@@ -149,7 +142,6 @@ def check_lora_mesh(mesh) -> None:
                              f"queue 1, item 3.3: LoRA under context or pipe); the LoRA step "
                              f"trains over data, fsdp and tensor, the full-parameter step "
                              f"also over context and pipe")
-    check_mesh(mesh)
 
 
 def leaf_splits(module: torch.nn.Module, mesh) -> list[Split] | None:
@@ -157,7 +149,8 @@ def leaf_splits(module: torch.nn.Module, mesh) -> list[Split] | None:
     whole on every rank), the groups its shards are split over under
     ``mesh``: ``model.tensor`` / ``model.fsdp`` name the leaves split over
     tensor / fsdp, and under a pipe axis every block leaf (``blocks.*``) is
-    split over pipe (each stage holds its own); None without a mesh."""
+    split over pipe (each stage holds its own; beside an fsdp axis also
+    over fsdp where the plan splits it); None without a mesh."""
     if mesh is None:
         return None
     plans = [(getattr(module, axis, None), mesh.group(name))
@@ -323,7 +316,6 @@ def make_train_state(model: dit_lib.DiT, cfg: TrainConfig, mesh=None) -> TrainSt
     """Every parameter of ``model`` becomes trainable; the EMA starts as a
     copy of them. Under ``mesh`` the model holds this rank's shards (under
     a pipe axis, its stage's blocks)."""
-    check_mesh(mesh)
     params = list(model.parameters())
     for p in params:
         p.requires_grad_(True)
@@ -412,7 +404,6 @@ def make_train_step(dit_cfg: dit_lib.DiTConfig, cfg: TrainConfig, mesh=None
     {"latents", "condition", "text_emb", "image_emb" (optional)}, this data
     line's rows under ``mesh``. The draws come from ``generator`` unless u
     and noise (for the batch's rows) are given."""
-    check_mesh(mesh)
 
     def step(state: TrainState, batch: dict, generator: torch.Generator | None = None,
              *, u: torch.Tensor | None = None, noise: torch.Tensor | None = None) -> dict:

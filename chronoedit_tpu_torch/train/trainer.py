@@ -15,9 +15,10 @@ continues the uninterrupted run bitwise. A caller that needs other draws
 (the tests replay JAX's) replaces ``_step_fn`` / ``_val_fn``.
 
 Under a mesh (``Trainer(..., mesh=)``: data, fsdp, tensor, context and
-pipe, and their compositions but pipe x fsdp) every rank runs the loop on
-its shards of a model sharded by ``parallel/sharding.shard_params`` (under
-pipe, a stage-local model holding its stage's blocks) and its data line's
+pipe, and their compositions) every rank runs the loop on its shards of a
+model sharded by ``parallel/sharding.shard_params`` (under pipe, a
+stage-local model holding its stage's blocks, beside fsdp its fsdp slices
+of them) and its data line's
 batches (``parallel/distributed.host_local_to_global``); the step sums the
 gradients over context and averages the loss over ``data``
 (``train/train_step.py``), so every rank reads the same loss and the

@@ -44,7 +44,9 @@ def test_run_inference_smoke(tmp_path, extra):
 
 def test_run_inference_refusals(tmp_path):
     base = ["--smoke", "--device", "cpu", "--output", str(tmp_path / "x.png")]
-    with pytest.raises(SystemExit, match="mesh"):
+    # pipe x fsdp is a mesh the port runs: one process lacks its 4 ranks
+    with pytest.raises(SystemExit, match=r"--mesh pipe=2,fsdp=2: 1 devices not divisible by "
+                                         r"pipe\*fsdp\*tensor\*context=4"):
         run_inference.main([*base, "--mesh", "pipe=2,fsdp=2"])
     with pytest.raises(SystemExit, match="cache-blocks"):
         run_inference.main([*base, "--cache-thresh", "0.1"])

@@ -232,7 +232,7 @@ FOUR = [
     ("ulysses", dict(context_parallel="ulysses"), 1, dict(fsdp=2, context=2), {}),
     ("ulysses_split", dict(context_parallel="ulysses"), 2, dict(fsdp=2, context=2), {}),
 ]
-ERRORS = [dict(pipe=2, fsdp=2), dict(fsdp=2, tensor=2)]
+ERRORS = [dict(pipe=2, fsdp=2), dict(fsdp=2, tensor=2), dict(fsdp=3)]
 
 
 def _jobs(cases, params):
@@ -423,13 +423,14 @@ def test_loader_reads_only_its_shards(two_ranks, checkpoint):
 
 
 def test_mesh_errors(four_ranks):
-    """``pipe`` x ``fsdp`` raises ValueError naming JAX's gather at the
-    pipeline's entry; ``fsdp`` x ``tensor`` makes a mesh (tensor
-    parallelism composes with fsdp)."""
+    """``pipe`` x ``fsdp`` makes a mesh (each stage's blocks split over
+    fsdp, ``test_torch_pipe_fsdp.py``), and so does ``fsdp`` x ``tensor``
+    (tensor parallelism composes with fsdp); an fsdp degree that does not
+    divide the world raises ValueError."""
     for r in four_ranks["errors"]:
-        pipe, tensor = r
-        assert pipe.startswith("ValueError") and "gpipe_scan" in pipe
-        assert tensor == ""
+        pipe, tensor, bad = r
+        assert pipe == "" and tensor == ""
+        assert bad.startswith("ValueError") and "not divisible" in bad
 
 
 def test_whole_model_under_fsdp_mesh_raises():

@@ -560,8 +560,9 @@ def test_mesh_tensor_axis(runs):
     context and fsdp (consecutive ranks when tensor is innermost but for
     context); under a pipe axis ``gpipe_scan`` warns that it replicates
     tensor inside the stages, whose DiT stays whole; a DiT whose heads the
-    tensor degree does not divide raises ValueError; pipe x fsdp and
-    degrees that do not fill the world still raise ValueError."""
+    tensor degree does not divide raises ValueError; pipe x fsdp makes a
+    mesh (pipe lines across the fsdp pairs, no warning, the DiT whole over
+    tensor); degrees that do not fill the world still raise ValueError."""
     tensor4, tc, dt, ft, pt, pf, bad = zip(*runs[1]["meshes"])
     assert [r["groups"]["tensor"] for r in tensor4] == [[0, 1, 2, 3]] * 4
     assert all("shard_error" in r and "heads" in r["shard_error"] for r in tensor4)
@@ -574,7 +575,9 @@ def test_mesh_tensor_axis(runs):
     for r in pt:
         assert r["tensor"] is None
         assert any("'tensor' axis inside stages" in w for w in r["warnings"])
-    assert all(r["error"].startswith("ValueError") and "gpipe_scan" in r["error"] for r in pf)
+    assert [r["groups"]["pipe"] for r in pf] == [[0, 2], [1, 3], [0, 2], [1, 3]]
+    assert [r["groups"]["fsdp"] for r in pf] == [[0, 1], [0, 1], [2, 3], [2, 3]]
+    assert all(r["tensor"] is None and not r["warnings"] for r in pf)
     assert all(r["error"].startswith("ValueError") for r in bad)
 
 

@@ -85,8 +85,9 @@ def test_dryrun_resolves_jax_configs_smoke_trains_and_mesh_raises(capsys, monkey
     ``--set`` override reaches the pipeline's. ``--smoke`` trains 2
     iterations on the CPU, also under ``--mesh data=1`` (a world of one);
     a mesh that is not ported raises ``ValueError`` naming the roadmap item
-    that ports it: LoRA mode with a context or pipe axis (item 3.3), pipe x
-    fsdp (item 3.2)."""
+    that ports it: LoRA mode with a context or pipe axis (item 3.3); pipe x
+    fsdp trains in full-parameter mode, so in one process it fails only
+    for want of the 4 ranks its mesh needs."""
     flags = ["--dryrun", "--max-iter", "30", "--grad-accum", "2", "--lr", "3e-4",
              "--set", "dit.num_layers=3", "--remat", "matmul_only"]
     assert train_t.main(flags) is None
@@ -106,7 +107,8 @@ def test_dryrun_resolves_jax_configs_smoke_trains_and_mesh_raises(capsys, monkey
     for axis in ("context", "pipe"):
         with pytest.raises(ValueError, match=f"{axis}=2 .*item 3.3"):
             train_t.main(["--smoke", "--device", "cpu", "--lora-rank", "2", "--mesh", f"{axis}=2"])
-    with pytest.raises(ValueError, match="pipe=2 x fsdp=2 .*item 3.2"):
+    with pytest.raises(ValueError, match=r"1 devices not divisible by pipe\*fsdp\*tensor\*"
+                                         r"context=4"):
         train_t.main(["--smoke", "--device", "cpu", "--mesh", "pipe=2,fsdp=2"])
 
 

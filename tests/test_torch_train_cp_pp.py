@@ -385,11 +385,15 @@ def test_train_cli_under_torchrun_trains_under_pipe_and_context(tmp_path):
 @pytest.mark.parametrize("mesh", ["context=2", "pipe=2"])
 def test_lora_cli_under_context_or_pipe_raises_naming_its_item(mesh):
     """LoRA mode under context or pipe raises ``ValueError`` before any
-    process group, naming queue 1's item 3.3; the full-parameter mode's
-    pipe x fsdp names item 3.2."""
+    process group, naming queue 1's item 3.3, pipe x fsdp among them; the
+    full-parameter mode takes pipe x fsdp (in one process it fails only
+    for want of the mesh's 4 ranks)."""
     with pytest.raises(ValueError, match=r"LoRA .*item 3\.3"):
         train_t.main(["--smoke", "--device", "cpu", "--lora-rank", "2", "--mesh", mesh])
-    with pytest.raises(ValueError, match=r"pipe=2 x fsdp=2 .*item 3\.2"):
+    with pytest.raises(ValueError, match=r"LoRA training under pipe=2 .*item 3\.3"):
+        train_t.main(["--smoke", "--device", "cpu", "--lora-rank", "2", "--mesh",
+                      "pipe=2,fsdp=2"])
+    with pytest.raises(ValueError, match=r"1 devices not divisible .*=4"):
         train_t.main(["--smoke", "--device", "cpu", "--mesh", "pipe=2,fsdp=2"])
 
 
